@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (sar_yolo_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+  1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off
+     for convolutions and matmuls so the float32 comparisons mean something.
+  2. build: nvcc builds the area-attention kernel from the checkout.
+  3. kernel vs plain: every on-path shape of the kernel, float32 and bfloat16,
+     against the plain PyTorch version (max abs error <= 1e-4 f32, <= 2e-2 bf16),
+     gradients through the autograd Function against the plain version's, and
+     times (device time of 20 launches replayed from a CUDA graph): kernel,
+     plain version, F.scaled_dot_product_attention as a yardstick, and the
+     bound (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s f32 / 989 bf16).
+  4. serving yolov13n-JDE @640: seeded and perturbed weights, 4 ragged 720x1280
+     BGR frames through `YOLO.predict_batched`; 8 kernel launches per forward;
+     the same detections as the model with `use_flash=False`; head maps of the
+     kernel path no farther from the model run in float64 than the plain path's;
+     img/s at batch 1 and 8.
+  5. serving yolov13n-JDE_P24 @1280, batch 1, with the same checks.
+  6. a JSON line of the kernels, the card line, and the result line.
+Needs no network; builds into sar_yolo_tpu_torch/build/.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM: f32 CUDA cores, bf16 tensor cores
+PEAK_BYTES = 3.35e12                                   # H100 SXM HBM3
+# (label, B, C, H, W, heads, area): the A2C2f attention calls of the served models
+KERNEL_SHAPES = [
+    ("640 P4 b1", 1, 64, 40, 40, 2, 4), ("640 P5 b1", 1, 128, 20, 20, 4, 1),
+    ("640 P4 b4", 4, 64, 40, 40, 2, 4), ("640 P5 b4", 4, 128, 20, 20, 4, 1),
+    ("640 P4 b8", 8, 64, 40, 40, 2, 4), ("640 P5 b8", 8, 128, 20, 20, 4, 1),
+    ("1280 P4 b1", 1, 64, 80, 80, 2, 4), ("1280 P5 b1", 1, 128, 40, 40, 4, 1),
+]
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LAUNCHES_PER_FORWARD = 8  # 2 A2C2f layers x n=2 x 2 ABlocks
+MAIN_BATCH = 4            # frames of the main path's served batch (yolov13n-JDE @640)
+PRE_TOPK = 1024           # ops/nms.py: candidates kept before suppression
+
+
+def check(ok: bool, msg: str):
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def device_ms(fn, iters: int = 20, reps: int = 7) -> float:
+    """Median device time of one call of fn: `iters` calls captured in a CUDA graph."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def phase_card():
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return card
+
+
+def phase_build():
+    from sar_yolo_tpu_torch.ops.cuda import flash_attention as fa
+    t0 = time.perf_counter()
+    path, log = fa.build()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip())
+
+
+def phase_kernel():
+    import torch
+    from torch.nn import functional as F
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import (area_attention_plain,
+                                                             flash_area_attention)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for label, B, C, H, W, heads, area in KERNEL_SHAPES:
+        N, Na = H * W, H * W // area
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            qk = torch.randn(B, 2 * C, H, W, device="cuda", generator=g).to(dtype)
+            vm = torch.randn(B, C, H, W, device="cuda", generator=g).to(dtype)
+            tokens = qk.flatten(2).transpose(1, 2)  # the strided (B, N, C) views AAttn passes
+            q, k, v = tokens[..., :C], tokens[..., C:], vm.flatten(2).transpose(1, 2)
+            got = flash_area_attention(q, k, v, heads, area)
+            want = area_attention_plain(q, k, v, heads, area)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= TOL[dname], f"kernel vs plain {label} {dname}: max abs err {err}")
+            grad_err = None
+            if dtype == torch.float32:
+                w = torch.randn(B, N, C, device="cuda", generator=g)
+                grads = []
+                for fn in (flash_area_attention, area_attention_plain):
+                    qk_l, v_l = qk.clone().requires_grad_(), vm.clone().requires_grad_()
+                    t = qk_l.flatten(2).transpose(1, 2)
+                    (fn(t[..., :C], t[..., C:], v_l.flatten(2).transpose(1, 2), heads, area)
+                     * w).sum().backward()
+                    grads.append((qk_l.grad, v_l.grad))
+                grad_err = max((a - b).abs().max().item() for a, b in zip(*grads))
+                check(grad_err <= 1e-5, f"kernel gradients {label}: max abs err {grad_err}")
+            q4, k4, v4 = (t.reshape(B * area, Na, heads, 32).transpose(1, 2).contiguous()
+                          for t in (q, k, v))
+            flops = 4 * (B * area * heads) * Na * Na * 32
+            nbytes = 4 * B * N * C * q.element_size()
+            t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = {"shape": label, "dtype": dname, "B_area": B * area, "Na": Na, "heads": heads,
+                   "max_abs_err": err, "grad_max_abs_err": grad_err,
+                   "kernel_ms": device_ms(lambda: flash_area_attention(q, k, v, heads, area)),
+                   "plain_ms": device_ms(lambda: area_attention_plain(q, k, v, heads, area)),
+                   "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "flops": flops, "bytes": nbytes}
+            print(json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+def _perturbed_yolo(name: str, seed: int, imgsz: int):
+    """YOLO on cuda with seeded weights, every parameter and BN statistic perturbed.
+
+    The BN statistics are first set to those of a calibration batch (one
+    train-mode forward with momentum 1, as training would leave them), so that
+    activations keep their scale through the depth and the scores, boxes and
+    embeddings depend on the image instead of collapsing to the head biases.
+    """
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    yolo = YOLO(name)
+    yolo._ensure_variables(seed)
+    model = yolo.model
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def noise(t):
+        return torch.randn(t.shape, generator=gen).to(t.device)
+
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            if key.endswith(".gate"):  # zero at init: would hide the FullPAD branch
+                p.add_(0.5 + 0.5 * torch.rand(p.shape, generator=gen).to(p.device))
+            else:
+                std = p.std().item() if p.numel() > 1 else 0.0
+                p.add_((0.3 * std if std > 0 else 0.1) * noise(p))
+        bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        for bn in bns:  # only BN in train mode: dropout stays off
+            bn.momentum = 1.0
+            bn.train()
+        model(torch.rand(2, 3, imgsz, imgsz, generator=gen).to(yolo.device))
+        model.eval()
+        for bn in bns:
+            bn.momentum = 0.03
+            bn.running_mean.add_(0.1 * bn.running_var.sqrt() * noise(bn.running_mean))
+            bn.running_var.mul_(0.8 + 0.45 * torch.rand(bn.running_var.shape,
+                                                         generator=gen).to(bn.running_var.device))
+    return yolo
+
+
+def _set_flash(yolo, use_flash):
+    from sar_yolo_tpu_torch.nn.modules.block import AAttn
+    for m in yolo.model.modules():
+        if isinstance(m, AAttn):
+            m.use_flash = use_flash
+
+
+def _compare_detections(got, want, n_emb: int, label: str):
+    """Same kept rows per frame, matched by box (rows of near-equal score may swap places).
+
+    Checks row counts, pairing, classes and states; returns the kept counts and
+    the largest box, score and embedding differences for the caller to bound.
+    """
+    check(got.shape == want.shape, f"{label}: shapes {got.shape} vs {want.shape}")
+    kept, errs = [], {"box_err_px": 0.0, "score_err": 0.0, "embed_err": 0.0}
+    for b in range(got.shape[0]):
+        g, w = got[b][got[b, :, 4] > 0], want[b][want[b, :, 4] > 0]
+        check(len(g) > 0, f"{label}: frame {b} keeps no detection")
+        check(len(g) < got.shape[1], f"{label}: frame {b} fills all {got.shape[1]} rows; "
+              "raise conf so that the max_det cut does not decide the comparison")
+        check(len(g) == len(w), f"{label}: frame {b} keeps {len(g)} rows vs {len(w)}")
+        check(bool(np.isfinite(g).all()), f"{label}: frame {b} non-finite output")
+        match = np.abs(g[:, None, :4] - w[None, :, :4]).max(-1).argmin(1)
+        check(np.array_equal(np.sort(match), np.arange(len(w))),
+              f"{label}: frame {b} kept boxes do not pair up one to one")
+        w = w[match]
+        check(np.array_equal(g[:, 5], w[:, 5]), f"{label}: frame {b} classes differ")
+        check(np.array_equal(g[:, 6 + n_emb:].argmax(1), w[:, 6 + n_emb:].argmax(1)),
+              f"{label}: frame {b} states differ")
+        for key, sl in (("box_err_px", slice(0, 4)), ("score_err", slice(4, 5)),
+                        ("embed_err", slice(6, 6 + n_emb))):
+            errs[key] = max(errs[key], float(np.abs(g[:, sl] - w[:, sl]).max()))
+        kept.append(len(g))
+    return kept, errs
+
+
+def _img_per_s(yolo, frames, kw, n: int = 10):
+    for _ in range(3):
+        yolo.predict_batched(frames, **kw)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        yolo.predict_batched(frames, **kw)
+    return n * len(frames) / (time.perf_counter() - t0)
+
+
+def _maps_errors(yolo, plain, x, conf: float):
+    """Head maps of the served (BN-folded) models on the letterboxed batch x.
+
+    Returns the largest differences kernel vs plain, kernel vs the plain model
+    in float64 and plain vs float64, and per frame the anchors whose best
+    class score passes `conf` (the candidates NMS's top-k cut sees).
+    """
+    import torch
+
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    meta = yolo.meta
+    exact = copy.deepcopy(plain._fused_for_serving()).double()
+    with torch.no_grad():
+        ref = exact(x.double())
+        kern, flat = yolo._fused_for_serving()(x), plain._fused_for_serving()(x)
+        preds, _ = decode_detect(kern, meta["strides"], meta["nc"], meta["reg_max"],
+                                 extra_sigmoid=meta["state_classes"],
+                                 split_extras=meta["embed_dim"])
+
+    def err(a, b):
+        return max((p.double() - q.double()).abs().max().item() for p, q in zip(a, b))
+
+    return {"maps_kernel_vs_plain": err(kern, flat), "maps_kernel_vs_f64": err(kern, ref),
+            "maps_plain_vs_f64": err(flat, ref),
+            "candidates_per_frame": (preds[..., 4:4 + meta["nc"]].amax(-1) >= conf)
+            .sum(1).tolist()}
+
+
+def phase_serve(name: str, imgsz: int, conf: float, box_tol: float, batch: int, seed: int,
+                throughput_batches):
+    """Serve `batch` ragged frames; returns the kernel launches of that one forward.
+
+    `conf` keeps the candidates under NMS's pre_topk and the kept rows under
+    max_det, so that the comparison tests thresholding and suppression, not
+    the order of near-equal scores at a cut. Scores and embeddings must agree
+    to 1e-3, boxes to `box_tol` px. The head maps of the kernel path must lie
+    no farther from the plain model run in float64 than twice the plain
+    float32 path's own distance: the kernel adds no error of its own.
+    """
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    yolo = _perturbed_yolo(name, seed, imgsz)
+    plain = copy.deepcopy(yolo)
+    _set_flash(plain, False)
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (max(batch, *throughput_batches), 720, 1280, 3), np.uint8)
+    kw = dict(imgsz=imgsz, conf=conf)
+    yolo.predict_batched(frames[:1], **kw)  # first call: fuse and warm up
+    flash_area_attention.launches = 0
+    got = yolo.predict_batched(frames[:batch], **kw)
+    launches = flash_area_attention.launches
+    check(launches == LAUNCHES_PER_FORWARD,
+          f"{name}: {launches} kernel launches in one forward, expected {LAUNCHES_PER_FORWARD}")
+    want = plain.predict_batched(frames[:batch], **kw)
+    check(flash_area_attention.launches == launches, f"{name}: use_flash=False launched the kernel")
+    kept, errs = _compare_detections(got, want, yolo.meta["embed_dim"], name)
+    x, _, _ = yolo._get_predictor(kw).preprocess(frames[:batch])
+    maps = _maps_errors(yolo, plain, x, conf)
+    rates = {f"img_per_s_b{b}": _img_per_s(yolo, frames[:b], kw) for b in throughput_batches}
+    print(json.dumps({"serve": name, "imgsz": imgsz, "batch": batch, "conf": conf,
+                      "kernel_launches": launches, "kept_per_frame": kept, **errs,
+                      "box_tol_px": box_tol, **maps, **rates}))
+    check(max(maps["candidates_per_frame"]) < PRE_TOPK,
+          f"{name}: over {PRE_TOPK} candidates at conf {conf}")
+    check(errs["box_err_px"] <= box_tol, f"{name}: box err {errs['box_err_px']} px")
+    check(errs["score_err"] <= 1e-3, f"{name}: score err {errs['score_err']}")
+    check(errs["embed_err"] <= 1e-3, f"{name}: embedding err {errs['embed_err']}")
+    check(maps["maps_kernel_vs_f64"] <= 2 * maps["maps_plain_vs_f64"],
+          f"{name}: kernel path {maps['maps_kernel_vs_f64']} from float64, plain path "
+          f"{maps['maps_plain_vs_f64']}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    import sar_yolo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    t_start = time.perf_counter()
+    card = phase_card()
+    phase_build()
+    rows = phase_kernel()
+    launches = phase_serve("yolov13n-JDE.yaml", 640, 0.005, 1e-3, MAIN_BATCH, seed=0,
+                           throughput_batches=(1, 8))
+    # At 1280, float32 rounding alone moves this random-weight model's boxes by
+    # ~1e-2 px: its head maps lie ~1e-3 from the same model in float64 on the
+    # plain path and ~3e-4 on the kernel path (phase_serve prints both and holds
+    # the kernel path to the plain one's). The box bound there is 1e-3 of the
+    # coarsest level's box-regression unit (a 32 px DFL bin at r = 1).
+    phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1, throughput_batches=(1,))
+
+    # the main path's forward (640, batch MAIN_BATCH, float32): 4 calls at the P4 shape, 4 at P5
+    fwd = [r for r in rows if r["dtype"] == "float32"
+           and r["shape"] in (f"640 P4 b{MAIN_BATCH}", f"640 P5 b{MAIN_BATCH}")]
+    total = {key: 4 * sum(r[key] for r in fwd)
+             for key in ("kernel_ms", "plain_ms", "library_ms", "flops", "bytes")}
+    t_ops, t_bytes = total["flops"] / PEAK_FLOPS["float32"] * 1e3, total["bytes"] / PEAK_BYTES * 1e3
+    print(json.dumps({"kernels": [{
+        "name": "flash_area_attention", "route": "cuda",
+        "source": "sar_yolo_tpu_torch/csrc/flash_area_attention.cu",
+        "replaces": "sar_yolo_tpu/ops/pallas/flash_attention.py:29",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
+        "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": total["library_ms"],
+        "per": f"one yolov13n-JDE forward at 640, batch {MAIN_BATCH}, float32 (8 launches)"}]}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

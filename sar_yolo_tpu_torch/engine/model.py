@@ -1,0 +1,88 @@
+"""YOLO facade of the port: build, seed or load weights, fuse and serve batches
+(port of the serving part of `sar_yolo_tpu/engine/model.py`)."""
+
+from __future__ import annotations
+
+import copy
+from types import SimpleNamespace
+
+import torch
+
+from sar_yolo_tpu_torch.engine.predictor import JDEPredictor
+from sar_yolo_tpu_torch.nn.fuse import fuse_model
+from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
+from sar_yolo_tpu_torch.utils.convert import from_jax_variables
+
+PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
+                    "agnostic_nms": False}
+
+
+def select_device(device=None) -> torch.device:
+    """`cuda` unless the caller names another device; raises where CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class YOLO:
+    """A model from a config name, on one device.
+
+    Examples:
+        >>> m = YOLO("yolov13n-JDE.yaml")           # on cuda; raises without CUDA
+        >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6 + 256 + 6)
+        >>> m = YOLO("tinyjde.yaml", device="cpu")
+    """
+
+    def __init__(self, model: str = "yolov13n-JDE.yaml", device=None):
+        self.device = select_device(device)
+        self._new(model)
+
+    def _new(self, cfg: str):
+        model, self.meta = build_model(cfg)
+        self.model = model.to(self.device)
+        self.task = self.meta["task"]
+        self._weights_ready = False
+        self._fused = None
+
+    def _ensure_variables(self, seed: int = 0):
+        """Seeded initialization (a CPU torch.Generator), once."""
+        if not self._weights_ready:
+            init_weights(self.model, self.meta, torch.Generator().manual_seed(seed))
+            self._weights_ready = True
+            self._fused = None
+
+    def load_jax_variables(self, variables):
+        """Load the JAX package's unfused {"params", "batch_stats"} tree (numpy arrays)."""
+        self.model.load_state_dict(from_jax_variables(variables), strict=True)
+        self._weights_ready = True
+        self._fused = None
+
+    def _fused_for_serving(self):
+        """BN-folded copy of the model for serving, made once per set of weights."""
+        self._ensure_variables()
+        if self._fused is None:
+            self._fused = fuse_model(copy.deepcopy(self.model)).eval()
+        return self._fused
+
+    def _get_predictor(self, kwargs: dict):
+        unknown = set(kwargs) - set(PREDICT_DEFAULTS)
+        if unknown:
+            raise TypeError(f"unsupported predict arguments {sorted(unknown)}")
+        if self.task != "jde":
+            raise NotImplementedError(f"this port serves the JDE task only, not '{self.task}'")
+        args = SimpleNamespace(**{**PREDICT_DEFAULTS, **kwargs})
+        return JDEPredictor(self._fused_for_serving(), self.meta, args, self.names)
+
+    def predict_batched(self, frames, **kwargs):
+        """Serve a uniform-geometry (B, H, W, 3) uint8 BGR batch on the model's device.
+
+        kwargs: imgsz, conf, iou, max_det, agnostic_nms. Returns (B, max_det, 6 + E)
+        numpy detections in original-image pixels: [x1, y1, x2, y2, conf, cls,
+        *embedding, *states]; rows with conf == 0 are padding.
+        """
+        return self._get_predictor(kwargs).predict_batch(frames)
+
+    @property
+    def names(self):
+        return self.meta.get("names") or {i: f"c{i}" for i in range(self.meta["nc"])}

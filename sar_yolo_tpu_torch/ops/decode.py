@@ -1,0 +1,45 @@
+"""Prediction decode: raw NCHW head maps -> (B, N, 4 + nc + E) detections
+(port of `sar_yolo_tpu/ops/decode.py::decode_detect`, detect/JDE part)."""
+
+from __future__ import annotations
+
+import torch
+
+from .boxes import dfl_decode, dist2bbox, make_anchors
+
+
+def decode_detect(feats, strides, nc: int, reg_max: int = 16, extra_sigmoid: int = 0,
+                  split_extras: int = 0):
+    """Decode per-level (B, 4*reg_max + nc + E, H, W) maps.
+
+    Returns (B, N, 4 + nc + E): xywh boxes in input pixels, sigmoided class
+    scores, then the extra channels with the last `extra_sigmoid` of them
+    sigmoided (JDE states). With split_extras > 0 the first split_extras extra
+    channels (JDE embeddings) come back separately, as a (B, N, split_extras)
+    bank, and are left out of the predictions. Tokens are row-major per level,
+    levels concatenated, as in the JAX package.
+    """
+    outs, banks = [], []
+    for f, s in zip(feats, strides):
+        B, _, H, W = f.shape
+        f = f.flatten(2)  # (B, C, H*W)
+        box = f[:, :4 * reg_max]
+        cls = f[:, 4 * reg_max:4 * reg_max + nc]
+        extras = f[:, 4 * reg_max + nc:]
+        anchors = make_anchors([(H, W)], [s], device=f.device)[0].T  # (2, H*W)
+        dbox = dist2bbox(dfl_decode(box, reg_max, dim=1), anchors, xywh=True, dim=1) * float(s)
+        parts = [dbox, cls.sigmoid()]
+        tail = extras[:, extras.shape[1] - extra_sigmoid:] if extra_sigmoid else extras[:, :0]
+        mid = extras[:, :extras.shape[1] - extra_sigmoid]
+        if split_extras:
+            banks.append(mid[:, :split_extras].transpose(1, 2))
+            mid = mid[:, split_extras:]
+        if mid.shape[1]:
+            parts.append(mid)
+        if extra_sigmoid:
+            parts.append(tail.sigmoid())
+        outs.append(torch.cat(parts, 1).transpose(1, 2))
+    preds = torch.cat(outs, 1)
+    if split_extras:
+        return preds, torch.cat(banks, 1)
+    return preds

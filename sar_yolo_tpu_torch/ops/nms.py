@@ -1,0 +1,101 @@
+"""Batched class-aware NMS with a fixed (B, max_det, 6 + E) output
+(port of `sar_yolo_tpu/ops/nms.py`: `_nms_single` and `non_max_suppression`)."""
+
+from __future__ import annotations
+
+import torch
+
+from .boxes import xywh2xyxy
+
+
+def _nms_batched(boxes, scores, classes, extras, iou_thres: float, max_det: int,
+                 agnostic: bool = False):
+    """Exact greedy NMS by fixed-point suppression, for a batch of images.
+
+    boxes (B, K, 4) xyxy, scores (B, K) sorted descending, classes (B, K),
+    extras (B, K, E). Greedy NMS is the fixed point of: alive[i] = valid[i] and
+    no alive, higher-ranked, overlapping box exists. Iterating that update
+    from alive = valid converges; iterating an image already at its fixed
+    point leaves it there, so the batch iterates together.
+    Returns (B, max_det, 6 + E) rows [x1, y1, x2, y2, conf, cls, *extras],
+    kept rows first in score order; unused rows are zero.
+    """
+    Bn, K, _ = boxes.shape
+    if agnostic:
+        off_boxes = boxes
+    else:
+        off = boxes.abs().amax((1, 2), keepdim=True) + 1.0  # per-image class offset
+        off_boxes = boxes + classes[..., None] * off
+    x1, y1, x2, y2 = off_boxes.unbind(-1)
+    areas = (x2 - x1) * (y2 - y1)
+    xx1 = torch.maximum(x1[:, :, None], x1[:, None, :])
+    yy1 = torch.maximum(y1[:, :, None], y1[:, None, :])
+    xx2 = torch.minimum(x2[:, :, None], x2[:, None, :])
+    yy2 = torch.minimum(y2[:, :, None], y2[:, None, :])
+    inter = (xx2 - xx1).clamp(min=0) * (yy2 - yy1).clamp(min=0)
+    iou = inter / (areas[:, :, None] + areas[:, None, :] - inter + 1e-7)
+    valid = scores > 0.0
+    rank = torch.arange(K, device=boxes.device)
+    # overlap[b, i, j]: higher-ranked valid j overlaps i beyond the threshold
+    overlap = (iou > iou_thres) & (rank[None, :] < rank[:, None])[None] & valid[:, None, :]
+
+    alive = valid
+    while True:
+        new_alive = ~(overlap & alive[:, None, :]).any(2) & valid
+        if torch.equal(new_alive, alive):
+            break
+        alive = new_alive
+
+    # compact alive rows (stable, score order) into max_det slots; slot max_det is a sink
+    keep_rank = torch.cumsum(alive, 1) - 1
+    keep = alive & (keep_rank < max_det)
+    slot = torch.where(keep, keep_rank, torch.full_like(keep_rank, max_det))
+    rows = torch.cat([boxes, scores[..., None], classes[..., None], extras], -1)
+    out = torch.zeros((Bn, max_det + 1, rows.shape[-1]), dtype=rows.dtype, device=rows.device)
+    src = torch.where(keep[..., None], rows, torch.zeros_like(rows))
+    out.scatter_(1, slot[..., None].expand(-1, -1, rows.shape[-1]), src)
+    return out[:, :max_det]
+
+
+def non_max_suppression(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
+                        max_det: int = 300, pre_topk: int = 1024, nc: int = 80,
+                        agnostic: bool = False, extras_bank=None):
+    """Batched NMS over decoded predictions (single-label: per-anchor argmax class).
+
+    preds (B, N, 4 + nc + E): xywh boxes, sigmoided class scores, E extras
+    carried through. extras_bank (B, N, Eb), if given, is gathered for the kept
+    detections only, after suppression, and spliced in right after cls.
+    Returns (B, max_det, 6 + Eb + E) [x1, y1, x2, y2, conf, cls, *bank, *extras];
+    rows with conf == 0 are padding.
+    """
+    B, N, _ = preds.shape
+    boxes = xywh2xyxy(preds[..., :4])
+    cls_scores = preds[..., 4:4 + nc]
+    extras = preds[..., 4 + nc:]
+    conf, cls = cls_scores.max(-1)
+    cls = cls.to(preds.dtype)
+    conf = torch.where(conf >= conf_thres, conf, torch.zeros_like(conf))
+
+    k = min(pre_topk, N)
+    # stable descending sort: ties keep the lower anchor index first, as lax.top_k does
+    top_conf, top_idx = torch.sort(conf, dim=1, descending=True, stable=True)
+    top_conf, top_idx = top_conf[:, :k], top_idx[:, :k]
+
+    def gather(t):
+        return torch.gather(t, 1, top_idx[..., None].expand(-1, -1, t.shape[-1]))
+
+    top_boxes = gather(boxes)
+    top_cls = torch.gather(cls, 1, top_idx)
+    top_extras = gather(extras)
+    if extras_bank is not None:
+        # the source anchor index rides through suppression as one f32 column
+        # (exact below 2^24 anchors)
+        top_extras = torch.cat([top_extras.float(), top_idx.float()[..., None]], -1)
+    out = _nms_batched(top_boxes, top_conf, top_cls, top_extras, iou_thres, max_det, agnostic)
+    if extras_bank is None:
+        return out
+    kept_idx = out[..., -1].long()
+    kept = torch.gather(extras_bank, 1, kept_idx[..., None].expand(-1, -1, extras_bank.shape[-1]))
+    kept = torch.where(out[..., 4:5] > 0, kept.to(out.dtype), torch.zeros((), dtype=out.dtype,
+                                                                           device=out.device))
+    return torch.cat([out[..., :6], kept, out[..., 6:-1]], -1)

@@ -1,0 +1,68 @@
+"""Weight bridge from the JAX package's variables to this package's state dicts.
+
+The port names its submodules after the Flax scopes, so the map is mechanical:
+
+    params/blocks_6/m0_0/attn/qk/conv/kernel  (1, 1, I/g, O)  -> blocks.6.m0_0.attn.qk.conv.weight (O, I/g, 1, 1)
+    params/.../state_fc1/kernel               (in, out)       -> ....state_fc1.weight (out, in)
+    params/.../bn/{scale, bias}                               -> ....bn.{weight, bias}
+    batch_stats/.../bn/{mean, var}                            -> ....bn.{running_mean, running_var}
+    params/.../{gate, gamma, prototype_base}                  -> unchanged
+
+Each BatchNorm also gets torch's `num_batches_tracked` counter (0). Unfused
+and `fuse_variables`-fused trees both convert; `load_jax_variables` loads the
+result with `strict=True`, so a key left over or missing on either side raises.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+_SCALARS = {"gate", "gamma", "prototype_base"}
+
+
+def _flatten(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict) or hasattr(val, "items"):
+            yield from _flatten(val, (*prefix, key))
+        else:
+            yield (*prefix, key), val
+
+
+def _module_path(scope: tuple) -> str:
+    return ".".join(re.sub(r"^blocks_(\d+)$", r"blocks.\1", s) for s in scope)
+
+
+def from_jax_variables(variables) -> dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} tree of arrays -> torch state dict (float32 CPU tensors)."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"from_jax_variables: unexpected collections {sorted(unknown)}")
+    out: dict[str, torch.Tensor] = {}
+    for path, val in _flatten(variables.get("params", {})):
+        arr = np.asarray(val, dtype=np.float32)
+        *scope, leaf = path
+        mod = _module_path(tuple(scope))
+        if leaf == "kernel" and arr.ndim == 4:     # conv (kh, kw, I/g, O) -> (O, I/g, kh, kw)
+            name, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif leaf == "kernel" and arr.ndim == 2:   # dense (in, out) -> (out, in)
+            name, arr = "weight", arr.T
+        elif leaf == "bias":
+            name = "bias"
+        elif leaf == "scale" and scope and scope[-1] == "bn":
+            name = "weight"
+        elif leaf in _SCALARS:
+            name = leaf
+        else:
+            raise KeyError(f"from_jax_variables: no rule for params/{'/'.join(path)}")
+        out[f"{mod}.{name}" if mod else name] = torch.tensor(arr)
+    for path, val in _flatten(variables.get("batch_stats", {})):
+        *scope, leaf = path
+        if leaf not in ("mean", "var") or not scope or scope[-1] != "bn":
+            raise KeyError(f"from_jax_variables: no rule for batch_stats/{'/'.join(path)}")
+        mod = _module_path(tuple(scope))
+        out[f"{mod}.running_{leaf}"] = torch.tensor(np.asarray(val, dtype=np.float32))
+        out[f"{mod}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return out

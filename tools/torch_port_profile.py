@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where the serving time of the PyTorch/CUDA port goes, on one NVIDIA GPU.
+
+    python3 tools/torch_port_profile.py [--imgsz 640] [--batch 8] [--model yolov13n-JDE.yaml]
+
+Serves seeded random weights (as chip_smoke.py builds them) through
+`YOLO.predict_batched` on ragged 720x1280 uint8 frames and prints, as JSON lines:
+  * the host-clock time of one call, and of its stages (frames to the card and
+    letterbox, forward, decode + NMS, result to the host), each ended by a
+    device synchronize;
+  * torch.profiler's device time per kernel name over one call, top 15, with
+    the total device time and the share of the call's wall time the device was busy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_port_profile: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    from sar_yolo_tpu_torch.ops.nms import non_max_suppression
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="yolov13n-JDE.yaml")
+    ap.add_argument("--imgsz", type=int, default=640)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--conf", type=float, default=0.005)
+    a = ap.parse_args()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    yolo = chip_smoke._perturbed_yolo(a.model, 0, a.imgsz)
+    frames = np.random.default_rng(0).integers(0, 256, (a.batch, 720, 1280, 3), np.uint8)
+    kw = dict(imgsz=a.imgsz, conf=a.conf)
+    for _ in range(3):
+        yolo.predict_batched(frames, **kw)
+    model, meta = yolo._fused_for_serving(), yolo.meta
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    predictor = yolo._get_predictor(kw)
+    stages = {}
+    with torch.no_grad():
+        for _ in range(3):  # the last repetition is reported
+            (x, _, _), stages["h2d_letterbox_ms"] = timed(lambda: predictor.preprocess(frames))
+            feats, stages["forward_ms"] = timed(lambda: model(x))
+
+            def post():
+                preds, bank = decode_detect(feats, meta["strides"], meta["nc"], meta["reg_max"],
+                                            extra_sigmoid=meta["state_classes"],
+                                            split_extras=meta["embed_dim"])
+                return non_max_suppression(preds, conf_thres=a.conf, nc=meta["nc"],
+                                           extras_bank=bank)
+            dets, stages["decode_nms_ms"] = timed(post)
+            _, stages["d2h_ms"] = timed(lambda: dets.cpu().numpy())
+    _, call_ms = timed(lambda: yolo.predict_batched(frames, **kw))
+    print(json.dumps({"model": a.model, "imgsz": a.imgsz, "batch": a.batch, "call_ms": call_ms,
+                      **stages, "device": torch.cuda.get_device_name(0)}))
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yolo.predict_batched(frames, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    rows = []  # device-side events only (kernels, copies): operator rows would count twice
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    for dev_us, key, count in rows[:15]:
+        print(json.dumps({"kernel": key[:90], "device_ms": dev_us / 1e3, "calls": count,
+                          "share": dev_us / 1e3 / total_ms if total_ms else None}))
+    print(json.dumps({"profiled_wall_ms": wall_ms, "device_busy_ms": total_ms,
+                      "device_busy_share": total_ms / wall_ms, "kernel_names": len(rows)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
