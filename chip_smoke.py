@@ -6,13 +6,18 @@
 Phases, in order; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off
      for convolutions and matmuls so the float32 comparisons mean something.
-  2. build: nvcc builds the area-attention kernel from the checkout.
+  2. build: nvcc builds the area-attention kernel from the checkout; ptxas's
+     registers and spills are printed (a spill fails), and cuobjdump must find
+     tensor-core (HMMA) instructions in the library.
   3. kernel vs plain: every on-path shape of the kernel, float32 and bfloat16,
      against the plain PyTorch version (max abs error <= 1e-4 f32, <= 2e-2 bf16),
      gradients through the autograd Function against the plain version's, and
      times (device time of 20 launches replayed from a CUDA graph): kernel,
      plain version, F.scaled_dot_product_attention as a yardstick, and the
-     bound (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s f32 / 989 bf16).
+     bound (bytes over 3.35 TB/s or FLOPs over 495/3 TFLOP/s f32 / 989 bf16);
+     then, for correctness only, channel-contiguous inputs and the chunk
+     lengths of imgsz 480 and 320 and of a chunk shorter than one key stage.
+     At every shape the library's launch plan must equal the wrapper's mirror.
   4. serving yolov13n-JDE @640: seeded and perturbed weights, 4 ragged 720x1280
      BGR frames through `YOLO.predict_batched`; 8 kernel launches per forward;
      the same detections as the model with `use_flash=False`; head maps of the
@@ -34,7 +39,11 @@ import time
 
 import numpy as np
 
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM: f32 CUDA cores, bf16 tensor cores
+# H100 SXM tensor-core peaks. The kernel runs a float32 product as three TF32
+# products (split TF32: one TF32 pass misses float32's accuracy), so the least
+# time for its float32 work is 3 x FLOPs at the 495 TFLOP/s TF32 rate; the
+# 67 TFLOP/s of the CUDA cores is no bound for it.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12                                   # H100 SXM HBM3
 # (label, B, C, H, W, heads, area): the A2C2f attention calls of the served models
 KERNEL_SHAPES = [
@@ -42,6 +51,14 @@ KERNEL_SHAPES = [
     ("640 P4 b4", 4, 64, 40, 40, 2, 4), ("640 P5 b4", 4, 128, 20, 20, 4, 1),
     ("640 P4 b8", 8, 64, 40, 40, 2, 4), ("640 P5 b8", 8, 128, 20, 20, 4, 1),
     ("1280 P4 b1", 1, 64, 80, 80, 2, 4), ("1280 P5 b1", 1, 128, 40, 40, 4, 1),
+]
+# (label, B, C, H, W, heads, area, layout), correctness only: channel-contiguous
+# (B, N, C) inputs; imgsz 480 P4 (Na = 225: chunk starts not 16-byte aligned);
+# imgsz 320 P4 (Na = 100); a chunk shorter than one 128-key stage (Na = 25)
+CHECK_SHAPES = [
+    ("640 P4 b2 channel-contiguous", 2, 64, 40, 40, 2, 4, "channels"),
+    ("480 P4 b2", 2, 64, 30, 30, 2, 4, "tokens"), ("320 P4 b2", 2, 64, 20, 20, 2, 4, "tokens"),
+    ("Na 25", 1, 32, 5, 5, 1, 1, "tokens"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LAUNCHES_PER_FORWARD = 8  # 2 A2C2f layers x n=2 x 2 ABlocks
@@ -94,36 +111,74 @@ def phase_card():
 
 
 def phase_build():
+    import os
+    import re
+    import shutil
+
+    import torch
+
     from sar_yolo_tpu_torch.ops.cuda import flash_attention as fa
     t0 = time.perf_counter()
     path, log = fa.build()
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    entry = None
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+        if m := re.search(r"Compiling entry function '.*flash_area_attention_kernelI(\w+?)Li(\d+)E",
+                          line):
+            dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16"}.get(m.group(1), m.group(1))
+            entry = f"{dtype} stage_bytes={m.group(2)}"
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"  {entry}: {line.strip().removeprefix('ptxas info    : ')}")
+    for dtype in (torch.float32, torch.bfloat16):  # dynamic, so ptxas does not print it
+        geo = fa.launch_geometry((1, 1600, 64), 4, 2, ((0, 1, 1600),) * 2, (0, 0), dtype)
+        print(f"  {dtype}: {geo['smem_bytes']} bytes of dynamic shared memory a block")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    check(spills and max(spills) == 0, f"register spills in the build: {spills}")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    hmma = len(re.findall(r"\bHMMA\.", sass))
+    print(f"  HMMA instructions in the library: {hmma}")
+    check(hmma > 0, "no tensor-core (HMMA) instruction in the built library")
 
 
 def phase_kernel():
     import torch
     from torch.nn import functional as F
 
+    from sar_yolo_tpu_torch.ops.cuda import flash_attention as fa
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import (area_attention_plain,
                                                              flash_area_attention)
     g = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(B, C, H, W, dtype, layout="tokens"):
+        qk = torch.randn(B, 2 * C, H, W, device="cuda", generator=g).to(dtype)
+        vm = torch.randn(B, C, H, W, device="cuda", generator=g).to(dtype)
+        tokens = qk.flatten(2).transpose(1, 2)  # the strided (B, N, C) views AAttn passes
+        q, k, v = tokens[..., :C], tokens[..., C:], vm.flatten(2).transpose(1, 2)
+        if layout == "channels":
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        return qk, vm, q, k, v
+
+    def compare(label, dname, q, k, v, heads, area):
+        geo = fa.geometry_of(q, k, v, heads, area)
+        lib_geo = fa.library_geometry(q, k, v, heads, area)
+        check(lib_geo == geo, f"{label} {dname}: library plan {lib_geo}, wrapper's mirror {geo}")
+        got = flash_area_attention(q, k, v, heads, area)
+        want = area_attention_plain(q, k, v, heads, area)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= TOL[dname], f"kernel vs plain {label} {dname}: max abs err {err}")
+        return err, geo
+
     rows = []
     for label, B, C, H, W, heads, area in KERNEL_SHAPES:
         N, Na = H * W, H * W // area
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
-            qk = torch.randn(B, 2 * C, H, W, device="cuda", generator=g).to(dtype)
-            vm = torch.randn(B, C, H, W, device="cuda", generator=g).to(dtype)
-            tokens = qk.flatten(2).transpose(1, 2)  # the strided (B, N, C) views AAttn passes
-            q, k, v = tokens[..., :C], tokens[..., C:], vm.flatten(2).transpose(1, 2)
-            got = flash_area_attention(q, k, v, heads, area)
-            want = area_attention_plain(q, k, v, heads, area)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(err <= TOL[dname], f"kernel vs plain {label} {dname}: max abs err {err}")
+            qk, vm, q, k, v = inputs(B, C, H, W, dtype)
+            err, geo = compare(label, dname, q, k, v, heads, area)
             grad_err = None
             if dtype == torch.float32:
                 w = torch.randn(B, N, C, device="cuda", generator=g)
@@ -148,9 +203,19 @@ def phase_kernel():
                    "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "flops": flops, "bytes": nbytes}
+                   "flops": flops, "bytes": nbytes, "grid": geo["grid"], "warps": geo["warps"],
+                   "splits": geo["splits"],
+                   "stage_bytes": geo["stage_bytes"], "smem_bytes": geo["smem_bytes"],
+                   "blocks_per_sm": fa.blocks_per_sm(geo, dtype)}
             print(json.dumps(row))
             rows.append(row)
+    for label, B, C, H, W, heads, area, layout in CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            *_, q, k, v = inputs(B, C, H, W, dtype, layout)
+            err, geo = compare(label, dname, q, k, v, heads, area)
+            print(json.dumps({"check": label, "dtype": dname, "Na": H * W // area, "layout": layout,
+                              "max_abs_err": err, "stage_bytes": geo["stage_bytes"]}))
     return rows
 
 

@@ -7,12 +7,14 @@ contiguous chunks and attention runs inside each chunk, per head.
 
 * A CPU tensor goes through `area_attention_plain`.
 * A CUDA tensor launches the kernel of `csrc/flash_area_attention.cu`, or
-  raises. There is no fallback.
+  raises. There is no fallback. Its products run on the tensor cores: split
+  TF32 (three TF32 products per float32 product) for float32, bf16 for bfloat16.
 * The backward recomputes through the plain version (as the JAX package's
   custom VJP does); there is no backward kernel.
 
 The kernel is built with nvcc at first use into `sar_yolo_tpu_torch/build/`
-(a plain C interface, loaded with ctypes) and cached there by source hash.
+(a plain C interface, loaded with ctypes) and cached there under a hash of its
+sources and the nvcc command line.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,10 +30,16 @@ from pathlib import Path
 import torch
 
 HEAD_DIM = 32
+# the kernel's tiling (csrc/flash_area_attention.cu): query rows per warp, warps
+# per block, row pitch of the staged K/V tiles, stages
+_TQ, _WARPS, _PITCH, _STAGES = 16, 8, 136, 2
+_SMS = 132  # H100 SXM
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "flash_area_attention.cu"
 BUILD_DIR = _PKG / "build"
 _MAX_GRID_Z = 65535
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def area_attention_plain(q, k, v, num_heads: int, area: int):
@@ -46,26 +55,49 @@ def area_attention_plain(q, k, v, num_heads: int, area: int):
     return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, N, C)
 
 
+def included_sources(path: Path = SOURCE) -> list[Path]:
+    """`path` and every file it includes with `#include "..."`, recursively."""
+    found, todo = [], [path.resolve()]
+    while todo:
+        src = todo.pop()
+        if src in found:
+            continue
+        found.append(src)
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M):
+            dep = (src.parent / name).resolve()
+            if dep.is_file():
+                todo.append(dep)
+    return found
+
+
+def _nvcc() -> str:
+    return shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernel for sm_90a if its library is not built yet.
 
-    Returns (library path, compiler output; empty when the library was cached).
+    The library is cached under a hash of the nvcc flags and of every source
+    file the kernel includes. Returns (library path, compiler output, which
+    holds ptxas's registers, shared memory and spills of each kernel).
     """
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_area_attention_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    key = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in included_sources():
+        key.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib = BUILD_DIR / f"libflash_area_attention_{key.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return lib, log.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {SOURCE}:\n{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return lib, log.read_text()
 
 
 class _Library:
@@ -76,14 +108,79 @@ class _Library:
     @classmethod
     def get(cls):
         if cls.handle is None:
-            path, _ = build()
-            handle = ctypes.CDLL(str(path))
-            for fn in (handle.flash_area_attention_f32, handle.flash_area_attention_bf16):
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            cls.handle = handle
+            cls.load(build()[0])
         return cls.handle
+
+    @classmethod
+    def load(cls, path: Path):
+        """Load the kernel library at `path` and use it from now on."""
+        handle = ctypes.CDLL(str(path))
+        for fn in (handle.flash_area_attention_f32, handle.flash_area_attention_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        handle.flash_area_attention_plan.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                 ctypes.POINTER(ctypes.c_int)]
+        handle.flash_area_attention_plan.restype = None
+        handle.flash_area_attention_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        handle.flash_area_attention_blocks_per_sm.restype = ctypes.c_int
+        cls.handle = handle
+
+
+def launch_geometry(shape, area: int, num_heads: int, strides, offsets, dtype) -> dict:
+    """The kernel's launch geometry, a mirror of `plan()` in the .cu source.
+
+    shape: (B, N, C); strides: the (batch, token, channel) strides of k and v;
+    offsets: the element offsets of k's and v's first elements past a 16-byte
+    boundary (their storage offsets, for storages that start on one).
+    Returns the grid, the warps per block, the warps that split one query
+    tile's keys, the staging copy width in bytes (16, 8 or 4: cp.async of
+    token-contiguous K and V; 0: element copies) and the dynamic
+    shared-memory bytes.
+    """
+    B, N, _ = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    na = N // area
+
+    def fits(st, off, w):  # every chunk start of this tensor is w-byte aligned
+        return st[1] == 1 and all(x * itemsize % w == 0 for x in (off, st[0], st[2], na))
+
+    stage_bytes = next((w for w in (16, 8, 4)
+                        if all(fits(st, off, w) for st, off in zip(strides, offsets))), 0)
+    q_tiles = -(-na // _TQ)
+    # 8 warps a block: the more query tiles, the more of them a block takes and
+    # the fewer warps split one tile's keys
+    tiles = q_tiles * num_heads * B * area
+    splits = 1 if tiles >= 6 * _SMS else 2 if tiles >= 2 * _SMS else 4
+    qt = _WARPS // splits
+    smem = max(_STAGES * 2 * HEAD_DIM * _PITCH * itemsize, _WARPS * _TQ * (HEAD_DIM + 2) * 4)
+    return {"grid": (-(-q_tiles // qt), num_heads, B * area), "warps": _WARPS, "splits": splits,
+            "stage_bytes": stage_bytes, "smem_bytes": smem}
+
+
+def geometry_of(q, k, v, num_heads: int, area: int) -> dict:
+    """`launch_geometry` of these tensors."""
+    return launch_geometry(q.shape, area, num_heads, (k.stride(), v.stride()),
+                           [t.data_ptr() % 16 // t.element_size() for t in (k, v)], q.dtype)
+
+
+def library_geometry(q, k, v, num_heads: int, area: int) -> dict:
+    """The geometry that the built library's `plan()` gives these CUDA tensors."""
+    out = (ctypes.c_int * 7)()
+    strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride(), *q.stride())
+    B, N, _ = q.shape
+    _Library.get().flash_area_attention_plan(k.data_ptr(), v.data_ptr(), q.element_size(), B, N,
+                                             area, num_heads, strides, out)
+    return {"grid": tuple(out[:3]), "warps": out[3], "splits": out[4], "stage_bytes": out[5],
+            "smem_bytes": out[6]}
+
+
+def blocks_per_sm(geometry: dict, dtype) -> int:
+    """Resident blocks per SM of the kernel launched with `geometry` (CUDA occupancy query)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return _Library.get().flash_area_attention_blocks_per_sm(
+        itemsize, geometry["stage_bytes"], geometry["warps"], geometry["smem_bytes"])
 
 
 def _launch(q, k, v, num_heads: int, area: int):
@@ -98,8 +195,9 @@ def _launch(q, k, v, num_heads: int, area: int):
         if t.shape != q.shape or t.dim() != 3:
             raise ValueError(f"flash_area_attention: {name} has shape {tuple(t.shape)}, "
                              f"expected (B, N, C) equal to q's {tuple(q.shape)}")
-        # the kernel addresses through strides; one of the two inner axes must be
-        # unit-stride so that neighbouring threads read neighbouring addresses
+        # one of the two inner axes must be unit-stride, so that neighbouring
+        # threads read neighbouring addresses; token-contiguous K and V are
+        # staged with cp.async as far as their alignment allows
         if t.stride(2) != 1 and t.stride(1) != 1:
             raise ValueError(f"flash_area_attention: {name} has strides {t.stride()}; "
                              "its channel or token axis must be contiguous")
@@ -109,8 +207,9 @@ def _launch(q, k, v, num_heads: int, area: int):
                          f"{C / num_heads}; the kernel takes head dim {HEAD_DIM} only")
     if area < 1 or N % area or N == 0:
         raise ValueError(f"flash_area_attention: N={N} does not split into {area} areas")
-    if B * area > _MAX_GRID_Z:
-        raise ValueError(f"flash_area_attention: B*area={B * area} exceeds {_MAX_GRID_Z}")
+    if max(B * area, num_heads) > _MAX_GRID_Z:
+        raise ValueError(f"flash_area_attention: B*area={B * area} or heads={num_heads} "
+                         f"exceeds the grid limit {_MAX_GRID_Z}")
     # the output takes q's layout: token-contiguous for views of NCHW maps
     if q.stride(1) == 1 and q.stride(2) != 1:
         out = torch.empty((B, C, N), dtype=q.dtype, device=q.device).transpose(1, 2)
