@@ -24,12 +24,24 @@ Phases, in order; any failure exits non-zero:
      kernel path no farther from the model run in float64 than the plain path's;
      img/s at batch 1 and 8.
   5. serving yolov13n-JDE_P24 @1280, batch 1, with the same checks.
-  6. a JSON line of the kernels, the card line, and the result line.
+  6. training yolov13n-JDE @640, batch 16, float32, on the port's synthetic data:
+     8 kernel launches in each train step's forward and none in its backward;
+     3 SGD steps on the kernel path and on `use_flash=False` (cuDNN
+     deterministic), each from one shared state on one batch: loss items,
+     gradients and the state after the update within the plain path's own
+     spread (a rerun, and a run with the attention rounded from float64) or
+     within the limits (1e-5 relative on loss items, 1e-4 of each tensor's
+     largest magnitude), whichever is larger (`_train_ab`); the total loss falls over 20
+     steps on one batch; step time, img/s, its forward / loss / backward /
+     optimizer+EMA split and peak memory; then `YOLO.train(data="synthetic",
+     epochs=1, batch=16)` and `predict_batched` on the trained weights.
+  7. a JSON line of the kernels, the card line, and the result line.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -51,6 +63,7 @@ KERNEL_SHAPES = [
     ("640 P4 b4", 4, 64, 40, 40, 2, 4), ("640 P5 b4", 4, 128, 20, 20, 4, 1),
     ("640 P4 b8", 8, 64, 40, 40, 2, 4), ("640 P5 b8", 8, 128, 20, 20, 4, 1),
     ("1280 P4 b1", 1, 64, 80, 80, 2, 4), ("1280 P5 b1", 1, 128, 40, 40, 4, 1),
+    ("640 P4 b16", 16, 64, 40, 40, 2, 4), ("640 P5 b16", 16, 128, 20, 20, 4, 1),
 ]
 # (label, B, C, H, W, heads, area, layout), correctness only: channel-contiguous
 # (B, N, C) inputs; imgsz 480 P4 (Na = 225: chunk starts not 16-byte aligned);
@@ -62,7 +75,8 @@ CHECK_SHAPES = [
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LAUNCHES_PER_FORWARD = 8  # 2 A2C2f layers x n=2 x 2 ABlocks
-MAIN_BATCH = 4            # frames of the main path's served batch (yolov13n-JDE @640)
+MAIN_BATCH = 4            # frames of the served batch (yolov13n-JDE @640)
+TRAIN_IMGSZ, TRAIN_BATCH = 640, 16  # the train step, this slice's main path
 PRE_TOPK = 1024           # ops/nms.py: candidates kept before suppression
 
 
@@ -91,6 +105,25 @@ def device_ms(fn, iters: int = 20, reps: int = 7) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def event_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Median time of one call of fn between CUDA events around `iters` calls
+    (no graph: for work that autograd launches from the host)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
@@ -196,8 +229,15 @@ def phase_kernel():
             flops = 4 * (B * area * heads) * Na * Na * 32
             nbytes = 4 * B * N * C * q.element_size()
             t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
+            backward_ms = None
+            if dtype == torch.float32 and B == TRAIN_BATCH:  # the train step's shapes
+                q_l, k_l, v_l = (t.detach().requires_grad_() for t in (q, k, v))
+                out = flash_area_attention(q_l, k_l, v_l, heads, area)
+                w = torch.randn_like(out)
+                backward_ms = event_ms(lambda: torch.autograd.grad(out, (q_l, k_l, v_l), w,
+                                                                   retain_graph=True))
             row = {"shape": label, "dtype": dname, "B_area": B * area, "Na": Na, "heads": heads,
-                   "max_abs_err": err, "grad_max_abs_err": grad_err,
+                   "max_abs_err": err, "grad_max_abs_err": grad_err, "backward_ms": backward_ms,
                    "kernel_ms": device_ms(lambda: flash_area_attention(q, k, v, heads, area)),
                    "plain_ms": device_ms(lambda: area_attention_plain(q, k, v, heads, area)),
                    "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
@@ -376,6 +416,236 @@ def phase_serve(name: str, imgsz: int, conf: float, box_tol: float, batch: int, 
     return launches
 
 
+def _train_state(tr) -> dict:
+    """Everything a train step reads and writes, copied."""
+    return {"model": copy.deepcopy(tr.model.state_dict()),
+            "opt": copy.deepcopy(tr.optimizer.opt.state_dict()),
+            "ema": [e.clone() for e in tr.ema], "cb": tr.cb_counts.clone(), "step": tr.step,
+            "updates": tr.optimizer.updates, "rng": tr.generator.get_state()}
+
+
+def _set_train_state(tr, state: dict):
+    tr.model.load_state_dict(state["model"])
+    tr.optimizer.opt.load_state_dict(copy.deepcopy(state["opt"]))
+    tr.ema = [e.clone() for e in state["ema"]]
+    tr.cb_counts, tr.step = state["cb"].clone(), state["step"]
+    tr.optimizer.updates = state["updates"]
+    tr.generator.set_state(state["rng"])
+
+
+def _train_step_parts(tr, batch):
+    """One train step; returns (loss items, gradients, kernel launches in the forward and
+    in the backward)."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    b = tr.to_device(batch)
+    flash_area_attention.launches = 0
+    feats = tr.model(b["img"])
+    torch.cuda.synchronize()
+    n_forward = flash_area_attention.launches
+    total, items, cb = tr.loss(feats, b)
+    total.backward()
+    torch.cuda.synchronize()
+    launches = (n_forward, flash_area_attention.launches - n_forward)
+    grads = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+    tr.update(cb)
+    return items.cpu().numpy(), grads, launches
+
+
+class _RoundedAttention:
+    """While active, `use_flash=False` attention runs in float64 and is rounded to float32:
+    another float32 result of the same attention, as exact as float32 allows."""
+
+    def __enter__(self):
+        from sar_yolo_tpu_torch.nn.modules import block
+        self.block, self.plain = block, block.area_attention_plain
+        block.area_attention_plain = lambda q, k, v, heads, area: self.plain(
+            q.double(), k.double(), v.double(), heads, area).float()
+
+    def __exit__(self, *exc):
+        self.block.area_attention_plain = self.plain
+
+
+def _train_ab(overrides: dict, batches):
+    """Kernel path against `use_flash=False` on the same train steps.
+
+    Four trainers from the same seeded init. Plain A runs the steps; before
+    each step the others take A's whole state (weights, BN statistics,
+    momentum buffers, EMA, counts, dropout RNG), so every step is compared from
+    one state on one batch. Plain B reruns A (its run-to-run spread; 0 with
+    deterministic cuDNN). Plain C runs A with the attention rounded from
+    float64 (`_RoundedAttention`): the step's sensitivity to float32 rounding
+    of the attention output, which is all the kernel may change. With
+    spread = max(|B - A|, |C - A|): loss items within max(2 spread, 1e-5
+    relative; the triplet item 1e-5 of its gain); the gradient vector within 2x C's global L2 distance, and each
+    gradient tensor within max(4 spread, 1e-4 of its largest magnitude, 1e-6
+    of the model's largest gradient); after the update, each weight and BN
+    statistic within max(4 spread, 1e-4 of its largest magnitude, 1e-7).
+    """
+    import torch
+
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    trainers = {}
+    for label, use_flash in (("a", False), ("b", False), ("c", False), ("k", None)):
+        tr = trainers[label] = JDETrainer(overrides)
+        tr.setup()
+        _set_flash(tr, use_flash)
+
+    def dist(x, y):
+        return (x - y).abs().max().item()
+
+    def ratios(xk, xa, xb, xc, floor):
+        return sorted((dist(xk[n], v) / max(4 * max(dist(xb[n], v), dist(xc[n], v)),
+                                            1e-4 * v.abs().max().item(), floor), n)
+                      for n, v in xa.items() if v.is_floating_point())
+
+    def flat(g, names):
+        return torch.cat([g[n].flatten() for n in names])
+
+    for step, batch in enumerate(batches):
+        state = _train_state(trainers["a"])
+        out, after = {}, {}
+        for label, tr in trainers.items():
+            if label != "a":
+                _set_train_state(tr, state)
+            with _RoundedAttention() if label == "c" else contextlib.nullcontext():
+                out[label] = _train_step_parts(tr, batch)
+            after[label] = tr.model.state_dict()
+        (ia, ga, la), (ib, gb, lb), (ic, gc, lc), (ik, gk, lk) = (out[x] for x in "abck")
+        check(la == lb == lc == (0, 0) and lk == (LAUNCHES_PER_FORWARD, 0),
+              f"train step {step + 1}: kernel launches (forward, backward) plain {la}, {lb}, {lc}, "
+              f"kernel path {lk}, expected (0, 0) and ({LAUNCHES_PER_FORWARD}, 0)")
+        spread = np.maximum(np.abs(ib - ia), np.abs(ic - ia))
+        # the triplet item is a difference of distances on the unit sphere: its
+        # scale is that of the distances (order 1) times its gain, not its value
+        scale = np.abs(ia)
+        scale[3] = max(scale[3], trainers["a"].args.clr)
+        item_ratio = (np.abs(ik - ia) / np.maximum(2 * spread, 1e-5 * scale)).max()
+        g_max = max(g.abs().max().item() for g in ga.values())
+        grad_rows = ratios(gk, ga, gb, gc, 1e-6 * g_max)
+        state_rows = ratios(after["k"], after["a"], after["b"], after["c"], 1e-7)
+        fa = flat(ga, ga)
+        l2 = {x: (flat(g, ga) - fa).norm().item() / fa.norm().item()
+              for x, g in (("k", gk), ("b", gb), ("c", gc))}
+        l2_ratio = l2["k"] / max(2 * l2["b"], 2 * l2["c"], 1e-30)
+        print(json.dumps({"train_ab": {
+            "step": step + 1, "items_plain": ia.tolist(), "items_kernel": ik.tolist(),
+            "items_rerun_spread": np.abs(ib - ia).max().item(),
+            "items_rounding_spread": np.abs(ic - ia).max().item(),
+            "items_kernel_rel_err": (np.abs(ik - ia) / np.abs(ia)).max().item(),
+            "items_err_over_limit": item_ratio.item(),
+            "grad_rel_l2": {"kernel": l2["k"], "rerun": l2["b"], "rounded_attention": l2["c"]},
+            "grad_max": g_max, "grad_tensors": len(ga),
+            "grad_tensors_over_1e-4_of_max": {
+                x: sum(dist(g[n], v) > 1e-4 * v.abs().max().item() for n, v in ga.items())
+                for x, g in (("kernel", gk), ("rounded_attention", gc))},
+            "grad_worst": [{"param": n, "err_over_limit": r} for r, n in grad_rows[-4:]],
+            "state_worst": [{"name": n, "err_over_limit": r} for r, n in state_rows[-3:]]}}))
+        check(item_ratio <= 1, f"train step {step + 1}: kernel-path loss items off by "
+              f"{item_ratio:.3g}x the limit")
+        check(l2_ratio <= 1, f"train step {step + 1}: kernel-path gradient {l2['k']:.3g} from the "
+              f"plain path's (L2, relative), over twice the spread {l2['b']:.3g}, {l2['c']:.3g}")
+        check(grad_rows[-1][0] <= 1, f"train step {step + 1}: kernel-path gradient of "
+              f"{grad_rows[-1][1]} off by {grad_rows[-1][0]:.3g}x the limit")
+        check(state_rows[-1][0] <= 1, f"train step {step + 1}: {state_rows[-1][1]} after the "
+              f"update off by {state_rows[-1][0]:.3g}x the limit")
+    return trainers["k"]
+
+
+def _timed_steps(tr, batch, n: int = 10, warmup: int = 3):
+    """Median host-clock ms of a whole train step (batch to the card, forward, loss,
+    backward, optimizer + EMA; synchronized), then medians of each part, timed apart."""
+    import torch
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for _ in range(warmup):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = [sync_ms(lambda: tr.train_step(batch))[1] for _ in range(n)]
+    parts = {"to_device_ms": [], "forward_ms": [], "loss_ms": [], "backward_ms": [],
+             "optimizer_ema_ms": []}
+    for _ in range(n):
+        b, t = sync_ms(lambda: tr.to_device(batch))
+        parts["to_device_ms"].append(t)
+        feats, t = sync_ms(lambda: tr.model(b["img"]))
+        parts["forward_ms"].append(t)
+        (total, _, cb), t = sync_ms(lambda: tr.loss(feats, b))
+        parts["loss_ms"].append(t)
+        parts["backward_ms"].append(sync_ms(total.backward)[1])
+        parts["optimizer_ema_ms"].append(sync_ms(lambda: tr.update(cb))[1])
+    return {"step_ms": statistics.median(step),
+            "img_per_s": 1e3 * len(batch["img"]) / statistics.median(step),
+            **{k: statistics.median(v) for k, v in parts.items()},
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_train(seed: int = 0):
+    """The train step of yolov13n-JDE @640, batch 16, float32; returns the kernel's
+    launches by path and the timings."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    ab = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
+              seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    train_set, _ = JDETrainer(ab).get_dataset()
+    loader = DataLoader(train_set, TRAIN_BATCH, seed=seed)
+    batches = [b for _, b in zip(range(3), loader)]
+    tr = _train_ab(ab, batches)
+
+    # the loss falls on one batch; then the step's time on that batch
+    torch.backends.cudnn.deterministic = False
+    totals = [tr.train_step(batches[0])[0].item() for _ in range(20)]
+    print(json.dumps({"train_fixed_batch_total_loss": totals}))
+    check(all(np.isfinite(totals)) and np.mean(totals[-3:]) < 0.95 * np.mean(totals[:3]),
+          f"train: the total loss did not fall over 20 steps on one batch: {totals}")
+    timing = _timed_steps(tr, batches[0])
+    print(json.dumps({"train_step": f"yolov13n-JDE @{TRAIN_IMGSZ}, batch {TRAIN_BATCH}, float32, "
+                      "SGD", **timing}))
+    del tr
+    torch.cuda.empty_cache()
+
+    # the user's entry point, then serving the trained (EMA) weights
+    yolo = YOLO("yolov13n-JDE.yaml")
+    flash_area_attention.launches = 0
+    t0 = time.perf_counter()
+    metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
+                         seed=seed)
+    train_launches = flash_area_attention.launches
+    train_s = time.perf_counter() - t0
+    steps = yolo.trainer.step
+    check(steps == 64 // TRAIN_BATCH and train_launches == steps * LAUNCHES_PER_FORWARD,
+          f"YOLO.train: {steps} steps, {train_launches} kernel launches")
+    check(all(np.isfinite(list(metrics.values()))), f"YOLO.train: metrics {metrics}")
+    frames = np.random.default_rng(seed).integers(0, 256, (2, 720, 1280, 3), np.uint8)
+    flash_area_attention.launches = 0
+    dets = yolo.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-4)
+    serve_launches = flash_area_attention.launches
+    check(dets.shape == (2, 300, 6 + 256 + 6) and np.isfinite(dets).all(),
+          f"predict_batched after training: shape {dets.shape}")
+    check(serve_launches == LAUNCHES_PER_FORWARD,
+          f"predict_batched after training: {serve_launches} kernel launches")
+    print(json.dumps({"yolo_train": metrics, "seconds": train_s, "steps": steps,
+                      "updates": yolo.trainer.optimizer.updates,
+                      "optimizer": yolo.trainer.optimizer.name,
+                      "kernel_launches": train_launches, "served_rows_kept":
+                      (dets[..., 4] > 0).sum(1).tolist()}))
+    return {"train step forward": LAUNCHES_PER_FORWARD, "train step backward": 0,
+            "YOLO.train, 1 epoch": train_launches,
+            "predict_batched after training": serve_launches}, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -387,31 +657,38 @@ def main() -> int:
     card = phase_card()
     phase_build()
     rows = phase_kernel()
-    launches = phase_serve("yolov13n-JDE.yaml", 640, 0.005, 1e-3, MAIN_BATCH, seed=0,
-                           throughput_batches=(1, 8))
+    serve_launches = phase_serve("yolov13n-JDE.yaml", 640, 0.005, 1e-3, MAIN_BATCH, seed=0,
+                                 throughput_batches=(1, 8))
     # At 1280, float32 rounding alone moves this random-weight model's boxes by
     # ~1e-2 px: its head maps lie ~1e-3 from the same model in float64 on the
     # plain path and ~3e-4 on the kernel path (phase_serve prints both and holds
     # the kernel path to the plain one's). The box bound there is 1e-3 of the
     # coarsest level's box-regression unit (a 32 px DFL bin at r = 1).
-    phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1, throughput_batches=(1,))
+    p24_launches = phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1,
+                               throughput_batches=(1,))
+    train_launches, _ = phase_train()
 
-    # the main path's forward (640, batch MAIN_BATCH, float32): 4 calls at the P4 shape, 4 at P5
+    # the main path's kernel work: one train step's forward (640, batch 16, float32),
+    # 4 calls at the P4 shape and 4 at P5
     fwd = [r for r in rows if r["dtype"] == "float32"
-           and r["shape"] in (f"640 P4 b{MAIN_BATCH}", f"640 P5 b{MAIN_BATCH}")]
+           and r["shape"] in (f"640 P4 b{TRAIN_BATCH}", f"640 P5 b{TRAIN_BATCH}")]
     total = {key: 4 * sum(r[key] for r in fwd)
-             for key in ("kernel_ms", "plain_ms", "library_ms", "flops", "bytes")}
+             for key in ("kernel_ms", "plain_ms", "library_ms", "backward_ms", "flops", "bytes")}
     t_ops, t_bytes = total["flops"] / PEAK_FLOPS["float32"] * 1e3, total["bytes"] / PEAK_BYTES * 1e3
     print(json.dumps({"kernels": [{
         "name": "flash_area_attention", "route": "cuda",
         "source": "sar_yolo_tpu_torch/csrc/flash_area_attention.cu",
         "replaces": "sar_yolo_tpu/ops/pallas/flash_attention.py:29",
-        "launches": launches,
+        "launches": train_launches["YOLO.train, 1 epoch"],
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
         "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": total["library_ms"],
-        "per": f"one yolov13n-JDE forward at 640, batch {MAIN_BATCH}, float32 (8 launches)"}]}))
+        "library_ms": total["library_ms"], "plain_backward_ms": total["backward_ms"],
+        "per": f"one train step's forward, yolov13n-JDE at 640, batch {TRAIN_BATCH}, float32 "
+               "(8 launches); launches: the YOLO.train epoch",
+        "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
+                             "serve yolov13n-JDE_P24@1280 b1": p24_launches,
+                             **train_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""YOLO facade of the port: build, seed or load weights, fuse and serve batches
-(port of the serving part of `sar_yolo_tpu/engine/model.py`)."""
+"""YOLO facade of the port: build, seed or load weights, train, fuse and serve batches
+(port of the serving and training part of `sar_yolo_tpu/engine/model.py`)."""
 
 from __future__ import annotations
 
@@ -9,20 +9,14 @@ from types import SimpleNamespace
 import torch
 
 from sar_yolo_tpu_torch.engine.predictor import JDEPredictor
+from sar_yolo_tpu_torch.engine.trainer import JDETrainer
 from sar_yolo_tpu_torch.nn.fuse import fuse_model
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
+from sar_yolo_tpu_torch.utils import select_device
 from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
 PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
                     "agnostic_nms": False}
-
-
-def select_device(device=None) -> torch.device:
-    """`cuda` unless the caller names another device; raises where CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class YOLO:
@@ -32,6 +26,7 @@ class YOLO:
         >>> m = YOLO("yolov13n-JDE.yaml")           # on cuda; raises without CUDA
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6 + 256 + 6)
         >>> m = YOLO("tinyjde.yaml", device="cpu")
+        >>> m.train(data="synthetic", imgsz=64, batch=2, epochs=1)  # then serves the EMA weights
     """
 
     def __init__(self, model: str = "yolov13n-JDE.yaml", device=None):
@@ -39,6 +34,7 @@ class YOLO:
         self._new(model)
 
     def _new(self, cfg: str):
+        self.cfg = cfg
         model, self.meta = build_model(cfg)
         self.model = model.to(self.device)
         self.task = self.meta["task"]
@@ -57,6 +53,20 @@ class YOLO:
         self.model.load_state_dict(from_jax_variables(variables), strict=True)
         self._weights_ready = True
         self._fused = None
+
+    def train(self, **kwargs) -> dict:
+        """Train on this model's device (keys of `cfg/default.py`); returns the last epoch's
+        metrics. Afterwards the model holds the EMA parameters and the live BN statistics."""
+        if self.task != "jde":
+            raise NotImplementedError(f"this port trains the JDE task only, not '{self.task}'")
+        self.trainer = JDETrainer({"model": self.cfg, **kwargs}, device=self.device)
+        metrics = self.trainer.train()
+        self.model = self.trainer.ema_model()
+        self.meta = self.trainer.meta
+        self.meta["names"] = self.trainer.data["names"]
+        self._weights_ready = True
+        self._fused = None
+        return metrics
 
     def _fused_for_serving(self):
         """BN-folded copy of the model for serving, made once per set of weights."""

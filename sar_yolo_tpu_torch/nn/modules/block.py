@@ -13,7 +13,7 @@ from torch.nn import functional as F
 
 from sar_yolo_tpu_torch.ops.cuda.flash_attention import area_attention_plain, flash_area_attention
 
-from .conv import Conv, DSConv
+from .conv import Conv, Dropout, DSConv
 
 
 def _tokens(x):
@@ -252,7 +252,7 @@ class AdaHyperedgeGen(nn.Module):
         ctx_dim = 2 * node_dim if context == "both" else node_dim
         self.context_net = nn.Linear(ctx_dim, num_hyperedges * node_dim)
         self.pre_head_proj = nn.Linear(node_dim, node_dim)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, X):
         B, N, D = X.shape

@@ -3,7 +3,7 @@
 Submodules carry the Flax scope names of the JAX package (`conv`, `bn`, `dw`,
 `pw`), so `utils/convert.py` maps weights between the two mechanically.
 BatchNorm uses the JAX package's epsilon 1e-3 and momentum 0.97 (torch's
-`momentum=0.03`), not torch's defaults.
+`momentum=0.03`), not torch's defaults, and Flax's train-mode statistics.
 """
 
 from __future__ import annotations
@@ -52,8 +52,59 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
     return p
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax's train-mode statistics.
+
+    Train mode normalizes with the biased batch variance max(E[x^2] - E[x]^2, 0)
+    (Flax's `use_fast_variance`) and moves the running mean and variance toward
+    the batch mean and that same variance at momentum 0.97. Gradients flow
+    through the batch statistics. Eval mode is torch's.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean((0, 2, 3))
+        var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+def batch_norm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class Dropout(nn.Module):
+    """Dropout whose masks come from `generator`, a torch.Generator on the input's device.
+
+    Active in train mode with p > 0, where a missing generator raises: the
+    trainer hands every Dropout its seeded generator (`set_generator`), so no
+    mask comes from torch's global RNG.
+    """
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator (see set_generator)")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def set_generator(model: nn.Module, generator: torch.Generator):
+    """Give every Dropout of `model` the generator its masks come from."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def _activation(act) -> nn.Module:

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .conv import Conv, DWConv
+from .conv import Conv, Dropout, DWConv
 
 
 class Detect(nn.Module):
@@ -82,7 +82,7 @@ class JDE(Detect):
         if state_classes is not None:
             self.state_fc1 = nn.Linear(embed_dim, embed_dim // 2)
             self.state_fc2 = nn.Linear(embed_dim // 2, state_classes)
-            self.dropout = nn.Dropout(0.1)
+            self.dropout = Dropout(0.1)
 
     @property
     def no(self) -> int:

@@ -239,13 +239,17 @@ class GraphModel(nn.Module):
         return out
 
 
-def build_model(name: str):
+def build_model(name: str, nc: int | None = None):
     """Build a GraphModel from a model name ('yolov13n-JDE.yaml'). Returns (model, meta).
 
-    The model is on the CPU, in eval mode, with torch's default weights until
-    `init_weights` runs; meta["strides"] comes from a forward probe.
+    `nc` replaces the config's class count (the trainer builds the model for
+    its dataset's). The model is on the CPU, in eval mode, with torch's
+    default weights until `init_weights` runs; meta["strides"] comes from a
+    forward probe.
     """
     d = model_config(name)
+    if nc is not None:
+        d["nc"] = nc
     specs, save, meta = parse_model(d)
     meta["cfg"] = d
     meta["task"] = {"JDE": "jde", "Detect": "detect"}[specs[-1].name]

@@ -1,6 +1,8 @@
-"""Box geometry ops on tensors (port of the serving subset of `sar_yolo_tpu/ops/boxes.py`)."""
+"""Box geometry ops on tensors (port of the axis-aligned part of `sar_yolo_tpu/ops/boxes.py`)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -9,6 +11,50 @@ def xywh2xyxy(x):
     """(cx, cy, w, h) -> (x1, y1, x2, y2) on the last axis."""
     cx, cy, w, h = x.unbind(-1)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xyxy2xywh(x):
+    """(x1, y1, x2, y2) -> (cx, cy, w, h) on the last axis."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
+def bbox2dist(anchor_points, bbox, reg_max: float):
+    """Encode xyxy boxes as (l, t, r, b) distances from anchor points, clamped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
+
+
+def bbox_iou(box1, box2, xywh: bool = False, GIoU: bool = False, DIoU: bool = False,
+             CIoU: bool = False, eps: float = 1e-7):
+    """IoU / GIoU / DIoU / CIoU of broadcastable boxes (last axis 4). Returns (..., 1).
+
+    CIoU's alpha carries no gradient (the JAX package's stop_gradient).
+    """
+    if xywh:
+        box1, box2 = xywh2xyxy(box1), xywh2xyxy(box2)
+    b1x1, b1y1, b1x2, b1y2 = box1.chunk(4, -1)
+    b2x1, b2y1, b2x2, b2y2 = box2.chunk(4, -1)
+    w1, h1 = b1x2 - b1x1, b1y2 - b1y1
+    w2, h2 = b2x2 - b2x1, b2y2 - b2y1
+    inter = (torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(0) * \
+            (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(0)
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not (GIoU or DIoU or CIoU):
+        return iou
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    if CIoU or DIoU:
+        c2 = cw ** 2 + ch ** 2 + eps
+        rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+        if CIoU:
+            v = (4 / math.pi ** 2) * (torch.atan(w2 / (h2 + eps)) - torch.atan(w1 / (h1 + eps))) ** 2
+            alpha = (v / (v - iou + (1 + eps))).detach()
+            return iou - (rho2 / c2 + v * alpha)
+        return iou - rho2 / c2
+    c_area = cw * ch + eps
+    return iou - (c_area - union) / c_area
 
 
 def make_anchors(feat_hw, strides, grid_cell_offset: float = 0.5, device=None):

@@ -1,11 +1,21 @@
 """Prediction decode: raw NCHW head maps -> (B, N, 4 + nc + E) detections
-(port of `sar_yolo_tpu/ops/decode.py::decode_detect`, detect/JDE part)."""
+(port of `sar_yolo_tpu/ops/decode.py::decode_detect`, detect/JDE part, and of
+`flatten_feats`)."""
 
 from __future__ import annotations
 
 import torch
 
 from .boxes import dfl_decode, dist2bbox, make_anchors
+
+
+def flatten_feats(feats):
+    """[(B, C, H, W), ...] -> (B, sum(H*W), C) plus [(H, W), ...].
+
+    Tokens are row-major per level, levels concatenated: the order of `make_anchors`.
+    """
+    hw = [(f.shape[2], f.shape[3]) for f in feats]
+    return torch.cat([f.flatten(2).transpose(1, 2) for f in feats], 1), hw
 
 
 def decode_detect(feats, strides, nc: int, reg_max: int = 16, extra_sigmoid: int = 0,

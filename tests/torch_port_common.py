@@ -14,6 +14,114 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def close_to_max(got, want, what=""):
+    """|got - want| <= 1e-4 of want's largest magnitude (the tolerance of gradients and parameters)."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=1e-4 * max(np.abs(want).max(), 1e-30), err_msg=what)
+
+
+def jax_jde_trainer(overrides: dict, seed: int, monkeypatch):
+    """The JAX package's JDETrainer after `_setup_train`, its weights from
+    `fill_variables` and the head's bias init (so that the class term does not
+    swamp the others).
+
+    The real init (about 20 s for yolov13n-JDE on this CPU) is swapped for
+    `jax.eval_shape` + `fill_variables`, and Flax's Dropout for the identity:
+    no RNG stream of the port can reproduce JAX's masks.
+    """
+    import flax.linen
+    import jax
+    import jax.numpy as jnp
+
+    from sar_yolo_tpu.engine import trainer as jax_trainer_module
+    from sar_yolo_tpu.nn.tasks import bias_init_head, infer_strides
+
+    def init_model(model, meta, rng, imgsz=640):
+        x = jnp.zeros((1, imgsz, imgsz, 3), jnp.float32)
+        shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x, train=False))
+        meta["strides"] = infer_strides(model, meta)
+        variables = fill_variables(shapes, np.random.default_rng(seed))
+        return jax.device_get(bias_init_head(variables, meta))
+
+    monkeypatch.setattr(jax_trainer_module, "init_model", init_model)
+    monkeypatch.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
+    trainer = jax_trainer_module.JDETrainer(overrides=overrides)
+    trainer._setup_train()
+    return trainer
+
+
+def port_trainer_like(jtr, overrides: dict):
+    """The port's JDETrainer on the CPU with the JAX trainer's weights, dropout off."""
+    import jax
+
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.nn.modules.conv import Dropout
+    from sar_yolo_tpu_torch.utils.convert import from_jax_variables
+
+    variables = jax.device_get({"params": jtr.state.params, "batch_stats": jtr.state.batch_stats})
+    ptr = JDETrainer(overrides, device="cpu")
+    ptr.setup(state_dict=from_jax_variables(variables))
+    for m in ptr.model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return ptr
+
+
+def assert_trajectories_match(jtr, ptr, steps: int = 10, param_tol: float = 1e-4):
+    """`steps` train steps of both trainers on the JAX loader's batches.
+
+    Tolerances. Step 1 (same weights, same batch): every loss item within 1e-5
+    relative, the triplet item within 1e-5 absolute per unit of its gain (it is
+    a difference of distances on the unit sphere, which are of order 1).
+    Later steps: every item within 1e-2 relative, because float32 rounding
+    (about 1e-7) drifts through the steps and the assigner's top-k and the
+    triplet miner's hardest / semi-hard picks turn it into jumps. The
+    class-balanced counts at every step within 1e-5 relative. After the last
+    step the BN statistics, the parameters and the EMA within `param_tol` of
+    each tensor's largest magnitude, and at least a third of the tensors moved
+    by more than that.
+    """
+    import jax
+
+    from sar_yolo_tpu.parallel import shard_batch
+    from sar_yolo_tpu_torch.utils.convert import from_jax_variables
+
+    start = {k: v.clone() for k, v in ptr.model.state_dict().items()}
+    state = jtr.state
+    jtr.train_loader.set_epoch(0)
+    for i, batch in zip(range(steps), jtr.train_loader):
+        state, _, jitems = jtr._train_step(state, shard_batch(jtr.mesh, batch), jtr._mosaic_on)
+        _, pitems = ptr.train_step(batch)
+        got, want = pitems.numpy(), np.asarray(jitems)
+        if i == 0:
+            np.testing.assert_allclose(got[[0, 1, 2, 4]], want[[0, 1, 2, 4]], rtol=1e-5,
+                                       err_msg="loss items, step 1")
+            np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-5 * ptr.args.clr,
+                                       err_msg="triplet item, step 1")
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-2, err_msg=f"loss items, step {i + 1}")
+        np.testing.assert_allclose(ptr.cb_counts.numpy(), np.asarray(state.cb_counts), rtol=1e-5,
+                                   atol=1e-9, err_msg=f"cb_counts, step {i + 1}")
+    assert ptr.step == steps == int(state.step)
+    want = from_jax_variables(jax.device_get({"params": state.params,
+                                              "batch_stats": state.batch_stats}))
+    got = ptr.model.state_dict()
+    moved = 0
+    for key, w in want.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        tol = param_tol * w.abs().max().item()
+        np.testing.assert_allclose(got[key].numpy(), w.numpy(), rtol=0, atol=tol, err_msg=key)
+        moved += int((got[key] - start[key]).abs().max() > tol)
+    assert moved > len(want) // 3, f"only {moved} tensors moved"
+    ema = from_jax_variables(jax.device_get({"params": state.ema_params}))
+    for (name, _), e in zip(ptr.model.named_parameters(), ptr.ema):
+        w = ema[name]
+        np.testing.assert_allclose(e.numpy(), w.numpy(), rtol=0,
+                                   atol=param_tol * w.abs().max().item(), err_msg=f"ema {name}")
+
+
 def fill_variables(tree, rng):
     """Numpy values for every leaf of a JAX variables tree of ShapeDtypeStructs.
 

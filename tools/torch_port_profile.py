@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the serving time of the PyTorch/CUDA port goes, on one NVIDIA GPU.
+"""Where the serving or training time of the PyTorch/CUDA port goes, on one NVIDIA GPU.
 
     python3 tools/torch_port_profile.py [--imgsz 640] [--batch 8] [--model yolov13n-JDE.yaml]
+    python3 tools/torch_port_profile.py --train [--imgsz 640] [--batch 16]
 
-Serves seeded random weights (as chip_smoke.py builds them) through
-`YOLO.predict_batched` on ragged 720x1280 uint8 frames and prints, as JSON lines:
-  * the host-clock time of one call, and of its stages (frames to the card and
-    letterbox, forward, decode + NMS, result to the host), each ended by a
-    device synchronize;
-  * torch.profiler's device time per kernel name over one call, top 15, with
-    the total device time and the share of the call's wall time the device was busy.
+Serving: seeded random weights (as chip_smoke.py builds them) through
+`YOLO.predict_batched` on ragged 720x1280 uint8 frames. Training (--train): SGD
+train steps of the seeded model on one batch of the port's synthetic data
+(float32, TF32 off). Prints, as JSON lines:
+  * the host-clock time of one call or step, and of its stages (serving: frames
+    to the card and letterbox, forward, decode + NMS, result to the host;
+    training: batch to the card, forward, loss, backward, optimizer + EMA),
+    each ended by a device synchronize;
+  * torch.profiler's device time per kernel name over one call or step, top 15,
+    with the total device time and the share of the wall time the device was busy.
 """
 
 from __future__ import annotations
@@ -37,11 +41,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="yolov13n-JDE.yaml")
     ap.add_argument("--imgsz", type=int, default=640)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None, help="8 serving, 16 training")
     ap.add_argument("--conf", type=float, default=0.005)
+    ap.add_argument("--train", action="store_true", help="profile a train step instead")
     a = ap.parse_args()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if a.train:
+        return profile_train(a.model, a.imgsz, a.batch or 16)
+    a.batch = a.batch or 8
 
     yolo = chip_smoke._perturbed_yolo(a.model, 0, a.imgsz)
     frames = np.random.default_rng(0).integers(0, 256, (a.batch, 720, 1280, 3), np.uint8)
@@ -76,10 +84,34 @@ def main() -> int:
     print(json.dumps({"model": a.model, "imgsz": a.imgsz, "batch": a.batch, "call_ms": call_ms,
                       **stages, "device": torch.cuda.get_device_name(0)}))
 
+    print_device_time(lambda: yolo.predict_batched(frames, **kw))
+    return 0
+
+
+def profile_train(model: str, imgsz: int, batch: int) -> int:
+    """Stage times and device breakdown of one SGD train step on one synthetic batch."""
+    import torch
+
+    import chip_smoke
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    tr = JDETrainer(dict(model=model, data="synthetic", imgsz=imgsz, batch=batch, nbs=batch,
+                         optimizer="SGD", warmup_epochs=0.0))
+    tr.setup()
+    data = next(iter(tr.train_loader))
+    timing = chip_smoke._timed_steps(tr, data)
+    print(json.dumps({"model": model, "imgsz": imgsz, "batch": batch, "train": True, **timing,
+                      "device": torch.cuda.get_device_name(0)}))
+    print_device_time(lambda: tr.train_step(data))
+    return 0
+
+
+def print_device_time(fn):
+    """torch.profiler's device time per kernel name over one call of fn, and the busy share."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        yolo.predict_batched(frames, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -99,7 +131,6 @@ def main() -> int:
                           "share": dev_us / 1e3 / total_ms if total_ms else None}))
     print(json.dumps({"profiled_wall_ms": wall_ms, "device_busy_ms": total_ms,
                       "device_busy_share": total_ms / wall_ms, "kernel_names": len(rows)}))
-    return 0
 
 
 if __name__ == "__main__":
