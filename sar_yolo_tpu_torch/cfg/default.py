@@ -22,7 +22,6 @@ DEFAULT_CFG = {
     "seed": 0,
     "single_cls": False,
     "cos_lr": False,
-    "close_mosaic": 10,       # accepted for the JAX key set; synthetic data has no mosaic
     "max_labels": 128,        # static per-image label padding
     "lr0": 0.01,
     "lrf": 0.01,

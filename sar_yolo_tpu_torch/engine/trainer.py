@@ -156,7 +156,7 @@ class JDETrainer:
     def get_dataset(self):
         """(train set, info) for args.data; only the synthetic set is part of this port yet."""
         data = self.args.data
-        if data not in (None, "synthetic") and not str(data).startswith("synthetic"):
+        if data != "synthetic":
             raise NotImplementedError(f"data='{data}': only 'synthetic' is part of this port yet")
         nc = 3
         train = SyntheticDataset(n=max(64, int(self.args.batch or 16)), imgsz=self.args.imgsz,

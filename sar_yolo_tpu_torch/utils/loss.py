@@ -164,10 +164,10 @@ def jde_loss_components(feats, batch, hyp, *, nc: int, reg_max: int, strides, em
     # the target tags clamped into the state range are the state labels
     onehot = F.one_hot(assign.target_tags.clamp(0, state_classes - 1), state_classes).float()
     ce = -(onehot * F.log_softmax(pred_states, -1)).sum(-1)
-    focal_w = (1.0 - torch.exp(-ce)) ** getattr(hyp, "state_focal_gamma", 2.0)
-    cb_beta = getattr(hyp, "state_cb_beta", 0.999)
+    focal_w = (1.0 - torch.exp(-ce)) ** hyp.state_focal_gamma
+    cb_beta = hyp.state_cb_beta
     new_counts = cb_beta * cb_counts + (1.0 - cb_beta) * (onehot * fg[..., None]).sum((0, 1))
-    if getattr(hyp, "use_state_cb", True):
+    if hyp.use_state_cb:
         eps = 1e-8
         # 1 - beta^n as -expm1(n log beta), with log beta in float32 as in the JAX package
         log_beta = torch.log(torch.tensor(cb_beta, dtype=torch.float32, device=x.device))
@@ -194,6 +194,6 @@ def jde_loss(feats, batch, hyp, *, nc: int, reg_max: int, strides, embed_dim: in
                             embed_dim=embed_dim, state_classes=state_classes,
                             cb_counts=cb_counts, tal_topk=tal_topk, triplet_k=triplet_k)
     items = torch.stack([c["box"] * hyp.box, c["cls"] * hyp.cls, c["dfl"] * hyp.dfl,
-                         c["emb"] * getattr(hyp, "clr", 0.5),
-                         c["state"] * getattr(hyp, "state", 1.0)])
+                         c["emb"] * hyp.clr,
+                         c["state"] * hyp.state])
     return JDELossOut(items.sum() * c["batch_size"], items.detach(), c["cb_counts"].detach())

@@ -249,9 +249,10 @@ def test_dropout_train_mode_is_seeded_and_eval_mode_is_off():
                          ids=["sgd", "adamw"])
 def test_tinyjde_ten_steps_match_jax(optimizer, warmup_epochs, lr0, param_tol, tmp_path,
                                      monkeypatch):
-    """10 steps against the JAX train step. SGD at lr 1e-3: at 2e-3 the float32
-    drift reaches the loss's kinks by step 6 and the runs part
-    (`tools/torch_port_trajectory.py free --lr0 2e-3`). AdamW: its first
+    """10 steps against the JAX train step. SGD at lr 1e-3: at higher rates the
+    float32 drift reaches the loss's kinks (the assigner's top-k, the triplet
+    miner's picks, the state MLP's ReLU) within the 10 steps and the runs
+    part. AdamW: its first
     steps move each parameter by about lr * sign(g), so an element whose gradient
     lies within rounding of 0 moves by +-lr in either run; its parameters are held
     to 5e-3 of each tensor's largest magnitude (its update rule is held exactly by
