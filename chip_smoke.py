@@ -35,8 +35,18 @@ Phases, in order; any failure exits non-zero:
      falls by over 2% in 20 steps on one batch (cuDNN still deterministic);
      step time, img/s, its forward / loss / backward /
      optimizer+EMA split and peak memory; then `YOLO.train(data="synthetic",
-     epochs=1, batch=16)` and `predict_batched` on the trained weights.
-  7. a JSON line of the kernels, the card line, and the result line.
+     epochs=1, batch=16)`, whose epoch ends in a validation of the EMA weights
+     (nc 3: multi-label NMS; 4 x 8 + 8 = 40 kernel launches in all), with the
+     validation's share of the epoch, and `predict_batched` on the trained weights.
+  7. validation: `YOLO.val(data="synthetic", imgsz=640, batch=16)` on a new seeded
+     model and on the trained one, 8 kernel launches each; on the trained one,
+     against the model with `use_flash=False` at a threshold where no cut (max_det,
+     pre_topk, the threshold itself) decides: the same detections as phase 4 holds
+     them, metric dicts with the same keys within 1e-3, and the head maps of the val
+     images against float64 as phase 4 holds them; val ms
+     per image and its split (batch to the card, forward, decode + NMS, to the
+     host, host metrics).
+  8. a JSON line of the kernels, the card line, and the result line.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
 
@@ -77,8 +87,9 @@ CHECK_SHAPES = [
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LAUNCHES_PER_FORWARD = 8  # 2 A2C2f layers x n=2 x 2 ABlocks
 MAIN_BATCH = 4            # frames of the served batch (yolov13n-JDE @640)
-TRAIN_IMGSZ, TRAIN_BATCH = 640, 16  # the train step, this slice's main path
+TRAIN_IMGSZ, TRAIN_BATCH = 640, 16  # the train step and the validation
 PRE_TOPK = 1024           # ops/nms.py: candidates kept before suppression
+VAL_IMAGES = 16           # the synthetic val set of YOLO.val and of the trainer
 
 
 def check(ok: bool, msg: str):
@@ -129,6 +140,29 @@ def event_ms(fn, iters: int = 20, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def _timed_calls(cls, name: str, calls: list):
+    """While active, each call of cls.name appends (host seconds between device
+    synchronizes, kernel launches) to `calls`."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    orig = getattr(cls, name)
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        n0, t0 = flash_area_attention.launches, time.perf_counter()
+        out = orig(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, flash_area_attention.launches - n0))
+        return out
+    setattr(cls, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, orig)
 
 
 def phase_card():
@@ -308,7 +342,8 @@ def _set_flash(yolo, use_flash):
 
 
 def _compare_detections(got, want, n_emb: int, label: str):
-    """Same kept rows per frame, matched by box (rows of near-equal score may swap places).
+    """Same kept rows per frame, matched by class and box (rows of near-equal score may swap
+    places).
 
     Checks row counts, pairing, classes and states; returns the kept counts and
     the largest box, score and embedding differences for the caller to bound.
@@ -322,7 +357,9 @@ def _compare_detections(got, want, n_emb: int, label: str):
               "raise conf so that the max_det cut does not decide the comparison")
         check(len(g) == len(w), f"{label}: frame {b} keeps {len(g)} rows vs {len(w)}")
         check(bool(np.isfinite(g).all()), f"{label}: frame {b} non-finite output")
-        match = np.abs(g[:, None, :4] - w[None, :, :4]).max(-1).argmin(1)
+        # by box within a class: multi-label NMS keeps one box under several classes
+        match = (np.abs(g[:, None, :4] - w[None, :, :4]).max(-1)
+                 + 1e9 * (g[:, None, 5] != w[None, :, 5])).argmin(1)
         check(np.array_equal(np.sort(match), np.arange(len(w))),
               f"{label}: frame {b} kept boxes do not pair up one to one")
         w = w[match]
@@ -593,9 +630,10 @@ def _timed_steps(tr, batch, n: int = 10, warmup: int = 3):
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def phase_train(seed: int = 0):
-    """The train step of yolov13n-JDE @640, batch 16, float32; returns the kernel's
-    launches in one train step's forward, its launches by path and the timings."""
+def phase_train(card: str, seed: int = 0):
+    """The train step of yolov13n-JDE @640, batch 16, float32, then `YOLO.train`; returns
+    the kernel's launches in one train step's forward, its launches by path, the timings
+    and the trained YOLO."""
     import torch
 
     from sar_yolo_tpu_torch import YOLO
@@ -605,7 +643,7 @@ def phase_train(seed: int = 0):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     from sar_yolo_tpu_torch.data.build import DataLoader
     from sar_yolo_tpu_torch.engine.trainer import JDETrainer
-    train_set, _ = JDETrainer(ab).get_dataset()
+    train_set, _, _ = JDETrainer(ab).get_dataset()
     loader = DataLoader(train_set, TRAIN_BATCH, seed=seed)
     batches = [b for _, b in zip(range(3), loader)]
     tr, step_launches = _train_ab(ab, batches)
@@ -628,18 +666,31 @@ def phase_train(seed: int = 0):
     del tr
     torch.cuda.empty_cache()
 
-    # the user's entry point, then serving the trained (EMA) weights
+    # the user's entry point (its epoch ends in a validation), then serving the trained
+    # (EMA) weights
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
     yolo = YOLO("yolov13n-JDE.yaml")
     flash_area_attention.launches = 0
     t0 = time.perf_counter()
-    metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
-                         seed=seed)
+    with _timed_calls(JDETrainer, "setup", []) as setup, \
+            _timed_calls(JDETrainer, "validate", []) as val:
+        metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
+                             seed=seed, project="runs", name="chip_smoke_train", exist_ok=True)
     train_launches = flash_area_attention.launches
     train_s = time.perf_counter() - t0
     steps = yolo.trainer.step
-    check(steps == 64 // TRAIN_BATCH and train_launches == steps * LAUNCHES_PER_FORWARD,
-          f"YOLO.train: {steps} steps, {train_launches} kernel launches")
+    val_batches = -(-VAL_IMAGES // TRAIN_BATCH)
+    check(steps == 64 // TRAIN_BATCH and len(val) == 1
+          and val[0][1] == val_batches * LAUNCHES_PER_FORWARD
+          and train_launches == (steps + val_batches) * LAUNCHES_PER_FORWARD,
+          f"YOLO.train: {steps} steps, {len(val)} validations, {train_launches} kernel launches "
+          f"({[n for _, n in val]} in the validations)")
     check(all(np.isfinite(list(metrics.values()))), f"YOLO.train: metrics {metrics}")
+    for key in ("metrics/mAP50(B)", "metrics/mAP50(S)", "fitness"):
+        check(key in metrics, f"YOLO.train: no {key} from the epoch's validation: {metrics}")
+    check(yolo.trainer.best_fitness == yolo.trainer.fitness == metrics["fitness"],
+          f"YOLO.train: fitness {yolo.trainer.fitness} is not the validator's {metrics['fitness']}")
+    epoch_s = train_s - setup[0][0]
     frames = np.random.default_rng(seed).integers(0, 256, (2, 720, 1280, 3), np.uint8)
     flash_area_attention.launches = 0
     dets = yolo.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-4)
@@ -648,15 +699,197 @@ def phase_train(seed: int = 0):
           f"predict_batched after training: shape {dets.shape}")
     check(serve_launches == LAUNCHES_PER_FORWARD,
           f"predict_batched after training: {serve_launches} kernel launches")
-    print(json.dumps({"yolo_train": metrics, "seconds": train_s, "steps": steps,
+    print(json.dumps({"yolo_train": metrics, "seconds": train_s, "setup_s": setup[0][0],
+                      "epoch_s": epoch_s, "val_s": val[0][0],
+                      "val_share_of_epoch": val[0][0] / epoch_s, "steps": steps,
                       "updates": yolo.trainer.optimizer.updates,
                       "optimizer": yolo.trainer.optimizer.name,
+                      "matched_state_and_reid": "metrics/state_acc" in metrics,
                       "kernel_launches": train_launches, "served_rows_kept":
-                      (dets[..., 4] > 0).sum(1).tolist()}))
+                      (dets[..., 4] > 0).sum(1).tolist(), "card": card}))
     return step_launches[0], {"train step forward": step_launches[0],
                               "train step backward": step_launches[1],
-                              f"YOLO.train, 1 epoch ({steps} steps)": train_launches,
-                              "predict_batched after training": serve_launches}, timing
+                              f"YOLO.train, 1 epoch ({steps} steps + validation)": train_launches,
+                              "validation in YOLO.train": val[0][1],
+                              "predict_batched after training": serve_launches}, timing, yolo
+
+
+@contextlib.contextmanager
+def _recorded_dets(validator_cls):
+    """While active, the detections each validator hands to update_metrics, per batch."""
+    seen, orig = [], validator_cls.update_metrics
+
+    def update_metrics(self, dets, batch, hw):
+        seen.append(np.array(dets))
+        return orig(self, dets, batch, hw)
+    own = "update_metrics" in vars(validator_cls)
+    validator_cls.update_metrics = update_metrics
+    try:
+        yield seen
+    finally:
+        if own:
+            validator_cls.update_metrics = orig
+        else:
+            del validator_cls.update_metrics
+
+
+def _val_split(yolo, n: int = 5) -> dict:
+    """Median host-clock ms of each part of one validation batch (16 images at 640), each
+    ended by a device synchronize: batch to the card, forward, decode + NMS, detections
+    to the host, host metrics; the sample building of the loader's threads apart."""
+    import torch
+
+    from sar_yolo_tpu_torch.cfg.default import get_cfg
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
+    from sar_yolo_tpu_torch.engine.validator import JDEValidator
+    meta, model = yolo.meta, yolo._fused_for_serving()
+    v = JDEValidator()
+    v.meta, v.data, v.conf = meta, {"names": yolo.names}, 0.001
+    v.args = get_cfg({"model": yolo.cfg, "imgsz": TRAIN_IMGSZ, "batch": TRAIN_BATCH})
+    v.init_metrics()
+    dataset = SyntheticDataset(n=VAL_IMAGES, imgsz=TRAIN_IMGSZ, nc=min(meta["nc"], 3),
+                               task="jde")
+    loader = DataLoader(dataset, TRAIN_BATCH, shuffle=False, drop_last=False, pad_last=True)
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    parts = {k: [] for k in ("samples_ms", "to_device_ms", "forward_ms", "decode_nms_ms",
+                             "to_host_ms", "host_metrics_ms")}
+    with torch.no_grad():
+        for _ in range(n + 1):
+            batch, t = sync_ms(lambda: next(iter(loader)))
+            parts["samples_ms"].append(t)
+            x, t = sync_ms(lambda: v.preprocess(batch["img"], yolo.device))
+            parts["to_device_ms"].append(t)
+            feats, t = sync_ms(lambda: model(x))
+            parts["forward_ms"].append(t)
+            dets, t = sync_ms(lambda: v.postprocess(feats))
+            parts["decode_nms_ms"].append(t)
+            dets, t = sync_ms(lambda: dets.cpu().numpy())
+            parts["to_host_ms"].append(t)
+            parts["host_metrics_ms"].append(
+                sync_ms(lambda: v.update_metrics(dets, batch, batch["img"].shape[1:3]))[1])
+    return {k: statistics.median(t[1:]) for k, t in parts.items()}  # the first is a warm-up
+
+
+def _ab_conf(scores: np.ndarray, max_det: int, margin: float = 1e-5):
+    """A threshold above which every image (a row of `scores`) has fewer than max_det
+    scores and no score lies within `margin`: the middle of the lowest gap between
+    consecutive scores that is over 2 margin wide (the widest gap where none is).
+    Returns (threshold, half its gap)."""
+    # each image: under max_det scores above this level
+    level = np.sort(scores, 1)[:, -max_det].max() if scores.shape[1] >= max_det else -np.inf
+    above = np.unique(scores[scores > level])
+    check(len(above) >= 2, f"under 2 scores above {level}")
+    gaps = np.diff(above)
+    wide = np.flatnonzero(gaps > 2 * margin)
+    j = int(wide[0]) if len(wide) else int(gaps.argmax())
+    return float((above[j] + above[j + 1]) / 2), float(gaps[j] / 2)
+
+
+def phase_val(yolo, card: str):
+    """`YOLO.val` at 640, batch 16, float32: on a new model with seeded weights (nc 1,
+    single-label NMS), then on the trained one (nc 3, multi-label); returns the kernel
+    launches of each.
+
+    Against the model with `use_flash=False`: both validate at a threshold `_ab_conf`
+    picks, where each image has under max_det (anchor, class) candidates (so under
+    PRE_TOPK, and under max_det kept rows) and no score lies within 1e-5 of it, so
+    that no cut decides the comparison; their detections are held to each other as
+    phase 4 holds them, and their metrics within 1e-3. The head maps of the val
+    images, as phase 4 holds them: the kernel path no farther from the model run in
+    float64 than twice the plain path.
+    """
+    import torch
+
+    from sar_yolo_tpu_torch.engine.validator import JDEValidator
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    from sar_yolo_tpu_torch import YOLO
+    kw = dict(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, project="runs",
+              name="chip_smoke_val", exist_ok=True)
+    fresh = YOLO("yolov13n-JDE.yaml")
+    flash_area_attention.launches = 0
+    fresh_metrics = fresh.val(**kw)
+    fresh_launches = flash_area_attention.launches
+    print(json.dumps({"yolo_val_seeded": fresh_metrics, "nc": fresh.meta["nc"],
+                      "kernel_launches": fresh_launches, "card": card}))
+    check(fresh_launches == -(-VAL_IMAGES // TRAIN_BATCH) * LAUNCHES_PER_FORWARD,
+          f"YOLO.val of the seeded model: {fresh_launches} kernel launches")
+    check("fitness" in fresh_metrics and all(np.isfinite(list(fresh_metrics.values()))),
+          f"YOLO.val of the seeded model: {fresh_metrics}")
+    del fresh
+    yolo.val(**kw)  # warm-up: BN folding, cuDNN's plans
+    flash_area_attention.launches = 0
+    with _recorded_dets(JDEValidator) as seen:
+        metrics = yolo.val(**kw)
+    launches = flash_area_attention.launches
+    check(launches == -(-VAL_IMAGES // TRAIN_BATCH) * LAUNCHES_PER_FORWARD,
+          f"YOLO.val: {launches} kernel launches")
+    for key in ("metrics/mAP50(B)", "metrics/mAP50-95(B)", "metrics/mAP50(S)", "fitness"):
+        check(key in metrics and np.isfinite(metrics[key]), f"YOLO.val: {key} in {metrics}")
+    dets = np.concatenate(seen)
+    check(dets.shape == (VAL_IMAGES, 300, 6 + 256 + 6) and np.isfinite(dets).all(),
+          f"YOLO.val: detections of shape {dets.shape}")
+    ms_per_image = [metrics["speed/ms_per_image"]] + \
+        [yolo.val(**kw)["speed/ms_per_image"] for _ in range(2)]
+
+    # the A/B threshold: candidates from the head maps of the val images
+    meta = yolo.meta
+    from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
+    ds = SyntheticDataset(n=VAL_IMAGES, imgsz=TRAIN_IMGSZ, nc=min(meta["nc"], 3), task="jde")
+    img = np.stack([ds[i]["img"] for i in range(VAL_IMAGES)])
+    x = JDEValidator.preprocess(img, yolo.device)
+    with torch.no_grad():
+        preds, _ = decode_detect(yolo._fused_for_serving()(x), meta["strides"], meta["nc"],
+                                 meta["reg_max"], extra_sigmoid=meta["state_classes"],
+                                 split_extras=meta["embed_dim"])
+    conf, margin = _ab_conf(preds[..., 4:4 + meta["nc"]].flatten(1).double().cpu().numpy(), 300)
+    candidates = int((preds[..., 4:4 + meta["nc"]] >= conf).sum((1, 2)).max())
+    plain = copy.copy(yolo)
+    plain.model, plain._fused = copy.deepcopy(yolo.model), None
+    _set_flash(plain, False)
+    with _recorded_dets(JDEValidator) as kseen:
+        kmetrics = yolo.val(conf=conf, **kw)
+    n0 = flash_area_attention.launches
+    with _recorded_dets(JDEValidator) as pseen:
+        pmetrics = plain.val(conf=conf, **kw)
+    check(flash_area_attention.launches == n0, "YOLO.val: use_flash=False launched the kernel")
+    got, want = np.concatenate(kseen), np.concatenate(pseen)
+    frames = [b for b in range(VAL_IMAGES) if (got[b, :, 4] > 0).any() or (want[b, :, 4] > 0).any()]
+    check(len(frames) > 0, f"YOLO.val at conf {conf}: no image keeps a detection")
+    kept, errs = _compare_detections(got[frames], want[frames], meta["embed_dim"], "YOLO.val")
+    maps = _maps_errors(yolo, plain, x, conf)
+    check(kmetrics.keys() == pmetrics.keys(),
+          f"YOLO.val: metric keys {sorted(kmetrics)} vs {sorted(pmetrics)}")
+    metric_err = max(abs(kmetrics[k] - pmetrics[k]) for k in kmetrics if k != "speed/ms_per_image")
+    split = _val_split(yolo)
+    print(json.dumps({"yolo_val": metrics, "kernel_launches": launches,
+                      "val": f"yolov13n-JDE @{TRAIN_IMGSZ}, batch {TRAIN_BATCH}, float32, "
+                             f"{VAL_IMAGES} synthetic images, after 1 epoch of YOLO.train",
+                      "ms_per_image": statistics.median(ms_per_image),
+                      "ms_per_image_runs": ms_per_image, **split,
+                      "ab_conf": conf, "ab_conf_margin": margin, "ab_candidates_max": candidates,
+                      "ab_kept_per_image": kept, **errs, "ab_metric_max_abs_err": metric_err,
+                      **{k: v for k, v in maps.items() if k.startswith("maps")},
+                      "card": card}))
+    check(candidates < 300, f"YOLO.val: {candidates} candidates at conf {conf}")
+    check(errs["score_err"] < margin, f"YOLO.val: score err {errs['score_err']} over the "
+          f"threshold's margin {margin}: the threshold may decide the comparison")
+    check(maps["maps_kernel_vs_f64"] <= 2 * maps["maps_plain_vs_f64"],
+          f"YOLO.val: kernel path {maps['maps_kernel_vs_f64']} from float64, plain path "
+          f"{maps['maps_plain_vs_f64']}")
+    check(errs["box_err_px"] <= 1e-3, f"YOLO.val: box err {errs['box_err_px']} px")
+    check(errs["score_err"] <= 1e-3, f"YOLO.val: score err {errs['score_err']}")
+    check(errs["embed_err"] <= 1e-3, f"YOLO.val: embedding err {errs['embed_err']}")
+    check(metric_err <= 1e-3, f"YOLO.val: metrics differ by {metric_err} from use_flash=False")
+    return fresh_launches, launches
 
 
 def main() -> int:
@@ -679,7 +912,8 @@ def main() -> int:
     # coarsest level's box-regression unit (a 32 px DFL bin at r = 1).
     p24_launches = phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1,
                                throughput_batches=(1,))
-    step_launches, train_launches, _ = phase_train()
+    step_launches, train_launches, _, yolo = phase_train(card)
+    seeded_val_launches, val_launches = phase_val(yolo, card)
 
     # the main path's kernel work: one train step's forward (640, batch 16, float32),
     # 4 calls at the P4 shape and 4 at P5
@@ -701,7 +935,11 @@ def main() -> int:
                f"step's forward, yolov13n-JDE at 640, batch {TRAIN_BATCH}, float32",
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
                              "serve yolov13n-JDE_P24@1280 b1": p24_launches,
-                             **train_launches}}]}))
+                             **train_launches,
+                             f"YOLO.val yolov13n-JDE@{TRAIN_IMGSZ} b{TRAIN_BATCH}, seeded":
+                                 seeded_val_launches,
+                             f"YOLO.val yolov13n-JDE@{TRAIN_IMGSZ} b{TRAIN_BATCH}, trained":
+                                 val_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
-"""Training defaults and override handling (port of the train keys of
-`sar_yolo_tpu/cfg/default.yaml` and of `sar_yolo_tpu/cfg/__init__.py::get_cfg`).
+"""Training and validation defaults and override handling (port of the train and val
+keys of `sar_yolo_tpu/cfg/default.yaml` and of `sar_yolo_tpu/cfg/__init__.py`'s
+`get_cfg` and `get_save_dir`).
 
 A Python dict rather than YAML, because the training machine has no YAML
 parser. Every value equals the JAX package's default for the same key.
@@ -8,21 +9,33 @@ parser. Every value equals the JAX package's default for the same key.
 from __future__ import annotations
 
 import difflib
+from pathlib import Path
 from types import SimpleNamespace
 
 DEFAULT_CFG = {
     "model": None,            # model config name, e.g. 'yolov13n-JDE.yaml'
-    "data": None,             # 'synthetic' (the only dataset of this slice)
+    "data": None,             # 'synthetic' (the only dataset of this port so far)
     "epochs": 100,
     "patience": 100,          # epochs without fitness improvement before stopping
     "batch": 16,
     "imgsz": 640,
     "workers": 8,             # host threads that build samples
+    "project": None,          # runs are saved under project/task/name (default runs/)
+    "name": None,             # default: the task
+    "exist_ok": False,        # reuse project/task/name instead of numbering a new one
     "optimizer": "auto",      # SGD, AdamW or auto
+    "verbose": True,          # the per-class table after validation
     "seed": 0,
     "single_cls": False,
     "cos_lr": False,
     "max_labels": 128,        # static per-image label padding
+    "val": True,              # validate the EMA weights after every epoch
+    "save_json": False,       # COCO-style predictions.json and its numpy COCOeval
+    "conf": None,             # detection threshold; None means 0.001 at val
+    "iou": 0.7,               # NMS IoU threshold
+    "max_det": 300,
+    "save_txt": False,        # per-image label files of the detections
+    "save_conf": False,       # with their confidences
     "lr0": 0.01,
     "lrf": 0.01,
     "momentum": 0.937,        # SGD momentum / Adam beta1
@@ -41,12 +54,39 @@ DEFAULT_CFG = {
     "nbs": 64,                # nominal batch size for accumulation and weight decay
 }
 
+# keys of the JAX package whose feature this port does not have yet
+NOT_PORTED = {
+    "plots": "plots",
+    "rect": "rectangular val batches (they need YOLODataset's shapes)",
+    "augment": "test-time augmentation",
+    "mesh_shape": "mesh sharding",
+}
+
 
 def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
-    """Defaults with `overrides` on top; an unknown key raises KeyError."""
+    """Defaults with `overrides` on top; an unknown key raises KeyError, a key of a
+    feature not ported yet NotImplementedError."""
     overrides = dict(overrides or {})
+    for k in overrides:
+        if k in NOT_PORTED:
+            raise NotImplementedError(f"'{k}': {NOT_PORTED[k]} is not part of this port yet")
     unknown = [k for k in overrides if k not in DEFAULT_CFG]
     if unknown:
         hints = {k: difflib.get_close_matches(k, DEFAULT_CFG) for k in unknown}
         raise KeyError(f"unknown config keys {hints} (key: close matches)")
     return SimpleNamespace(**{**DEFAULT_CFG, **overrides})
+
+
+def get_save_dir(args, task: str) -> Path:
+    """project/task/name (default runs/task/task), numbered name2, name3, ... where it
+    exists, unless args.exist_ok."""
+    project = Path(args.project or "runs") / task
+    base = args.name or task
+    save_dir = project / base
+    if save_dir.exists() and not args.exist_ok:
+        for i in range(2, 10000):
+            cand = project / f"{base}{i}"
+            if not cand.exists():
+                save_dir = cand
+                break
+    return save_dir

@@ -1,8 +1,11 @@
 """Batches of numpy samples, built by host threads (port of `sar_yolo_tpu/data/build.py`).
 
-The sample order of an epoch is `np.random.default_rng(seed + epoch)`'s
-shuffle, the last partial batch is dropped, and images stay uint8: they are
-normalized on the device by the consumer.
+Training: the sample order of an epoch is `np.random.default_rng(seed + epoch)`'s
+shuffle and the last partial batch is dropped. Evaluation (`shuffle=False,
+drop_last=False, pad_last=True`): samples in order, the tail batch padded with
+copies of its last sample and every batch carrying `_pad`, the count of those
+copies, for the metrics to skip. Images stay uint8: they are normalized on the
+device by the consumer.
 """
 
 from __future__ import annotations
@@ -22,23 +25,27 @@ PREFETCH = 2  # batches in flight beyond the one being consumed
 
 
 class DataLoader:
-    """Epoch iterator over a dataset in shuffled, full batches; `workers` threads build samples."""
+    """Epoch iterator over a dataset in batches; `workers` threads build samples."""
 
-    def __init__(self, dataset, batch_size=16, workers=4, seed=0):
+    def __init__(self, dataset, batch_size=16, workers=4, seed=0, shuffle=True, drop_last=True,
+                 pad_last=False):
         self.dataset, self.batch_size = dataset, batch_size
         self.workers, self.seed = max(1, workers), seed
+        self.shuffle, self.drop_last, self.pad_last = shuffle, drop_last, pad_last
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
     def batch_indices(self) -> list[np.ndarray]:
-        """The sample indices of each batch of the current epoch."""
+        """The sample indices of each batch of the current epoch, before padding."""
         idx = np.arange(len(self.dataset))
-        np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         return [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
 
     def __iter__(self):
@@ -48,8 +55,15 @@ class DataLoader:
         try:
             while todo or pending:
                 while todo and len(pending) <= PREFETCH:
-                    pending.append([pool.submit(self.dataset.__getitem__, int(j))
-                                    for j in todo.popleft()])
-                yield collate([f.result() for f in pending.popleft()])
+                    b = todo.popleft()
+                    npad = self.batch_size - len(b) if self.pad_last else 0
+                    b = np.concatenate([b, np.repeat(b[-1:], npad)])
+                    pending.append(([pool.submit(self.dataset.__getitem__, int(j)) for j in b],
+                                    npad))
+                futures, npad = pending.popleft()
+                batch = collate([f.result() for f in futures])
+                if self.pad_last:
+                    batch["_pad"] = npad  # trailing copies, skipped by the metrics
+                yield batch
         finally:
             pool.shutdown(wait=True, cancel_futures=True)

@@ -1,5 +1,6 @@
-"""YOLO facade of the port: build, seed or load weights, train, fuse and serve batches
-(port of the serving and training part of `sar_yolo_tpu/engine/model.py`)."""
+"""YOLO facade of the port: build, seed or load weights, train, validate, fuse and serve
+batches (port of the serving, training and validation part of
+`sar_yolo_tpu/engine/model.py`)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,11 @@ from types import SimpleNamespace
 
 import torch
 
+from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
+from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
 from sar_yolo_tpu_torch.engine.predictor import JDEPredictor
 from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
 from sar_yolo_tpu_torch.nn.fuse import fuse_model
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import select_device
@@ -26,7 +30,8 @@ class YOLO:
         >>> m = YOLO("yolov13n-JDE.yaml")           # on cuda; raises without CUDA
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6 + 256 + 6)
         >>> m = YOLO("tinyjde.yaml", device="cpu")
-        >>> m.train(data="synthetic", imgsz=64, batch=2, epochs=1)  # then serves the EMA weights
+        >>> m.train(data="synthetic", imgsz=64, batch=2, epochs=1)  # validates every epoch
+        >>> metrics = m.val(data="synthetic", imgsz=64, batch=6)  # the EMA weights, BN folded
     """
 
     def __init__(self, model: str = "yolov13n-JDE.yaml", device=None):
@@ -56,7 +61,8 @@ class YOLO:
 
     def train(self, **kwargs) -> dict:
         """Train on this model's device (keys of `cfg/default.py`); returns the last epoch's
-        metrics. Afterwards the model holds the EMA parameters and the live BN statistics."""
+        losses and, with `val` (the default), its validation metrics. Afterwards the model
+        holds the EMA parameters and the live BN statistics."""
         if self.task != "jde":
             raise NotImplementedError(f"this port trains the JDE task only, not '{self.task}'")
         self.trainer = JDETrainer({"model": self.cfg, **kwargs}, device=self.device)
@@ -67,6 +73,27 @@ class YOLO:
         self._weights_ready = True
         self._fused = None
         return metrics
+
+    def val(self, **kwargs) -> dict:
+        """Validate the BN-folded model on this model's device (keys of `cfg/default.py`);
+        returns the metrics dict. Only data='synthetic' (the default) is part of this port
+        yet: 16 images of SyntheticDataset(seed=0) with min(nc, 3) classes."""
+        validators = {"jde": JDEValidator, "detect": DetectionValidator}
+        if self.task not in validators:
+            raise NotImplementedError(f"this port validates {sorted(validators)} models, "
+                                      f"not '{self.task}'")
+        args = get_cfg({"model": self.cfg, **kwargs})
+        if args.data not in (None, "synthetic"):
+            raise NotImplementedError(f"data='{args.data}': only 'synthetic' is part of this "
+                                      "port yet")
+        args.save_dir = str(get_save_dir(args, self.task))
+        nc = self.meta["nc"]
+        data = {"nc": nc, "names": {i: f"c{i}" for i in range(nc)}}
+        dataset = SyntheticDataset(n=16, imgsz=args.imgsz, nc=min(nc, 3),
+                                   max_labels=args.max_labels, task=self.task)
+        self.metrics = validators[self.task]()(model=self._fused_for_serving(), meta=self.meta,
+                                               dataset=dataset, args=args, data=data)
+        return self.metrics
 
     def _fused_for_serving(self):
         """BN-folded copy of the model for serving, made once per set of weights."""

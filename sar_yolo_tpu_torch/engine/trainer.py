@@ -9,19 +9,27 @@ groups whose lr and momentum are set before each update. Gradients of
 updates. The EMA covers parameters only and ticks every micro-step; BN
 statistics live in the model. The forward runs in train mode, so the A2C2f
 attention runs through the CUDA kernel on the card.
+
+With `val` (the default) each epoch ends in a validation of the EMA weights on a
+separate eval copy of the model, and the validator's fitness (0.1 mAP50 + 0.9
+mAP50-95) decides the best epoch and the patience; -sum(mean loss items) is the
+fitness only without validation. Each epoch appends a row to `results.csv` in
+the run's save dir.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 
 import numpy as np
 import torch
 
-from sar_yolo_tpu_torch.cfg.default import get_cfg
+from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.build import DataLoader
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
+from sar_yolo_tpu_torch.engine.validator import JDEValidator
 from sar_yolo_tpu_torch.nn.modules.conv import set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
@@ -150,23 +158,30 @@ class JDETrainer:
     def __init__(self, overrides: dict | None = None, device=None):
         self.args = get_cfg(overrides)
         self.device = select_device(device)
-        self.model = None
+        self.save_dir = get_save_dir(self.args, "jde")
+        self.args.save_dir = str(self.save_dir)  # the validator writes there too
+        self.csv = self.save_dir / "results.csv"
+        self.model = self.eval_model = None
+        self.validator = JDEValidator()
         self.metrics, self.fitness, self.best_fitness = {}, None, -math.inf
 
     def get_dataset(self):
-        """(train set, info) for args.data; only the synthetic set is part of this port yet."""
+        """(train set, val set, info) for args.data; only the synthetic sets are part of
+        this port yet."""
         data = self.args.data
         if data != "synthetic":
             raise NotImplementedError(f"data='{data}': only 'synthetic' is part of this port yet")
-        nc = 3
-        train = SyntheticDataset(n=max(64, int(self.args.batch or 16)), imgsz=self.args.imgsz,
-                                 nc=nc, max_labels=self.args.max_labels, task="jde")
-        return train, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)}}
+        nc, args = 3, self.args
+        train = SyntheticDataset(n=max(64, int(args.batch or 16)), imgsz=args.imgsz, nc=nc,
+                                 max_labels=args.max_labels, task="jde")
+        val = SyntheticDataset(n=16, imgsz=args.imgsz, nc=nc, max_labels=args.max_labels, seed=1,
+                               task="jde")
+        return train, val, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)}}
 
     def setup(self, state_dict: dict | None = None):
         """Data, model, optimizer and EMA. `state_dict` replaces the seeded initialization."""
         args = self.args
-        self.train_set, self.data = self.get_dataset()
+        self.train_set, self.val_set, self.data = self.get_dataset()
         nc = 1 if args.single_cls else self.data["nc"]
         model, self.meta = build_model(args.model, nc=nc)
         if self.meta["task"] != "jde":
@@ -177,6 +192,7 @@ class JDETrainer:
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).train()
+        self.eval_model = None  # validate's copy, made at the first validation
         self.generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)  # dropout
         set_generator(self.model, self.generator)
         self.train_loader = DataLoader(self.train_set, args.batch, workers=args.workers,
@@ -226,7 +242,8 @@ class JDETrainer:
         return total.detach(), items
 
     def train(self) -> dict:
-        """The epoch loop: mean loss items per epoch, fitness -sum(items), patience."""
+        """The epoch loop: mean loss items per epoch, then validation and its fitness
+        (-sum(items) without `val`), patience; returns the last epoch's metrics."""
         if self.model is None:
             self.setup()
         args = self.args
@@ -244,11 +261,17 @@ class JDETrainer:
             mloss = (total / max(n, 1)).cpu().numpy()
             u = self.step // self.accumulate
             self.lr = {f"lr/pg{i}": s(u) for i, s in enumerate(self.optimizer.schedules)}
-            self.metrics = {f"train/{k}": float(v) for k, v in zip(LOSS_NAMES, mloss)}
+            losses = {f"train/{k}": float(v) for k, v in zip(LOSS_NAMES, mloss)}
             LOGGER.info(f"epoch {epoch + 1}/{args.epochs}  " +
                         "  ".join(f"{k}={v:.4f}" for k, v in zip(LOSS_NAMES, mloss)) +
                         f"  lr={self.lr['lr/pg0']:.5f}  {time.time() - te:.1f}s")
+            self.metrics = dict(losses)
             self.fitness = -float(mloss.sum())
+            if args.val:
+                vmetrics = self.validate()
+                self.metrics.update(vmetrics)
+                self.fitness = vmetrics.get("fitness", self.fitness)
+            self._save_csv_row(epoch, losses, self.lr["lr/pg0"])
             if self.fitness > self.best_fitness:
                 self.best_fitness, last_improve = self.fitness, epoch
             elif epoch - last_improve >= patience:
@@ -256,6 +279,30 @@ class JDETrainer:
                 break
         LOGGER.info(f"Training complete in {(time.time() - t_start) / 3600:.3f} hours")
         return self.metrics
+
+    @torch.no_grad()
+    def validate(self) -> dict:
+        """Validate the EMA parameters with the live BN statistics, on an eval copy of the
+        model: the trained model, its BN statistics and its dropout stream stay as they are."""
+        if self.eval_model is None:
+            self.eval_model = copy.deepcopy(self.model)
+        self.eval_model.load_state_dict(self.model.state_dict())
+        for p, e in zip(self.eval_model.parameters(), self.ema):
+            p.copy_(e)
+        return self.validator(model=self.eval_model.eval(), meta=self.meta, dataset=self.val_set,
+                              args=self.args, data=self.data)
+
+    def _save_csv_row(self, epoch: int, losses: dict, lr: float):
+        """Append the epoch's losses, validation metrics and lr to results.csv."""
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        row = {"epoch": epoch, **losses, **{k: v for k, v in self.metrics.items()
+                                            if not k.startswith("train/")}, "lr": lr}
+        header = not self.csv.exists()
+        with self.csv.open("a") as f:
+            if header:
+                f.write(",".join(row.keys()) + "\n")
+            f.write(",".join(f"{v:.6g}" if isinstance(v, float) else str(v)
+                             for v in row.values()) + "\n")
 
     @torch.no_grad()
     def ema_model(self) -> torch.nn.Module:

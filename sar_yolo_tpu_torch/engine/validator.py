@@ -1,0 +1,371 @@
+"""Validators: the eval loop on the device, then mAP, posture-state and ReID metrics on the
+host (port of `BaseValidator`, `DetectionValidator` and `JDEValidator` of
+`sar_yolo_tpu/engine/validator.py`).
+
+Per batch, the uint8 NHWC RGB images go to the device as NCHW / 255; the eval
+forward, the decode and NMS (multi-label for nc > 1, the JDE embeddings gathered
+after NMS) run there, and one (B, max_det, 6 + E + S) tensor comes back.
+
+Not ported yet, each refused where asked for: mesh sharding, test-time
+augmentation, rectangular batches and plots (`cfg/default.py` NOT_PORTED), the
+NMS-free v10 head, and the pose, segment, classify, OBB and RT-DETR validators.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import time
+from datetime import datetime
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from sar_yolo_tpu_torch.data.build import DataLoader
+from sar_yolo_tpu_torch.ops.decode import decode_detect
+from sar_yolo_tpu_torch.ops.nms import non_max_suppression
+from sar_yolo_tpu_torch.utils import LOGGER
+from sar_yolo_tpu_torch.utils.metrics import (DetMetrics, box_iou_np, davies_bouldin,
+                                              match_predictions, silhouette_cosine)
+
+
+def _trim_batch(batch: dict, n: int) -> dict:
+    """Drop trailing pad rows from every batch-dim leaf."""
+    return {k: (v[:n] if isinstance(v, np.ndarray) and v.ndim >= 1 and
+                len(v) >= n else v) for k, v in batch.items()}
+
+
+class BaseValidator:
+    """The eval loop; subclasses specialize the metrics.
+
+    Examples:
+        >>> metrics = JDEValidator()(model=model.eval(), meta=meta, dataset=val_set,
+        ...                          args=get_cfg({"batch": 16}), data={"names": names})
+    """
+
+    def __call__(self, model, meta: dict, dataset, args, data: dict | None = None) -> dict:
+        """Validate `model` (in eval mode, on its device) on `dataset`; args holds batch,
+        workers, conf, iou, max_det, save_json, save_txt, save_conf, verbose, save_dir."""
+        if meta.get("head") == "v10Detect":
+            raise NotImplementedError("the NMS-free v10 head is not part of this port yet")
+        self.args, self.meta, self.data = args, meta, data or {}
+        self.conf = args.conf if args.conf is not None else 0.001
+        device = next(model.parameters()).device
+        loader = DataLoader(dataset, min(args.batch, len(dataset)), workers=args.workers,
+                            shuffle=False, drop_last=False, pad_last=True)
+        self.init_metrics()
+        self.jdict, self.gt_anns = [], []  # COCO-style prediction and GT rows (save_json)
+        n_img = 0
+        t0 = time.perf_counter()
+        for batch in loader:
+            npad = int(batch.pop("_pad", 0))
+            dets = self.predict(model, self.preprocess(batch["img"], device)).cpu().numpy()
+            n_eff = len(dets) - npad  # trailing pad rows are duplicate samples
+            self._save_txt_batch(batch, dets, n_eff, n_img)
+            if args.save_json:
+                self._json_rows(batch, dets, n_eff, n_img)
+            self.update_metrics(dets[:n_eff], _trim_batch(batch, n_eff), batch["img"].shape[1:3])
+            n_img += n_eff
+        results = self.finalize_metrics()
+        if args.save_json and self.jdict:
+            save_dir = Path(args.save_dir)
+            save_dir.mkdir(parents=True, exist_ok=True)
+            out_path = save_dir / "predictions.json"
+            out_path.write_text(json.dumps(self.jdict))
+            LOGGER.info(f"saved {len(self.jdict)} predictions to {out_path}")
+            from sar_yolo_tpu_torch.utils.coco_eval import eval_json
+            try:
+                results.update(eval_json(self.jdict, {"annotations": self.gt_anns}))
+            except Exception as e:  # noqa: BLE001 — the audit pass never fails a val run
+                LOGGER.warning(f"COCO eval failed: {e}")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if n_img:
+            results["speed/ms_per_image"] = (time.perf_counter() - t0) / n_img * 1000
+        self.print_results(results, n_img)
+        return results
+
+    @staticmethod
+    def preprocess(img_u8: np.ndarray, device) -> torch.Tensor:
+        """(B, H, W, 3) uint8 RGB -> (B, 3, H, W) float32 / 255 on the device."""
+        return torch.from_numpy(img_u8).to(device).permute(0, 3, 1, 2).float() / 255.0
+
+    @torch.no_grad()
+    def predict(self, model, x: torch.Tensor) -> torch.Tensor:
+        """Eval forward, then decode and NMS: (B, max_det, 6 + E + S) on the device."""
+        return self.postprocess(model(x))
+
+    def postprocess(self, feats) -> torch.Tensor:
+        """Decode and NMS of the head maps; multi-label for nc > 1, as the
+        Ultralytics validator does, and the JDE embeddings gathered after NMS."""
+        meta, args = self.meta, self.args
+        nc, emb_dim = meta["nc"], meta.get("embed_dim") or 0
+        preds = decode_detect(feats, meta["strides"], nc, meta["reg_max"],
+                              extra_sigmoid=meta.get("state_classes") or 0,
+                              split_extras=emb_dim)
+        bank = None
+        if emb_dim:
+            preds, bank = preds
+        return non_max_suppression(preds, conf_thres=self.conf, iou_thres=args.iou,
+                                   max_det=args.max_det, nc=nc, extras_bank=bank,
+                                   multi_label=nc > 1)
+
+    # ---- hooks -----------------------------------------------------------
+    def init_metrics(self):
+        self.det_metrics = DetMetrics(self.data.get("names"))
+
+    def update_metrics(self, dets, batch, hw):
+        h, w = hw
+        scale = np.array([w, h, w, h], np.float32)
+        for bi in range(dets.shape[0]):
+            d = dets[bi]
+            d = d[d[:, 4] > 0]
+            gt_mask = batch["mask"][bi] > 0
+            gt_cls = batch["cls"][bi][gt_mask]
+            gb = batch["bboxes"][bi][gt_mask] * scale  # xywh pixels
+            gt_boxes = np.stack([gb[:, 0] - gb[:, 2] / 2, gb[:, 1] - gb[:, 3] / 2,
+                                 gb[:, 0] + gb[:, 2] / 2, gb[:, 1] + gb[:, 3] / 2], 1) \
+                if len(gb) else np.zeros((0, 4), np.float32)
+            tp = match_predictions(d[:, :4], d[:, 5], gt_boxes, gt_cls)
+            self.det_metrics.update(tp, d[:, 4], d[:, 5], gt_cls)
+            self._extra_update(d, gt_boxes, gt_cls, batch, bi)
+
+    def _extra_update(self, d, gt_boxes, gt_cls, batch, bi):
+        pass
+
+    def _native_params(self, batch, bi, h, w, n_img):
+        """(stem, ratio, padx, pady, ori_h, ori_w) for un-letterboxing one image, shared
+        by save_txt and save_json."""
+        if "im_file" in batch:
+            stem = Path(str(batch["im_file"][bi])).stem
+            rt, padx, pady = (float(v) for v in batch["ratio_pad"][bi])
+            oh, ow = (float(v) for v in batch["ori_shape"][bi])
+            return stem, rt, padx, pady, oh, ow
+        return f"image{n_img + bi}", 1.0, 0.0, 0.0, float(h), float(w)
+
+    def _json_rows(self, batch, dets, n_eff, n_img):
+        """COCO-style prediction and GT rows of a batch: boxes in native image pixels,
+        ids from the file stem (sequential ids and letterbox space on synthetic data)."""
+        h, w = batch["img"].shape[1:3]
+        scale = np.array([w, h, w, h], np.float32)
+        for bi in range(n_eff):
+            d = dets[bi]
+            stem, rt, padx, pady, oh, ow = self._native_params(batch, bi, h, w, n_img)
+            if "im_file" in batch:
+                image_id = int(stem) if stem.isnumeric() else stem
+            else:
+                image_id = n_img + bi
+
+            def to_native(x1, y1, x2, y2):
+                x1, y1, x2, y2 = float(x1), float(y1), float(x2), float(y2)
+                x1 = min(max((x1 - padx) / rt, 0.0), ow)
+                x2 = min(max((x2 - padx) / rt, 0.0), ow)
+                y1 = min(max((y1 - pady) / rt, 0.0), oh)
+                y2 = min(max((y2 - pady) / rt, 0.0), oh)
+                return [round(x1, 3), round(y1, 3), round(x2 - x1, 3), round(y2 - y1, 3)]
+
+            for row in d[d[:, 4] > 0]:
+                self.jdict.append({"image_id": image_id, "category_id": int(row[5]),
+                                   "bbox": to_native(*(float(v) for v in row[:4])),
+                                   "score": round(float(row[4]), 5)})
+            gmask = batch["mask"][bi] > 0
+            gb = batch["bboxes"][bi][gmask] * scale  # xywh center, pixels
+            for (cx, cy, bw, bh), c in zip(gb, batch["cls"][bi][gmask]):
+                self.gt_anns.append({"image_id": image_id, "category_id": int(c),
+                                     "bbox": to_native(cx - bw / 2, cy - bh / 2,
+                                                       cx + bw / 2, cy + bh / 2)})
+
+    def _save_txt_batch(self, batch, dets, n_eff, n_img):
+        """Per-image YOLO-format label files in native normalized coordinates, the
+        confidence appended with save_conf; rows [x1 y1 x2 y2 conf cls ...]."""
+        args = self.args
+        if not args.save_txt:
+            return
+        lbl_dir = Path(args.save_dir) / "labels"
+        lbl_dir.mkdir(parents=True, exist_ok=True)
+        h, w = batch["img"].shape[1:3]
+        for bi in range(n_eff):
+            d = dets[bi]
+            d = d[d[:, 4] > 0]
+            stem, rt, padx, pady, oh, ow = self._native_params(batch, bi, h, w, n_img)
+            lines = []
+            for row in d:
+                conf_s = f" {float(row[4]):.6f}" if args.save_conf else ""
+                x1 = min(max((float(row[0]) - padx) / rt, 0.0), ow)
+                x2 = min(max((float(row[2]) - padx) / rt, 0.0), ow)
+                y1 = min(max((float(row[1]) - pady) / rt, 0.0), oh)
+                y2 = min(max((float(row[3]) - pady) / rt, 0.0), oh)
+                lines.append(f"{int(row[5])} {(x1 + x2) / 2 / ow:.6f} "
+                             f"{(y1 + y2) / 2 / oh:.6f} {(x2 - x1) / ow:.6f} "
+                             f"{(y2 - y1) / oh:.6f}{conf_s}")
+            (lbl_dir / f"{stem}.txt").write_text("\n".join(lines) + ("\n" if lines else ""))
+
+    def finalize_metrics(self) -> dict:
+        return self.det_metrics.process()
+
+    def print_results(self, results, n_img):
+        if results:
+            LOGGER.info("  ".join(f"{k.split('/')[-1]}={v:.4f}" for k, v in results.items()))
+        # per-class table (verbose, more than one class)
+        pc = getattr(self.det_metrics, "per_class", None)
+        if pc is not None and self.args.verbose and len(pc["unique_classes"]) > 1:
+            names = self.data.get("names") or {}
+            LOGGER.info(f"{'class':>16} {'instances':>10} {'P':>8} {'R':>8} "
+                        f"{'mAP50':>8} {'mAP50-95':>9}")
+            for ci, c in enumerate(pc["unique_classes"]):
+                LOGGER.info(f"{str(names.get(int(c), int(c))):>16} {pc['nt'][ci]:>10} "
+                            f"{pc['p'][ci]:>8.3f} {pc['r'][ci]:>8.3f} "
+                            f"{pc['ap'][ci, 0]:>8.3f} {pc['ap'][ci].mean():>9.3f}")
+
+
+class DetectionValidator(BaseValidator):
+    pass
+
+
+class JDEValidator(BaseValidator):
+    """Box mAP plus the posture-state and ReID metrics of the JDE fork.
+
+    Detections carry [x1, y1, x2, y2, conf, cls, emb(E), state(S)]. Metrics:
+      * state accuracy, the state confusion matrix, macro P/R/F1 and the per-state
+        table, over detections matched one to one (greedy by IoU >= 0.5) to a GT;
+      * the state-detection mAP, a second pass with the argmax state as the class,
+        keyed (S);
+      * ReID cosine and euclidean pos/neg means and separation, the cosine
+        silhouette and the Davies-Bouldin index of the matched embeddings by tag;
+      * one row per run appended to `jde_results.csv`, mirrored to `jde_results.xlsx`.
+    State ground truth is clamp(tag, 0, state_classes - 1), as in the loss, not tag % S.
+    """
+
+    def init_metrics(self):
+        super().init_metrics()
+        self.state_correct = 0
+        self.state_total = 0
+        self.embeds = []
+        self.embed_tags = []
+        sc = self.meta.get("state_classes") or 0
+        self.state_confusion = np.zeros((sc, sc), np.int64) if sc else None
+        self.state_det_metrics = DetMetrics(
+            {i: f"state{i}" for i in range(sc)}) if sc else None
+
+    @staticmethod
+    def _state_gt(tags, sc):
+        """Clamp person-id tags into the state label range."""
+        return np.clip(tags.astype(int), 0, sc - 1)
+
+    def _extra_update(self, d, gt_boxes, gt_cls, batch, bi):
+        if "tags" not in batch:
+            return
+        embed_dim = self.meta["embed_dim"]
+        sc = self.meta["state_classes"] or 0
+        gt_mask = batch["mask"][bi] > 0
+        gt_tags = batch["tags"][bi][gt_mask].astype(int)
+        # the state-detection mAP pass: argmax state as the class
+        if sc:
+            ps = d[:, 6 + embed_dim:6 + embed_dim + sc].argmax(1) if len(d) else np.zeros(0)
+            gs = self._state_gt(gt_tags, sc).astype(np.float32)
+            tp = match_predictions(d[:, :4], ps.astype(np.float32), gt_boxes, gs)
+            self.state_det_metrics.update(tp, d[:, 4], ps.astype(np.float32), gs)
+        if len(d) == 0 or len(gt_boxes) == 0:
+            return
+        iou = box_iou_np(gt_boxes, d[:, :4])
+        # one-to-one GT-prediction pairs, greedy by IoU (>= 0.5): each prediction
+        # credits at most one GT
+        pairs = np.argwhere(iou >= 0.5)
+        if len(pairs) == 0:
+            return
+        pairs = pairs[iou[pairs[:, 0], pairs[:, 1]].argsort()[::-1]]
+        used_g = np.zeros(len(gt_boxes), bool)
+        used_p = np.zeros(len(d), bool)
+        for g, p in pairs:
+            if used_g[g] or used_p[p]:
+                continue
+            used_g[g] = used_p[p] = True
+            self.embeds.append(d[p, 6:6 + embed_dim])
+            self.embed_tags.append(gt_tags[g])
+            if sc:
+                state_pred = int(d[p, 6 + embed_dim:6 + embed_dim + sc].argmax())
+                state_gt = int(self._state_gt(gt_tags[g:g + 1], sc)[0])
+                self.state_correct += int(state_pred == state_gt)
+                self.state_total += 1
+                self.state_confusion[state_pred, state_gt] += 1
+
+    def finalize_metrics(self) -> dict:
+        results = super().finalize_metrics()
+        if self.state_total:
+            results["metrics/state_acc"] = self.state_correct / self.state_total
+            cm = self.state_confusion
+            tp = np.diag(cm).astype(np.float64)
+            pred_n = cm.sum(1)
+            gt_n = cm.sum(0)
+            prec = np.where(pred_n > 0, tp / np.maximum(pred_n, 1), 0.0)
+            rec = np.where(gt_n > 0, tp / np.maximum(gt_n, 1), 0.0)
+            f1 = np.where(prec + rec > 0, 2 * prec * rec / np.maximum(prec + rec, 1e-9), 0.0)
+            seen = gt_n > 0
+            if seen.any():
+                results["metrics/state_macro_precision"] = float(prec[seen].mean())
+                results["metrics/state_macro_recall"] = float(rec[seen].mean())
+                results["metrics/state_macro_f1"] = float(f1[seen].mean())
+            self.state_table = {"precision": prec, "recall": rec, "f1": f1, "support": gt_n}
+        if self.state_det_metrics is not None:
+            sd = self.state_det_metrics.process()
+            for k in ("metrics/mAP50(B)", "metrics/mAP50-95(B)"):
+                if k in sd:
+                    results[k.replace("(B)", "(S)")] = sd[k]
+        if len(self.embeds) >= 2:
+            E = np.stack(self.embeds)
+            En = E / (np.linalg.norm(E, axis=1, keepdims=True) + 1e-9)
+            tags = np.asarray(self.embed_tags)
+            sim = En @ En.T
+            same = tags[:, None] == tags[None, :]
+            off = ~np.eye(len(E), dtype=bool)
+            pos, neg = sim[same & off], sim[~same]
+            if len(pos) and len(neg):
+                results["metrics/reid_pos_cos"] = float(pos.mean())
+                results["metrics/reid_neg_cos"] = float(neg.mean())
+                results["metrics/reid_separation"] = float(pos.mean() - neg.mean())
+                d2 = ((E[:, None, :] - E[None, :, :]) ** 2).sum(-1) ** 0.5
+                results["metrics/reid_pos_euc"] = float(d2[same & off].mean())
+                results["metrics/reid_neg_euc"] = float(d2[~same].mean())
+            n_ids = len(np.unique(tags))
+            if 2 <= n_ids < len(E):  # clustering quality
+                results["metrics/reid_silhouette"] = silhouette_cosine(En, tags)
+                results["metrics/reid_davies_bouldin"] = davies_bouldin(En, tags)
+        self._export_consolidated(results)
+        return results
+
+    def _export_consolidated(self, results):
+        """Append one row per run to the cumulative `jde_results.csv` and mirror the whole
+        table into `jde_results.xlsx`."""
+        save_dir = Path(self.args.save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        path = save_dir / "jde_results.csv"
+        row = {"timestamp": datetime.now().isoformat(timespec="seconds"),
+               "model": str(self.args.model or "")}
+        row.update({k.split("/")[-1]: f"{v:.5f}" for k, v in results.items()
+                    if isinstance(v, float)})
+        exists = path.exists()
+        with path.open("a", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(row))
+            if not exists:
+                w.writeheader()
+            w.writerow(row)
+        try:  # the Excel mirror never fails a val run
+            from sar_yolo_tpu_torch.utils.xlsx import write_xlsx
+            with path.open(newline="") as f:
+                rows = list(csv.DictReader(f))
+            write_xlsx(save_dir / "jde_results.xlsx", rows)
+        except Exception as e:  # noqa: BLE001
+            LOGGER.warning(f"jde_results.xlsx export failed: {e}")
+
+    def print_results(self, results, n_img):
+        super().print_results(results, n_img)
+        table = getattr(self, "state_table", None)
+        if table is not None:
+            names = self.data.get("person_states") or {}
+            LOGGER.info(f"{'State':>12} {'Support':>8} {'Prec':>7} {'Rec':>7} {'F1':>7}")
+            for i in range(len(table["precision"])):
+                name = names.get(i, f"state{i}") if isinstance(names, dict) else f"state{i}"
+                LOGGER.info(f"{name:>12} {int(table['support'][i]):>8} "
+                            f"{table['precision'][i]:>7.3f} {table['recall'][i]:>7.3f} "
+                            f"{table['f1'][i]:>7.3f}")

@@ -1,5 +1,5 @@
-"""Batched class-aware NMS with a fixed (B, max_det, 6 + E) output
-(port of `sar_yolo_tpu/ops/nms.py`: `_nms_single` and `non_max_suppression`)."""
+"""Batched class-aware NMS with a fixed (B, max_det, 6 + E) output, single- or
+multi-label (port of `sar_yolo_tpu/ops/nms.py`: `_nms_single` and `non_max_suppression`)."""
 
 from __future__ import annotations
 
@@ -59,12 +59,15 @@ def _nms_batched(boxes, scores, classes, extras, iou_thres: float, max_det: int,
 
 def non_max_suppression(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
                         max_det: int = 300, pre_topk: int = 1024, nc: int = 80,
-                        agnostic: bool = False, extras_bank=None):
-    """Batched NMS over decoded predictions (single-label: per-anchor argmax class).
+                        agnostic: bool = False, extras_bank=None, multi_label: bool = False):
+    """Batched NMS over decoded predictions.
 
     preds (B, N, 4 + nc + E): xywh boxes, sigmoided class scores, E extras
-    carried through. extras_bank (B, N, Eb), if given, is gathered for the kept
-    detections only, after suppression, and spliced in right after cls.
+    carried through. Single-label, each anchor is one candidate with its best
+    class; with multi_label (validation, nc > 1) every (anchor, class) pair is
+    one, and the top `pre_topk` pairs over the flattened N * nc scores are kept.
+    extras_bank (B, N, Eb), if given, is gathered for the kept detections only,
+    after suppression, and spliced in right after cls.
     Returns (B, max_det, 6 + Eb + E) [x1, y1, x2, y2, conf, cls, *bank, *extras];
     rows with conf == 0 are padding.
     """
@@ -72,20 +75,27 @@ def non_max_suppression(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
     boxes = xywh2xyxy(preds[..., :4])
     cls_scores = preds[..., 4:4 + nc]
     extras = preds[..., 4 + nc:]
-    conf, cls = cls_scores.max(-1)
-    cls = cls.to(preds.dtype)
-    conf = torch.where(conf >= conf_thres, conf, torch.zeros_like(conf))
-
-    k = min(pre_topk, N)
-    # stable descending sort: ties keep the lower anchor index first, as lax.top_k does
-    top_conf, top_idx = torch.sort(conf, dim=1, descending=True, stable=True)
-    top_conf, top_idx = top_conf[:, :k], top_idx[:, :k]
+    # stable descending sorts: ties keep the lower index first, as lax.top_k does
+    if multi_label and nc > 1:
+        k = min(pre_topk, N * nc)
+        top_conf, top_flat = torch.sort(cls_scores.reshape(B, N * nc), dim=1, descending=True,
+                                        stable=True)
+        top_conf, top_flat = top_conf[:, :k], top_flat[:, :k]
+        top_conf = torch.where(top_conf >= conf_thres, top_conf, torch.zeros_like(top_conf))
+        top_idx = top_flat // nc  # the source anchor
+        top_cls = (top_flat % nc).to(preds.dtype)
+    else:
+        conf, cls = cls_scores.max(-1)
+        conf = torch.where(conf >= conf_thres, conf, torch.zeros_like(conf))
+        k = min(pre_topk, N)
+        top_conf, top_idx = torch.sort(conf, dim=1, descending=True, stable=True)
+        top_conf, top_idx = top_conf[:, :k], top_idx[:, :k]
+        top_cls = torch.gather(cls.to(preds.dtype), 1, top_idx)
 
     def gather(t):
         return torch.gather(t, 1, top_idx[..., None].expand(-1, -1, t.shape[-1]))
 
     top_boxes = gather(boxes)
-    top_cls = torch.gather(cls, 1, top_idx)
     top_extras = gather(extras)
     if extras_bank is not None:
         # the source anchor index rides through suppression as one f32 column

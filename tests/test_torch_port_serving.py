@@ -4,7 +4,8 @@ Letterbox, decode + NMS with an embedding bank, and `YOLO.predict_batched`
 end to end on ragged uint8 frames, all on identical numpy inputs and weights:
 the same kept rows and classes, boxes within 1e-3 px, embeddings within 1e-3
 and equal posture states. Also: the port imports nothing of JAX (an AST scan)
-and its entry points refuse to run on the CPU unless asked.
+(nor scikit-learn, which the card lacks) and its entry points refuse to run on
+the CPU unless asked.
 """
 
 import ast
@@ -120,7 +121,7 @@ def test_predict_batched_matches_jax(jde_pair):
 def test_port_imports_no_jax():
     files = sorted((REPO / "sar_yolo_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "torch_port_profile.py"]
-    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "sar_yolo_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "sar_yolo_tpu"}
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

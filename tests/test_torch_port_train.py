@@ -266,12 +266,18 @@ def test_tinyjde_ten_steps_match_jax(optimizer, warmup_epochs, lr0, param_tol, t
     assert_trajectories_match(jtr, ptr, steps=10, param_tol=param_tol)
 
 
-def test_yolo_train_then_predict_on_cpu():
+def test_yolo_train_then_predict_on_cpu(tmp_path):
     m = YOLO("tinyjde.yaml", device="cpu")
-    metrics = m.train(data="synthetic", imgsz=64, batch=8, epochs=1, workers=2, max_labels=16)
-    assert set(metrics) == {f"train/{k}" for k in ("box", "cls", "dfl", "emb", "state")}
+    metrics = m.train(data="synthetic", imgsz=64, batch=8, epochs=1, workers=2, max_labels=16,
+                      project=str(tmp_path))
+    losses = {f"train/{k}" for k in ("box", "cls", "dfl", "emb", "state")}
+    # the epoch ends in a validation (on by default), whose fitness is the trainer's
+    assert losses | {"fitness", "metrics/mAP50(B)", "metrics/mAP50-95(B)", "metrics/mAP50(S)",
+                     "speed/ms_per_image"} <= set(metrics)
     assert all(np.isfinite(v) for v in metrics.values())
     tr = m.trainer
+    assert tr.fitness == tr.best_fitness == metrics["fitness"]
+    assert (tmp_path / "jde" / "jde" / "results.csv").exists()
     assert (tr.step, tr.accumulate, tr.optimizer.updates) == (8, 8, 1)  # nbs 64 / batch 8
     assert tr.optimizer.name == "AdamW"  # optimizer=auto on a short run
     for p, e in zip(m.model.parameters(), tr.ema):
