@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off
-     for convolutions and matmuls so the float32 comparisons mean something.
+     for convolutions and matmuls so the float32 comparisons mean something; the
+     C compiler that builds the PNG row filters and the JPEG decoders found on the
+     machine (headers, libraries, Python modules).
   2. build: nvcc builds the area-attention kernel from the checkout; ptxas's
      registers and spills are printed (a spill fails), and cuobjdump must find
      tensor-core (HMMA) instructions in the library.
@@ -18,6 +20,7 @@ Phases, in order; any failure exits non-zero:
      then, for correctness only, channel-contiguous inputs and the chunk
      lengths of imgsz 480 and 320 and of a chunk shorter than one key stage.
      At every shape the library's launch plan must equal the wrapper's mirror.
+     The timed shapes include those of phase 8's rect batches (Na = 252).
   4. serving yolov13n-JDE @640: seeded and perturbed weights, 4 ragged 720x1280
      BGR frames through `YOLO.predict_batched`; 8 kernel launches per forward;
      the same detections as the model with `use_flash=False`; head maps of the
@@ -46,7 +49,16 @@ Phases, in order; any failure exits non-zero:
      images against float64 as phase 4 holds them; val ms
      per image and its split (batch to the card, forward, decode + NMS, to the
      host, host metrics).
-  8. a JSON line of the kernels, the card line, and the result line.
+  8. the disk dataset: a JDE dataset of PNG files (rows filtered by all five PNG
+     filters) written under runs/: 64 train frames at 720x1280, 24 val frames (16 at
+     720x1280, 8 at 1280x720), 1-20 persons of 10-60 px each, 6-column labels;
+     `YOLO.train(data=<dict>, imgsz=640, batch=16, epochs=2, close_mosaic=1)` with
+     the host augmentation: epoch 1 with mosaic, epoch 2 without, every loss finite,
+     2 x (4 x 8 + 2 x 8) = 96 kernel launches; step time against the loader's own time
+     per batch; then `YOLO.val(data=<dict>, rect=True)`: batches of 384x672 and
+     672x384, 16 launches at Na = 252, the A/B against `use_flash=False` of phase 7,
+     ms per image and its split with the loader's part (PNG decode, resize, letterbox).
+  9. a JSON line of the kernels, the card line, and the result line.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
 
@@ -55,10 +67,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -75,6 +89,8 @@ KERNEL_SHAPES = [
     ("640 P4 b8", 8, 64, 40, 40, 2, 4), ("640 P5 b8", 8, 128, 20, 20, 4, 1),
     ("1280 P4 b1", 1, 64, 80, 80, 2, 4), ("1280 P5 b1", 1, 128, 40, 40, 4, 1),
     ("640 P4 b16", 16, 64, 40, 40, 2, 4), ("640 P5 b16", 16, 128, 20, 20, 4, 1),
+    # a 16:9 frame's rect val batch at 640 (384x672): Na = 252, not a multiple of 16
+    ("rect 384x672 P4 b16", 16, 64, 24, 42, 2, 4), ("rect 384x672 P5 b16", 16, 128, 12, 21, 4, 1),
 ]
 # (label, B, C, H, W, heads, area, layout), correctness only: channel-contiguous
 # (B, N, C) inputs; imgsz 480 P4 (Na = 225: chunk starts not 16-byte aligned);
@@ -90,6 +106,12 @@ MAIN_BATCH = 4            # frames of the served batch (yolov13n-JDE @640)
 TRAIN_IMGSZ, TRAIN_BATCH = 640, 16  # the train step and the validation
 PRE_TOPK = 1024           # ops/nms.py: candidates kept before suppression
 VAL_IMAGES = 16           # the synthetic val set of YOLO.val and of the trainer
+DATA_TRAIN = 64           # phase 8's train frames, 720x1280
+DATA_VAL = ((720, 1280),) * 16 + ((1280, 720),) * 8  # phase 8's val frames
+RECT_SHAPES = [(384, 672), (672, 384)]  # their rect batches at 640 (JAX's init_rect)
+RECT_NA = 252             # the attention's chunk length in both: 24x42/4 at P4, 12x21 at P5
+PERSON_STATES = {0: "stands", 1: "seated", 2: "laying_down", 3: "walking", 4: "running",
+                 5: "not_defined"}  # SARD.yaml's posture states
 
 
 def check(ok: bool, msg: str):
@@ -175,7 +197,40 @@ def phase_card():
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    cc = shutil.which("cc") or shutil.which("gcc")
+    version = subprocess.run([cc, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0] if cc else None
+    print(json.dumps({"c_compiler": cc, "version": version, "jpeg_decoders": _jpeg_probe()}))
     return card
+
+
+def _jpeg_probe() -> dict:
+    """What could decode JPEG on this machine: libjpeg headers and libraries, nvJPEG under
+    the CUDA toolkit, and the Python image modules that import here (with their
+    distributions' versions), none of which the port uses."""
+    import glob
+    import importlib.metadata
+    import importlib.util
+    import os
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    libs = ("/usr/lib", "/usr/lib64", "/usr/local/lib", "/lib")
+    dists = importlib.metadata.packages_distributions()
+    modules = {}
+    for m in ("cv2", "PIL", "yaml", "torchvision", "simplejpeg", "imageio"):
+        if importlib.util.find_spec(m) is not None:
+            modules[m] = {d: importlib.metadata.version(d) for d in dists.get(m, [])}
+    if "PIL" in modules:
+        from PIL import features
+        modules["PIL"]["jpeg"] = features.check("jpg")
+    return {
+        "jpeglib.h": sorted({p for d in ("/usr/include", "/usr/local/include", f"{cuda}/include")
+                             for p in glob.glob(f"{d}/**/jpeglib.h", recursive=True)}),
+        "libjpeg": sorted({p for d in libs for p in glob.glob(f"{d}/**/libjpeg*", recursive=True)}),
+        "libturbojpeg": sorted({p for d in libs
+                                for p in glob.glob(f"{d}/**/libturbojpeg*", recursive=True)}),
+        "nvjpeg": sorted(glob.glob(f"{cuda}/**/*nvjpeg*", recursive=True))[:20],
+        "python_modules": modules,
+    }
 
 
 def phase_build():
@@ -715,12 +770,15 @@ def phase_train(card: str, seed: int = 0):
 
 
 @contextlib.contextmanager
-def _recorded_dets(validator_cls):
-    """While active, the detections each validator hands to update_metrics, per batch."""
+def _recorded_dets(validator_cls, shapes: list | None = None):
+    """While active, the detections each validator hands to update_metrics, per batch (and
+    the batch's image height and width in `shapes`)."""
     seen, orig = [], validator_cls.update_metrics
 
     def update_metrics(self, dets, batch, hw):
         seen.append(np.array(dets))
+        if shapes is not None:
+            shapes.append(tuple(int(v) for v in hw))
         return orig(self, dets, batch, hw)
     own = "update_metrics" in vars(validator_cls)
     validator_cls.update_metrics = update_metrics
@@ -733,10 +791,11 @@ def _recorded_dets(validator_cls):
             del validator_cls.update_metrics
 
 
-def _val_split(yolo, n: int = 5) -> dict:
-    """Median host-clock ms of each part of one validation batch (16 images at 640), each
-    ended by a device synchronize: batch to the card, forward, decode + NMS, detections
-    to the host, host metrics; the sample building of the loader's threads apart."""
+def _val_split(yolo, n: int = 5, dataset=None) -> dict:
+    """Median host-clock ms of each part of the first validation batch (16 images at 640),
+    each ended by a device synchronize: batch to the card, forward, decode + NMS,
+    detections to the host, host metrics; the sample building of the loader's threads
+    apart. `dataset`: the val set (default: the synthetic one)."""
     import torch
 
     from sar_yolo_tpu_torch.cfg.default import get_cfg
@@ -748,8 +807,9 @@ def _val_split(yolo, n: int = 5) -> dict:
     v.meta, v.data, v.conf = meta, {"names": yolo.names}, 0.001
     v.args = get_cfg({"model": yolo.cfg, "imgsz": TRAIN_IMGSZ, "batch": TRAIN_BATCH})
     v.init_metrics()
-    dataset = SyntheticDataset(n=VAL_IMAGES, imgsz=TRAIN_IMGSZ, nc=min(meta["nc"], 3),
-                               task="jde")
+    if dataset is None:
+        dataset = SyntheticDataset(n=VAL_IMAGES, imgsz=TRAIN_IMGSZ, nc=min(meta["nc"], 3),
+                                   task="jde")
     loader = DataLoader(dataset, TRAIN_BATCH, shuffle=False, drop_last=False, pad_last=True)
 
     def sync_ms(fn):
@@ -796,21 +856,10 @@ def _ab_conf(scores: np.ndarray, max_det: int, margin: float = 1e-5):
 def phase_val(yolo, card: str):
     """`YOLO.val` at 640, batch 16, float32: on a new model with seeded weights (nc 1,
     single-label NMS), then on the trained one (nc 3, multi-label); returns the kernel
-    launches of each.
-
-    Against the model with `use_flash=False`: both validate at a threshold `_ab_conf`
-    picks, where each image has under max_det (anchor, class) candidates (so under
-    PRE_TOPK, and under max_det kept rows) and no score lies within 1e-5 of it, so
-    that no cut decides the comparison; their detections are held to each other as
-    phase 4 holds them, and their metrics within 1e-3. The head maps of the val
-    images, as phase 4 holds them: the kernel path no farther from the model run in
-    float64 than twice the plain path.
+    launches of each. The trained one is held against `use_flash=False` (`_val_ab`).
     """
-    import torch
-
     from sar_yolo_tpu_torch.engine.validator import JDEValidator
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
-    from sar_yolo_tpu_torch.ops.decode import decode_detect
     from sar_yolo_tpu_torch import YOLO
     kw = dict(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, project="runs",
               name="chip_smoke_val", exist_ok=True)
@@ -840,18 +889,45 @@ def phase_val(yolo, card: str):
     ms_per_image = [metrics["speed/ms_per_image"]] + \
         [yolo.val(**kw)["speed/ms_per_image"] for _ in range(2)]
 
-    # the A/B threshold: candidates from the head maps of the val images
-    meta = yolo.meta
+    # the A/B: candidates from the head maps of the val images
     from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
-    ds = SyntheticDataset(n=VAL_IMAGES, imgsz=TRAIN_IMGSZ, nc=min(meta["nc"], 3), task="jde")
+    ds = SyntheticDataset(n=VAL_IMAGES, imgsz=TRAIN_IMGSZ, nc=min(yolo.meta["nc"], 3), task="jde")
     img = np.stack([ds[i]["img"] for i in range(VAL_IMAGES)])
-    x = JDEValidator.preprocess(img, yolo.device)
+    ab = _val_ab(yolo, kw, [JDEValidator.preprocess(img, yolo.device)], "YOLO.val")
+    split = _val_split(yolo)
+    print(json.dumps({"yolo_val": metrics, "kernel_launches": launches,
+                      "val": f"yolov13n-JDE @{TRAIN_IMGSZ}, batch {TRAIN_BATCH}, float32, "
+                             f"{VAL_IMAGES} synthetic images, after 1 epoch of YOLO.train",
+                      "ms_per_image": statistics.median(ms_per_image),
+                      "ms_per_image_runs": ms_per_image, **split, **ab, "card": card}))
+    return fresh_launches, launches
+
+
+def _val_ab(yolo, kw: dict, xs: list, label: str) -> dict:
+    """`yolo.val(**kw)` on the kernel path against the model with `use_flash=False`.
+
+    Both validate at a threshold `_ab_conf` picks from the head maps of the val
+    batches `xs` (on the card, in the validator's order), where each image has under
+    max_det (anchor, class) candidates (so under PRE_TOPK, and under max_det kept
+    rows) and no score lies within 1e-5 of it, so that no cut decides the comparison;
+    their detections are held to each other as phase 4 holds them, and their metrics
+    within 1e-3. The head maps, as phase 4 holds them: the kernel path no farther from
+    the model run in float64 than twice the plain path. Returns the numbers.
+    """
+    import torch
+
+    from sar_yolo_tpu_torch.engine.validator import JDEValidator
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    meta = yolo.meta
+    nc = meta["nc"]
     with torch.no_grad():
-        preds, _ = decode_detect(yolo._fused_for_serving()(x), meta["strides"], meta["nc"],
-                                 meta["reg_max"], extra_sigmoid=meta["state_classes"],
-                                 split_extras=meta["embed_dim"])
-    conf, margin = _ab_conf(preds[..., 4:4 + meta["nc"]].flatten(1).double().cpu().numpy(), 300)
-    candidates = int((preds[..., 4:4 + meta["nc"]] >= conf).sum((1, 2)).max())
+        scores = torch.cat([decode_detect(yolo._fused_for_serving()(x), meta["strides"], nc,
+                                          meta["reg_max"], extra_sigmoid=meta["state_classes"],
+                                          split_extras=meta["embed_dim"])[0][..., 4:4 + nc]
+                            .flatten(1) for x in xs])
+    conf, margin = _ab_conf(scores.double().cpu().numpy(), 300)
+    candidates = int((scores >= conf).sum(1).max())
     plain = copy.copy(yolo)
     plain.model, plain._fused = copy.deepcopy(yolo.model), None
     _set_flash(plain, False)
@@ -860,36 +936,238 @@ def phase_val(yolo, card: str):
     n0 = flash_area_attention.launches
     with _recorded_dets(JDEValidator) as pseen:
         pmetrics = plain.val(conf=conf, **kw)
-    check(flash_area_attention.launches == n0, "YOLO.val: use_flash=False launched the kernel")
+    check(flash_area_attention.launches == n0, f"{label}: use_flash=False launched the kernel")
     got, want = np.concatenate(kseen), np.concatenate(pseen)
-    frames = [b for b in range(VAL_IMAGES) if (got[b, :, 4] > 0).any() or (want[b, :, 4] > 0).any()]
-    check(len(frames) > 0, f"YOLO.val at conf {conf}: no image keeps a detection")
-    kept, errs = _compare_detections(got[frames], want[frames], meta["embed_dim"], "YOLO.val")
-    maps = _maps_errors(yolo, plain, x, conf)
+    frames = [b for b in range(len(got)) if (got[b, :, 4] > 0).any() or (want[b, :, 4] > 0).any()]
+    check(len(frames) > 0, f"{label} at conf {conf}: no image keeps a detection")
+    kept, errs = _compare_detections(got[frames], want[frames], meta["embed_dim"], label)
+    maps = {}
+    for x in xs:
+        for k, v in _maps_errors(yolo, plain, x, conf).items():
+            if k.startswith("maps"):
+                maps[k] = max(maps.get(k, 0.0), v)
     check(kmetrics.keys() == pmetrics.keys(),
-          f"YOLO.val: metric keys {sorted(kmetrics)} vs {sorted(pmetrics)}")
+          f"{label}: metric keys {sorted(kmetrics)} vs {sorted(pmetrics)}")
     metric_err = max(abs(kmetrics[k] - pmetrics[k]) for k in kmetrics if k != "speed/ms_per_image")
-    split = _val_split(yolo)
-    print(json.dumps({"yolo_val": metrics, "kernel_launches": launches,
-                      "val": f"yolov13n-JDE @{TRAIN_IMGSZ}, batch {TRAIN_BATCH}, float32, "
-                             f"{VAL_IMAGES} synthetic images, after 1 epoch of YOLO.train",
-                      "ms_per_image": statistics.median(ms_per_image),
-                      "ms_per_image_runs": ms_per_image, **split,
-                      "ab_conf": conf, "ab_conf_margin": margin, "ab_candidates_max": candidates,
-                      "ab_kept_per_image": kept, **errs, "ab_metric_max_abs_err": metric_err,
-                      **{k: v for k, v in maps.items() if k.startswith("maps")},
-                      "card": card}))
-    check(candidates < 300, f"YOLO.val: {candidates} candidates at conf {conf}")
-    check(errs["score_err"] < margin, f"YOLO.val: score err {errs['score_err']} over the "
+    check(candidates < 300, f"{label}: {candidates} candidates at conf {conf}")
+    check(errs["score_err"] < margin, f"{label}: score err {errs['score_err']} over the "
           f"threshold's margin {margin}: the threshold may decide the comparison")
     check(maps["maps_kernel_vs_f64"] <= 2 * maps["maps_plain_vs_f64"],
-          f"YOLO.val: kernel path {maps['maps_kernel_vs_f64']} from float64, plain path "
+          f"{label}: kernel path {maps['maps_kernel_vs_f64']} from float64, plain path "
           f"{maps['maps_plain_vs_f64']}")
-    check(errs["box_err_px"] <= 1e-3, f"YOLO.val: box err {errs['box_err_px']} px")
-    check(errs["score_err"] <= 1e-3, f"YOLO.val: score err {errs['score_err']}")
-    check(errs["embed_err"] <= 1e-3, f"YOLO.val: embedding err {errs['embed_err']}")
-    check(metric_err <= 1e-3, f"YOLO.val: metrics differ by {metric_err} from use_flash=False")
-    return fresh_launches, launches
+    check(errs["box_err_px"] <= 1e-3, f"{label}: box err {errs['box_err_px']} px")
+    check(errs["score_err"] <= 1e-3, f"{label}: score err {errs['score_err']}")
+    check(errs["embed_err"] <= 1e-3, f"{label}: embedding err {errs['embed_err']}")
+    check(metric_err <= 1e-3, f"{label}: metrics differ by {metric_err} from use_flash=False")
+    return {"ab_conf": conf, "ab_conf_margin": margin, "ab_candidates_max": candidates,
+            "ab_kept_per_image": kept, **errs, "ab_metric_max_abs_err": metric_err, **maps}
+
+
+def _png_file(rgb: np.ndarray, level: int = 1) -> bytes:
+    """An 8-bit RGB PNG file of `rgb` (h, w, 3) whose rows take the five PNG filters
+    (None, Sub, Up, Average, Paeth) in turn, so that a decoder meets each."""
+    import struct
+    import zlib
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, w * 3).astype(np.int16)
+    left, up, up_left = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    left[:, 3:], up[1:], up_left[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    kinds = np.arange(h) % 5
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) // 2, paeth])[kinds, np.arange(h)]
+    rows = np.concatenate([kinds[:, None], (x - pred) % 256], 1).astype(np.uint8)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
+
+
+def _write_dataset(root: Path, seed: int) -> dict:
+    """A YOLO-format JDE dataset of PNG frames under `root`: terrain of coarse colour
+    cells with noise, 1-20 persons a frame as boxes of 10-60 px, 6-column labels
+    (class cx cy w h person_id). Returns the dataset dict."""
+    rng = np.random.default_rng(seed)
+    for split, shapes in (("train", ((720, 1280),) * DATA_TRAIN), ("val", DATA_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i, (h, w) in enumerate(shapes):
+            cells = rng.integers(40, 200, (h // 80 + 1, w // 80 + 1, 3), np.uint8)
+            img = np.repeat(np.repeat(cells, 80, 0), 80, 1)[:h, :w]
+            img = (img + rng.integers(0, 24, (h, w, 3), np.uint8)).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 21))):
+                bw, bh = (int(v) for v in rng.integers(10, 61, 2))
+                x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                img[y1:y1 + bh, x1:x1 + bw] = rng.integers(0, 256, 3, np.uint8)
+                rows.append(f"0 {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} {bw / w:.6f} "
+                            f"{bh / h:.6f} {int(rng.integers(0, 30))}")
+            (root / "images" / split / f"{i:04d}.png").write_bytes(_png_file(img))
+            (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    return {"path": str(root.resolve()), "train": "images/train", "val": "images/val", "nc": 1,
+            "names": {0: "person"}, "person_states": PERSON_STATES}
+
+
+@contextlib.contextmanager
+def _chunk_lengths(lengths: list):
+    """While active, the chunk length (N / area) of each area-attention call of the model."""
+    from sar_yolo_tpu_torch.nn.modules import block
+    orig = block.flash_area_attention
+
+    def recorded(q, k, v, num_heads, area):
+        lengths.append(q.shape[1] // area)
+        return orig(q, k, v, num_heads, area)
+    block.flash_area_attention = recorded
+    try:
+        yield lengths
+    finally:
+        block.flash_area_attention = orig
+
+
+def _loader_ms(dataset, mosaic: bool, seed: int) -> float:
+    """Host-clock ms per batch of one epoch through the train loader alone (no model)."""
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    dataset.mosaic_enabled = mosaic
+    loader = DataLoader(dataset, TRAIN_BATCH, workers=8, seed=seed)
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _load_parts(dataset, n: int = 16) -> dict:
+    """Median host-clock ms of the loader's per-image parts on val images: PNG decode,
+    the long-side resize to imgsz, the letterbox to its rect batch shape."""
+    from sar_yolo_tpu_torch.data import cv
+    from sar_yolo_tpu_torch.data.augment import letterbox
+    from sar_yolo_tpu_torch.data.imageio import imread
+    parts = {"png_decode_ms": [], "resize_ms": [], "letterbox_ms": []}
+    for i in range(min(n, len(dataset))):
+        t0 = time.perf_counter()
+        img = imread(dataset.im_files[i])
+        t1 = time.perf_counter()
+        h0, w0 = img.shape[:2]
+        r = dataset.imgsz / max(h0, w0)
+        img = cv.resize(img, (round(w0 * r), round(h0 * r)))
+        t2 = time.perf_counter()
+        letterbox(img, dataset.batch_shapes[dataset.batch_index[i]], scaleup=False)
+        t3 = time.perf_counter()
+        for key, t in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(t * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def phase_data(card: str, seed: int = 0):
+    """Train and validate yolov13n-JDE @640 on a YOLO-format dataset on disk (see the
+    module docstring, phase 8). Returns the kernel launches of `YOLO.train` and of the
+    rect `YOLO.val`."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.cfg.default import get_cfg
+    from sar_yolo_tpu_torch.data import build
+    from sar_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.engine.validator import JDEValidator
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    root = Path("runs") / "chip_smoke_dataset"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = _write_dataset(root, seed)
+    write_s = time.perf_counter() - t0
+
+    # YOLO.train: the epochs' mosaic state and start times, and each step's host-clock span
+    epochs, steps = [], []
+    set_epoch, train_step = build.DataLoader.set_epoch, JDETrainer.train_step
+
+    def recorded_set_epoch(self, epoch):
+        set_epoch(self, epoch)
+        epochs.append((epoch, getattr(self.dataset, "mosaic_enabled", None), time.perf_counter()))
+
+    def recorded_step(self, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        total, items = train_step(self, batch)
+        torch.cuda.synchronize()
+        steps.append((t, time.perf_counter() - t, items.cpu().numpy()))
+        return total, items
+    build.DataLoader.set_epoch, JDETrainer.train_step = recorded_set_epoch, recorded_step
+    yolo = YOLO("yolov13n-JDE.yaml")
+    flash_area_attention.launches = 0
+    try:
+        with _timed_calls(JDETrainer, "validate", []) as val:
+            t0 = time.perf_counter()
+            metrics = yolo.train(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=2,
+                                 close_mosaic=1, workers=8, seed=seed, project="runs",
+                                 name="chip_smoke_data", exist_ok=True)
+            t_end = time.perf_counter()
+    finally:
+        build.DataLoader.set_epoch, JDETrainer.train_step = set_epoch, train_step
+    train_launches = flash_area_attention.launches
+    nb = DATA_TRAIN // TRAIN_BATCH
+    val_batches = -(-len(DATA_VAL) // TRAIN_BATCH)
+    check([(e, m) for e, m, _ in epochs] == [(0, True), (1, False)],
+          f"YOLO.train: epochs and mosaic {[(e, m) for e, m, _ in epochs]}, expected mosaic in "
+          "epoch 1 only (close_mosaic=1)")
+    check(len(steps) == 2 * nb and all(np.isfinite(it).all() for _, _, it in steps),
+          f"YOLO.train: {len(steps)} steps, loss items {[it.tolist() for _, _, it in steps]}")
+    check(len(val) == 2 and all(n == val_batches * LAUNCHES_PER_FORWARD for _, n in val)
+          and train_launches == 2 * (nb + val_batches) * LAUNCHES_PER_FORWARD,
+          f"YOLO.train: {train_launches} kernel launches ({[n for _, n in val]} in the validations)")
+    check("fitness" in metrics and all(np.isfinite(list(metrics.values()))),
+          f"YOLO.train: metrics {metrics}")
+    # the host's wait for each batch: from the epoch's start or the last step's end
+    starts = [t for _, _, t in epochs]
+    waits = []
+    for j, (t, dt, _) in enumerate(steps):
+        prev = starts[j // nb] if j % nb == 0 else steps[j - 1][0] + steps[j - 1][1]
+        waits.append((t - prev) * 1e3)
+    train_set = yolo.trainer.train_set
+    loader = {"loader_ms_per_batch_mosaic": _loader_ms(train_set, True, seed),
+              "loader_ms_per_batch_letterbox": _loader_ms(train_set, False, seed)}
+    print(json.dumps({
+        "yolo_train_disk": metrics, "dataset_write_s": write_s, "train_s": t_end - starts[0],
+        "epoch_s": [starts[1] - starts[0], t_end - starts[1]],
+        "val_s": [t for t, _ in val], "mosaic_by_epoch": [m for _, m, _ in epochs],
+        "step_ms": [dt * 1e3 for _, dt, _ in steps],
+        "step_ms_median": statistics.median(dt * 1e3 for _, dt, _ in steps),
+        "wait_for_batch_ms": waits, **loader, "kernel_launches": train_launches,
+        "loss_items": [it.tolist() for _, _, it in steps], "card": card}))
+
+    # rect validation of the trained model
+    kw = dict(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, rect=True, project="runs",
+              name="chip_smoke_rect", exist_ok=True)
+    yolo.val(**kw)  # warm-up: BN folding, cuDNN's plans for the two shapes
+    shapes, lengths = [], []
+    flash_area_attention.launches = 0
+    with _recorded_dets(JDEValidator, shapes) as seen, _chunk_lengths(lengths):
+        vmetrics = yolo.val(**kw)
+    val_launches = flash_area_attention.launches
+    check(shapes == RECT_SHAPES, f"YOLO.val rect: batch shapes {shapes}, expected {RECT_SHAPES}")
+    check(val_launches == len(RECT_SHAPES) * LAUNCHES_PER_FORWARD and set(lengths) == {RECT_NA},
+          f"YOLO.val rect: {val_launches} kernel launches at chunk lengths {sorted(set(lengths))}")
+    dets = np.concatenate(seen)
+    check(dets.shape == (len(DATA_VAL), 300, 6 + 256 + 6) and np.isfinite(dets).all(),
+          f"YOLO.val rect: detections of shape {dets.shape}")
+    for key in ("metrics/mAP50(B)", "metrics/mAP50-95(B)", "metrics/mAP50(S)", "fitness"):
+        check(key in vmetrics and np.isfinite(vmetrics[key]), f"YOLO.val rect: {key} in {vmetrics}")
+    ms_per_image = [vmetrics["speed/ms_per_image"]] + \
+        [yolo.val(**kw)["speed/ms_per_image"] for _ in range(2)]
+    info = check_det_dataset(data)
+    ds = YOLODataset(info["val"], imgsz=TRAIN_IMGSZ, hyp=get_cfg(), use_tags=True, task="jde")
+    ds.init_rect(TRAIN_BATCH)
+    xs = [JDEValidator.preprocess(b["img"], yolo.device)
+          for b in build.DataLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=False, pad_last=True)]
+    ab = _val_ab(yolo, kw, xs, "YOLO.val rect")
+    print(json.dumps({"yolo_val_rect": vmetrics, "batch_shapes": shapes,
+                      "chunk_lengths": sorted(set(lengths)), "kernel_launches": val_launches,
+                      "ms_per_image": statistics.median(ms_per_image),
+                      "ms_per_image_runs": ms_per_image, **_val_split(yolo, dataset=ds),
+                      **_load_parts(ds), **ab, "card": card}))
+    shutil.rmtree(root, ignore_errors=True)
+    return train_launches, val_launches
 
 
 def main() -> int:
@@ -914,6 +1192,8 @@ def main() -> int:
                                throughput_batches=(1,))
     step_launches, train_launches, _, yolo = phase_train(card)
     seeded_val_launches, val_launches = phase_val(yolo, card)
+    del yolo
+    disk_train_launches, rect_val_launches = phase_data(card)
 
     # the main path's kernel work: one train step's forward (640, batch 16, float32),
     # 4 calls at the P4 shape and 4 at P5
@@ -939,7 +1219,11 @@ def main() -> int:
                              f"YOLO.val yolov13n-JDE@{TRAIN_IMGSZ} b{TRAIN_BATCH}, seeded":
                                  seeded_val_launches,
                              f"YOLO.val yolov13n-JDE@{TRAIN_IMGSZ} b{TRAIN_BATCH}, trained":
-                                 val_launches}}]}))
+                                 val_launches,
+                             f"YOLO.train on a disk dataset @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 "
+                             "epochs (8 steps + 2 validations)": disk_train_launches,
+                             f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
+                                 rect_val_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

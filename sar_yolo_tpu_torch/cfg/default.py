@@ -14,7 +14,7 @@ from types import SimpleNamespace
 
 DEFAULT_CFG = {
     "model": None,            # model config name, e.g. 'yolov13n-JDE.yaml'
-    "data": None,             # 'synthetic' (the only dataset of this port so far)
+    "data": None,             # a dataset YAML file or dict, or 'synthetic'
     "epochs": 100,
     "patience": 100,          # epochs without fitness improvement before stopping
     "batch": 16,
@@ -27,9 +27,14 @@ DEFAULT_CFG = {
     "verbose": True,          # the per-class table after validation
     "seed": 0,
     "single_cls": False,
+    "rect": False,            # val: rectangular batches, sorted by aspect ratio
     "cos_lr": False,
+    "close_mosaic": 10,       # mosaic off for the last N epochs
+    "fraction": 1.0,          # the share of the train images used
+    "cache": False,           # decoded images: True/'ram' in memory, 'disk' as .npy sidecars
     "max_labels": 128,        # static per-image label padding
     "val": True,              # validate the EMA weights after every epoch
+    "split": "val",           # the dataset split YOLO.val reads
     "save_json": False,       # COCO-style predictions.json and its numpy COCOeval
     "conf": None,             # detection threshold; None means 0.001 at val
     "iou": 0.7,               # NMS IoU threshold
@@ -52,12 +57,26 @@ DEFAULT_CFG = {
     "use_state_cb": True,
     "state_cb_beta": 0.999,
     "nbs": 64,                # nominal batch size for accumulation and weight decay
+    "hsv_h": 0.015,           # host augmentation gains and probabilities
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "translate": 0.1,
+    "scale": 0.5,
+    "shear": 0.0,
+    "perspective": 0.0,       # > 0 raises: warpPerspective is not part of this port yet
+    "flipud": 0.0,
+    "fliplr": 0.5,
+    "mosaic": 1.0,
+    "mosaic9": 0.0,           # > 0 raises: the 9-image mosaic is not part of this port yet
+    "mixup": 0.0,
+    "copy_paste": 0.1,
+    "device_augment": "auto", # the JAX package's fused device augmentation: refused when chosen
 }
 
 # keys of the JAX package whose feature this port does not have yet
 NOT_PORTED = {
     "plots": "plots",
-    "rect": "rectangular val batches (they need YOLODataset's shapes)",
     "augment": "test-time augmentation",
     "mesh_shape": "mesh sharding",
 }

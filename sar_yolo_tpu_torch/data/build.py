@@ -39,7 +39,10 @@ class DataLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int):
+        """The epoch of the shuffle, and of the dataset's per-sample augmentation draws."""
         self.epoch = epoch
+        if hasattr(self.dataset, "epoch"):
+            self.dataset.epoch = epoch
 
     def batch_indices(self) -> list[np.ndarray]:
         """The sample indices of each batch of the current epoch, before padding."""

@@ -1,9 +1,20 @@
-"""Procedural detection data (port of the detect/JDE branches of
-`sar_yolo_tpu/data/dataset.py::SyntheticDataset`)."""
+"""Detection and JDE datasets: YOLO-format folders on disk and procedural data (port of
+the detect/JDE branches of `sar_yolo_tpu/data/dataset.py`: `check_det_dataset`,
+`YOLODataset`, `SyntheticDataset`)."""
 
 from __future__ import annotations
 
+import hashlib
+from pathlib import Path
+
 import numpy as np
+
+from sar_yolo_tpu_torch.data import cv
+from sar_yolo_tpu_torch.data.augment import (augment_hsv, copy_paste, letterbox, mixup, mosaic4,
+                                             random_flip, random_perspective)
+from sar_yolo_tpu_torch.data.imageio import image_shape, imread
+from sar_yolo_tpu_torch.utils import LOGGER
+from sar_yolo_tpu_torch.utils.dataset_yaml import load_yaml
 
 _COLORS = [(220, 40, 40), (40, 220, 40), (40, 40, 220), (220, 220, 40), (220, 40, 220)]
 
@@ -49,5 +60,342 @@ class SyntheticDataset:
             cls[j], mask[j], tags[j] = c, 1.0, tag
         out = {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
         if self.task == "jde":
+            out["tags"] = tags
+        return out
+
+
+IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
+
+
+def img2label_paths(img_paths) -> list[str]:
+    """images/xxx.jpg -> labels/xxx.txt (the last `images` part of each path)."""
+    out = []
+    for p in img_paths:
+        parts = list(Path(p).parts)
+        for i in range(len(parts) - 1, -1, -1):
+            if parts[i] == "images":
+                parts[i] = "labels"
+                break
+        out.append(str(Path(*parts).with_suffix(".txt")))
+    return out
+
+
+def check_det_dataset(data) -> dict:
+    """A dataset dict or YAML file -> {path, train, val, [test], names, nc, ...} with the
+    splits as absolute paths (a YAML's relative `path` is taken from its folder)."""
+    d = load_yaml(data) if isinstance(data, (str, Path)) else dict(data)
+    root = Path(d.get("path", Path(data).parent if isinstance(data, (str, Path)) else "."))
+    if not root.is_absolute() and isinstance(data, (str, Path)):
+        root = (Path(data).parent / root).resolve()
+
+    def _resolve(v):
+        p = Path(v)
+        return str(p if p.is_absolute() else root / p)
+
+    for split in ("train", "val", "test"):
+        if d.get(split):
+            d[split] = [_resolve(v) for v in d[split]] \
+                if isinstance(d[split], (list, tuple)) else _resolve(d[split])
+    names = d.get("names", {})
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    d["names"] = names
+    d["nc"] = d.get("nc", len(names))
+    return d
+
+
+class YOLODataset:
+    """Detection and JDE samples from an image folder (or list file) with YOLO txt labels
+    (port of the detect/JDE branches of `sar_yolo_tpu/data/dataset.py::YOLODataset`).
+
+    Each label row: `class cx cy w h [person_id]`, normalized; the 6th column becomes
+    `tags` under JDE. Labels and image shapes are verified once and kept in
+    `labels/<split>.cache.npz` under the JAX package's name, hash and layout, so either
+    package reads a cache the other wrote. Images that cannot be read or are under
+    10 px are dropped, as are unreadable label files.
+
+    augment=True is the training path under `hyp`: with mosaic on, mosaic4 ->
+    copy-paste -> affine; otherwise (and after close_mosaic) letterbox -> copy-paste ->
+    affine; then HSV and flips. Each sample's draws come from
+    `default_rng((hyp.seed, epoch, index))`. augment=False letterboxes to imgsz, or to
+    the batch shapes of `init_rect`, and adds `ratio_pad`, `ori_shape` and `im_file`.
+    Items are padded to `max_labels` rows, images uint8 HWC RGB.
+    """
+
+    def __init__(self, img_path, imgsz=640, augment=False, hyp=None, use_tags=False,
+                 max_labels=128, single_cls=False, fraction=1.0, task="detect",
+                 kpt_shape=(17, 3), cache=False):
+        if task not in ("detect", "jde"):
+            raise NotImplementedError(f"YOLODataset: task '{task}' is not part of this port yet")
+        if augment and hyp is not None:
+            for key in ("mosaic9", "perspective"):
+                if float(getattr(hyp, key, 0) or 0) > 0:
+                    raise NotImplementedError(f"{key} > 0 is not part of this port yet")
+        self.imgsz = imgsz
+        self.augment = augment
+        self.hyp = hyp
+        self.use_tags = use_tags or task == "jde"
+        self.max_labels = max_labels
+        self.single_cls = single_cls
+        self.task = task
+        self.kpt_shape = tuple(kpt_shape)
+        self.mosaic_enabled = bool(augment and hyp is not None and getattr(hyp, "mosaic", 0) > 0)
+        self.im_files = self._scan_images(img_path)
+        if fraction < 1.0:
+            self.im_files = self.im_files[: max(1, int(len(self.im_files) * fraction))]
+        self.label_files = img2label_paths(self.im_files)
+        self.shapes = None  # (n, 2) h, w per image, from the verify cache
+        self._load_or_build_cache()
+        self.seed = int(getattr(hyp, "seed", 0) or 0) if hyp is not None else 0
+        self.epoch = 0  # set by DataLoader.set_epoch; keys the per-sample draws
+        # 'ram' / True keeps decoded images in memory; 'disk' reads and writes .npy sidecars
+        self.cache = bool(cache) and str(cache).lower() != "disk"
+        self.cache_disk = str(cache).lower() == "disk"
+        self._im_cache: dict[int, np.ndarray] = {}
+        self.rect = False
+        self.batch_shapes = None
+        self.batch_index = None
+
+    # ---- label cache + verification -------------------------------------
+    def _cache_path(self) -> Path:
+        lp = Path(self.label_files[0]).parent if self.label_files else Path(".")
+        return lp.with_suffix(".cache.npz")
+
+    def _cache_hash(self) -> str:
+        h = hashlib.sha1()
+        h.update(f"{self.task}|{self.kpt_shape}|{len(self.im_files)}".encode())
+        for im, lf in zip(self.im_files, self.label_files):
+            st = Path(lf).stat() if Path(lf).is_file() else None
+            h.update(f"{im}|{lf}|{st.st_mtime_ns if st else 0}|{st.st_size if st else 0}".encode())
+        return h.hexdigest()
+
+    def _load_or_build_cache(self):
+        """Parse and verify the labels once; kept in labels/<split>.cache.npz."""
+        cache_file = self._cache_path()
+        want = self._cache_hash()
+        if cache_file.is_file():
+            try:
+                z = np.load(cache_file, allow_pickle=True)
+                if str(z["hash"]) == want:
+                    self.im_files = list(z["im_files"])
+                    self.label_files = list(z["label_files"])
+                    self.labels = list(z["labels"])
+                    self.shapes = z["shapes"]
+                    return
+            except Exception:  # noqa: BLE001 — a stale or unreadable cache is rebuilt
+                pass
+        keep_im, keep_lf, labels, shapes, dropped = [], [], [], [], 0
+        for im, lf in zip(self.im_files, self.label_files):
+            shape = image_shape(im)
+            if shape is None or min(shape) < 10:
+                dropped += 1
+                continue
+            try:
+                lb = self._load_label(lf)
+            except Exception as e:  # noqa: BLE001
+                LOGGER.warning(f"corrupt label {lf}: {e}")
+                dropped += 1
+                continue
+            keep_im.append(im)
+            keep_lf.append(lf)
+            labels.append(lb)
+            shapes.append(shape)
+        if dropped:
+            LOGGER.warning(f"dropped {dropped} corrupt images/labels from {len(self.im_files)}")
+        if not keep_im:
+            raise FileNotFoundError("all images failed verification")
+        self.im_files, self.label_files, self.labels = keep_im, keep_lf, labels
+        self.shapes = np.array(shapes, np.int64)
+        try:
+            np.savez_compressed(
+                cache_file, hash=want, im_files=np.array(self.im_files, object),
+                label_files=np.array(self.label_files, object),
+                labels=np.array(self.labels, object), shapes=self.shapes)
+        except OSError:
+            pass  # a read-only dataset folder: verified, not kept
+
+    # ---- rect batching ---------------------------------------------------
+    def init_rect(self, batch_size: int, stride: int = 32, pad: float = 0.5, quant: int = 64):
+        """Rectangular eval batches: images sorted by aspect ratio, each batch the
+        tightest stride multiple (plus half a stride) that covers its images, the short
+        side rounded up to a multiple of `quant`."""
+        n = len(self.im_files)
+        ar = self.shapes[:, 0] / self.shapes[:, 1]  # h/w
+        order = np.argsort(ar)
+        self.im_files = [self.im_files[i] for i in order]
+        self.label_files = [self.label_files[i] for i in order]
+        self.labels = [self.labels[i] for i in order]
+        self.shapes = self.shapes[order]
+        ar = ar[order]
+        nb = (n + batch_size - 1) // batch_size
+        self.batch_index = np.floor(np.arange(n) / batch_size).astype(int)
+        shapes = []
+        for b in range(nb):
+            arb = ar[self.batch_index == b]
+            mini, maxi = float(arb.min()), float(arb.max())
+            sh = [1.0, 1.0]
+            if maxi < 1:
+                sh = [maxi, 1.0]
+            elif mini > 1:
+                sh = [1.0, 1.0 / mini]
+            hq = int(np.ceil(sh[0] * self.imgsz / stride + pad) * stride)
+            wq = int(np.ceil(sh[1] * self.imgsz / stride + pad) * stride)
+            if hq < wq:
+                hq = min(int(np.ceil(hq / quant) * quant), wq)
+            elif wq < hq:
+                wq = min(int(np.ceil(wq / quant) * quant), hq)
+            shapes.append((min(hq, self.imgsz + stride), min(wq, self.imgsz + stride)))
+        self.batch_shapes = shapes
+        self.rect = True
+        LOGGER.info(f"rect val: {nb} batches over {len(set(shapes))} distinct shapes "
+                    f"{sorted(set(shapes))}")
+
+    @staticmethod
+    def _scan_images(img_path) -> list[str]:
+        files = []
+        for p in ([img_path] if isinstance(img_path, (str, Path)) else img_path):
+            p = Path(p)
+            if p.is_dir():
+                files += sorted(str(f) for f in p.rglob("*") if f.suffix[1:].lower() in IMG_FORMATS)
+            elif p.is_file() and p.suffix == ".txt":
+                base = p.parent
+                for line in p.read_text().splitlines():
+                    line = line.strip()
+                    if line:
+                        q = Path(line)
+                        files.append(str(q if q.is_absolute() else base / q))
+            elif p.is_file():
+                files.append(str(p))
+        if not files:
+            raise FileNotFoundError(f"No images found in {img_path}")
+        return files
+
+    def _load_label(self, lf) -> dict:
+        """One label file -> {cls, bboxes (normalized xywh), tags}."""
+        lines = []
+        if Path(lf).is_file():
+            lines = [ln.split() for ln in Path(lf).read_text().splitlines() if ln.strip()]
+        cls, boxes, tags = [], [], []
+        for parts in lines:
+            vals = [float(x) for x in parts]
+            if len(vals) >= 5:
+                cls.append(vals[0])
+                boxes.append(vals[1:5])
+                tags.append(vals[5] if len(vals) > 5 else 0.0)
+        n = len(cls)
+        return {"cls": np.zeros(n, np.float32) if self.single_cls else np.array(cls, np.float32),
+                "bboxes": np.array(boxes, np.float32).reshape(n, 4),
+                "tags": np.array(tags, np.float32)}
+
+    def __len__(self):
+        return len(self.im_files)
+
+    def _load_item(self, i) -> dict:
+        """Image i resized so that its long side is imgsz, labels in pixel xyxy."""
+        img = self._im_cache.get(i) if self.cache else None
+        if img is None and self.cache_disk:
+            npy = Path(self.im_files[i]).with_suffix(".npy")
+            if npy.is_file():
+                img = np.load(npy)
+        if img is None:
+            img = imread(self.im_files[i])
+            if img is None:
+                raise FileNotFoundError(self.im_files[i])
+            if self.cache:
+                self._im_cache[i] = img
+            elif self.cache_disk:
+                try:
+                    np.save(Path(self.im_files[i]).with_suffix(".npy"), img)
+                except OSError:
+                    pass  # a read-only dataset folder
+        img = img.copy() if self.cache else img
+        h0, w0 = img.shape[:2]
+        r = self.imgsz / max(h0, w0)
+        if r != 1:
+            img = cv.resize(img, (round(w0 * r), round(h0 * r)))
+        h, w = img.shape[:2]
+        lb = self.labels[i]
+        boxes = lb["bboxes"].copy()
+        if len(boxes):
+            cx, cy, bw, bh = boxes[:, 0] * w, boxes[:, 1] * h, boxes[:, 2] * w, boxes[:, 3] * h
+            boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
+        item = {"img": img, "cls": lb["cls"].copy(), "bboxes": boxes.astype(np.float32),
+                "ori_shape": np.array([h0, w0], np.float32), "r0": float(r),
+                "im_file": self.im_files[i]}
+        if self.use_tags:
+            item["tags"] = lb["tags"].copy()
+        return item
+
+    def _item_rng(self, i):
+        """Per-sample draws keyed by (seed, epoch, index): the same whatever the worker
+        count or order."""
+        return np.random.default_rng((self.seed, self.epoch, i))
+
+    def __getitem__(self, i):
+        hyp = self.hyp
+        rng = self._item_rng(i)
+        if self.augment and self.mosaic_enabled and rng.random() < getattr(hyp, "mosaic", 1.0):
+            def one_mosaic():
+                idxs = [i] + list(rng.integers(0, len(self), 3))
+                it = mosaic4([self._load_item(j) for j in idxs], self.imgsz, rng=rng)
+                border = it.pop("mosaic_border")
+                if getattr(hyp, "copy_paste", 0):
+                    it = copy_paste(it, p=hyp.copy_paste, rng=rng)
+                return random_perspective(it, degrees=hyp.degrees, translate=hyp.translate,
+                                          scale=hyp.scale, shear=hyp.shear,
+                                          perspective=hyp.perspective, border=border, rng=rng)
+            item = one_mosaic()
+            if getattr(hyp, "mixup", 0) and rng.random() < hyp.mixup:
+                item = mixup(item, one_mosaic(), rng=rng)
+        else:
+            item = self._load_item(i)
+            shape = self.batch_shapes[self.batch_index[i]] if self.rect else self.imgsz
+            img, r, (padx, pady) = letterbox(item["img"], shape, scaleup=self.augment)
+            if not self.augment:  # the native-pixel mapping of val predictions
+                item["ratio_pad"] = np.array([item["r0"] * r, padx, pady], np.float32)
+            if len(item["bboxes"]):
+                item["bboxes"] = item["bboxes"] * r
+                item["bboxes"][:, [0, 2]] += padx
+                item["bboxes"][:, [1, 3]] += pady
+            item["img"] = img
+            if self.augment:
+                if getattr(hyp, "copy_paste", 0):
+                    item = copy_paste(item, p=hyp.copy_paste, rng=rng)
+                item = random_perspective(item, degrees=hyp.degrees, translate=hyp.translate,
+                                          scale=hyp.scale, shear=hyp.shear,
+                                          perspective=hyp.perspective, rng=rng)
+        if self.augment:
+            item["img"] = augment_hsv(item["img"], hyp.hsv_h, hyp.hsv_s, hyp.hsv_v, rng=rng)
+            item = random_flip(item, fliplr=hyp.fliplr, flipud=hyp.flipud, rng=rng)
+        return self._format(item)
+
+    def _format(self, item) -> dict:
+        """Training arrays: img uint8 HWC RGB, labels padded to max_labels (normalized xywh)."""
+        img = item["img"]
+        h, w = img.shape[:2]
+        img = np.ascontiguousarray(img[..., ::-1])  # BGR -> RGB
+        M = self.max_labels
+        n = min(len(item["bboxes"]), M)
+        cls = np.zeros(M, np.float32)
+        boxes = np.zeros((M, 4), np.float32)
+        mask = np.zeros(M, np.float32)
+        tags = np.zeros(M, np.float32)
+        if n:
+            b = item["bboxes"][:n]
+            cx = (b[:, 0] + b[:, 2]) / 2 / w
+            cy = (b[:, 1] + b[:, 3]) / 2 / h
+            bw = (b[:, 2] - b[:, 0]) / w
+            bh = (b[:, 3] - b[:, 1]) / h
+            boxes[:n] = np.stack([cx, cy, bw, bh], 1)
+            cls[:n] = item["cls"][:n]
+            mask[:n] = 1.0
+            if self.use_tags:
+                tags[:n] = item["tags"][:n]
+        out = {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
+        if "ratio_pad" in item:  # val path: native-space mapping metadata
+            out["ratio_pad"] = item["ratio_pad"]
+            out["ori_shape"] = item["ori_shape"]
+            out["im_file"] = item["im_file"]
+        if self.use_tags:
             out["tags"] = tags
         return out

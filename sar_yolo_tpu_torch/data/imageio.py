@@ -1,0 +1,244 @@
+"""Image files without an image library (port of the `_image_shape` and `cv2.imread`
+uses of `sar_yolo_tpu/data/dataset.py`): the training machine has neither OpenCV
+nor PIL.
+
+* `image_shape`: (h, w) from the header of a PNG (IHDR, every chunk's CRC checked
+  through IEND, as PIL's `verify` does), JPEG (the SOFn frame header) or BMP file;
+  None where PIL could not open and verify the file, which the dataset drops.
+* `imread`: the pixels of a PNG file as `cv2.imread` returns them, BGR uint8: gray,
+  gray + alpha, palette, RGB and RGBA, 1 to 16 bits (16-bit samples keep their high
+  byte, alpha is dropped); None where the file is corrupt.
+* Every other format (JPEG and BMP pixels, TIFF, WebP, GIF, PFM, interlaced PNG)
+  raises NotImplementedError: it is not decoded here, and not dropped either. JPEG
+  datasets run through the `.npy` sidecars of `cache="disk"`.
+
+The row filters are undone by `csrc/png_unfilter.c`, built with the system C
+compiler at first use into `sar_yolo_tpu_torch/build/` (cached under a hash of the
+source and flags) and called through ctypes, which releases the GIL.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import struct
+import subprocess
+import threading
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "png_unfilter.c"
+BUILD_DIR = _PKG / "build"
+_CFLAGS = ["-O3", "-std=c99", "-shared", "-fPIC"]
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# (bit depth, colour type) pairs a PNG may have; colour type -> samples per pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _kind(head: bytes) -> str | None:
+    """The format named by a file's first bytes; None for bytes of no image format."""
+    if head.startswith(_PNG_SIGNATURE):
+        return "PNG"
+    if head.startswith(b"\xff\xd8"):
+        return "JPEG"
+    if head.startswith(b"BM"):
+        return "BMP"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    if head[:4] == b"GIF8":
+        return "GIF"
+    if head[:2] in (b"PF", b"Pf"):
+        return "PFM"
+    return None
+
+
+def _png_chunks(data: bytes):
+    """(type, body) of each chunk before IEND; ValueError where the file is truncated
+    or a CRC does not match."""
+    pos = len(_PNG_SIGNATURE)
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("truncated PNG")
+        n, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        if ctype == b"IEND":
+            return
+        end = pos + 12 + n
+        if end > len(data):
+            raise ValueError("truncated PNG")
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(ctype + body) != struct.unpack(">I", data[end - 4:end])[0]:
+            raise ValueError(f"CRC error in the {ctype!r} chunk")
+        yield ctype, body
+        pos = end
+
+
+def _png_header(chunks: list) -> tuple:
+    """(width, height, bit depth, colour type, interlace) of a valid IHDR."""
+    if not chunks or chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
+        raise ValueError("no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", chunks[0][1])
+    if depth not in _PNG_DEPTHS.get(ctype, ()) or w == 0 or h == 0:
+        raise ValueError(f"bit depth {depth}, colour type {ctype}")
+    return w, h, depth, ctype, interlace
+
+
+def _jpeg_shape(data: bytes) -> tuple[int, int] | None:
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            return None
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:  # no length field
+            pos += 2
+            continue
+        if marker in (0xD9, 0xDA):  # end of image or start of scan before a frame header
+            return None
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            if pos + 9 > len(data):
+                return None
+            h, w = struct.unpack(">HH", data[pos + 5:pos + 9])
+            return h, w
+        pos += 2 + n
+    return None
+
+
+def _bmp_shape(data: bytes) -> tuple[int, int] | None:
+    if len(data) < 26:
+        return None
+    header = struct.unpack("<I", data[14:18])[0]
+    if header == 12:
+        w, h = struct.unpack("<HH", data[18:22])
+    elif header >= 40:
+        w, h = struct.unpack("<ii", data[18:26])
+    else:
+        return None
+    return abs(h), w
+
+
+def image_shape(path) -> tuple[int, int] | None:
+    """(h, w) of an image file from its header; None where the file is no readable
+    image. A format whose header is not read here raises NotImplementedError."""
+    data = Path(path).read_bytes()
+    kind = _kind(data[:16])
+    if kind is None:
+        return None
+    if kind == "PNG":
+        try:
+            w, h = _png_header(list(_png_chunks(data)))[:2]
+        except ValueError:
+            return None
+        return h, w
+    if kind == "JPEG":
+        return _jpeg_shape(data)
+    if kind == "BMP":
+        return _bmp_shape(data)
+    raise NotImplementedError(f"{path}: reading {kind} files is not part of this port yet")
+
+
+_lock = threading.Lock()
+_library = None
+
+
+def build() -> Path:
+    """Compile `csrc/png_unfilter.c` if its library is not built yet; returns its path."""
+    key = hashlib.sha256(" ".join(_CFLAGS).encode() + b"\0" + SOURCE.read_bytes())
+    lib = BUILD_DIR / f"libpng_unfilter_{key.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        raise RuntimeError(f"no C compiler (cc or gcc) to build {SOURCE}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([cc, *_CFLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cc} failed ({proc.returncode}) for {SOURCE}:\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _unfilter(raw: bytes, rows: int, row_bytes: int, bpp: int) -> np.ndarray:
+    global _library
+    with _lock:
+        if _library is None:
+            handle = ctypes.CDLL(str(build()))
+            handle.png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+            handle.png_unfilter.restype = ctypes.c_int
+            _library = handle
+    if len(raw) < rows * (row_bytes + 1):
+        raise ValueError("truncated image data")
+    out = np.empty((rows, row_bytes), np.uint8)
+    if _library.png_unfilter(raw, out.ctypes.data, rows, row_bytes, bpp) != 0:
+        raise ValueError("unknown PNG row filter")
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The pixels of a PNG file's bytes, BGR uint8 (h, w, 3), as `cv2.imread` gives them;
+    ValueError where the file is corrupt."""
+    chunks = list(_png_chunks(data))
+    w, h, depth, ctype, interlace = _png_header(chunks)
+    types = {t for t, _ in chunks}
+    if interlace:
+        raise NotImplementedError("decoding interlaced (Adam7) PNG is not part of this port yet")
+    if b"eXIf" in types:  # OpenCV would turn the image by its orientation tag
+        raise NotImplementedError("PNG with an eXIf chunk: its orientation is not applied here")
+    try:
+        raw = zlib.decompress(b"".join(body for t, body in chunks if t == b"IDAT"))
+    except zlib.error as e:
+        raise ValueError(f"corrupt image data: {e}") from e
+    channels = _PNG_CHANNELS[ctype]
+    bits = depth * channels
+    rows = _unfilter(raw, h, (w * bits + 7) // 8, max(1, bits // 8))
+    if depth == 16:
+        px = rows.reshape(h, w, channels, 2)[..., 0]  # the high byte of each big-endian sample
+    elif depth == 8:
+        px = rows.reshape(h, w, channels)
+    else:  # 1, 2 or 4 bits: one sample a pixel
+        px = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+        px = (px * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+        if ctype == 0:  # gray scaled to 8 bits, as libpng expands it
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+        px = px[..., None]
+    if ctype == 3:
+        plte = next((body for t, body in chunks if t == b"PLTE"), None)
+        if plte is None or len(plte) % 3:
+            raise ValueError("palette image without a valid PLTE chunk")
+        palette = np.zeros((256, 3), np.uint8)
+        n = len(plte) // 3
+        palette[:n] = np.frombuffer(plte, np.uint8).reshape(n, 3)
+        rgb = palette[px[..., 0]]
+    elif ctype in (0, 4):
+        rgb = np.repeat(px[..., :1], 3, axis=2)
+    else:
+        rgb = px[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def imread(path) -> np.ndarray | None:
+    """`cv2.imread(path)` of a PNG file: BGR uint8 (h, w, 3), or None where the file is
+    no readable image. Other formats raise NotImplementedError."""
+    data = Path(path).read_bytes()
+    kind = _kind(data[:16])
+    if kind is None:
+        return None
+    if kind != "PNG":
+        raise NotImplementedError(f"{path}: decoding {kind} files is not part of this port yet; "
+                                  "a JPEG dataset trains from the .npy sidecars of cache='disk'")
+    try:
+        return decode_png(data)
+    except ValueError:
+        return None

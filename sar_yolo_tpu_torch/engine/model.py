@@ -10,7 +10,7 @@ from types import SimpleNamespace
 import torch
 
 from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
-from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
+from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.engine.predictor import JDEPredictor
 from sar_yolo_tpu_torch.engine.trainer import JDETrainer
 from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
@@ -30,8 +30,8 @@ class YOLO:
         >>> m = YOLO("yolov13n-JDE.yaml")           # on cuda; raises without CUDA
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6 + 256 + 6)
         >>> m = YOLO("tinyjde.yaml", device="cpu")
-        >>> m.train(data="synthetic", imgsz=64, batch=2, epochs=1)  # validates every epoch
-        >>> metrics = m.val(data="synthetic", imgsz=64, batch=6)  # the EMA weights, BN folded
+        >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
+        >>> metrics = m.val(data="path/to/SARD.yaml", rect=True)  # EMA weights, BN folded
     """
 
     def __init__(self, model: str = "yolov13n-JDE.yaml", device=None):
@@ -76,21 +76,26 @@ class YOLO:
 
     def val(self, **kwargs) -> dict:
         """Validate the BN-folded model on this model's device (keys of `cfg/default.py`);
-        returns the metrics dict. Only data='synthetic' (the default) is part of this port
-        yet: 16 images of SyntheticDataset(seed=0) with min(nc, 3) classes."""
+        returns the metrics dict. `data`: a dataset YAML file or dict (its `split`, else
+        val, else train), or 'synthetic' (the default): 16 images of
+        SyntheticDataset(seed=0) with min(nc, 3) classes."""
         validators = {"jde": JDEValidator, "detect": DetectionValidator}
         if self.task not in validators:
             raise NotImplementedError(f"this port validates {sorted(validators)} models, "
                                       f"not '{self.task}'")
         args = get_cfg({"model": self.cfg, **kwargs})
-        if args.data not in (None, "synthetic"):
-            raise NotImplementedError(f"data='{args.data}': only 'synthetic' is part of this "
-                                      "port yet")
         args.save_dir = str(get_save_dir(args, self.task))
         nc = self.meta["nc"]
-        data = {"nc": nc, "names": {i: f"c{i}" for i in range(nc)}}
-        dataset = SyntheticDataset(n=16, imgsz=args.imgsz, nc=min(nc, 3),
-                                   max_labels=args.max_labels, task=self.task)
+        if args.data in (None, "synthetic"):
+            data = {"nc": nc, "names": {i: f"c{i}" for i in range(nc)}}
+            dataset = SyntheticDataset(n=16, imgsz=args.imgsz, nc=min(nc, 3),
+                                       max_labels=args.max_labels, task=self.task)
+        else:
+            data = check_det_dataset(args.data)
+            split = data.get(args.split) or data.get("val") or data["train"]
+            dataset = YOLODataset(split, imgsz=args.imgsz, augment=False, hyp=args,
+                                  use_tags=self.task == "jde", max_labels=args.max_labels,
+                                  task=self.task, kpt_shape=tuple(data.get("kpt_shape", (17, 3))))
         self.metrics = validators[self.task]()(model=self._fused_for_serving(), meta=self.meta,
                                                dataset=dataset, args=args, data=data)
         return self.metrics

@@ -13,7 +13,8 @@ from sar_yolo_tpu_torch.ops.preprocess import letterbox_device
 
 
 class BasePredictor:
-    """Serves a (fused) model on its device; `args` holds imgsz, conf, iou, max_det, agnostic_nms."""
+    """Serves a (fused) model on its device; `args` holds imgsz, conf (None: 0.25), iou,
+    max_det, agnostic_nms."""
 
     def __init__(self, model, meta: dict, args, names=None):
         self.model = model
@@ -37,7 +38,8 @@ class BasePredictor:
         bank = None
         if emb_dim:
             preds, bank = preds
-        dets = non_max_suppression(preds, conf_thres=args.conf, iou_thres=args.iou,
+        conf = args.conf if args.conf is not None else 0.25
+        dets = non_max_suppression(preds, conf_thres=conf, iou_thres=args.iou,
                                    max_det=args.max_det, nc=nc, agnostic=args.agnostic_nms,
                                    extras_bank=bank)
         pad4 = torch.tensor([*pad, *pad], dtype=dets.dtype, device=dets.device)

@@ -1,5 +1,11 @@
-"""JDE training on one device (port of the synthetic-data path of
+"""JDE training on one device (port of the host-data path of
 `sar_yolo_tpu/engine/trainer.py`).
+
+Data: a YOLO-format dataset (a dataset YAML file or dict; 6-column JDE labels) with
+the host augmentation of `data/augment.py`, mosaic off for the last `close_mosaic`
+epochs; or the synthetic set. Hyperparameters under which the JAX package would
+augment on the device instead (`_device_augment_enabled`) raise: that path is not
+part of this port yet.
 
 The JAX package's optax chain, `MultiSteps(chain(clip_by_global_norm(10),
 multi_transform({decay, nodecay, bias})), every_k=accumulate)`, becomes a
@@ -28,7 +34,7 @@ import torch
 
 from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.build import DataLoader
-from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
+from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.engine.validator import JDEValidator
 from sar_yolo_tpu_torch.nn.modules.conv import set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
@@ -36,6 +42,9 @@ from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.loss import jde_loss
 
 CLIP_NORM = 10.0
+DEVICE_AUGMENT = ("under these hyperparameters the JAX package augments on the device "
+                  "(data/device_augment.py), which is not part of this port yet (ROADMAP "
+                  "Queue A item 3); pass device_augment=False for the host augmentation")
 LOSS_NAMES = ("box", "cls", "dfl", "emb", "state")
 
 
@@ -150,7 +159,7 @@ class JDETrainer:
     """Trains a JDE model on one device.
 
     Examples:
-        >>> tr = JDETrainer({"model": "tinyjde.yaml", "data": "synthetic", "imgsz": 64,
+        >>> tr = JDETrainer({"model": "tinyjde.yaml", "data": "path/to/SARD.yaml", "imgsz": 64,
         ...                  "batch": 2, "epochs": 1}, device="cpu")
         >>> metrics = tr.train()
     """
@@ -166,17 +175,40 @@ class JDETrainer:
         self.metrics, self.fitness, self.best_fitness = {}, None, -math.inf
 
     def get_dataset(self):
-        """(train set, val set, info) for args.data; only the synthetic sets are part of
-        this port yet."""
-        data = self.args.data
-        if data != "synthetic":
-            raise NotImplementedError(f"data='{data}': only 'synthetic' is part of this port yet")
-        nc, args = 3, self.args
-        train = SyntheticDataset(n=max(64, int(args.batch or 16)), imgsz=args.imgsz, nc=nc,
-                                 max_labels=args.max_labels, task="jde")
-        val = SyntheticDataset(n=16, imgsz=args.imgsz, nc=nc, max_labels=args.max_labels, seed=1,
-                               task="jde")
-        return train, val, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)}}
+        """(train set, val set, info) for args.data: a dataset YAML file or dict, or the
+        synthetic sets (None or 'synthetic')."""
+        data, args = self.args.data, self.args
+        device_path = self._device_augment_enabled()
+        if data is None or str(data).startswith("synthetic"):
+            if device_path and args.device_augment in (True, "True", "true", "on", 1):
+                raise NotImplementedError(DEVICE_AUGMENT)
+            nc = 3
+            train = SyntheticDataset(n=max(64, int(args.batch or 16)), imgsz=args.imgsz, nc=nc,
+                                     max_labels=args.max_labels, task="jde")
+            val = SyntheticDataset(n=16, imgsz=args.imgsz, nc=nc, max_labels=args.max_labels,
+                                   seed=1, task="jde")
+            return train, val, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)}}
+        if device_path:
+            raise NotImplementedError(DEVICE_AUGMENT)
+        info = check_det_dataset(data)
+        kw = dict(imgsz=args.imgsz, hyp=args, use_tags=True, max_labels=args.max_labels,
+                  single_cls=args.single_cls, task="jde",
+                  kpt_shape=tuple(info.get("kpt_shape", (17, 3))))
+        train = YOLODataset(info["train"], augment=True, fraction=args.fraction, cache=args.cache,
+                            **kw)
+        val = YOLODataset(info.get("val") or info["train"], augment=False, **kw)
+        return train, val, info
+
+    def _device_augment_enabled(self) -> bool:
+        """Whether the JAX package would augment on the device (its
+        `_device_augment_enabled`): unless device_augment is off, whenever the
+        hyperparameters are expressible there (no rotation, shear, perspective,
+        copy-paste or mosaic9; mosaic probability 0 or 1)."""
+        if self.args.device_augment in (False, "False", "false", "off", 0):
+            return False
+        g = lambda k: float(getattr(self.args, k) or 0)  # noqa: E731
+        return (g("degrees") == 0 and g("shear") == 0 and g("perspective") == 0
+                and g("copy_paste") == 0 and g("mosaic9") == 0 and g("mosaic") in (0.0, 1.0))
 
     def setup(self, state_dict: dict | None = None):
         """Data, model, optimizer and EMA. `state_dict` replaces the seeded initialization."""
@@ -252,6 +284,10 @@ class JDETrainer:
         t_start = time.time()
         for epoch in range(args.epochs):
             self.epoch = epoch
+            if args.close_mosaic and epoch >= max(args.epochs - args.close_mosaic, 0) \
+                    and getattr(self.train_set, "mosaic_enabled", False):
+                LOGGER.info("Closing dataloader mosaic")
+                self.train_set.mosaic_enabled = False
             self.train_loader.set_epoch(epoch)
             te, total, n = time.time(), None, 0
             for batch in self.train_loader:

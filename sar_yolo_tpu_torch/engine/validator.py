@@ -6,9 +6,14 @@ Per batch, the uint8 NHWC RGB images go to the device as NCHW / 255; the eval
 forward, the decode and NMS (multi-label for nc > 1, the JDE embeddings gathered
 after NMS) run there, and one (B, max_det, 6 + E + S) tensor comes back.
 
+With `rect`, the dataset's images are batched by aspect ratio (`init_rect`). With
+`save_json`, boxes go back to native image pixels through each image's `ratio_pad`,
+image ids are the file stems, and an 80-class model validated on a COCO dataset
+writes the COCO 91-index category ids.
+
 Not ported yet, each refused where asked for: mesh sharding, test-time
-augmentation, rectangular batches and plots (`cfg/default.py` NOT_PORTED), the
-NMS-free v10 head, and the pose, segment, classify, OBB and RT-DETR validators.
+augmentation and plots (`cfg/default.py` NOT_PORTED), the NMS-free v10 head, and
+the pose, segment, classify, OBB and RT-DETR validators.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from sar_yolo_tpu_torch.ops.nms import non_max_suppression
 from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.metrics import (DetMetrics, box_iou_np, davies_bouldin,
                                               match_predictions, silhouette_cosine)
+
+# COCO's 91-index category id of each of the 80 contiguous classes
+COCO80_TO_91 = [i for i in range(1, 91) if i not in {12, 26, 29, 30, 45, 66, 68, 69, 71, 83}]
 
 
 def _trim_batch(batch: dict, n: int) -> dict:
@@ -52,10 +60,15 @@ class BaseValidator:
         self.args, self.meta, self.data = args, meta, data or {}
         self.conf = args.conf if args.conf is not None else 0.001
         device = next(model.parameters()).device
-        loader = DataLoader(dataset, min(args.batch, len(dataset)), workers=args.workers,
-                            shuffle=False, drop_last=False, pad_last=True)
+        bs = min(args.batch, len(dataset))
+        if args.rect and getattr(dataset, "shapes", None) is not None:
+            dataset.init_rect(bs)
+        loader = DataLoader(dataset, bs, workers=args.workers, shuffle=False, drop_last=False,
+                            pad_last=True)
         self.init_metrics()
         self.jdict, self.gt_anns = [], []  # COCO-style prediction and GT rows (save_json)
+        is_coco = meta["nc"] == 80 and "coco" in Path(str(args.data or "")).stem.lower()
+        self._cat_id = (lambda c: COCO80_TO_91[int(c)]) if is_coco else int
         n_img = 0
         t0 = time.perf_counter()
         for batch in loader:
@@ -166,13 +179,13 @@ class BaseValidator:
                 return [round(x1, 3), round(y1, 3), round(x2 - x1, 3), round(y2 - y1, 3)]
 
             for row in d[d[:, 4] > 0]:
-                self.jdict.append({"image_id": image_id, "category_id": int(row[5]),
+                self.jdict.append({"image_id": image_id, "category_id": self._cat_id(row[5]),
                                    "bbox": to_native(*(float(v) for v in row[:4])),
                                    "score": round(float(row[4]), 5)})
             gmask = batch["mask"][bi] > 0
             gb = batch["bboxes"][bi][gmask] * scale  # xywh center, pixels
             for (cx, cy, bw, bh), c in zip(gb, batch["cls"][bi][gmask]):
-                self.gt_anns.append({"image_id": image_id, "category_id": int(c),
+                self.gt_anns.append({"image_id": image_id, "category_id": self._cat_id(c),
                                      "bbox": to_native(cx - bw / 2, cy - bh / 2,
                                                        cx + bw / 2, cy + bh / 2)})
 

@@ -1,9 +1,9 @@
 """The serving path of the PyTorch port against the JAX package.
 
 Letterbox, decode + NMS with an embedding bank, and `YOLO.predict_batched`
-end to end on ragged uint8 frames, all on identical numpy inputs and weights:
-the same kept rows and classes, boxes within 1e-3 px, embeddings within 1e-3
-and equal posture states. Also: the port imports nothing of JAX (an AST scan)
+end to end on ragged uint8 frames (and with conf=None, the 0.25 default), all on
+identical numpy inputs and weights: the same kept rows and classes, boxes within
+1e-3 px, embeddings within 1e-3 and equal posture states. Also: the port imports nothing of JAX (an AST scan)
 (nor scikit-learn, which the card lacks) and its entry points refuse to run on
 the CPU unless asked.
 """
@@ -116,6 +116,18 @@ def test_predict_batched_matches_jax(jde_pair):
         np.testing.assert_allclose(gr.boxes.data, wr.boxes.data, rtol=0, atol=BOX_ATOL)
         np.testing.assert_allclose(gr.embeds, wr.embeds, rtol=0, atol=1e-3)
         np.testing.assert_array_equal(gr.person_states, wr.person_states)
+
+
+def test_predict_batched_conf_none_serves_at_jax_default(jde_pair):
+    """conf=None serves at 0.25, as the JAX package's predictor does."""
+    jyolo, pyolo = jde_pair
+    frames = _frames(2, 72, 128, seed=3)
+    kw = dict(imgsz=96, iou=0.7, max_det=50)
+    got = pyolo.predict_batched(frames, conf=None, **kw)
+    np.testing.assert_array_equal(got, pyolo.predict_batched(frames, conf=0.25, **kw))
+    want = np.asarray(jyolo.predict_batched(frames, conf=None, **kw))
+    _assert_same_detections(got, want, 256)
+    assert (got[..., 4] >= 0.25).sum() == (got[..., 4] > 0).sum()
 
 
 def test_port_imports_no_jax():

@@ -15,7 +15,8 @@ the CSV rows and the xlsx read back by the JAX reader;
 (e) `YOLO.val` end to end on the same weights, tinyjde and yolov13n-JDE at 64 px:
 per-batch detections within 1e-4, metrics within 1e-6 (relative where a value exceeds
 1, as the Davies-Bouldin index may), the save_txt and save_json files (the same
-rows, numbers within that plus one unit of their last printed digit); then, on
+rows, numbers within that plus one unit of their last printed digit); the same at
+256 px with rect batches (192x288 and 288x192) on a dataset folder; then, on
 tinyjde, both validators on ground truth planted near the model's own
 detections, which is what reaches the match-conditional metrics end to end;
 (f) `YOLO.train`'s per-epoch validation (tinyjde, 2 epochs, nc 3, so
@@ -399,6 +400,77 @@ def test_validators_on_planted_ground_truth_match_jax(val_pair, tmp_path, monkey
     _assert_metrics_equal(got, want, 1e-6)
     assert 0.2 < got["metrics/mAP50-95(B)"] < got["metrics/mAP50(B)"]
     assert 0.5 < got["metrics/state_acc"] < 1 and 0 < got["metrics/mAP50(S)"] < 1
+
+
+def test_coco80_to_91_map_matches_jax():
+    from sar_yolo_tpu.data.converter import coco80_to_coco91_class
+    assert port_validator.COCO80_TO_91 == coco80_to_coco91_class()
+
+
+@pytest.fixture(scope="module")
+def rect_data(tmp_path_factory):
+    """A dataset YAML over 4 landscape (160x240) and 2 portrait (240x160) PNG images with
+    6-column labels: at imgsz 256 and batch 3, rect batches of 192x288 and 288x192."""
+    import cv2
+    root = tmp_path_factory.mktemp("rect_data")
+    rng = np.random.default_rng(3)
+    for d in ("images/val", "labels/val"):
+        (root / d).mkdir(parents=True)
+    for i, (h, w) in enumerate([(160, 240), (240, 160)] * 3):
+        img = cv2.resize(rng.integers(0, 256, (h // 16, w // 16, 3), np.uint8), (w, h),
+                         interpolation=cv2.INTER_CUBIC)
+        cv2.imwrite(str(root / "images" / "val" / f"{i:03d}.png"), img)
+        rows = [f"0 {rng.uniform(.2, .8):.6f} {rng.uniform(.2, .8):.6f} {rng.uniform(.1, .3):.6f} "
+                f"{rng.uniform(.1, .3):.6f} {rng.integers(0, 6)}" for _ in range(3)]
+        (root / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    (root / "data.yaml").write_text("path: .\ntrain: images/val\nval: images/val\nnc: 1\n"
+                                    "names:\n  0: person\n")
+    return root
+
+
+def test_rect_val_matches_jax(val_pair, rect_data, tmp_path, monkeypatch):
+    """`YOLO.val(rect=True, save_json=True)` at imgsz 256 on a dataset folder: the same
+    non-square batches (192x288, then 288x192), detections within 1e-4, metrics within
+    1e-6 and the same predictions.json rows, with file-stem ids and native-pixel boxes.
+
+    With these weights both models score hundreds of rows an image alike within 1e-5
+    (the scores hardly depend on the image), so which of two overlapping rows NMS keeps
+    is decided by float32 rounding at the default conf; both validate at a conf in the
+    widest gap among the port's 12 best scores instead."""
+    jyolo, pyolo = val_pair
+    kw = dict(data=str(rect_data / "data.yaml"), imgsz=256, batch=3, rect=True, name="rect",
+              exist_ok=True)
+    seen = {"jax": [], "port": []}
+    for label, module in (("jax", jax_validator), ("port", port_validator)):
+        def update_metrics(self, dets, batch, hw, orig=module.BaseValidator.update_metrics,
+                           out=seen[label]):
+            out.append((np.array(dets), tuple(int(v) for v in hw)))
+            return orig(self, dets, batch, hw)
+        monkeypatch.setattr(module.BaseValidator, "update_metrics", update_metrics)
+    pyolo.val(project=str(tmp_path / "probe"), **kw)
+    top = np.unique(np.concatenate([d[..., 4][d[..., 4] > 0] for d, _ in seen["port"]]))[::-1][:12]
+    j = int(np.argmax(top[:-1] - top[1:]))
+    kw.update(conf=float(top[j] + top[j + 1]) / 2, save_json=True)
+    seen["port"].clear()
+    want = jyolo.val(plots=False, project=str(tmp_path / "jax"), **kw)
+    got = pyolo.val(project=str(tmp_path / "port"), **kw)
+    assert [hw for _, hw in seen["port"]] == [hw for _, hw in seen["jax"]] == [(192, 288),
+                                                                              (288, 192)]
+    for (g, _), (w, _) in zip(seen["port"], seen["jax"]):
+        assert g.shape == w.shape and (g[..., 4] > 0).sum() > 0
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    _assert_metrics_equal(got, want, 1e-6)
+    got_json = json.loads((tmp_path / "port" / "jde" / "rect" / "predictions.json").read_text())
+    want_json = json.loads((tmp_path / "jax" / "jde" / "rect" / "predictions.json").read_text())
+    assert [(r["image_id"], r["category_id"]) for r in got_json] == \
+        [(r["image_id"], r["category_id"]) for r in want_json]
+    assert {r["image_id"] for r in got_json} <= set(range(6))  # the file stems
+    # native pixels: inside the 240x160 or 160x240 image
+    assert all(0 <= r["bbox"][0] and r["bbox"][0] + r["bbox"][2] <= 240 for r in got_json)
+    np.testing.assert_allclose([r["bbox"] for r in got_json], [r["bbox"] for r in want_json],
+                               rtol=0, atol=1e-4 + 1e-3)
+    np.testing.assert_allclose([r["score"] for r in got_json], [r["score"] for r in want_json],
+                               rtol=0, atol=1e-4 + 1e-5)
 
 
 # ---- (f) per-epoch validation in YOLO.train ---------------------------------------------------
