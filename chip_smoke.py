@@ -58,7 +58,19 @@ Phases, in order; any failure exits non-zero:
      per batch; then `YOLO.val(data=<dict>, rect=True)`: batches of 384x672 and
      672x384, 16 launches at Na = 252, the A/B against `use_flash=False` of phase 7,
      ms per image and its split with the loader's part (PNG decode, resize, letterbox).
-  9. a JSON line of the kernels, the card line, and the result line.
+  9. device augmentation and checkpoints, on phase 8's dataset (cuDNN deterministic):
+     `YOLO.train(copy_paste=0.0, epochs=2, close_mosaic=1, save_period=1)` takes the
+     device route (the loader yields uint8 letterbox tiles; mosaic on the card in epoch
+     1 only; 2 x (4 x 8 + 2 x 8) = 96 kernel launches); `device_train_augment` on the
+     card against the same function on the CPU with the same draws, on a mosaic and a
+     letterbox batch (classes, masks and tags equal, boxes within 1e-6, the image within
+     1e-3 of a grey level); the loader alone, the augmentation (CUDA events, median of
+     10), the steps, the epochs and the peak memory; weights/{last,best,epoch1,epoch2};
+     a second run resumed from epoch1 whose weights/last equals the first run's tensor
+     for tensor (parameters, BN statistics, EMA, cb_counts, optimizer, dropout stream;
+     48 launches); `YOLO(checkpoint)` serving phase 4's frames and validating rect
+     exactly as the object that trained.
+ 10. a JSON line of the kernels, the card line, and the result line.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
 
@@ -1062,7 +1074,7 @@ def _load_parts(dataset, n: int = 16) -> dict:
 def phase_data(card: str, seed: int = 0):
     """Train and validate yolov13n-JDE @640 on a YOLO-format dataset on disk (see the
     module docstring, phase 8). Returns the kernel launches of `YOLO.train` and of the
-    rect `YOLO.val`."""
+    rect `YOLO.val`, the loader's ms per batch and the dataset dict (phase 9 reuses it)."""
     import torch
 
     from sar_yolo_tpu_torch import YOLO
@@ -1086,10 +1098,10 @@ def phase_data(card: str, seed: int = 0):
         set_epoch(self, epoch)
         epochs.append((epoch, getattr(self.dataset, "mosaic_enabled", None), time.perf_counter()))
 
-    def recorded_step(self, batch):
+    def recorded_step(self, batch, i=0):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        total, items = train_step(self, batch)
+        total, items = train_step(self, batch, i)
         torch.cuda.synchronize()
         steps.append((t, time.perf_counter() - t, items.cpu().numpy()))
         return total, items
@@ -1166,8 +1178,176 @@ def phase_data(card: str, seed: int = 0):
                       "ms_per_image": statistics.median(ms_per_image),
                       "ms_per_image_runs": ms_per_image, **_val_split(yolo, dataset=ds),
                       **_load_parts(ds), **ab, "card": card}))
-    shutil.rmtree(root, ignore_errors=True)
-    return train_launches, val_launches
+    return train_launches, val_launches, loader, data
+
+
+def _augment_vs_cpu(tr, batch: dict, mosaic: bool, seed: int) -> dict:
+    """`device_train_augment` on the card against the CPU with the same draws (batch 0 of
+    epoch 0's), then its time on the card (CUDA events, median of 10 calls)."""
+    import torch
+
+    from sar_yolo_tpu_torch.data.device_augment import device_train_augment, draw_params
+    B, S = batch["img"].shape[:2]
+    params = draw_params(np.random.default_rng((seed, 0, 0)), B, S, tr.aug_hyp, mosaic,
+                         partner_span=B, M=batch["bboxes"].shape[1])
+
+    def run(device):
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        return lambda: device_train_augment(b, params.to(device), tr.aug_hyp, mosaic=mosaic,
+                                            partner_span=B)
+    on_card = run(tr.device)
+    got, want = on_card(), run("cpu")()
+    torch.cuda.synchronize()
+    got = {k: v.cpu() for k, v in got.items()}
+    label = "mosaic" if mosaic else "letterbox"
+    for k in ("cls", "mask", "tags"):
+        check(torch.equal(got[k], want[k]), f"device augmentation, {label} batch: {k} differs "
+              "between the card and the CPU")
+    # the boxes' division by S may run as a product with 1/S on the card (1 ulp apart)
+    box_err = (got["bboxes"] - want["bboxes"]).abs().max().item()
+    img_err = 255 * (got["img"] - want["img"]).abs().max().item()
+    check(box_err <= 1e-6 and img_err <= 1e-3, f"device augmentation, {label} batch: boxes "
+          f"{box_err} apart, image {img_err} grey levels apart (card vs CPU)")
+    return {f"{label}_labels_kept": int(got["mask"].sum()), f"{label}_box_err": box_err,
+            f"{label}_img_err_grey_levels": img_err,
+            f"{label}_augment_ms": event_ms(on_card, iters=1, reps=10)}
+
+
+def _diff_states(a, b, path: str = "") -> list:
+    """(distance, name) of every tensor, number or list entry that differs between two
+    checkpoint states."""
+    import torch
+    if isinstance(a, dict):
+        check(a.keys() == b.keys(), f"checkpoint keys at '{path}': {sorted(a)} vs {sorted(b)}")
+        return [d for k in a for d in _diff_states(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"checkpoint lengths at '{path}'")
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _diff_states(x, y, f"{path}/{i}")]
+    if isinstance(a, torch.Tensor):
+        if torch.equal(a, b):
+            return []
+        return [((a.double() - b.double()).abs().max().item(), path)]
+    return [] if a == b else [(float("inf"), path)]
+
+
+def phase_checkpoint(card: str, data: dict, host_loader: dict, seed: int = 0):
+    """Train on phase 8's dataset through the device augmentation, resume, and serve the
+    checkpoints (see the module docstring, phase 9). Returns its kernel launches by path."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.data import build
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    kw = dict(data=data, copy_paste=0.0, epochs=2, close_mosaic=1, imgsz=TRAIN_IMGSZ,
+              batch=TRAIN_BATCH, workers=8, seed=seed, project="runs", exist_ok=True)
+    epochs, steps = [], []
+    set_epoch, train_step = build.DataLoader.set_epoch, JDETrainer.train_step
+
+    def recorded_set_epoch(self, epoch):
+        set_epoch(self, epoch)
+        epochs.append(time.perf_counter())
+
+    def recorded_step(self, batch, i=0):
+        check(batch["img"].dtype == np.uint8 and batch["img"].shape == (TRAIN_BATCH, TRAIN_IMGSZ,
+                                                                        TRAIN_IMGSZ, 3)
+              and set(batch) == {"img", "cls", "bboxes", "mask", "tags"},
+              f"device route: the loader's batch {[(k, v.dtype, v.shape) for k, v in batch.items()]}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        total, items = train_step(self, batch, i)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t, self._mosaic_on, items.cpu().numpy()))
+        return total, items
+    build.DataLoader.set_epoch, JDETrainer.train_step = recorded_set_epoch, recorded_step
+    try:
+        yolo = YOLO("yolov13n-JDE.yaml")
+        torch.cuda.reset_peak_memory_stats()
+        flash_area_attention.launches = 0
+        metrics = yolo.train(name="chip_smoke_devaug", save_period=1, **kw)
+        t_end = time.perf_counter()
+        train_launches = flash_area_attention.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_first = len(steps)
+        resumed = YOLO("yolov13n-JDE.yaml")
+        wdir = Path(yolo.trainer.wdir)
+        flash_area_attention.launches = 0
+        resumed.train(name="chip_smoke_devaug_resumed", resume=str(wdir / "epoch1"), **kw)
+        resume_launches = flash_area_attention.launches
+    finally:
+        build.DataLoader.set_epoch, JDETrainer.train_step = set_epoch, train_step
+    tr = yolo.trainer
+    nb = DATA_TRAIN // TRAIN_BATCH
+    val_batches = -(-len(DATA_VAL) // TRAIN_BATCH)
+    check(tr.device_augment and [m for _, m, _ in steps[:n_first]] == [True] * nb + [False] * nb,
+          f"YOLO.train(copy_paste=0.0): device route {tr.device_augment}, mosaic by step "
+          f"{[m for _, m, _ in steps[:n_first]]}")
+    check(n_first == 2 * nb and all(np.isfinite(it).all() for _, _, it in steps)
+          and "fitness" in metrics and all(np.isfinite(list(metrics.values()))),
+          f"YOLO.train on the device route: {n_first} steps, metrics {metrics}")
+    check(train_launches == 2 * (nb + val_batches) * LAUNCHES_PER_FORWARD
+          and resume_launches == (nb + val_batches) * LAUNCHES_PER_FORWARD
+          and len(steps) == 3 * nb,
+          f"device route: {train_launches} and {resume_launches} (resumed) kernel launches, "
+          f"{len(steps)} steps")
+    names = sorted(p.name for p in wdir.iterdir())
+    check(names == ["best", "epoch1", "epoch2", "last"], f"checkpoints {names}")
+
+    # the resumed run against the uninterrupted one: their weights/last, tensor for tensor
+    full, full_meta = load_checkpoint(wdir / "last")
+    again, again_meta = load_checkpoint(Path(resumed.trainer.wdir) / "last")
+    diffs = sorted(_diff_states(again, full), reverse=True)
+    check(not diffs and full_meta["step"] == again_meta["step"] == 2 * nb,
+          f"resume: {len(diffs)} entries differ from the uninterrupted run, the largest "
+          f"{diffs[:5]}; steps {full_meta['step']}, {again_meta['step']}")
+
+    # the augmentation on the card against the CPU, and the loader alone in device mode
+    loader = build.DataLoader(tr.train_set, TRAIN_BATCH, workers=8, seed=seed)
+    batch = next(iter(loader))
+    aug = {**_augment_vs_cpu(tr, batch, True, seed), **_augment_vs_cpu(tr, batch, False, seed)}
+    device_loader_ms = _loader_ms(tr.train_set, False, seed)
+
+    # serving and validating the checkpoint: the best epoch's where it is the last, else
+    # weights/last, against the YOLO object that trained (it holds the last epoch's EMA)
+    best_epoch = json.loads((wdir / "best" / "run_meta.json").read_text())["epoch"]
+    ckpt = wdir / ("best" if best_epoch == 1 else "last")
+    served = YOLO(str(ckpt))
+    frames = np.random.default_rng(0).integers(0, 256, (8, 720, 1280, 3), np.uint8)[:MAIN_BATCH]
+    flash_area_attention.launches = 0
+    got = served.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-4)
+    serve_launches = flash_area_attention.launches
+    want = yolo.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-4)
+    check(got.shape == (MAIN_BATCH, 300, 6 + 256 + 6) and np.array_equal(got, want),
+          f"YOLO({ckpt.name}).predict_batched: {np.abs(got - want).max()} from the trained object's")
+    vkw = dict(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, rect=True, project="runs",
+               name="chip_smoke_devaug_val", exist_ok=True)
+    flash_area_attention.launches = 0
+    vgot = served.val(**vkw)
+    val_launches = flash_area_attention.launches
+    vwant = yolo.val(**vkw)
+    speed = {k for k in vwant if k.startswith("speed/")}
+    check(vgot.keys() == vwant.keys() and all(vgot[k] == vwant[k] for k in vwant if k not in speed),
+          f"YOLO({ckpt.name}).val rect: {vgot} vs the trained object's {vwant}")
+    best = YOLO(str(wdir / "best")).predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-4)
+    check(np.isfinite(best).all(), "YOLO(best).predict_batched: non-finite output")
+    starts = epochs[:2]
+    print(json.dumps({
+        "device_augment_train": metrics, "card": card, "peak_memory_gib": peak_gib,
+        "epoch_s": [starts[1] - starts[0], t_end - starts[1]],
+        "step_ms": [dt * 1e3 for dt, _, _ in steps[:n_first]],
+        "step_ms_median": statistics.median(dt * 1e3 for dt, _, _ in steps[:n_first]),
+        "loader_ms_per_batch_device_mode": device_loader_ms,
+        "loader_ms_per_batch_host_mosaic_phase8": host_loader["loader_ms_per_batch_mosaic"],
+        **aug, "resumed_equal": True, "best_epoch": best_epoch + 1, "served": ckpt.name,
+        "served_rows_kept": (got[..., 4] > 0).sum(1).tolist(), "kernel_launches": train_launches,
+        "resumed_kernel_launches": resume_launches, "loss_items": [it.tolist() for _, _, it in steps]}))
+    return {f"YOLO.train device route @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 epochs (8 steps + 2 "
+            "validations)": train_launches,
+            "YOLO.train resumed from epoch1 (4 steps + 1 validation)": resume_launches,
+            f"YOLO({ckpt.name}).predict_batched b{MAIN_BATCH}": serve_launches,
+            f"YOLO({ckpt.name}).val rect": val_launches}
 
 
 def main() -> int:
@@ -1193,7 +1373,9 @@ def main() -> int:
     step_launches, train_launches, _, yolo = phase_train(card)
     seeded_val_launches, val_launches = phase_val(yolo, card)
     del yolo
-    disk_train_launches, rect_val_launches = phase_data(card)
+    disk_train_launches, rect_val_launches, host_loader, data = phase_data(card)
+    ckpt_launches = phase_checkpoint(card, data, host_loader)
+    shutil.rmtree(data["path"], ignore_errors=True)
 
     # the main path's kernel work: one train step's forward (640, batch 16, float32),
     # 4 calls at the P4 shape and 4 at P5
@@ -1223,7 +1405,7 @@ def main() -> int:
                              f"YOLO.train on a disk dataset @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 "
                              "epochs (8 steps + 2 validations)": disk_train_launches,
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
-                                 rect_val_launches}}]}))
+                                 rect_val_launches, **ckpt_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,9 +16,12 @@ DEFAULT_CFG = {
     "model": None,            # model config name, e.g. 'yolov13n-JDE.yaml'
     "data": None,             # a dataset YAML file or dict, or 'synthetic'
     "epochs": 100,
+    "time": None,             # hours to train for: the epoch loop stops once over it
     "patience": 100,          # epochs without fitness improvement before stopping
     "batch": 16,
     "imgsz": 640,
+    "save": True,             # weights/last every epoch, weights/best on improvement
+    "save_period": -1,        # also weights/epoch{n} every N epochs (< 1: never)
     "workers": 8,             # host threads that build samples
     "project": None,          # runs are saved under project/task/name (default runs/)
     "name": None,             # default: the task
@@ -30,6 +33,7 @@ DEFAULT_CFG = {
     "rect": False,            # val: rectangular batches, sorted by aspect ratio
     "cos_lr": False,
     "close_mosaic": 10,       # mosaic off for the last N epochs
+    "resume": False,          # True: this run's weights/last; or a checkpoint directory
     "fraction": 1.0,          # the share of the train images used
     "cache": False,           # decoded images: True/'ram' in memory, 'disk' as .npy sidecars
     "max_labels": 128,        # static per-image label padding
@@ -71,7 +75,7 @@ DEFAULT_CFG = {
     "mosaic9": 0.0,           # > 0 raises: the 9-image mosaic is not part of this port yet
     "mixup": 0.0,
     "copy_paste": 0.1,
-    "device_augment": "auto", # the JAX package's fused device augmentation: refused when chosen
+    "device_augment": "auto", # augment on the device where the hyperparameters allow it
 }
 
 # keys of the JAX package whose feature this port does not have yet

@@ -34,6 +34,7 @@ class SyntheticDataset:
             raise ValueError(f"SyntheticDataset: task '{task}' is not part of this port yet")
         self.n, self.imgsz, self.nc, self.max_labels = n, imgsz, nc, max_labels
         self.seed, self.task = seed, task
+        self.device_augment = False  # the trainer's: augment these tiles on the device
 
     def __len__(self):
         return self.n
@@ -117,29 +118,33 @@ class YOLODataset:
     augment=True is the training path under `hyp`: with mosaic on, mosaic4 ->
     copy-paste -> affine; otherwise (and after close_mosaic) letterbox -> copy-paste ->
     affine; then HSV and flips. Each sample's draws come from
-    `default_rng((hyp.seed, epoch, index))`. augment=False letterboxes to imgsz, or to
-    the batch shapes of `init_rect`, and adds `ratio_pad`, `ori_shape` and `im_file`.
+    `default_rng((hyp.seed, epoch, index))`. With device_augment as well, the host only
+    letterboxes (upscaling, as training does) and the trainer augments on the device
+    (`data/device_augment.py`). augment=False letterboxes to imgsz, or to the batch
+    shapes of `init_rect`, and adds `ratio_pad`, `ori_shape` and `im_file`.
     Items are padded to `max_labels` rows, images uint8 HWC RGB.
     """
 
     def __init__(self, img_path, imgsz=640, augment=False, hyp=None, use_tags=False,
                  max_labels=128, single_cls=False, fraction=1.0, task="detect",
-                 kpt_shape=(17, 3), cache=False):
+                 kpt_shape=(17, 3), cache=False, device_augment=False):
         if task not in ("detect", "jde"):
             raise NotImplementedError(f"YOLODataset: task '{task}' is not part of this port yet")
-        if augment and hyp is not None:
+        self.imgsz = imgsz
+        self.device_augment = bool(device_augment and augment)
+        self.scaleup = augment
+        self.augment = augment and not self.device_augment
+        if self.augment and hyp is not None:
             for key in ("mosaic9", "perspective"):
                 if float(getattr(hyp, key, 0) or 0) > 0:
                     raise NotImplementedError(f"{key} > 0 is not part of this port yet")
-        self.imgsz = imgsz
-        self.augment = augment
         self.hyp = hyp
         self.use_tags = use_tags or task == "jde"
         self.max_labels = max_labels
         self.single_cls = single_cls
         self.task = task
         self.kpt_shape = tuple(kpt_shape)
-        self.mosaic_enabled = bool(augment and hyp is not None and getattr(hyp, "mosaic", 0) > 0)
+        self.mosaic_enabled = bool(self.augment and hyp is not None and getattr(hyp, "mosaic", 0) > 0)
         self.im_files = self._scan_images(img_path)
         if fraction < 1.0:
             self.im_files = self.im_files[: max(1, int(len(self.im_files) * fraction))]
@@ -350,8 +355,8 @@ class YOLODataset:
         else:
             item = self._load_item(i)
             shape = self.batch_shapes[self.batch_index[i]] if self.rect else self.imgsz
-            img, r, (padx, pady) = letterbox(item["img"], shape, scaleup=self.augment)
-            if not self.augment:  # the native-pixel mapping of val predictions
+            img, r, (padx, pady) = letterbox(item["img"], shape, scaleup=self.scaleup)
+            if not self.scaleup:  # val batches only: the native-pixel mapping of predictions
                 item["ratio_pad"] = np.array([item["r0"] * r, padx, pady], np.float32)
             if len(item["bboxes"]):
                 item["bboxes"] = item["bboxes"] * r

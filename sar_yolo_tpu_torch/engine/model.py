@@ -1,6 +1,6 @@
-"""YOLO facade of the port: build, seed or load weights, train, validate, fuse and serve
-batches (port of the serving, training and validation part of
-`sar_yolo_tpu/engine/model.py`)."""
+"""YOLO facade of the port: build, seed or load weights (a checkpoint directory too),
+train, validate, fuse and serve batches (port of the serving, training and validation
+part of `sar_yolo_tpu/engine/model.py`)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from types import SimpleNamespace
 
 import torch
 
-from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
+from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.engine.predictor import JDEPredictor
 from sar_yolo_tpu_torch.engine.trainer import JDETrainer
@@ -17,6 +17,7 @@ from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
 from sar_yolo_tpu_torch.nn.fuse import fuse_model
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import select_device
+from sar_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint
 from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
 PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
@@ -24,7 +25,7 @@ PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
 
 
 class YOLO:
-    """A model from a config name, on one device.
+    """A model from a config name or a checkpoint directory, on one device.
 
     Examples:
         >>> m = YOLO("yolov13n-JDE.yaml")           # on cuda; raises without CUDA
@@ -32,11 +33,17 @@ class YOLO:
         >>> m = YOLO("tinyjde.yaml", device="cpu")
         >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
         >>> metrics = m.val(data="path/to/SARD.yaml", rect=True)  # EMA weights, BN folded
+        >>> m = YOLO("runs/jde/jde/weights/best", device="cpu")  # a trained checkpoint
     """
 
     def __init__(self, model: str = "yolov13n-JDE.yaml", device=None):
         self.device = select_device(device)
-        self._new(model)
+        self.overrides: dict = {}  # a checkpoint's non-default train args, under each call's
+        self.ckpt_dir = None
+        if is_checkpoint(model):
+            self._load(model)
+        else:
+            self._new(model)
 
     def _new(self, cfg: str):
         self.cfg = cfg
@@ -44,6 +51,29 @@ class YOLO:
         self.model = model.to(self.device)
         self.task = self.meta["task"]
         self._weights_ready = False
+        self._fused = None
+
+    def _load(self, ckpt_dir):
+        """The checkpoint's model (`model_yaml` with its nc) with the EMA parameters (the
+        raw ones where it has no EMA) and the BN statistics; its task, class names and
+        non-default train args."""
+        state, metadata = load_checkpoint(ckpt_dir)
+        model, self.meta = build_model(metadata["model_yaml"], nc=metadata.get("nc"))
+        model.load_state_dict(state["model"], strict=True)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_((state.get("ema") or state["model"])[name])
+        self.model = model.to(self.device)
+        self.meta["strides"] = metadata.get("strides") or self.meta["strides"]
+        names = metadata.get("names")
+        self.meta["names"] = {int(k): v for k, v in names.items()} if names else None
+        self.task = metadata.get("task") or self.meta["task"]
+        train_args = metadata.get("train_args", {})
+        self.cfg = train_args.get("model") or metadata["model_yaml"]
+        self.overrides = {k: v for k, v in train_args.items()
+                          if k in DEFAULT_CFG and k != "model" and v != DEFAULT_CFG[k]}
+        self.ckpt_dir = str(ckpt_dir)
+        self._weights_ready = True
         self._fused = None
 
     def _ensure_variables(self, seed: int = 0):
@@ -65,11 +95,13 @@ class YOLO:
         holds the EMA parameters and the live BN statistics."""
         if self.task != "jde":
             raise NotImplementedError(f"this port trains the JDE task only, not '{self.task}'")
-        self.trainer = JDETrainer({"model": self.cfg, **kwargs}, device=self.device)
+        self.trainer = JDETrainer({**self.overrides, "model": self.cfg, **kwargs},
+                                  device=self.device)
         metrics = self.trainer.train()
         self.model = self.trainer.ema_model()
         self.meta = self.trainer.meta
         self.meta["names"] = self.trainer.data["names"]
+        self.ckpt_dir = str(self.trainer.wdir / "best")
         self._weights_ready = True
         self._fused = None
         return metrics
@@ -83,7 +115,7 @@ class YOLO:
         if self.task not in validators:
             raise NotImplementedError(f"this port validates {sorted(validators)} models, "
                                       f"not '{self.task}'")
-        args = get_cfg({"model": self.cfg, **kwargs})
+        args = get_cfg({**self.overrides, "model": self.cfg, **kwargs})
         args.save_dir = str(get_save_dir(args, self.task))
         nc = self.meta["nc"]
         if args.data in (None, "synthetic"):

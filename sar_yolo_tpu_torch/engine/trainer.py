@@ -1,11 +1,11 @@
-"""JDE training on one device (port of the host-data path of
-`sar_yolo_tpu/engine/trainer.py`).
+"""JDE training on one device (port of `sar_yolo_tpu/engine/trainer.py`).
 
-Data: a YOLO-format dataset (a dataset YAML file or dict; 6-column JDE labels) with
-the host augmentation of `data/augment.py`, mosaic off for the last `close_mosaic`
-epochs; or the synthetic set. Hyperparameters under which the JAX package would
-augment on the device instead (`_device_augment_enabled`) raise: that path is not
-part of this port yet.
+Data: a YOLO-format dataset (a dataset YAML file or dict; 6-column JDE labels) or the
+synthetic set. Where the hyperparameters allow it (`_device_augment_enabled`: no
+rotation, shear, perspective, copy-paste or mosaic9), the host only letterboxes and
+the train step augments the uint8 batch on the device (`data/device_augment.py`),
+with draws keyed by (seed, epoch, batch index); otherwise the host augments
+(`data/augment.py`). Mosaic is off for the last `close_mosaic` epochs on either route.
 
 The JAX package's optax chain, `MultiSteps(chain(clip_by_global_norm(10),
 multi_transform({decay, nodecay, bias})), every_k=accumulate)`, becomes a
@@ -20,7 +20,10 @@ With `val` (the default) each epoch ends in a validation of the EMA weights on a
 separate eval copy of the model, and the validator's fitness (0.1 mAP50 + 0.9
 mAP50-95) decides the best epoch and the patience; -sum(mean loss items) is the
 fitness only without validation. Each epoch appends a row to `results.csv` in
-the run's save dir.
+the run's save dir and, with `save`, writes the checkpoints `weights/last`,
+`weights/best` on improvement and `weights/epoch{n}` every `save_period` epochs
+(`utils/checkpoint.py`); `resume` continues a run from one, exactly where the
+uninterrupted run would be (the dropout stream included).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import copy
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -35,16 +39,15 @@ import torch
 from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.build import DataLoader
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
+from sar_yolo_tpu_torch.data.device_augment import AUG_KEYS, device_train_augment, draw_params
 from sar_yolo_tpu_torch.engine.validator import JDEValidator
 from sar_yolo_tpu_torch.nn.modules.conv import set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
+from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.loss import jde_loss
 
 CLIP_NORM = 10.0
-DEVICE_AUGMENT = ("under these hyperparameters the JAX package augments on the device "
-                  "(data/device_augment.py), which is not part of this port yet (ROADMAP "
-                  "Queue A item 3); pass device_augment=False for the host augmentation")
 LOSS_NAMES = ("box", "cls", "dfl", "emb", "state")
 
 
@@ -125,6 +128,17 @@ class Optimizer:
         LOGGER.info(f"optimizer: {self.name}(lr={lr0}, momentum={momentum}) wd={wd:.5f} "
                     f"accumulate={accumulate} groups=(decay, nodecay, bias@{args.warmup_bias_lr})")
 
+    def state_dict(self) -> dict:
+        """The torch optimizer's state, the counters and the gradient accumulator."""
+        return {"opt": self.opt.state_dict(), "micro": self.micro, "updates": self.updates,
+                "acc": self.acc}
+
+    def load_state_dict(self, state: dict):
+        self.opt.load_state_dict(state["opt"])
+        self.micro, self.updates = int(state["micro"]), int(state["updates"])
+        if state["acc"] is not None:
+            self.acc = [a.to(p.device) for a, p in zip(state["acc"], self.params)]
+
     @torch.no_grad()
     def step(self) -> bool:
         """Consume the parameters' gradients; returns True where the parameters moved."""
@@ -155,6 +169,11 @@ class Optimizer:
         return True
 
 
+def _explicit_on(v) -> bool:
+    """True only for an explicit opt-in spelling ('auto' and None are not on)."""
+    return v in (True, "True", "true", "on", 1)
+
+
 class JDETrainer:
     """Trains a JDE model on one device.
 
@@ -169,49 +188,57 @@ class JDETrainer:
         self.device = select_device(device)
         self.save_dir = get_save_dir(self.args, "jde")
         self.args.save_dir = str(self.save_dir)  # the validator writes there too
+        self.wdir = self.save_dir / "weights"
         self.csv = self.save_dir / "results.csv"
         self.model = self.eval_model = None
         self.validator = JDEValidator()
         self.metrics, self.fitness, self.best_fitness = {}, None, -math.inf
+        self.epoch = 0
 
     def get_dataset(self):
         """(train set, val set, info) for args.data: a dataset YAML file or dict, or the
-        synthetic sets (None or 'synthetic')."""
+        synthetic sets (None or 'synthetic'). Synthetic data trains un-augmented unless
+        `device_augment=True`."""
         data, args = self.args.data, self.args
-        device_path = self._device_augment_enabled()
         if data is None or str(data).startswith("synthetic"):
-            if device_path and args.device_augment in (True, "True", "true", "on", 1):
-                raise NotImplementedError(DEVICE_AUGMENT)
             nc = 3
             train = SyntheticDataset(n=max(64, int(args.batch or 16)), imgsz=args.imgsz, nc=nc,
                                      max_labels=args.max_labels, task="jde")
+            train.device_augment = _explicit_on(args.device_augment) and \
+                self._device_augment_enabled()
             val = SyntheticDataset(n=16, imgsz=args.imgsz, nc=nc, max_labels=args.max_labels,
                                    seed=1, task="jde")
             return train, val, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)}}
-        if device_path:
-            raise NotImplementedError(DEVICE_AUGMENT)
         info = check_det_dataset(data)
         kw = dict(imgsz=args.imgsz, hyp=args, use_tags=True, max_labels=args.max_labels,
                   single_cls=args.single_cls, task="jde",
                   kpt_shape=tuple(info.get("kpt_shape", (17, 3))))
         train = YOLODataset(info["train"], augment=True, fraction=args.fraction, cache=args.cache,
-                            **kw)
+                            device_augment=self._device_augment_enabled(), **kw)
         val = YOLODataset(info.get("val") or info["train"], augment=False, **kw)
         return train, val, info
 
     def _device_augment_enabled(self) -> bool:
-        """Whether the JAX package would augment on the device (its
+        """Whether the train step augments on the device (the JAX package's
         `_device_augment_enabled`): unless device_augment is off, whenever the
         hyperparameters are expressible there (no rotation, shear, perspective,
-        copy-paste or mosaic9; mosaic probability 0 or 1)."""
-        if self.args.device_augment in (False, "False", "false", "off", 0):
+        copy-paste or mosaic9; mosaic probability 0 or 1). Asked for where they are
+        not, it warns and the host augments."""
+        v = self.args.device_augment
+        if v in (False, "False", "false", "off", 0):
             return False
         g = lambda k: float(getattr(self.args, k) or 0)  # noqa: E731
-        return (g("degrees") == 0 and g("shear") == 0 and g("perspective") == 0
-                and g("copy_paste") == 0 and g("mosaic9") == 0 and g("mosaic") in (0.0, 1.0))
+        expressible = (g("degrees") == 0 and g("shear") == 0 and g("perspective") == 0
+                       and g("copy_paste") == 0 and g("mosaic9") == 0 and g("mosaic") in (0.0, 1.0))
+        if _explicit_on(v) and not expressible:
+            LOGGER.warning("device_augment=True but the hyperparameters need the host "
+                           "(degrees/shear/perspective/copy_paste/mosaic9/fractional mosaic); "
+                           "using host augmentation")
+        return expressible
 
     def setup(self, state_dict: dict | None = None):
-        """Data, model, optimizer and EMA. `state_dict` replaces the seeded initialization."""
+        """Data, model, optimizer and EMA; then `resume`'s checkpoint, if any. `state_dict`
+        replaces the seeded initialization."""
         args = self.args
         self.train_set, self.val_set, self.data = self.get_dataset()
         nc = 1 if args.single_cls else self.data["nc"]
@@ -235,12 +262,35 @@ class JDETrainer:
         self.ema = [p.detach().clone() for p in self.model.parameters()]
         self.cb_counts = torch.zeros(self.meta["state_classes"] or 1, device=self.device)
         self.step = 0  # micro-steps so far
+        self.epoch = 0
+        self.device_augment = bool(getattr(self.train_set, "device_augment", False))
+        self._mosaic_on = self.device_augment and float(args.mosaic or 0) > 0
+        self.aug_hyp = {k: float(getattr(args, k) or 0) for k in AUG_KEYS}
+        if self.device_augment:
+            LOGGER.info("device_augment: mosaic/affine/HSV/flip run in the train step on the "
+                        "device (the host decodes and letterboxes only)")
+        if args.resume:
+            self._resume()
 
-    def to_device(self, batch: dict) -> dict:
-        """Numpy batch -> device tensors; uint8 NHWC images -> float NCHW / 255."""
+    def aug_params(self, batch: dict, i: int):
+        """The device augmentation's draws for batch i of this epoch, from a generator keyed
+        by (seed, epoch, i): a resumed run draws what the uninterrupted run drew."""
+        B, S = batch["img"].shape[:2]
+        return draw_params(np.random.default_rng((self.args.seed, self.epoch, i)), B, S,
+                           self.aug_hyp, self._mosaic_on, partner_span=B,
+                           M=batch["bboxes"].shape[1])
+
+    def to_device(self, batch: dict, i: int = 0) -> dict:
+        """Numpy batch i of the epoch -> device tensors, its uint8 NHWC images -> float NCHW
+        in [0, 1]; on the device route augmented there first."""
         out = {k: torch.from_numpy(np.asarray(v)).to(self.device, non_blocking=True)
                for k, v in batch.items()}
-        out["img"] = out["img"].permute(0, 3, 1, 2).float() / 255.0
+        if self.device_augment:
+            out = device_train_augment(out, self.aug_params(out, i).to(self.device), self.aug_hyp,
+                                       mosaic=self._mosaic_on, partner_span=out["img"].shape[0])
+            out["img"] = out["img"].permute(0, 3, 1, 2)
+        else:
+            out["img"] = out["img"].permute(0, 3, 1, 2).float() / 255.0
         return out
 
     def loss(self, feats, batch: dict):
@@ -265,9 +315,10 @@ class JDETrainer:
         torch._foreach_add_(self.ema, params, alpha=1.0 - d)
         self.cb_counts = cb_counts
 
-    def train_step(self, batch: dict):
-        """One micro-step on a numpy batch. Returns (total, items), both on the device."""
-        b = self.to_device(batch)
+    def train_step(self, batch: dict, i: int = 0):
+        """One micro-step on numpy batch i of the epoch. Returns (total, items), both on the
+        device."""
+        b = self.to_device(batch, i)
         total, items, cb = self.loss(self.model(b["img"]), b)
         total.backward()
         self.update(cb)
@@ -275,23 +326,25 @@ class JDETrainer:
 
     def train(self) -> dict:
         """The epoch loop: mean loss items per epoch, then validation and its fitness
-        (-sum(items) without `val`), patience; returns the last epoch's metrics."""
+        (-sum(items) without `val`), the checkpoints, patience and the `time` limit; returns
+        the last epoch's metrics."""
         if self.model is None:
             self.setup()
         args = self.args
         patience = args.patience or math.inf
         last_improve = 0
         t_start = time.time()
-        for epoch in range(args.epochs):
+        for epoch in range(self.epoch, args.epochs):
             self.epoch = epoch
             if args.close_mosaic and epoch >= max(args.epochs - args.close_mosaic, 0) \
-                    and getattr(self.train_set, "mosaic_enabled", False):
+                    and (getattr(self.train_set, "mosaic_enabled", False) or self._mosaic_on):
                 LOGGER.info("Closing dataloader mosaic")
                 self.train_set.mosaic_enabled = False
+                self._mosaic_on = False
             self.train_loader.set_epoch(epoch)
             te, total, n = time.time(), None, 0
-            for batch in self.train_loader:
-                _, items = self.train_step(batch)
+            for i, batch in enumerate(self.train_loader):
+                _, items = self.train_step(batch, i)
                 total = items if total is None else total + items
                 n += 1
             mloss = (total / max(n, 1)).cpu().numpy()
@@ -308,10 +361,16 @@ class JDETrainer:
                 self.metrics.update(vmetrics)
                 self.fitness = vmetrics.get("fitness", self.fitness)
             self._save_csv_row(epoch, losses, self.lr["lr/pg0"])
-            if self.fitness > self.best_fitness:
+            improved = self.fitness > self.best_fitness
+            if improved:
                 self.best_fitness, last_improve = self.fitness, epoch
-            elif epoch - last_improve >= patience:
+            if args.save:
+                self.save_model(improved)
+            if not improved and epoch - last_improve >= patience:
                 LOGGER.info(f"EarlyStopping: no improvement in {patience} epochs")
+                break
+            if args.time and (time.time() - t_start) / 3600 > args.time:
+                LOGGER.info(f"Stopping: over the time limit of {args.time} hours")
                 break
         LOGGER.info(f"Training complete in {(time.time() - t_start) / 3600:.3f} hours")
         return self.metrics
@@ -339,6 +398,46 @@ class JDETrainer:
                 f.write(",".join(row.keys()) + "\n")
             f.write(",".join(f"{v:.6g}" if isinstance(v, float) else str(v)
                              for v in row.values()) + "\n")
+
+    def save_model(self, improved: bool):
+        """weights/last, weights/best where `improved`, weights/epoch{n} every save_period
+        epochs. The state: the model's state dict (parameters and BN statistics), the EMA by
+        parameter name, cb_counts, the optimizer, the dropout generator; the metadata: the
+        JAX package's run_meta.json keys and the class names."""
+        state = {"model": self.model.state_dict(),
+                 "ema": {n: e for (n, _), e in zip(self.model.named_parameters(), self.ema)},
+                 "cb_counts": self.cb_counts, "optimizer": self.optimizer.state_dict(),
+                 "rng": self.generator.get_state()}
+        metadata = {"epoch": self.epoch, "best_fitness": float(self.best_fitness),
+                    "train_args": vars(self.args), "model_yaml": self.meta["cfg"], "task": "jde",
+                    "nc": self.meta["nc"], "strides": self.meta["strides"], "step": self.step,
+                    "names": self.data["names"]}
+        save_checkpoint(self.wdir / "last", state, metadata)
+        if improved:
+            save_checkpoint(self.wdir / "best", state, metadata)
+        if self.args.save_period > 0 and (self.epoch + 1) % self.args.save_period == 0:
+            save_checkpoint(self.wdir / f"epoch{self.epoch + 1}", state, metadata)
+
+    def _resume(self):
+        """Restore `resume`'s checkpoint (True: this run's weights/last) and continue at the
+        epoch after it. Without optimizer state (a converted JAX checkpoint) the optimizer
+        starts fresh, as the JAX package's resume does."""
+        path = self.args.resume if isinstance(self.args.resume, (str, Path)) else self.wdir / "last"
+        state, metadata = load_checkpoint(path)
+        self.epoch = int(metadata.get("epoch", -1)) + 1
+        self.best_fitness = float(metadata.get("best_fitness", -math.inf))
+        self.step = int(metadata.get("step", 0))
+        self.model.load_state_dict(state["model"])
+        self.ema = [state["ema"][n].to(self.device) for n, _ in self.model.named_parameters()]
+        self.cb_counts = state["cb_counts"].to(self.device)
+        if state.get("optimizer") is not None:
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            LOGGER.warning("resume: the checkpoint has no optimizer state; momentum and the "
+                           "schedule counters start fresh")
+        if state.get("rng") is not None:
+            self.generator.set_state(state["rng"])
+        LOGGER.info(f"Resumed from {path} at epoch {self.epoch}")
 
     @torch.no_grad()
     def ema_model(self) -> torch.nn.Module:

@@ -8,6 +8,7 @@ save-dict; its layers live in `blocks` (Flax scope `blocks_<i>`).
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -239,15 +240,16 @@ class GraphModel(nn.Module):
         return out
 
 
-def build_model(name: str, nc: int | None = None):
-    """Build a GraphModel from a model name ('yolov13n-JDE.yaml'). Returns (model, meta).
+def build_model(name: str | dict, nc: int | None = None):
+    """Build a GraphModel from a model name ('yolov13n-JDE.yaml') or a config dict (a
+    checkpoint's `model_yaml`, the JAX package's included). Returns (model, meta).
 
     `nc` replaces the config's class count (the trainer builds the model for
     its dataset's). The model is on the CPU, in eval mode, with torch's
     default weights until `init_weights` runs; meta["strides"] comes from a
     forward probe.
     """
-    d = model_config(name)
+    d = copy.deepcopy(name) if isinstance(name, dict) else model_config(name)
     if nc is not None:
         d["nc"] = nc
     specs, save, meta = parse_model(d)

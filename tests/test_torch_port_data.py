@@ -16,7 +16,9 @@ images equal, boxes within 1e-4 px, tags and classes equal;
 train after close_mosaic, rect batches, `.npy` sidecars of a JPEG dataset): every
 array equal; the label cache drops the same files and each package reads the
 cache the other wrote; `set_epoch` reaches the dataset;
-(f) refusals: perspective, mosaic9 and the device-augmentation hyperparameters;
+(f) refusals: perspective and mosaic9; the route: the hyperparameters the device
+augmentation can express take it, others asked for with device_augment=True warn and
+take the host augmentation;
 (g) tinyjde trained 2 epochs (close_mosaic=1) on a dataset folder, from the same
 weights in both packages: the same batches bit for bit and loss items within the
 tolerance of `test_torch_port_train.py`.
@@ -426,17 +428,34 @@ def test_npy_sidecars_of_a_jpeg_dataset(tmp_path):
     _assert_same_items(got, want)
 
 
-def test_device_augmentation_hyperparameters_raise(dataset_dir, tmp_path):
+def test_device_augmentation_hyperparameters_raise(dataset_dir, tmp_path, monkeypatch):
+    """Nothing raises now: copy_paste=0 on a folder, and device_augment=True with
+    copy_paste=0 on synthetic data, take the device route; device_augment=True where
+    the hyperparameters need the host (degrees > 0) warns and takes the host route, as
+    do device_augment=False and the default copy_paste."""
+    from sar_yolo_tpu_torch.engine import trainer as trainer_module
+    warned = []
+    monkeypatch.setattr(trainer_module.LOGGER, "warning", warned.append)
     data = str(dataset_dir / "data.yaml")
     common = dict(model="tinyjde.yaml", data=data, imgsz=64, batch=4, project=str(tmp_path))
-    for over in ({"copy_paste": 0.0}, {"data": "synthetic", "device_augment": True,
-                                       "copy_paste": 0.0}):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            JDETrainer({**common, **over}, device="cpu").get_dataset()
-    train, val, info = JDETrainer({**common, "copy_paste": 0.0, "device_augment": False},
-                                  device="cpu").get_dataset()
-    assert train.augment and not val.augment and info["nc"] == 1
-    assert info["person_states"] == {0: "stands", 1: "seated"}
+    for over, device, warns in (({"copy_paste": 0.0}, True, 0),
+                                ({"data": "synthetic", "device_augment": True, "copy_paste": 0.0},
+                                 True, 0),
+                                ({"data": "synthetic", "copy_paste": 0.0}, False, 0),
+                                ({"copy_paste": 0.0, "degrees": 5.0, "device_augment": True},
+                                 False, 1),
+                                ({"copy_paste": 0.0, "device_augment": False}, False, 0),
+                                ({}, False, 0)):
+        warned.clear()
+        train, val, info = JDETrainer({**common, **over}, device="cpu").get_dataset()
+        route_warnings = [w for w in warned if "device_augment" in w]
+        assert train.device_augment == device and len(route_warnings) == warns, over
+        assert all("host augmentation" in w for w in route_warnings)
+        if "data" not in over:  # the folder: its val set, and train items of either route
+            assert train.augment == (not device) and not val.augment and info["nc"] == 1
+            assert info["person_states"] == {0: "stands", 1: "seated"}
+            item = train[0]
+            assert "ratio_pad" not in item and item["img"].shape == (64, 64, 3)
 
 
 # ---- (g) training on the folder --------------------------------------------------------------
@@ -480,8 +499,8 @@ def test_train_on_dataset_folder_matches_jax(dataset_dir, tmp_path, monkeypatch)
                             jtr.train_set.mosaic_enabled))
         return state, total, items
 
-    def port_step(batch):
-        total, items = pstep(batch)
+    def port_step(batch, i=0):
+        total, items = pstep(batch, i)
         runs["port"].append((batch, items.numpy(), ptr.train_set.mosaic_enabled))
         return total, items
     jtr._train_step, ptr.train_step = jax_step, port_step

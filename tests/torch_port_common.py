@@ -14,6 +14,26 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def write_jde_dataset(root, n_train: int, n_val: int, seed: int = 0) -> dict:
+    """A YOLO-format JDE dataset of PNG frames (smooth colours, 64x96 and 96x64) with
+    1-6 persons a frame in 6-column labels under `root`; returns its dataset dict."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            h, w = (64, 96) if i % 3 else (96, 64)
+            small = rng.integers(0, 256, (h // 8, w // 8, 3), dtype=np.uint8)
+            cv2.imwrite(str(root / "images" / split / f"{i:03d}.png"),
+                        cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR))
+            rows = [f"0 {rng.uniform(.2, .8):.6f} {rng.uniform(.2, .8):.6f} "
+                    f"{rng.uniform(.08, .3):.6f} {rng.uniform(.08, .3):.6f} {rng.integers(0, 9)}"
+                    for _ in range(int(rng.integers(1, 7)))]
+            (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    return {"path": str(root), "train": "images/train", "val": "images/val", "names": {0: "person"}}
+
+
 def close_to_max(got, want, what=""):
     """|got - want| <= 1e-4 of want's largest magnitude (the tolerance of gradients and parameters)."""
     want = np.asarray(want)
