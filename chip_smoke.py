@@ -6,8 +6,7 @@
 Phases, in order; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off
      for convolutions and matmuls so the float32 comparisons mean something; the
-     C compiler that builds the PNG row filters and the JPEG decoders found on the
-     machine (headers, libraries, Python modules).
+     C compiler that builds the PNG row filters and the JPEG decoder.
   2. build: nvcc builds the area-attention kernel from the checkout; ptxas's
      registers and spills are printed (a spill fails), and cuobjdump must find
      tensor-core (HMMA) instructions in the library.
@@ -70,7 +69,17 @@ Phases, in order; any failure exits non-zero:
      for tensor (parameters, BN statistics, EMA, cb_counts, optimizer, dropout stream;
      48 launches); `YOLO(checkpoint)` serving phase 4's frames and validating rect
      exactly as the object that trained.
- 10. a JSON line of the kernels, the card line, and the result line.
+ 10. JPEG frames through `YOLO.predict` and `YOLO.track` (a seeded, perturbed
+     yolov13n-JDE @640): every fixture of tests/data/jpeg/ decodes to the SHA-256 of
+     OpenCV's pixels (the progressive one raises); JPEG and PNG decode ms of a 720x1280
+     frame; `YOLO.predict` of the 12 frames of tests/data/jpeg/frames/ with 8 kernel
+     launches a frame, the same Results as `use_flash=False` (held as phase 4 holds
+     them, at a threshold read off a score gap), head maps against float64, frames/s and
+     the median split per frame (decode, preprocess, inference, postprocess);
+     `YOLO.track` with ByteTrack and with BoT-SORT (`gmc_method: none`): the same ids on
+     both paths and the tracker's host ms per frame; `YOLO.val(rect=True)` on the frames
+     with their person boxes as labels (JPEG decoded in the loader threads).
+ 11. a JSON line of the kernels, the card line, and the result line.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
 
@@ -212,37 +221,8 @@ def phase_card():
     cc = shutil.which("cc") or shutil.which("gcc")
     version = subprocess.run([cc, "--version"], capture_output=True, text=True,
                              timeout=60).stdout.splitlines()[0] if cc else None
-    print(json.dumps({"c_compiler": cc, "version": version, "jpeg_decoders": _jpeg_probe()}))
+    print(json.dumps({"c_compiler": cc, "version": version}))
     return card
-
-
-def _jpeg_probe() -> dict:
-    """What could decode JPEG on this machine: libjpeg headers and libraries, nvJPEG under
-    the CUDA toolkit, and the Python image modules that import here (with their
-    distributions' versions), none of which the port uses."""
-    import glob
-    import importlib.metadata
-    import importlib.util
-    import os
-    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    libs = ("/usr/lib", "/usr/lib64", "/usr/local/lib", "/lib")
-    dists = importlib.metadata.packages_distributions()
-    modules = {}
-    for m in ("cv2", "PIL", "yaml", "torchvision", "simplejpeg", "imageio"):
-        if importlib.util.find_spec(m) is not None:
-            modules[m] = {d: importlib.metadata.version(d) for d in dists.get(m, [])}
-    if "PIL" in modules:
-        from PIL import features
-        modules["PIL"]["jpeg"] = features.check("jpg")
-    return {
-        "jpeglib.h": sorted({p for d in ("/usr/include", "/usr/local/include", f"{cuda}/include")
-                             for p in glob.glob(f"{d}/**/jpeglib.h", recursive=True)}),
-        "libjpeg": sorted({p for d in libs for p in glob.glob(f"{d}/**/libjpeg*", recursive=True)}),
-        "libturbojpeg": sorted({p for d in libs
-                                for p in glob.glob(f"{d}/**/libturbojpeg*", recursive=True)}),
-        "nvjpeg": sorted(glob.glob(f"{cuda}/**/*nvjpeg*", recursive=True))[:20],
-        "python_modules": modules,
-    }
 
 
 def phase_build():
@@ -408,9 +388,10 @@ def _set_flash(yolo, use_flash):
             m.use_flash = use_flash
 
 
-def _compare_detections(got, want, n_emb: int, label: str):
+def _compare_detections(got, want, n_emb: int, label: str, by_row: bool = False):
     """Same kept rows per frame, matched by class and box (rows of near-equal score may swap
-    places).
+    places); `by_row`: by class, box, score and embedding (boxes clipped to the frame may
+    coincide).
 
     Checks row counts, pairing, classes and states; returns the kept counts and
     the largest box, score and embedding differences for the caller to bound.
@@ -425,7 +406,8 @@ def _compare_detections(got, want, n_emb: int, label: str):
         check(len(g) == len(w), f"{label}: frame {b} keeps {len(g)} rows vs {len(w)}")
         check(bool(np.isfinite(g).all()), f"{label}: frame {b} non-finite output")
         # by box within a class: multi-label NMS keeps one box under several classes
-        match = (np.abs(g[:, None, :4] - w[None, :, :4]).max(-1)
+        cols = np.r_[0:5, 6:6 + n_emb] if by_row else np.r_[0:4]
+        match = (np.abs(g[:, None, cols] - w[None, :, cols]).max(-1)
                  + 1e9 * (g[:, None, 5] != w[None, :, 5])).argmin(1)
         check(np.array_equal(np.sort(match), np.arange(len(w))),
               f"{label}: frame {b} kept boxes do not pair up one to one")
@@ -1350,6 +1332,243 @@ def phase_checkpoint(card: str, data: dict, host_loader: dict, seed: int = 0):
             f"YOLO({ckpt.name}).val rect": val_launches}
 
 
+JPEG_DIR = Path("tests/data/jpeg")  # the committed fixtures (tools/torch_port_jpeg_fixtures.py)
+JPEG_FRAMES = 12                    # their 720x1280 frames
+
+
+def _decode_fixtures(card: str):
+    """Every fixture against its digest; single-threaded decode ms of the 720x1280 frames,
+    JPEG and (the same pixels) PNG, median of 3 passes over the 12 frames."""
+    import hashlib
+
+    from sar_yolo_tpu_torch.data.imageio import decode_jpeg, decode_png, imread
+    digests = json.loads((JPEG_DIR / "digests.json").read_text())
+    matched = 0
+    for group in ("variants", "frames"):
+        for name, entry in digests[group].items():
+            path = JPEG_DIR / group / name
+            if "raises" in entry:
+                try:
+                    imread(path)
+                except NotImplementedError:
+                    matched += 1
+                    continue
+                check(False, f"{path}: decoded, expected NotImplementedError")
+            px = imread(path)
+            digest = hashlib.sha256(px.tobytes()).hexdigest()
+            check(list(px.shape) == entry["shape"] and digest == entry["sha256"],
+                  f"{path}: pixels {px.shape} {digest} differ from OpenCV's {entry}")
+            matched += 1
+    frames = sorted((JPEG_DIR / "frames").glob("*.jpg"))
+    jpegs = [f.read_bytes() for f in frames]
+    pngs = [_png_file(np.ascontiguousarray(decode_jpeg(b)[..., ::-1])) for b in jpegs]
+
+    def per_frame_ms(decode, files):
+        times = []
+        for _ in range(3):
+            for data in files:
+                t0 = time.perf_counter()
+                decode(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    out = {"fixtures_matched": matched, "fixtures": sum(len(v) for v in digests.values()),
+           "jpeg_decode_ms_720x1280": per_frame_ms(decode_jpeg, jpegs),
+           "png_decode_ms_720x1280": per_frame_ms(decode_png, pngs),
+           "jpeg_bytes_per_frame": statistics.median(len(b) for b in jpegs),
+           "png_bytes_per_frame": statistics.median(len(b) for b in pngs), "card": card}
+    print(json.dumps(out))
+    check(matched == out["fixtures"], f"{matched} of {out['fixtures']} fixtures matched")
+
+
+def _results_array(results: list, n_emb: int, n_states: int, max_det: int = 300) -> np.ndarray:
+    """Results as phase 4's (B, max_det, 6 + E + S) array: states one-hot, padding rows zero."""
+    out = np.zeros((len(results), max_det, 6 + n_emb + n_states), np.float32)
+    for b, r in enumerate(results):
+        n = len(r)
+        out[b, :n, :6] = r.boxes.data[:, :6]
+        out[b, :n, 6:6 + n_emb] = r.embeds
+        out[b, np.arange(n), 6 + n_emb + r.person_states] = 1.0
+    return out
+
+
+@contextlib.contextmanager
+def _timed_function(module, name: str, times: list):
+    """While active, each call of module.name appends its host ms to `times`."""
+    orig = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(module, name, timed)
+    try:
+        yield times
+    finally:
+        setattr(module, name, orig)
+
+
+def _gap_threshold(scores: np.ndarray, q: float, margin: float) -> float:
+    """The middle of a gap over 2 margin wide between consecutive scores, the one nearest
+    their q-quantile."""
+    s = np.unique(scores)
+    gaps = np.flatnonzero(np.diff(s) > 2 * margin)
+    check(len(gaps) > 0, f"no gap over {2 * margin} among {len(s)} scores")
+    mids = (s[gaps] + s[gaps + 1]) / 2
+    return float(mids[np.abs(mids - np.quantile(s, q)).argmin()])
+
+
+def _write_tracker_configs(root: Path, high: float, low: float, new: float) -> dict:
+    """ByteTrack and BoT-SORT (ReID, no camera-motion compensation) YAMLs at these
+    thresholds, the other keys as the shipped configs have them but fuse_score off: a
+    seeded model's scores (~0.01) would scale every IoU cost past match_thresh."""
+    common = (f"track_high_thresh: {high}\ntrack_low_thresh: {low}\nnew_track_thresh: {new}\n"
+              "track_buffer: 30\nmatch_thresh: 0.8\nfuse_score: False\n")
+    configs = {"bytetrack": "tracker_type: bytetrack\n" + common,
+               "botsort": "tracker_type: botsort\n" + common + "gmc_method: none\n"
+                          "proximity_thresh: 0.5\nappearance_thresh: 0.25\nwith_reid: True\n"}
+    paths = {}
+    for name, text in configs.items():
+        paths[name] = root / f"{name}.yaml"
+        paths[name].write_text(text)
+    return paths
+
+
+def phase_jpeg(card: str, seed: int = 2) -> dict:
+    """JPEG frames through YOLO.predict, YOLO.track and YOLO.val (see the module docstring,
+    phase 10). Returns the kernel launches by path."""
+    import torch
+
+    from sar_yolo_tpu_torch.data import loaders
+    from sar_yolo_tpu_torch.data.imageio import imread
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    from sar_yolo_tpu_torch.trackers.byte_tracker import BYTETracker, STrack
+    _decode_fixtures(card)
+    frames_dir = JPEG_DIR / "frames"
+    frames = [imread(f) for f in sorted(frames_dir.glob("*.jpg"))]
+    check(len(frames) == JPEG_FRAMES, f"{len(frames)} JPEG frames")
+    yolo = _perturbed_yolo("yolov13n-JDE.yaml", seed, TRAIN_IMGSZ)
+    plain = copy.deepcopy(yolo)
+    _set_flash(plain, False)
+    meta, n_emb, n_states = yolo.meta, yolo.meta["embed_dim"], yolo.meta["state_classes"]
+
+    # a threshold where no frame has max_det candidates and no score lies within 1e-5
+    predictor = yolo._get_predictor({"imgsz": TRAIN_IMGSZ})
+    with torch.no_grad():
+        scores = torch.cat([decode_detect(predictor.model(predictor.preprocess(f[None])[0]),
+                                          meta["strides"], meta["nc"], meta["reg_max"],
+                                          extra_sigmoid=n_states, split_extras=n_emb)[0]
+                            [..., 4:4 + meta["nc"]].flatten(1) for f in frames])
+    # (margin 1e-4: the 12 frames' scores lie dense; the paths' scores part by ~2e-5)
+    conf, margin = _ab_conf(scores.double().cpu().numpy(), 300, margin=1e-4)
+    kw = dict(imgsz=TRAIN_IMGSZ, conf=conf)
+
+    # YOLO.predict on the folder: kernel path against the plain path
+    yolo.predict(str(frames_dir), **kw)  # warm-up: BN folding, cuDNN's plans
+    flash_area_attention.launches = 0
+    decode_ms, walls = [], []
+    with _timed_function(loaders, "imread", decode_ms):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = yolo.predict(str(frames_dir), **kw)
+            walls.append(time.perf_counter() - t0)
+    launches = flash_area_attention.launches
+    check(launches == 3 * JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+          f"YOLO.predict of {JPEG_FRAMES} JPEG frames: {launches / 3} kernel launches a call")
+    n0 = flash_area_attention.launches
+    want = plain.predict(str(frames_dir), **kw)
+    check(flash_area_attention.launches == n0, "YOLO.predict: use_flash=False launched the kernel")
+    check([r.path for r in got] == [r.path for r in want] == [str(f) for f in
+                                                             sorted(frames_dir.glob("*.jpg"))],
+          "YOLO.predict: the frames' paths or order differ")
+    kept, errs = _compare_detections(_results_array(got, n_emb, n_states),
+                                     _results_array(want, n_emb, n_states), n_emb,
+                                     "YOLO.predict JPEG", by_row=True)
+    x, r, _ = yolo._get_predictor(kw).preprocess(np.stack(frames[:2]))
+    maps = _maps_errors(yolo, plain, x, conf)
+    # boxes: 1e-3 of the coarsest DFL bin (32 px) in the frame's pixels, as phase 5 holds
+    # them: these frames' boxes span hundreds of pixels, where float32 rounding of the
+    # head maps alone moves them by ~1e-2 px (the maps check below is the arbiter)
+    box_tol = 32e-3 / r
+    check(maps["maps_kernel_vs_f64"] <= 2 * maps["maps_plain_vs_f64"],
+          f"YOLO.predict JPEG: kernel path {maps['maps_kernel_vs_f64']} from float64, plain path "
+          f"{maps['maps_plain_vs_f64']}")
+    check(errs["score_err"] < margin and errs["box_err_px"] <= box_tol and errs["score_err"] <= 1e-3
+          and errs["embed_err"] <= 1e-3, f"YOLO.predict JPEG: {errs}, threshold margin {margin}, "
+          f"box tolerance {box_tol} px")
+    split = {f"{k}_ms_median": statistics.median(r.speed[k] for r in got)
+             for k in ("preprocess", "inference", "postprocess")}
+    predict = {"yolo_predict_jpeg": f"yolov13n-JDE @{TRAIN_IMGSZ}, {JPEG_FRAMES} frames of 720x1280",
+               "conf": conf, "conf_margin": margin, "kept_per_frame": kept, **errs,
+               "box_tol_px": box_tol, **maps,
+               "kernel_launches": launches // 3, "frames_per_s": JPEG_FRAMES / statistics.median(walls),
+               "frames_per_s_runs": [JPEG_FRAMES / w for w in walls],
+               "decode_ms_median": statistics.median(decode_ms), **split, "card": card}
+    print(json.dumps(predict))
+
+    # YOLO.track: ByteTrack and BoT-SORT at thresholds from this model's kept scores, each
+    # in a gap of them (no score within `margin`, so that the paths' ~2e-5 apart scores
+    # take the same side); the low threshold is the predict threshold
+    kept_scores = np.concatenate([r.boxes.conf for r in got])
+    root = Path("runs") / "chip_smoke_jpeg"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    high, new = (_gap_threshold(kept_scores, q, margin) for q in (0.5, 0.7))
+    configs = _write_tracker_configs(root, high, conf, new)
+    track = {}
+    for name, cfg in configs.items():
+        ids, tracker_ms = {}, []
+        for label, model in (("kernel", yolo), ("plain", plain)):
+            STrack._count = 0
+            n0 = flash_area_attention.launches
+            with _timed_function(BYTETracker, "update", tracker_ms if label == "kernel" else []):
+                res = model.track(str(frames_dir), tracker=str(cfg), **kw)
+            if label == "kernel":
+                track[f"{name}_kernel_launches"] = flash_area_attention.launches - n0
+            ids[label] = [r.boxes.id.astype(int).tolist() for r in res]
+        flat = [i for frame in ids["kernel"] for i in frame]
+        check(ids["kernel"] == ids["plain"], f"YOLO.track {name}: ids {ids['kernel']} on the "
+              f"kernel path, {ids['plain']} on the plain path")
+        check(len(flat) > len(set(flat)) > 0, f"YOLO.track {name}: no identity crosses frames: {ids}")
+        check(track[f"{name}_kernel_launches"] == JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+              f"YOLO.track {name}: {track[f'{name}_kernel_launches']} kernel launches")
+        track.update({f"{name}_tracker_ms_per_frame": statistics.median(tracker_ms),
+                      f"{name}_tracks": len(set(flat)), f"{name}_rows": len(flat)})
+    print(json.dumps({"yolo_track_jpeg": {k: v.read_text() for k, v in configs.items()},
+                      **track, "card": card}))
+
+    # YOLO.val(rect=True) on the frames, their person boxes as labels
+    digests = json.loads((JPEG_DIR / "digests.json").read_text())
+    for split_dir in ("images/val", "labels/val"):
+        (root / "data" / split_dir).mkdir(parents=True)
+    for name, entry in digests["frames"].items():
+        shutil.copy(frames_dir / name, root / "data" / "images" / "val" / name)
+        h, w = entry["shape"][:2]
+        rows = [f"{c} {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} {(x2 - x1) / w:.6f} "
+                f"{(y2 - y1) / h:.6f} {pid}" for c, x1, y1, x2, y2, pid in entry["persons"]]
+        (root / "data" / "labels" / "val" / name).with_suffix(".txt").write_text("\n".join(rows) + "\n")
+    data = {"path": str((root / "data").resolve()), "train": "images/val", "val": "images/val",
+            "nc": 1, "names": {0: "person"}, "person_states": PERSON_STATES}
+    vkw = dict(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, rect=True, project="runs",
+               name="chip_smoke_jpeg_val", exist_ok=True)
+    yolo.val(**vkw)  # warm-up
+    flash_area_attention.launches = 0
+    metrics = yolo.val(**vkw)
+    val_launches = flash_area_attention.launches
+    check(val_launches == LAUNCHES_PER_FORWARD and "fitness" in metrics
+          and all(np.isfinite(list(metrics.values()))),
+          f"YOLO.val rect on JPEG frames: {val_launches} kernel launches, metrics {metrics}")
+    print(json.dumps({"yolo_val_jpeg_rect": metrics, "kernel_launches": val_launches,
+                      "ms_per_image_runs": [metrics["speed/ms_per_image"]]
+                      + [yolo.val(**vkw)["speed/ms_per_image"] for _ in range(2)], "card": card}))
+    shutil.rmtree(root, ignore_errors=True)
+    return {f"YOLO.predict {JPEG_FRAMES} JPEG frames 720x1280 @{TRAIN_IMGSZ}": launches // 3,
+            **{f"YOLO.track {name} {JPEG_FRAMES} JPEG frames": track[f"{name}_kernel_launches"]
+               for name in configs},
+            f"YOLO.val rect on {JPEG_FRAMES} JPEG frames": val_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1376,6 +1595,7 @@ def main() -> int:
     disk_train_launches, rect_val_launches, host_loader, data = phase_data(card)
     ckpt_launches = phase_checkpoint(card, data, host_loader)
     shutil.rmtree(data["path"], ignore_errors=True)
+    jpeg_launches = phase_jpeg(card)
 
     # the main path's kernel work: one train step's forward (640, batch 16, float32),
     # 4 calls at the P4 shape and 4 at P5
@@ -1405,7 +1625,7 @@ def main() -> int:
                              f"YOLO.train on a disk dataset @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 "
                              "epochs (8 steps + 2 validations)": disk_train_launches,
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
-                                 rect_val_launches, **ckpt_launches}}]}))
+                                 rect_val_launches, **ckpt_launches, **jpeg_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of sar_yolo_tpu, slice by slice (see ROADMAP.md).
 
-The first slice serves yolov13-JDE: `YOLO("yolov13n-JDE.yaml").predict_batched(frames)`
-letterboxes uint8 frames on the card, runs the BN-folded forward (area attention
-in a hand-written CUDA kernel), decodes, runs NMS and gathers the ReID
-embeddings of the kept detections.
+`YOLO("yolov13n-JDE.yaml")` serves yolov13-JDE on the card: `predict_batched(frames)`
+letterboxes uint8 frames on the card, runs the BN-folded forward (area attention in a
+hand-written CUDA kernel), decodes, runs NMS and gathers the ReID embeddings of the
+kept detections; `predict("frames/")` streams image files (JPEG and PNG decoded as
+OpenCV decodes them), arrays or tensors through the same path, and `track(...)` adds
+ByteTrack or BoT-SORT identities. `train` and `val` run on synthetic data or on a
+YOLO-format JDE dataset on disk.
 """
 
 __all__ = ["YOLO"]

@@ -5,16 +5,22 @@ nor PIL.
 * `image_shape`: (h, w) from the header of a PNG (IHDR, every chunk's CRC checked
   through IEND, as PIL's `verify` does), JPEG (the SOFn frame header) or BMP file;
   None where PIL could not open and verify the file, which the dataset drops.
-* `imread`: the pixels of a PNG file as `cv2.imread` returns them, BGR uint8: gray,
-  gray + alpha, palette, RGB and RGBA, 1 to 16 bits (16-bit samples keep their high
-  byte, alpha is dropped); None where the file is corrupt.
-* Every other format (JPEG and BMP pixels, TIFF, WebP, GIF, PFM, interlaced PNG)
-  raises NotImplementedError: it is not decoded here, and not dropped either. JPEG
-  datasets run through the `.npy` sidecars of `cache="disk"`.
+* `imread`: the pixels of a PNG or JPEG file as `cv2.imread` returns them, BGR uint8.
+  PNG: gray, gray + alpha, palette, RGB and RGBA, 1 to 16 bits (16-bit samples keep
+  their high byte, alpha is dropped). JPEG: baseline and extended sequential Huffman
+  (SOF0/SOF1), 8-bit, gray or three components (YCbCr, or RGB as libjpeg decides it),
+  every sampling factor libjpeg-turbo accepts, restart intervals, turned by its Exif
+  orientation as OpenCV turns it; pixel for pixel libjpeg-turbo's default decode
+  (the islow IDCT, fancy upsampling, fixed-point YCbCr->BGR). None where the file
+  is corrupt; a JPEG whose data ends early decodes as libjpeg pads it (grey).
+* Every other kind raises NotImplementedError: progressive, arithmetic-coded,
+  lossless, 12-bit and CMYK/YCCK JPEG, BMP pixels, TIFF, WebP, GIF, PFM and
+  interlaced PNG. They are not decoded here, and not dropped either.
 
-The row filters are undone by `csrc/png_unfilter.c`, built with the system C
-compiler at first use into `sar_yolo_tpu_torch/build/` (cached under a hash of the
-source and flags) and called through ctypes, which releases the GIL.
+PNG's row filters are undone by `csrc/png_unfilter.c` and JPEG is decoded by
+`csrc/jpeg_decode.c`, each built with the system C compiler at first use into
+`sar_yolo_tpu_torch/build/` (cached under a hash of the source and flags) and called
+through ctypes, which releases the GIL: loader threads decode in parallel.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "png_unfilter.c"
+JPEG_SOURCE = _PKG / "csrc" / "jpeg_decode.c"
 BUILD_DIR = _PKG / "build"
 _CFLAGS = ["-O3", "-std=c99", "-shared", "-fPIC"]
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -45,7 +52,7 @@ def _kind(head: bytes) -> str | None:
     """The format named by a file's first bytes; None for bytes of no image format."""
     if head.startswith(_PNG_SIGNATURE):
         return "PNG"
-    if head.startswith(b"\xff\xd8"):
+    if head.startswith(b"\xff\xd8\xff"):  # the signature OpenCV and PIL check
         return "JPEG"
     if head.startswith(b"BM"):
         return "BMP"
@@ -148,40 +155,47 @@ def image_shape(path) -> tuple[int, int] | None:
 
 
 _lock = threading.Lock()
-_library = None
+_libraries: dict = {}
 
 
-def build() -> Path:
-    """Compile `csrc/png_unfilter.c` if its library is not built yet; returns its path."""
-    key = hashlib.sha256(" ".join(_CFLAGS).encode() + b"\0" + SOURCE.read_bytes())
-    lib = BUILD_DIR / f"libpng_unfilter_{key.hexdigest()[:16]}.so"
+def build(source: Path) -> Path:
+    """Compile `source` (a file of `csrc/`) if its library is not built yet; returns its path."""
+    key = hashlib.sha256(" ".join(_CFLAGS).encode() + b"\0" + source.read_bytes())
+    lib = BUILD_DIR / f"lib{source.stem}_{key.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
     if cc is None:
-        raise RuntimeError(f"no C compiler (cc or gcc) to build {SOURCE}")
+        raise RuntimeError(f"no C compiler (cc or gcc) to build {source}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cc, *_CFLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True,
+    proc = subprocess.run([cc, *_CFLAGS, "-o", str(tmp), str(source)], capture_output=True,
                           text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"{cc} failed ({proc.returncode}) for {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"{cc} failed ({proc.returncode}) for {source}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
 
 
-def _unfilter(raw: bytes, rows: int, row_bytes: int, bpp: int) -> np.ndarray:
-    global _library
+def _library(source: Path, signatures: dict):
+    """The ctypes handle of `source`'s library, built and bound once per process."""
     with _lock:
-        if _library is None:
-            handle = ctypes.CDLL(str(build()))
-            handle.png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_void_p] + [ctypes.c_int] * 3
-            handle.png_unfilter.restype = ctypes.c_int
-            _library = handle
+        if source not in _libraries:
+            handle = ctypes.CDLL(str(build(source)))
+            for name, (argtypes, restype) in signatures.items():
+                fn = getattr(handle, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            _libraries[source] = handle
+        return _libraries[source]
+
+
+def _unfilter(raw: bytes, rows: int, row_bytes: int, bpp: int) -> np.ndarray:
+    lib = _library(SOURCE, {"png_unfilter": ([ctypes.c_char_p, ctypes.c_void_p]
+                                             + [ctypes.c_int] * 3, ctypes.c_int)})
     if len(raw) < rows * (row_bytes + 1):
         raise ValueError("truncated image data")
     out = np.empty((rows, row_bytes), np.uint8)
-    if _library.png_unfilter(raw, out.ctypes.data, rows, row_bytes, bpp) != 0:
+    if lib.png_unfilter(raw, out.ctypes.data, rows, row_bytes, bpp) != 0:
         raise ValueError("unknown PNG row filter")
     return out
 
@@ -228,17 +242,87 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(rgb[..., ::-1])
 
 
+# jpeg_decode.c's refusals (positive codes); -1 is a corrupt file
+_JPEG_UNSUPPORTED = {1: "progressive", 2: "arithmetic-coded", 3: "12-bit (not 8-bit) precision",
+                     4: "lossless", 5: "four-component (CMYK/YCCK)"}
+
+
+def _exif_orientation(data: bytes) -> int:
+    """The orientation tag (0x0112) of IFD0 in the file's first APP1 segment, read as
+    OpenCV's ExifReader reads it (the TIFF header 6 bytes into the segment, either
+    byte order); 1 where there is none."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker in (0xD9, 0xDA):
+            break
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker == 0xE1:
+            tiff = data[pos + 4 + 6:pos + 2 + n]
+            if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+                return 1
+            e = "<" if tiff[:2] == b"II" else ">"
+            ifd = struct.unpack(e + "I", tiff[4:8])[0]
+            if ifd + 2 > len(tiff):
+                return 1
+            for i in range(struct.unpack(e + "H", tiff[ifd:ifd + 2])[0]):
+                entry = tiff[ifd + 2 + 12 * i:ifd + 14 + 12 * i]
+                if len(entry) < 12:
+                    break
+                if struct.unpack(e + "H", entry[:2])[0] == 0x0112:
+                    return struct.unpack(e + "H", entry[8:10])[0]
+            return 1
+        pos += 2 + n
+    return 1
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ApplyExifOrientation: 2 flips left-right, 3 turns 180 degrees, 4 flips
+    up-down, 5 transposes, 6-8 transpose then flip left-right, both ways, up-down."""
+    if 5 <= orientation <= 8:
+        img = img.transpose(1, 0, 2)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    return np.ascontiguousarray(np.flip(img, flips) if flips else img)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """The pixels of a JPEG file's bytes, BGR uint8 (h, w, 3), as `cv2.imread` gives them
+    (its Exif orientation applied); ValueError where the file is corrupt."""
+    lib = _library(JPEG_SOURCE, {
+        "jpeg_header": ([ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
+                         ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+        "jpeg_decode": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p], ctypes.c_int)})
+    h, w = ctypes.c_int(), ctypes.c_int()
+    status = lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w))
+    if status == 0:
+        out = np.empty((h.value, w.value, 3), np.uint8)
+        status = lib.jpeg_decode(data, len(data), out.ctypes.data)
+    if status in _JPEG_UNSUPPORTED:
+        raise NotImplementedError(f"decoding {_JPEG_UNSUPPORTED[status]} JPEG is not part of "
+                                  "this port yet")
+    if status == 7:
+        raise MemoryError("out of memory decoding a JPEG file")
+    if status != 0:
+        raise ValueError("corrupt JPEG file")
+    return _orient(out, _exif_orientation(data))
+
+
+_DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg}
+
+
 def imread(path) -> np.ndarray | None:
-    """`cv2.imread(path)` of a PNG file: BGR uint8 (h, w, 3), or None where the file is
-    no readable image. Other formats raise NotImplementedError."""
+    """`cv2.imread(path)` of a PNG or JPEG file: BGR uint8 (h, w, 3), or None where the
+    file is no readable image. Other formats raise NotImplementedError."""
     data = Path(path).read_bytes()
     kind = _kind(data[:16])
     if kind is None:
         return None
-    if kind != "PNG":
-        raise NotImplementedError(f"{path}: decoding {kind} files is not part of this port yet; "
-                                  "a JPEG dataset trains from the .npy sidecars of cache='disk'")
+    if kind not in _DECODERS:
+        raise NotImplementedError(f"{path}: decoding {kind} files is not part of this port yet")
     try:
-        return decode_png(data)
+        return _DECODERS[kind](data)
     except ValueError:
         return None

@@ -1,6 +1,6 @@
 """YOLO facade of the port: build, seed or load weights (a checkpoint directory too),
-train, validate, fuse and serve batches (port of the serving, training and validation
-part of `sar_yolo_tpu/engine/model.py`)."""
+train, validate, fuse, serve batches, predict and track sources (port of the serving,
+tracking, training and validation part of `sar_yolo_tpu/engine/model.py`)."""
 
 from __future__ import annotations
 
@@ -20,8 +20,10 @@ from sar_yolo_tpu_torch.utils import select_device
 from sar_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint
 from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
+# the arguments the predictor reads, with the JAX package's defaults for predict
 PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
-                    "agnostic_nms": False}
+                    "agnostic_nms": False, "save": False, "save_txt": False, "save_dir": None,
+                    "project": None, "name": None, "exist_ok": False}
 
 
 class YOLO:
@@ -34,12 +36,16 @@ class YOLO:
         >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
         >>> metrics = m.val(data="path/to/SARD.yaml", rect=True)  # EMA weights, BN folded
         >>> m = YOLO("runs/jde/jde/weights/best", device="cpu")  # a trained checkpoint
+        >>> results = m.predict("frames/")                 # a folder of JPEG/PNG frames
+        >>> results = m.track("frames/", tracker="bytetrack.yaml")  # boxes.id: track ids
     """
 
     def __init__(self, model: str = "yolov13n-JDE.yaml", device=None):
         self.device = select_device(device)
         self.overrides: dict = {}  # a checkpoint's non-default train args, under each call's
         self.ckpt_dir = None
+        self._callbacks: dict = {}
+        self._predictor_cache = None
         if is_checkpoint(model):
             self._load(model)
         else:
@@ -140,13 +146,32 @@ class YOLO:
         return self._fused
 
     def _get_predictor(self, kwargs: dict):
+        """The predictor of {checkpoint args, kwargs} (each key one the predictor reads;
+        conf 0.25 where neither gives it), reused while the arguments stay the same; it
+        always serves the current weights and every callback added so far."""
         unknown = set(kwargs) - set(PREDICT_DEFAULTS)
         if unknown:
             raise TypeError(f"unsupported predict arguments {sorted(unknown)}")
         if self.task != "jde":
             raise NotImplementedError(f"this port serves the JDE task only, not '{self.task}'")
-        args = SimpleNamespace(**{**PREDICT_DEFAULTS, **kwargs})
-        return JDEPredictor(self._fused_for_serving(), self.meta, args, self.names)
+        overrides = {**{k: v for k, v in self.overrides.items() if k in PREDICT_DEFAULTS},
+                     **kwargs}
+        overrides.setdefault("conf", 0.25)
+        if overrides.get("save"):
+            raise NotImplementedError("save=True (annotated images) is not part of this port "
+                                      "yet: it needs OpenCV's drawing and a JPEG encoder")
+        key = tuple(sorted((k, str(v)) for k, v in overrides.items()))
+        if self._predictor_cache is None or self._predictor_cache[0] != key:
+            args = SimpleNamespace(**{**PREDICT_DEFAULTS, **overrides})
+            self._predictor_cache = (key, JDEPredictor(self._fused_for_serving(), self.meta,
+                                                       args, self.names))
+        predictor = self._predictor_cache[1]
+        predictor.model = self._fused_for_serving()  # new weights after train()
+        for event, fns in self._callbacks.items():
+            for fn in fns:
+                if fn not in predictor.callbacks[event]:
+                    predictor.add_callback(event, fn)
+        return predictor
 
     def predict_batched(self, frames, **kwargs):
         """Serve a uniform-geometry (B, H, W, 3) uint8 BGR batch on the model's device.
@@ -156,6 +181,40 @@ class YOLO:
         *embedding, *states]; rows with conf == 0 are padding.
         """
         return self._get_predictor(kwargs).predict_batch(frames)
+
+    def predict(self, source, stream: bool = False, **kwargs):
+        """Results of each image of `source`: an image file, a folder, a glob, a list of
+        paths, a uint8 BGR array, a list of arrays, or a torch/numpy NCHW or NHWC tensor
+        (float RGB in [0, 1], or uint8). `stream=True` returns a generator.
+        kwargs: those of `predict_batched`, and save_txt with save_dir or
+        project/name/exist_ok."""
+        return self._get_predictor(kwargs)(source, stream=stream)
+
+    def __call__(self, source, **kwargs):
+        return self.predict(source, **kwargs)
+
+    def track(self, source, stream: bool = False, persist: bool = False,
+              tracker: str = "bytetrack.yaml", **kwargs):
+        """`predict` with a multi-object tracker: each frame's boxes carry a track id
+        (column 6). conf defaults to 0.1, so low-confidence detections reach the
+        tracker's second association. `persist=True` keeps the tracks of the previous
+        call; otherwise they start again. `tracker`: bytetrack.yaml, or a BoT-SORT YAML
+        with `gmc_method: none` (the shipped botsort.yaml asks for camera-motion
+        compensation, which is not ported, and raises)."""
+        from sar_yolo_tpu_torch.trackers import make_tracker, register_tracker
+        make_tracker(tracker)  # a config this port cannot run raises before any frame
+        kwargs.setdefault("conf", 0.1)
+        predictor = self._get_predictor(kwargs)
+        if not getattr(predictor, "_tracking_registered", False):
+            register_tracker(predictor, tracker=tracker, persist=persist)
+            predictor._tracking_registered = True
+        predictor._tracker, predictor._tracker_persist = tracker, persist
+        return predictor(source, stream=stream)
+
+    def add_callback(self, event: str, func) -> None:
+        """Register a callback (an `on_predict_*` event) for every predictor this object
+        makes, the ones made already included."""
+        self._callbacks.setdefault(event, []).append(func)
 
     @property
     def names(self):

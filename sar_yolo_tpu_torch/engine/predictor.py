@@ -1,28 +1,54 @@
-"""Batched serving: uint8 frames -> letterbox -> forward -> decode -> NMS on the device
-(port of the batched path of `sar_yolo_tpu/engine/predictor.py`)."""
+"""Serving on the device (port of `sar_yolo_tpu/engine/predictor.py`): uint8 frames ->
+letterbox -> forward -> decode -> NMS -> boxes in the frame's pixels, ending in one copy
+to the host.
+
+Two routes share that tail (`_dets_in_orig_coords`): `predict_batch` serves a uniform
+(B, H, W, 3) batch, and `__call__` / `stream_inference` stream a source (files, folders,
+globs, arrays, tensors) frame by frame with the callback bus that the trackers use.
+"""
 
 from __future__ import annotations
+
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from sar_yolo_tpu_torch.cfg.default import get_save_dir
+from sar_yolo_tpu_torch.data.loaders import load_inference_source
 from sar_yolo_tpu_torch.engine.results import Results
 from sar_yolo_tpu_torch.ops.decode import decode_detect
 from sar_yolo_tpu_torch.ops.nms import non_max_suppression
 from sar_yolo_tpu_torch.ops.preprocess import letterbox_device
 
+EVENTS = ("on_predict_start", "on_predict_batch_start", "on_predict_postprocess_end",
+          "on_predict_end")
+
 
 class BasePredictor:
     """Serves a (fused) model on its device; `args` holds imgsz, conf (None: 0.25), iou,
-    max_det, agnostic_nms."""
+    max_det, agnostic_nms, save_txt, save_dir, project, name and exist_ok."""
 
     def __init__(self, model, meta: dict, args, names=None):
         self.model = model
         self.meta = meta
         self.args = args
         self.names = names or {i: str(i) for i in range(meta["nc"])}
-        self.imgsz = args.imgsz
+        self.imgsz = args.imgsz if isinstance(args.imgsz, int) else args.imgsz[0]
         self.device = next(model.parameters()).device
+        self.callbacks = {e: [] for e in EVENTS}
+        self.batch = None         # (path, orig_img, meta) of the current frame
+        self.results = None       # [Results] of the current frame (callbacks may edit it)
+        self.source_types = None
+        self.trackers = {}        # filled by trackers.register_tracker
+
+    def add_callback(self, event: str, fn):
+        self.callbacks[event].append(fn)
+
+    def run_callbacks(self, event: str):
+        for fn in self.callbacks.get(event, []):
+            fn(self)
 
     def _dets_in_orig_coords(self, x, r: float, pad):
         """Normalized letterboxed NCHW batch -> decode -> NMS -> boxes in original pixels."""
@@ -57,16 +83,65 @@ class BasePredictor:
         in original-image pixels (rows with conf == 0 are padding)."""
         return self._dets_in_orig_coords(*self.preprocess(frames_u8)).cpu().numpy()
 
-
-class JDEPredictor(BasePredictor):
-    """Splits [box, conf, cls, emb, state] and exposes embeddings and the argmax state."""
-
-    def postprocess(self, dets, path, orig_img, speed=None) -> Results:
+    @staticmethod
+    def _kept(dets, orig_img) -> np.ndarray:
+        """The kept rows of the first image's detections, boxes clipped to the image."""
         d = np.asarray(dets[0])
         d = d[d[:, 4] > 0]
         h, w = orig_img.shape[:2]
         d[:, [0, 2]] = d[:, [0, 2]].clip(0, w)
         d[:, [1, 3]] = d[:, [1, 3]].clip(0, h)
+        return d
+
+    def __call__(self, source, stream: bool = False):
+        gen = self.stream_inference(source)
+        return gen if stream else list(gen)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def stream_inference(self, source):
+        """Results of each frame of `source`, one at a time. `speed` (host ms, each part
+        ended on the device): preprocess (the raw uint8 frame to the device and its
+        letterbox), inference (forward, decode, NMS, rescale and the copy to the host),
+        postprocess (Results and the on_predict_postprocess_end callbacks)."""
+        loader, self.source_types = load_inference_source(source)
+        save_dir = None
+        if getattr(self.args, "save_txt", False):
+            save_dir = Path(self.args.save_dir or get_save_dir(self.args, self.meta["task"]))
+        self.run_callbacks("on_predict_start")
+        try:
+            for path, img, meta in loader:
+                self.batch = (path, img, meta)
+                self.run_callbacks("on_predict_batch_start")
+                t0 = time.perf_counter()
+                x, r, pad = self.preprocess(img[None])
+                self._sync()
+                t1 = time.perf_counter()
+                dets = self._dets_in_orig_coords(x, r, pad).cpu().numpy()
+                t2 = time.perf_counter()
+                speed = {"preprocess": (t1 - t0) * 1e3, "inference": (t2 - t1) * 1e3}
+                res = self.postprocess(dets, path, img, speed)
+                res.frame = meta.get("frame")
+                self.results = [res]
+                self.run_callbacks("on_predict_postprocess_end")
+                res = self.results[0]
+                speed["postprocess"] = (time.perf_counter() - t2) * 1e3
+                if save_dir is not None:
+                    n = f"_{meta['frame']}" if meta.get("frame") is not None else ""
+                    res.save_txt(save_dir / "labels" / f"{Path(str(path)).stem}{n}.txt")
+                yield res
+        finally:
+            self.run_callbacks("on_predict_end")
+
+
+class JDEPredictor(BasePredictor):
+    """Splits [box, conf, cls, emb, state] and exposes embeddings and the argmax state."""
+
+    def postprocess(self, dets, path, orig_img, speed=None) -> Results:
+        d = self._kept(dets, orig_img)
         ed = self.meta["embed_dim"]
         sc = self.meta.get("state_classes") or 0
         embeds = d[:, 6:6 + ed]

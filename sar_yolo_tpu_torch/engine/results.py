@@ -1,13 +1,26 @@
-"""Inference results of the JDE slice: boxes, ReID embeddings and posture states
-(the serving subset of `sar_yolo_tpu/engine/results.py`; numpy-backed)."""
+"""Inference results of the JDE slice: boxes (with track ids), ReID embeddings and posture
+states (the box and JDE part of `sar_yolo_tpu/engine/results.py`; numpy-backed).
+
+Drawing and file writers (`plot`, `save`, `save_crop`) and the pandas tables (`to_df`,
+`to_csv`, `to_xml`) raise NotImplementedError: they need OpenCV's drawing, a JPEG
+encoder or pandas, which the card's machine does not have.
+"""
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
 
+def _not_ported(what: str):
+    raise NotImplementedError(f"Results.{what} is not part of this port yet (it needs OpenCV's "
+                              "drawing and image writers, or pandas)")
+
+
 class Boxes:
-    """Detection rows [x1, y1, x2, y2, conf, cls] of one image."""
+    """Detection rows [x1, y1, x2, y2, conf, cls] of one image (+ the track id in column 6)."""
 
     def __init__(self, data: np.ndarray, orig_shape):
         self.data = data
@@ -28,6 +41,31 @@ class Boxes:
     def cls(self):
         return self.data[:, 5]
 
+    @property
+    def xywh(self):
+        b = self.data[:, :4]
+        return np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2,
+                         b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], 1)
+
+    @property
+    def xyxyn(self):
+        h, w = self.orig_shape
+        return self.xyxy / np.array([w, h, w, h])
+
+    @property
+    def xywhn(self):
+        h, w = self.orig_shape
+        return self.xywh / np.array([w, h, w, h])
+
+    @property
+    def id(self):
+        """Track ids where a tracker assigned them (column 6), else None."""
+        return self.data[:, 6] if self.data.shape[1] > 6 else None
+
+    @property
+    def is_track(self):
+        return self.data.shape[1] > 6
+
 
 class Results:
     """One image's detections, with `embeds` (n, E) and `person_states` (n,) for JDE."""
@@ -42,6 +80,90 @@ class Results:
         self.embeds = embeds
         self.person_states = person_states
         self.speed = speed or {}
+        self.frame = None
 
     def __len__(self):
         return 0 if self.boxes is None else len(self.boxes)
+
+    def new(self) -> "Results":
+        """Empty Results carrying the same image and names."""
+        return Results(orig_img=self.orig_img, path=self.path, names=self.names)
+
+    def update(self, boxes=None):
+        """Replace the boxes in place."""
+        if boxes is not None:
+            self.boxes = Boxes(np.asarray(boxes), self.orig_shape)
+        return self
+
+    def summary(self, normalize: bool = False) -> list:
+        out = []
+        if self.boxes is None:
+            return out
+        h, w = self.orig_shape
+        ids = self.boxes.id
+        for i, row in enumerate(self.boxes.data):
+            box = row[:4] / np.array([w, h, w, h]) if normalize else row[:4]
+            item = {"name": str(self.names.get(int(row[5]), int(row[5]))),
+                    "class": int(row[5]), "confidence": float(row[4]),
+                    "box": {k: float(v) for k, v in zip("x1 y1 x2 y2".split(), box)}}
+            if ids is not None:
+                item["track_id"] = int(ids[i])
+            if self.person_states is not None:
+                item["person_state"] = int(self.person_states[i])
+            out.append(item)
+        return out
+
+    def to_json(self, normalize: bool = False) -> str:
+        return json.dumps(self.summary(normalize=normalize))
+
+    tojson = to_json
+
+    def verbose(self) -> str:
+        """One-line summary, e.g. '3 persons'."""
+        if self.boxes is None or len(self.boxes) == 0:
+            return "(no detections)"
+        cls, counts = np.unique(self.boxes.cls.astype(int), return_counts=True)
+        return ", ".join(f"{n} {self.names.get(int(c), c)}{'s' * int(n > 1)}"
+                         for c, n in zip(cls, counts))
+
+    def save_txt(self, txt_file, save_conf: bool = True):
+        """YOLO-format label rows: class, normalized xywh, the confidence, the track id."""
+        lines = []
+        if self.boxes is not None:
+            ids = self.boxes.id
+            for i, row in enumerate(self.boxes.data):
+                cx, cy, bw, bh = self.boxes.xywhn[i]
+                line = f"{int(row[5])} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}"
+                if save_conf:
+                    line += f" {row[4]:.4f}"
+                if ids is not None:
+                    line += f" {int(ids[i])}"
+                lines.append(line)
+        p = Path(txt_file)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text("\n".join(lines) + ("\n" if lines else ""))
+        return p
+
+    def cpu(self):
+        return self
+
+    def numpy(self):
+        return self
+
+    def plot(self, *args, **kwargs):
+        _not_ported("plot")
+
+    def save(self, *args, **kwargs):
+        _not_ported("save")
+
+    def save_crop(self, *args, **kwargs):
+        _not_ported("save_crop")
+
+    def to_df(self, *args, **kwargs):
+        _not_ported("to_df")
+
+    def to_csv(self, *args, **kwargs):
+        _not_ported("to_csv")
+
+    def to_xml(self, *args, **kwargs):
+        _not_ported("to_xml")

@@ -12,27 +12,20 @@ tolerances of `test_predict_batched_matches_jax` (boxes and scores 1e-3, embeddi
 1e-3, states 1e-5, classes equal) and resumes with a fresh optimizer.
 """
 
-import importlib.util
 import json
-from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sar_yolo_tpu.engine.model import YOLO as JaxYOLO
-from sar_yolo_tpu.nn.tasks import build_model as jax_build_model
-from sar_yolo_tpu.nn.tasks import bias_init_head, infer_strides
-from sar_yolo_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from sar_yolo_tpu_torch import YOLO
 from sar_yolo_tpu_torch.engine import trainer as trainer_module
 from sar_yolo_tpu_torch.engine.trainer import JDETrainer
 from sar_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint, save_checkpoint
-from torch_port_common import fill_variables, one_torch_thread, write_jde_dataset  # noqa: F401
+from torch_port_common import (convert_jax_checkpoint, one_torch_thread,  # noqa: F401
+                               write_jax_checkpoint, write_jde_dataset)
 
-REPO = Path(__file__).resolve().parents[1]
 TINY = dict(model="tinyjde.yaml", imgsz=64, batch=8, workers=2, max_labels=8, val=False,
             optimizer="SGD", warmup_epochs=0.0, exist_ok=True)
 
@@ -126,33 +119,9 @@ def test_yolo_checkpoint_serves_the_trained_weights_and_time_stops(tmp_path, mon
     assert not saved and not (tmp_path / "jde" / "nosave" / "weights").exists()
 
 
-def _jax_checkpoint(path: Path) -> dict:
-    """A JAX tinyjde checkpoint (`save_model`'s payload and metadata; numpy-filled weights
-    with the head's bias init, so that the class scores spread and few rows pass NMS)."""
-    model, meta = jax_build_model("tinyjde.yaml")
-    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
-    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x, train=False))
-    meta["strides"] = infer_strides(model, meta)
-    variables = jax.device_get(bias_init_head(fill_variables(shapes, np.random.default_rng(5)), meta))
-    ema = jax.device_get(bias_init_head(fill_variables(shapes, np.random.default_rng(6)), meta))["params"]
-    payload = {"params": variables["params"], "ema_params": ema,
-               "batch_stats": variables["batch_stats"],
-               "cb_counts": np.arange(6, dtype=np.float32), "opt_state": {}}
-    metadata = {"epoch": 4, "best_fitness": 0.25, "train_args": {"model": "tinyjde.yaml",
-                                                                "imgsz": 64, "plots": False},
-                "model_yaml": meta["yaml"], "task": "jde", "nc": 1,
-                "strides": meta["strides"], "step": 40}
-    jax_save_checkpoint(path, payload, metadata)
-    return payload
-
-
 def test_converted_jax_checkpoint_serves_and_resumes(tmp_path):
-    payload = _jax_checkpoint(tmp_path / "jax_ckpt")
-    spec = importlib.util.spec_from_file_location(
-        "torch_port_jax_checkpoint", REPO / "tools" / "torch_port_jax_checkpoint.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    tool.convert(tmp_path / "jax_ckpt", tmp_path / "port_ckpt")
+    payload = write_jax_checkpoint(tmp_path / "jax_ckpt", {"imgsz": 64, "plots": False})
+    convert_jax_checkpoint(tmp_path / "jax_ckpt", tmp_path / "port_ckpt")
     frames = _frames(3)
     kw = dict(imgsz=96, conf=0.001, iou=0.7, max_det=50)
     want = np.asarray(JaxYOLO(str(tmp_path / "jax_ckpt")).predict_batched(frames, **kw))

@@ -4,7 +4,7 @@
 PIL wrote (gray, gray + alpha, palette with 1-8 bits, RGB, RGBA, 16-bit, each of the
 five row filters); header shapes equal those of the JAX package's PIL reader for
 PNG, JPEG (baseline and progressive) and BMP, corrupt files included; other formats
-raise;
+and progressive JPEG pixels raise (the JPEG decoder is held in `test_torch_port_jpeg.py`);
 (b) the dataset YAML reader equals PyYAML on every file of
 `sar_yolo_tpu/cfg/datasets/`;
 (c) `data/cv.py` equals OpenCV 8-bit results bit for bit: resize (upscale,
@@ -13,7 +13,7 @@ jitter's LUTs are held in (d));
 (d) each augmentation against the JAX package's on the same numpy generator:
 images equal, boxes within 1e-4 px, tags and classes equal;
 (e) `YOLODataset` item by item (val, train with mosaic at two (seed, epoch) pairs,
-train after close_mosaic, rect batches, `.npy` sidecars of a JPEG dataset): every
+train after close_mosaic, rect batches, a JPEG dataset decoded and from `.npy` sidecars): every
 array equal; the label cache drops the same files and each package reads the
 cache the other wrote; `set_epoch` reaches the dataset;
 (f) refusals: perspective and mosaic9; the route: the hyperparameters the device
@@ -147,8 +147,8 @@ def test_formats_not_decoded_raise(tmp_path):
         cv2.imwrite(str(tmp_path / name), img)
         with pytest.raises(NotImplementedError, match="TIFF|WebP"):
             imageio.image_shape(tmp_path / name)
-    cv2.imwrite(str(tmp_path / "a.jpg"), img)
-    with pytest.raises(NotImplementedError, match="decoding JPEG"):
+    cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match="progressive JPEG"):
         imageio.imread(tmp_path / "a.jpg")
 
 
@@ -419,13 +419,13 @@ def test_npy_sidecars_of_a_jpeg_dataset(tmp_path):
         cv2.imwrite(str(tmp_path / "images" / f"{i}.jpg"), _smooth(rng, *SHAPES[i]))
         (tmp_path / "labels" / f"{i}.txt").write_text(f"0 0.5 0.5 0.2 0.3 {i}\n")
     kw = dict(augment=False, **_kw())
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        YOLODataset(str(tmp_path / "images"), cache="disk", **kw)[0]
+    decoded = YOLODataset(str(tmp_path / "images"), **kw)  # the port's own JPEG decoder
     want = jax_dataset.YOLODataset(str(tmp_path / "images"), cache="disk", **kw)
     [want[i] for i in range(len(want))]  # the JAX package decodes and writes the sidecars
     assert len(list((tmp_path / "images").glob("*.npy"))) == 4
     got = YOLODataset(str(tmp_path / "images"), cache="disk", **kw)
     _assert_same_items(got, want)
+    _assert_same_items(decoded, want)
 
 
 def test_device_augmentation_hyperparameters_raise(dataset_dir, tmp_path, monkeypatch):

@@ -34,6 +34,69 @@ def write_jde_dataset(root, n_train: int, n_val: int, seed: int = 0) -> dict:
     return {"path": str(root), "train": "images/train", "val": "images/val", "names": {0: "person"}}
 
 
+def jax_and_port_yolo(cfg: str, seed: int, bias_init: bool = False, cls_gain: float = 1.0):
+    """JAX and port YOLO objects (the port's on the CPU) of `cfg` with the same
+    numpy-filled weights; `bias_init`: the head's class bias init (scores near 0.01);
+    `cls_gain`: the class logits' last convolutions scaled, so that scores spread."""
+    import jax
+    import jax.numpy as jnp
+
+    from sar_yolo_tpu.engine.model import YOLO as JaxYOLO
+    from sar_yolo_tpu.nn.tasks import bias_init_head, infer_strides
+    from sar_yolo_tpu_torch import YOLO
+    jyolo = JaxYOLO(cfg)
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda: jyolo.model.init(jax.random.PRNGKey(0), x, train=False))
+    jyolo.meta["strides"] = infer_strides(jyolo.model, jyolo.meta)
+    variables = fill_variables(shapes, np.random.default_rng(seed))
+    if bias_init:
+        variables = jax.device_get(bias_init_head(variables, jyolo.meta))
+    head = variables["params"][max(variables["params"], key=lambda k: int(k.split("_")[1]))]
+    for name, sub in head.items():
+        if name.startswith("cv3_") and name.endswith("_pred"):
+            sub["kernel"] = sub["kernel"] * np.float32(cls_gain)
+    jyolo.variables = variables
+    pyolo = YOLO(cfg, device="cpu")
+    pyolo.load_jax_variables(variables)
+    return jyolo, pyolo
+
+
+def write_jax_checkpoint(path, train_args: dict) -> dict:
+    """A JAX tinyjde checkpoint at `path` (`save_model`'s payload and metadata; numpy-filled
+    weights with the head's bias init, so that the class scores spread and few rows pass
+    NMS); returns its payload."""
+    import jax
+    import jax.numpy as jnp
+
+    from sar_yolo_tpu.nn.tasks import bias_init_head, build_model, infer_strides
+    from sar_yolo_tpu.utils.checkpoint import save_checkpoint
+    model, meta = build_model("tinyjde.yaml")
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x, train=False))
+    meta["strides"] = infer_strides(model, meta)
+    variables = jax.device_get(bias_init_head(fill_variables(shapes, np.random.default_rng(5)), meta))
+    ema = jax.device_get(bias_init_head(fill_variables(shapes, np.random.default_rng(6)), meta))["params"]
+    payload = {"params": variables["params"], "ema_params": ema,
+               "batch_stats": variables["batch_stats"],
+               "cb_counts": np.arange(6, dtype=np.float32), "opt_state": {}}
+    metadata = {"epoch": 4, "best_fitness": 0.25, "train_args": {"model": "tinyjde.yaml", **train_args},
+                "model_yaml": meta["yaml"], "task": "jde", "nc": 1,
+                "strides": meta["strides"], "step": 40}
+    save_checkpoint(path, payload, metadata)
+    return payload
+
+
+def convert_jax_checkpoint(src, dst):
+    """`tools/torch_port_jax_checkpoint.py`'s `convert`."""
+    import importlib.util
+    from pathlib import Path
+    tool = Path(__file__).resolve().parents[1] / "tools" / "torch_port_jax_checkpoint.py"
+    spec = importlib.util.spec_from_file_location("torch_port_jax_checkpoint", tool)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.convert(src, dst)
+
+
 def close_to_max(got, want, what=""):
     """|got - want| <= 1e-4 of want's largest magnitude (the tolerance of gradients and parameters)."""
     want = np.asarray(want)
