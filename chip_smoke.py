@@ -79,7 +79,29 @@ Phases, in order; any failure exits non-zero:
      `YOLO.track` with ByteTrack and with BoT-SORT (`gmc_method: none`): the same ids on
      both paths and the tracker's host ms per frame; `YOLO.val(rect=True)` on the frames
      with their person boxes as labels (JPEG decoded in the loader threads).
- 11. a JSON line of the kernels, the card line, and the result line.
+ 11. `half=True` serving (the BN-folded model folded in float32, then its weights and
+     compute in bf16): `YOLO.predict_batched` of yolov13n-JDE @640 (batch 8) and of
+     JDE_P24 @1280 (batch 1) on seeded, perturbed weights; 8 launches a forward, all of the
+     kernel's bf16 variant and none in float32; the head maps of the kernel path no farther
+     (relative L2) from the float32 plain path than twice the bf16 plain path is; img/s
+     in float32 and bf16 taken in turns, at batch 1 and 8 (1 at 1280).
+ 12. `YOLO.predict(half=True)` of the 12 JPEG frames at phase 10's threshold: 96 bf16
+     launches a call (none in float32), the head maps held as in phase 11, frames/s in
+     float32 and bf16 in turns.
+ 13. amp training (the default, bf16 compute over float32 parameters) of yolov13n-JDE @640,
+     batch 16, synthetic data, SGD: `check_bf16` passes (a fallback to float32 fails the
+     phase); one step from one state on one batch on the bf16 kernel path (8 bf16 launches
+     in the forward, 0 in the backward), the bf16 plain path, the float32 plain path and
+     `remat=True` (cuDNN deterministic): the remat step equals the kernel-path step
+     exactly (loss items, every gradient, the state after the update; the HyperACE
+     dropout live), the kernel path's train-mode head maps and gradient each no farther
+     (relative L2) from the float32 ones than twice the bf16 plain path's; step time, img/s and peak memory of the bf16,
+     float32 and remat steps; then `YOLO.train(data="synthetic", epochs=1)` with no
+     precision key: bf16 throughout (check_bf16's two forwards, 4 steps, the epoch's
+     validation of the bf16 eval copy), and `predict_batched` of the trained model in bf16.
+ 14. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
+     step's forward), the card line, and the result line.
+The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
 
@@ -122,8 +144,11 @@ CHECK_SHAPES = [
     ("Na 25", 1, 32, 5, 5, 1, 1, "tokens"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# both backwards run the plain version's: float32 absolute, bf16 relative to the largest gradient
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LAUNCHES_PER_FORWARD = 8  # 2 A2C2f layers x n=2 x 2 ABlocks
 MAIN_BATCH = 4            # frames of the served batch (yolov13n-JDE @640)
+HALF_BATCH = 8            # frames of the half-served batch (yolov13n-JDE @640)
 TRAIN_IMGSZ, TRAIN_BATCH = 640, 16  # the train step and the validation
 PRE_TOPK = 1024           # ops/nms.py: candidates kept before suppression
 VAL_IMAGES = 16           # the synthetic val set of YOLO.val and of the trainer
@@ -294,25 +319,25 @@ def phase_kernel():
             dname = str(dtype).removeprefix("torch.")
             qk, vm, q, k, v = inputs(B, C, H, W, dtype)
             err, geo = compare(label, dname, q, k, v, heads, area)
-            grad_err = None
-            if dtype == torch.float32:
-                w = torch.randn(B, N, C, device="cuda", generator=g)
-                grads = []
-                for fn in (flash_area_attention, area_attention_plain):
-                    qk_l, v_l = qk.clone().requires_grad_(), vm.clone().requires_grad_()
-                    t = qk_l.flatten(2).transpose(1, 2)
-                    (fn(t[..., :C], t[..., C:], v_l.flatten(2).transpose(1, 2), heads, area)
-                     * w).sum().backward()
-                    grads.append((qk_l.grad, v_l.grad))
-                grad_err = max((a - b).abs().max().item() for a, b in zip(*grads))
-                check(grad_err <= 1e-5, f"kernel gradients {label}: max abs err {grad_err}")
+            w = torch.randn(B, N, C, device="cuda", generator=g).to(dtype)
+            grads = []
+            for fn in (flash_area_attention, area_attention_plain):
+                qk_l, v_l = qk.clone().requires_grad_(), vm.clone().requires_grad_()
+                t = qk_l.flatten(2).transpose(1, 2)
+                (fn(t[..., :C], t[..., C:], v_l.flatten(2).transpose(1, 2), heads, area)
+                 * w).sum().backward()
+                grads.append((qk_l.grad, v_l.grad))
+            grad_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(*grads))
+            grad_max = max(b.float().abs().max().item() for b in grads[1])
+            check(grad_err <= GRAD_TOL[dname] * (grad_max if dtype == torch.bfloat16 else 1.0),
+                  f"kernel gradients {label} {dname}: max abs err {grad_err} (largest {grad_max})")
             q4, k4, v4 = (t.reshape(B * area, Na, heads, 32).transpose(1, 2).contiguous()
                           for t in (q, k, v))
             flops = 4 * (B * area * heads) * Na * Na * 32
             nbytes = 4 * B * N * C * q.element_size()
             t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
             backward_ms = None
-            if dtype == torch.float32 and B == TRAIN_BATCH:  # the train step's shapes
+            if B == TRAIN_BATCH:  # the train step's shapes
                 q_l, k_l, v_l = (t.detach().requires_grad_() for t in (q, k, v))
                 out = flash_area_attention(q_l, k_l, v_l, heads, area)
                 w = torch.randn_like(out)
@@ -688,7 +713,7 @@ def phase_train(card: str, seed: int = 0):
     from sar_yolo_tpu_torch import YOLO
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
     ab = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
-              seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0)
+              seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0, amp=False)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     from sar_yolo_tpu_torch.data.build import DataLoader
     from sar_yolo_tpu_torch.engine.trainer import JDETrainer
@@ -718,14 +743,20 @@ def phase_train(card: str, seed: int = 0):
     # the user's entry point (its epoch ends in a validation), then serving the trained
     # (EMA) weights
     from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import reset_launches
     yolo = YOLO("yolov13n-JDE.yaml")
-    flash_area_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with _timed_calls(JDETrainer, "setup", []) as setup, \
             _timed_calls(JDETrainer, "validate", []) as val:
         metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
-                             seed=seed, project="runs", name="chip_smoke_train", exist_ok=True)
+                             seed=seed, amp=False, project="runs", name="chip_smoke_train",
+                             exist_ok=True)
     train_launches = flash_area_attention.launches
+    check(yolo.trainer.model.compute_dtype == torch.float32
+          and flash_area_attention.launches_by_dtype["bfloat16"] == 0,
+          f"YOLO.train(amp=False): compute dtype {yolo.trainer.model.compute_dtype}, launches "
+          f"by dtype {flash_area_attention.launches_by_dtype}")
     train_s = time.perf_counter() - t0
     steps = yolo.trainer.step
     val_batches = -(-VAL_IMAGES // TRAIN_BATCH)
@@ -1094,7 +1125,7 @@ def phase_data(card: str, seed: int = 0):
         with _timed_calls(JDETrainer, "validate", []) as val:
             t0 = time.perf_counter()
             metrics = yolo.train(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=2,
-                                 close_mosaic=1, workers=8, seed=seed, project="runs",
+                                 close_mosaic=1, workers=8, seed=seed, amp=False, project="runs",
                                  name="chip_smoke_data", exist_ok=True)
             t_end = time.perf_counter()
     finally:
@@ -1224,7 +1255,7 @@ def phase_checkpoint(card: str, data: dict, host_loader: dict, seed: int = 0):
     from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     kw = dict(data=data, copy_paste=0.0, epochs=2, close_mosaic=1, imgsz=TRAIN_IMGSZ,
-              batch=TRAIN_BATCH, workers=8, seed=seed, project="runs", exist_ok=True)
+              batch=TRAIN_BATCH, workers=8, seed=seed, amp=False, project="runs", exist_ok=True)
     epochs, steps = [], []
     set_epoch, train_step = build.DataLoader.set_epoch, JDETrainer.train_step
 
@@ -1569,6 +1600,283 @@ def phase_jpeg(card: str, seed: int = 2) -> dict:
             f"YOLO.val rect on {JPEG_FRAMES} JPEG frames": val_launches}
 
 
+def _maps_vs_f32(kernel, plain, f32, x, x32) -> dict:
+    """Relative L2 distances of head maps: the bf16 kernel path and the bf16 plain path each
+    from the float32 plain path (of the same weights), and from each other."""
+    import torch
+    with torch.no_grad():
+        k, p, f = (torch.cat([t.double().flatten() for t in m(inp)])
+                   for m, inp in ((kernel, x), (plain, x), (f32, x32)))
+
+    def d(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    return {"maps_bf16_kernel_vs_f32": d(k, f), "maps_bf16_plain_vs_f32": d(p, f),
+            "maps_bf16_kernel_vs_plain": d(k, p)}
+
+
+def _check_bf16_launches(expected: int, label: str):
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    by = dict(flash_area_attention.launches_by_dtype)
+    check(by == {"float32": 0, "bfloat16": expected},
+          f"{label}: kernel launches by dtype {by}, expected {expected} bf16 and no float32")
+    return by
+
+
+def _rates(fn_f32, fn_bf16, rounds: int = 2) -> dict:
+    """Alternating measurements of two rates (f32, bf16, f32, bf16, ...): each list and median."""
+    runs = {"f32": [], "bf16": []}
+    for _ in range(rounds):
+        runs["f32"].append(fn_f32())
+        runs["bf16"].append(fn_bf16())
+    return {**{f"{k}_runs": v for k, v in runs.items()},
+            **{k: statistics.median(v) for k, v in runs.items()}}
+
+
+def phase_half(name: str, imgsz: int, conf: float, batch: int, seed: int, throughput_batches,
+               card: str) -> int:
+    """`half=True` serving (see the module docstring, phase 11); returns the bf16 kernel
+    launches of one forward."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    yolo = _perturbed_yolo(name, seed, imgsz)
+    plain = copy.deepcopy(yolo)
+    _set_flash(plain, False)
+    frames = np.random.default_rng(seed).integers(0, 256, (max(batch, *throughput_batches), 720,
+                                                           1280, 3), np.uint8)
+    kw, hkw = dict(imgsz=imgsz, conf=conf), dict(imgsz=imgsz, conf=conf, half=True)
+    yolo.predict_batched(frames[:1], **hkw)  # warm-up: fold, cast, cuDNN's plans
+    reset_launches()
+    got = yolo.predict_batched(frames[:batch], **hkw)
+    _check_bf16_launches(LAUNCHES_PER_FORWARD, f"{name} half")
+    served = yolo._fused_for_serving(True)
+    check({p.dtype for p in served.parameters()} == {torch.bfloat16}
+          and served.compute_dtype == torch.bfloat16, f"{name} half: the served model is not bf16")
+    check(got.shape == (batch, 300, 6 + 256 + 6) and np.isfinite(got).all(),
+          f"{name} half: detections of shape {got.shape}, finite {np.isfinite(got).all()}")
+    want = plain.predict_batched(frames[:batch], **hkw)
+    check(flash_area_attention.launches == LAUNCHES_PER_FORWARD,
+          f"{name} half: use_flash=False launched the kernel")
+    x, _, _ = yolo._get_predictor(hkw).preprocess(frames[:batch])
+    x32, _, _ = yolo._get_predictor(kw).preprocess(frames[:batch])
+    check(x.dtype == torch.bfloat16 and x32.dtype == torch.float32, f"{name}: input dtypes")
+    maps = _maps_vs_f32(served, plain._fused_for_serving(True), plain._fused_for_serving(), x, x32)
+    rates = {}
+    for b in throughput_batches:
+        r = _rates(lambda: _img_per_s(yolo, frames[:b], kw), lambda: _img_per_s(yolo, frames[:b], hkw))
+        rates.update({f"img_per_s_b{b}_{k}": v for k, v in r.items()})
+    kept = {"kept_per_frame_bf16_kernel": (got[..., 4] > 0).sum(1).tolist(),
+            "kept_per_frame_bf16_plain": (want[..., 4] > 0).sum(1).tolist()}
+    print(json.dumps({"serve_half": name, "imgsz": imgsz, "batch": batch, "conf": conf,
+                      "bf16_kernel_launches": LAUNCHES_PER_FORWARD, **kept, **maps, **rates,
+                      "card": card}))
+    check(maps["maps_bf16_kernel_vs_f32"] <= 2 * maps["maps_bf16_plain_vs_f32"],
+          f"{name} half: kernel path {maps['maps_bf16_kernel_vs_f32']} from float32, plain path "
+          f"{maps['maps_bf16_plain_vs_f32']}")
+    return LAUNCHES_PER_FORWARD
+
+
+def phase_half_jpeg(card: str, seed: int = 2) -> int:
+    """`YOLO.predict(half=True)` on the 12 JPEG frames (see the module docstring, phase 12);
+    returns its bf16 kernel launches."""
+    import torch
+
+    from sar_yolo_tpu_torch.data.imageio import imread
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    frames_dir = JPEG_DIR / "frames"
+    yolo = _perturbed_yolo("yolov13n-JDE.yaml", seed, TRAIN_IMGSZ)
+    plain = copy.deepcopy(yolo)
+    _set_flash(plain, False)
+    meta = yolo.meta
+    # phase 10's threshold: under max_det candidates a frame, in a gap of the float32 scores
+    predictor = yolo._get_predictor({"imgsz": TRAIN_IMGSZ})
+    with torch.no_grad():
+        scores = torch.cat([decode_detect(predictor.model(predictor.preprocess(imread(f)[None])[0]),
+                                          meta["strides"], meta["nc"], meta["reg_max"],
+                                          extra_sigmoid=meta["state_classes"],
+                                          split_extras=meta["embed_dim"])[0]
+                            [..., 4:4 + meta["nc"]].flatten(1)
+                            for f in sorted(frames_dir.glob("*.jpg"))])
+    conf, _ = _ab_conf(scores.double().cpu().numpy(), 300, margin=1e-4)
+    kw, hkw = dict(imgsz=TRAIN_IMGSZ, conf=conf), dict(imgsz=TRAIN_IMGSZ, conf=conf, half=True)
+    yolo.predict(str(frames_dir), **hkw)  # warm-up
+    reset_launches()
+    walls = {"f32": [], "bf16": []}
+    results = {}
+    for _ in range(3):
+        for key, args in (("f32", kw), ("bf16", hkw)):
+            n0 = dict(flash_area_attention.launches_by_dtype)
+            t0 = time.perf_counter()
+            results[key] = yolo.predict(str(frames_dir), **args)
+            walls[key].append(time.perf_counter() - t0)
+            by = {k: v - n0[k] for k, v in flash_area_attention.launches_by_dtype.items()}
+            want = JPEG_FRAMES * LAUNCHES_PER_FORWARD
+            check(by == ({"float32": want, "bfloat16": 0} if key == "f32"
+                         else {"float32": 0, "bfloat16": want}),
+                  f"YOLO.predict {key} on JPEG frames: kernel launches by dtype {by}")
+    got = results["bf16"]
+    check(len(got) == JPEG_FRAMES and all(np.isfinite(r.boxes.data).all()
+                                         and np.isfinite(r.embeds).all() for r in got),
+          "YOLO.predict half: results")
+    n0 = flash_area_attention.launches
+    want = plain.predict(str(frames_dir), **hkw)
+    check(flash_area_attention.launches == n0, "YOLO.predict half: use_flash=False launched the kernel")
+    frames = np.stack([imread(f) for f in sorted(frames_dir.glob("*.jpg"))[:2]])
+    x, _, _ = yolo._get_predictor(hkw).preprocess(frames)
+    x32, _, _ = yolo._get_predictor(kw).preprocess(frames)
+    maps = _maps_vs_f32(yolo._fused_for_serving(True), plain._fused_for_serving(True),
+                        plain._fused_for_serving(), x, x32)
+    out = {"yolo_predict_jpeg_half": f"yolov13n-JDE @{TRAIN_IMGSZ}, {JPEG_FRAMES} frames of "
+                                     "720x1280", "conf": conf,
+           "bf16_kernel_launches": 3 * JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+           **{f"frames_per_s_{k}": JPEG_FRAMES / statistics.median(v) for k, v in walls.items()},
+           **{f"frames_per_s_{k}_runs": [JPEG_FRAMES / w for w in v] for k, v in walls.items()},
+           "inference_ms_median_bf16": statistics.median(r.speed["inference"] for r in got),
+           "inference_ms_median_f32": statistics.median(r.speed["inference"] for r in results["f32"]),
+           "kept_bf16_kernel": [len(r) for r in got], "kept_bf16_plain": [len(r) for r in want],
+           "kept_f32": [len(r) for r in results["f32"]], **maps, "card": card}
+    print(json.dumps(out))
+    check(maps["maps_bf16_kernel_vs_f32"] <= 2 * maps["maps_bf16_plain_vs_f32"],
+          f"YOLO.predict half: kernel path {maps['maps_bf16_kernel_vs_f32']} from float32, plain "
+          f"path {maps['maps_bf16_plain_vs_f32']}")
+    return 3 * JPEG_FRAMES * LAUNCHES_PER_FORWARD
+
+
+def phase_amp_train(card: str, seed: int = 0):
+    """The amp train step, remat and a one-epoch `YOLO.train` with amp on (see the module
+    docstring, phase 13). Returns the bf16 launches by path and the step timings."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    base = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
+                seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    trainers = {}
+    for label, extra, use_flash in (("bf16", {}, None), ("bf16_plain", {}, False),
+                                    ("f32_plain", {"amp": False}, False),
+                                    ("bf16_remat", {"remat": True}, None)):
+        tr = trainers[label] = JDETrainer({**base, **extra})
+        tr.setup()
+        _set_flash(tr, use_flash)
+        want = torch.float32 if label.startswith("f32") else torch.bfloat16
+        check(tr.model.compute_dtype == want, f"amp train {label}: compute dtype "
+              f"{tr.model.compute_dtype} (check_bf16 fell back?)")
+    loader = DataLoader(trainers["bf16"].train_set, TRAIN_BATCH, seed=seed)
+    batch = next(iter(loader))
+    state = _train_state(trainers["bf16"])
+    heads = {}  # the train-mode head maps of the step's forward
+    for label in ("bf16", "bf16_plain", "f32_plain"):
+        tr = trainers[label]
+        _set_train_state(tr, state)
+        with torch.no_grad():
+            heads[label] = torch.cat([t.double().flatten()
+                                      for t in tr.model(tr.to_device(batch)["img"])])
+    out, after, by = {}, {}, {}
+    for label, tr in trainers.items():
+        _set_train_state(tr, state)
+        reset_launches()
+        out[label] = _train_step_parts(tr, batch)
+        by[label] = dict(flash_area_attention.launches_by_dtype)
+        after[label] = tr.model.state_dict()
+    (ik, gk, lk), (ip, gp, lp), (if32, gf, lf), (ir, gr, lr) = (
+        out[x] for x in ("bf16", "bf16_plain", "f32_plain", "bf16_remat"))
+    check(lk == (LAUNCHES_PER_FORWARD, 0) and by["bf16"]["bfloat16"] == LAUNCHES_PER_FORWARD
+          and by["bf16"]["float32"] == 0 and lp == lf == (0, 0),
+          f"amp train step: kernel launches (forward, backward) {lk}, by dtype {by['bf16']}; "
+          f"plain paths {lp}, {lf}")
+    # remat recomputes the checkpointed blocks, the attention included, in the backward
+    check(lr == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD) and by["bf16_remat"]["float32"] == 0,
+          f"remat step: kernel launches {lr}, by dtype {by['bf16_remat']}")
+    remat_equal = (np.array_equal(ir, ik) and all(torch.equal(gr[n], g) for n, g in gk.items())
+                   and all(torch.equal(after["bf16_remat"][k], v)
+                           for k, v in after["bf16"].items()))
+
+    def flat(g):
+        return torch.cat([g[n].double().flatten() for n in gf])
+
+    def d(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    fk, fp, ff = flat(gk), flat(gp), flat(gf)
+    worst = sorted((((gp[n].double() - g.double()).norm().item(), n, g.double().norm().item())
+                    for n, g in gf.items()), reverse=True)[:4]
+    ab = {"maps_rel_l2_bf16_kernel_vs_f32": d(heads["bf16"], heads["f32_plain"]),
+          "maps_rel_l2_bf16_plain_vs_f32": d(heads["bf16_plain"], heads["f32_plain"]),
+          "items_bf16_kernel": ik.tolist(), "items_bf16_plain": ip.tolist(),
+          "items_f32": if32.tolist(),
+          "items_rel_l2_bf16_kernel_vs_f32": float(np.linalg.norm(ik - if32) / np.linalg.norm(if32)),
+          "items_rel_l2_bf16_plain_vs_f32": float(np.linalg.norm(ip - if32) / np.linalg.norm(if32)),
+          "grad_rel_l2_bf16_kernel_vs_f32": d(fk, ff), "grad_rel_l2_bf16_plain_vs_f32": d(fp, ff),
+          "grad_rel_l2_bf16_kernel_vs_plain": d(fk, fp),
+          "grad_worst_bf16_plain_vs_f32": [{"param": n, "l2_diff": e, "l2_f32": w}
+                                           for e, n, w in worst],
+          "remat_step_equal": remat_equal}
+    print(json.dumps({"amp_train_ab": ab, "card": card}))
+    check(remat_equal, "remat=True: the step differs from the plain step")
+    check(np.isfinite(ik).all() and np.isfinite(fk.cpu().numpy()).all(), "amp step: not finite")
+    check(ab["maps_rel_l2_bf16_kernel_vs_f32"] <= 2 * ab["maps_rel_l2_bf16_plain_vs_f32"],
+          f"amp step: kernel-path head maps {ab['maps_rel_l2_bf16_kernel_vs_f32']} from float32, "
+          f"plain path {ab['maps_rel_l2_bf16_plain_vs_f32']}")
+    check(ab["grad_rel_l2_bf16_kernel_vs_f32"] <= 2 * ab["grad_rel_l2_bf16_plain_vs_f32"],
+          f"amp step: kernel-path gradient {ab['grad_rel_l2_bf16_kernel_vs_f32']} from float32, "
+          f"plain path {ab['grad_rel_l2_bf16_plain_vs_f32']}")
+    # (the 5 loss items are printed, not gated: two bf16 runs part from float32 by rounding
+    # noise that 5 numbers do not average, while the gradient's 2.5M entries do)
+
+    # times and peak memory, cuDNN's fastest choices; the f32 step on its kernel path
+    torch.backends.cudnn.deterministic = False
+    f32 = trainers.pop("f32_plain")
+    _set_flash(f32, None)
+    del trainers["bf16_plain"], out, after, heads, gk, gp, gf, gr, fk, fp, ff
+    timing = {}
+    for label, tr in (("bf16", trainers["bf16"]), ("f32", f32),
+                      ("bf16_remat", trainers["bf16_remat"])):
+        torch.cuda.empty_cache()
+        timing[label] = _timed_steps(tr, batch)
+    print(json.dumps({"amp_train_step": f"yolov13n-JDE @{TRAIN_IMGSZ}, batch {TRAIN_BATCH}, SGD",
+                      **timing, "card": card}))
+    del trainers, f32
+    torch.cuda.empty_cache()
+
+    # YOLO.train with no precision key: amp on, validation of the bf16 eval copy, then serving
+    yolo = YOLO("yolov13n-JDE.yaml")
+    reset_launches()
+    t0 = time.perf_counter()
+    with _timed_calls(JDETrainer, "validate", []) as val:
+        metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
+                             seed=seed, project="runs", name="chip_smoke_amp", exist_ok=True)
+    train_s = time.perf_counter() - t0
+    train_by = dict(flash_area_attention.launches_by_dtype)
+    steps = yolo.trainer.step
+    val_batches = -(-VAL_IMAGES // TRAIN_BATCH)
+    # check_bf16 runs one float32 and one bf16 forward at 64 px before the first step
+    want = {"float32": LAUNCHES_PER_FORWARD,
+            "bfloat16": (1 + steps + val_batches) * LAUNCHES_PER_FORWARD}
+    check(yolo.trainer.model.compute_dtype == torch.bfloat16 and train_by == want
+          and len(val) == 1 and val[0][1] == val_batches * LAUNCHES_PER_FORWARD,
+          f"YOLO.train with amp: compute dtype {yolo.trainer.model.compute_dtype}, launches by "
+          f"dtype {train_by}, expected {want}; validations {val}")
+    check(all(np.isfinite(list(metrics.values()))) and "fitness" in metrics,
+          f"YOLO.train with amp: metrics {metrics}")
+    reset_launches()
+    frames = np.random.default_rng(seed).integers(0, 256, (2, 720, 1280, 3), np.uint8)
+    dets = yolo.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-4)
+    _check_bf16_launches(LAUNCHES_PER_FORWARD, "predict_batched after amp training")
+    check(np.isfinite(dets).all(), "predict_batched after amp training: not finite")
+    print(json.dumps({"yolo_train_amp": metrics, "seconds": train_s, "steps": steps,
+                      "kernel_launches_by_dtype": train_by, "val_s": val[0][0],
+                      "card": card}))
+    return {f"amp train step forward @{TRAIN_IMGSZ} b{TRAIN_BATCH}": LAUNCHES_PER_FORWARD,
+            f"remat train step (forward + recomputation) @{TRAIN_IMGSZ} b{TRAIN_BATCH}":
+                2 * LAUNCHES_PER_FORWARD,
+            f"YOLO.train amp, 1 epoch ({steps} steps + validation + check_bf16)":
+                train_by["bfloat16"],
+            "predict_batched after amp training": LAUNCHES_PER_FORWARD}, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1596,25 +1904,50 @@ def main() -> int:
     ckpt_launches = phase_checkpoint(card, data, host_loader)
     shutil.rmtree(data["path"], ignore_errors=True)
     jpeg_launches = phase_jpeg(card)
+    half_launches = {
+        f"serve half yolov13n-JDE@640 b{HALF_BATCH}": phase_half(
+            "yolov13n-JDE.yaml", 640, 0.005, HALF_BATCH, 0, (1, HALF_BATCH), card),
+        "serve half yolov13n-JDE_P24@1280 b1": phase_half(
+            "yolov13n-JDE_P24.yaml", 1280, 0.5, 1, 1, (1,), card),
+        f"YOLO.predict half {JPEG_FRAMES} JPEG frames x 3 calls": phase_half_jpeg(card)}
+    amp_launches, _ = phase_amp_train(card)
 
-    # the main path's kernel work: one train step's forward (640, batch 16, float32),
-    # 4 calls at the P4 shape and 4 at P5
-    fwd = [r for r in rows if r["dtype"] == "float32"
-           and r["shape"] in (f"640 P4 b{TRAIN_BATCH}", f"640 P5 b{TRAIN_BATCH}")]
-    total = {key: 4 * sum(r[key] for r in fwd)
-             for key in ("kernel_ms", "plain_ms", "library_ms", "backward_ms", "flops", "bytes")}
-    t_ops, t_bytes = total["flops"] / PEAK_FLOPS["float32"] * 1e3, total["bytes"] / PEAK_BYTES * 1e3
+    # the main path's kernel work: one train step's forward (640, batch 16), 4 calls at the
+    # P4 shape and 4 at P5, in float32 (amp=False) and in bf16 (amp, the default)
+    def step_forward(dname):
+        fwd = [r for r in rows if r["dtype"] == dname
+               and r["shape"] in (f"640 P4 b{TRAIN_BATCH}", f"640 P5 b{TRAIN_BATCH}")]
+        out = {key: 4 * sum(r[key] for r in fwd)
+               for key in ("kernel_ms", "plain_ms", "library_ms", "backward_ms", "flops", "bytes")}
+        t_ops, t_bytes = out["flops"] / PEAK_FLOPS[dname] * 1e3, out["bytes"] / PEAK_BYTES * 1e3
+        out["bound_ms"] = max(t_ops, t_bytes)
+        out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        return out
+    total, total_bf16 = step_forward("float32"), step_forward("bfloat16")
     print(json.dumps({"kernels": [{
         "name": "flash_area_attention", "route": "cuda",
         "source": "sar_yolo_tpu_torch/csrc/flash_area_attention.cu",
         "replaces": "sar_yolo_tpu/ops/pallas/flash_attention.py:29",
         "launches": step_launches,
+        "launches_by_dtype": {"float32": step_launches,
+                              "bfloat16": amp_launches[f"amp train step forward @{TRAIN_IMGSZ} "
+                                                       f"b{TRAIN_BATCH}"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
         "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
         "library_ms": total["library_ms"], "plain_backward_ms": total["backward_ms"],
         "per": "launches, ms, plain_ms, library_ms, bound_ms and plain_backward_ms: one train "
-               f"step's forward, yolov13n-JDE at 640, batch {TRAIN_BATCH}, float32",
+               f"step's forward, yolov13n-JDE at 640, batch {TRAIN_BATCH}, float32 (amp=False); "
+               "bfloat16: the same numbers of the amp train step's forward",
+        "bfloat16": {"launches": amp_launches[f"amp train step forward @{TRAIN_IMGSZ} "
+                                              f"b{TRAIN_BATCH}"],
+                     "max_abs_err": max(r["max_abs_err"] for r in rows
+                                        if r["dtype"] == "bfloat16"),
+                     "ms": total_bf16["kernel_ms"], "plain_ms": total_bf16["plain_ms"],
+                     "bound_ms": total_bf16["bound_ms"], "bound_by": total_bf16["bound_by"],
+                     "library_ms": total_bf16["library_ms"],
+                     "plain_backward_ms": total_bf16["backward_ms"]},
+        "launches_by_path_bfloat16": {**half_launches, **amp_launches},
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
                              "serve yolov13n-JDE_P24@1280 b1": p24_launches,
                              **train_launches,

@@ -76,6 +76,12 @@ DEFAULT_CFG = {
     "mixup": 0.0,
     "copy_paste": 0.1,
     "device_augment": "auto", # augment on the device where the hyperparameters allow it
+    "amp": True,              # train in bf16 compute (f32 parameters) on the card
+    "half": False,            # serve the BN-folded model in bf16 on the card
+    "remat": False,           # train with per-block activation checkpointing
+    "multi_scale": False,     # train at a random stride multiple in [0.5, 1.5] x imgsz
+    "profile": False,         # 'trace': a torch.profiler trace of steps 1-3 of epoch 0
+    "dropout": 0.0,           # the classify head's dropout (no classify head in this port)
 }
 
 # keys of the JAX package whose feature this port does not have yet
@@ -83,6 +89,7 @@ NOT_PORTED = {
     "plots": "plots",
     "augment": "test-time augmentation",
     "mesh_shape": "mesh sharding",
+    "int8": "int8 serving (it needs an int8 convolution kernel, which this port has not)",
 }
 
 

@@ -117,14 +117,16 @@ def _hsv_jitter(x: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
 
 
 def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: bool = True,
-                         max_labels: int | None = None, partner_span: int | None = None) -> dict:
+                         max_labels: int | None = None, partner_span: int | None = None,
+                         dtype=torch.float32) -> dict:
     """Augment a batch of device tensors with the draws `params` (on the same device).
 
     batch: img (B, S, S, 3) uint8 letterboxed tiles; cls, mask, tags (B, M); bboxes
-    (B, M, 4) normalized xywh. Returns the same keys with img float32 RGB in [0, 1]
+    (B, M, 4) normalized xywh. Returns the same keys with img `dtype` RGB in [0, 1]
     (B, S, S, 3) and the labels moved; the label count becomes max_labels (default
     M): where more survive, a random subset (ordered by params.shuf_u) is kept.
-    Runs no host synchronization.
+    Runs no host synchronization. As in the JAX package, the warp (tiles, weights,
+    products, grey fill, mixup) runs in `dtype` and the HSV jitter in float32.
     """
     p = params
     img = batch["img"]
@@ -135,7 +137,7 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
     ar = torch.arange(B, device=dev)
     idx = torch.cat([ar[:, None], p.sel], 1) if mosaic else ar[:, None]  # (B, T)
     T = idx.shape[1]
-    tiles = img[idx].float()                                             # (B, T, S, S, 3)
+    tiles = img[idx].to(dtype)                                           # (B, T, S, S, 3)
     cls_t, box_t, msk_t = batch["cls"][idx], batch["bboxes"][idx], batch["mask"][idx]
     tag_t = batch["tags"][idx] if "tags" in batch else None
 
@@ -159,10 +161,12 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
             _axis_weights(u_x - ox[:, 1:2], S, zero, torch.clamp(2 * S - p.xc, max=S)),
         ], 1)                                                            # (B, 2, S, S) left, right
         Wy4, Wx4 = Wy[:, [0, 0, 1, 1]], Wx[:, [0, 1, 0, 1]]              # (B, 4, S, S)
+        Wy4, Wx4 = Wy4.to(dtype), Wx4.to(dtype)
     else:
         oy = ox = torch.zeros(B, 1, device=dev)
         lo, hi = torch.full((B,), -1e9, device=dev), torch.full((B,), 1e9, device=dev)
-        Wy4, Wx4 = _axis_weights(u_y, S, lo, hi)[:, None], _axis_weights(u_x, S, lo, hi)[:, None]
+        Wy4 = _axis_weights(u_y, S, lo, hi)[:, None].to(dtype)
+        Wx4 = _axis_weights(u_x, S, lo, hi)[:, None].to(dtype)
 
     # warp and composite: two batched products, then the gray where nothing was sampled
     t = torch.einsum("bkij,bkjwc->bkiwc", Wy4, tiles)                   # rows resampled
@@ -193,7 +197,7 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
 
     # mixup (reference MixUp): blend with the partner one place on within the span
     if mosaic and float(hyp.get("mixup", 0.0)) > 0:
-        r = torch.where(p.mix, p.mix_r, 1.0)[:, None, None, None]
+        r = torch.where(p.mix, p.mix_r, 1.0).to(dtype)[:, None, None, None]
         span = int(partner_span or B)
         ridx = (ar // span) * span + (ar + 1) % span
         out = out * r + out[ridx] * (1.0 - r)
@@ -224,7 +228,7 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
                                   bx[..., 2], bx[..., 3]], -1)
 
     # HSV and normalization
-    x01 = torch.clamp(out / 255.0, 0.0, 1.0)
+    x01 = torch.clamp(out.float() / 255.0, 0.0, 1.0)
     if any(float(hyp.get(k, 0.0)) for k in ("hsv_h", "hsv_s", "hsv_v")):
         x01 = _hsv_jitter(x01, p.hsv_gains)
-    return {**batch, "img": x01, **comp}
+    return {**batch, "img": x01.to(dtype), **comp}

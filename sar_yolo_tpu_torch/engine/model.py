@@ -9,12 +9,12 @@ from types import SimpleNamespace
 
 import torch
 
-from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, get_cfg, get_save_dir
+from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, NOT_PORTED, get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.engine.predictor import JDEPredictor
 from sar_yolo_tpu_torch.engine.trainer import JDETrainer
 from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
-from sar_yolo_tpu_torch.nn.fuse import fuse_model
+from sar_yolo_tpu_torch.nn.fuse import fuse_model, half_model
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import select_device
 from sar_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint
@@ -22,8 +22,8 @@ from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
 # the arguments the predictor reads, with the JAX package's defaults for predict
 PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
-                    "agnostic_nms": False, "save": False, "save_txt": False, "save_dir": None,
-                    "project": None, "name": None, "exist_ok": False}
+                    "agnostic_nms": False, "half": False, "save": False, "save_txt": False,
+                    "save_dir": None, "project": None, "name": None, "exist_ok": False}
 
 
 class YOLO:
@@ -32,6 +32,7 @@ class YOLO:
     Examples:
         >>> m = YOLO("yolov13n-JDE.yaml")           # on cuda; raises without CUDA
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6 + 256 + 6)
+        >>> dets = m.predict_batched(frames_u8, half=True)  # bf16 on the card
         >>> m = YOLO("tinyjde.yaml", device="cpu")
         >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
         >>> metrics = m.val(data="path/to/SARD.yaml", rect=True)  # EMA weights, BN folded
@@ -44,6 +45,7 @@ class YOLO:
         self.device = select_device(device)
         self.overrides: dict = {}  # a checkpoint's non-default train args, under each call's
         self.ckpt_dir = None
+        self._half = None  # the bf16 copy of the folded model (half serving)
         self._callbacks: dict = {}
         self._predictor_cache = None
         if is_checkpoint(model):
@@ -98,7 +100,8 @@ class YOLO:
     def train(self, **kwargs) -> dict:
         """Train on this model's device (keys of `cfg/default.py`); returns the last epoch's
         losses and, with `val` (the default), its validation metrics. Afterwards the model
-        holds the EMA parameters and the live BN statistics."""
+        holds the EMA parameters and the live BN statistics, and keeps the run's compute
+        dtype (bf16 after an `amp` run on the card), as the JAX package's model does."""
         if self.task != "jde":
             raise NotImplementedError(f"this port trains the JDE task only, not '{self.task}'")
         self.trainer = JDETrainer({**self.overrides, "model": self.cfg, **kwargs},
@@ -138,17 +141,27 @@ class YOLO:
                                                dataset=dataset, args=args, data=data)
         return self.metrics
 
-    def _fused_for_serving(self):
-        """BN-folded copy of the model for serving, made once per set of weights."""
+    def _fused_for_serving(self, half: bool = False):
+        """BN-folded copy of the model for serving, made once per set of weights. `half`
+        on a CUDA device: a bf16 copy of it (folded in float32 first); on the CPU, as the
+        JAX package off its accelerator, the float32 one."""
         self._ensure_variables()
         if self._fused is None:
             self._fused = fuse_model(copy.deepcopy(self.model)).eval()
-        return self._fused
+            self._half = None
+        if not (half and self.device.type == "cuda"):
+            return self._fused
+        if self._half is None:
+            self._half = half_model(copy.deepcopy(self._fused))
+        return self._half
 
     def _get_predictor(self, kwargs: dict):
         """The predictor of {checkpoint args, kwargs} (each key one the predictor reads;
         conf 0.25 where neither gives it), reused while the arguments stay the same; it
         always serves the current weights and every callback added so far."""
+        for k in kwargs:
+            if k in NOT_PORTED:
+                raise NotImplementedError(f"'{k}': {NOT_PORTED[k]} is not part of this port yet")
         unknown = set(kwargs) - set(PREDICT_DEFAULTS)
         if unknown:
             raise TypeError(f"unsupported predict arguments {sorted(unknown)}")
@@ -163,10 +176,10 @@ class YOLO:
         key = tuple(sorted((k, str(v)) for k, v in overrides.items()))
         if self._predictor_cache is None or self._predictor_cache[0] != key:
             args = SimpleNamespace(**{**PREDICT_DEFAULTS, **overrides})
-            self._predictor_cache = (key, JDEPredictor(self._fused_for_serving(), self.meta,
-                                                       args, self.names))
+            self._predictor_cache = (key, JDEPredictor(self._fused_for_serving(args.half),
+                                                       self.meta, args, self.names))
         predictor = self._predictor_cache[1]
-        predictor.model = self._fused_for_serving()  # new weights after train()
+        predictor.model = self._fused_for_serving(predictor.args.half)  # new weights after train()
         for event, fns in self._callbacks.items():
             for fn in fns:
                 if fn not in predictor.callbacks[event]:
@@ -176,9 +189,9 @@ class YOLO:
     def predict_batched(self, frames, **kwargs):
         """Serve a uniform-geometry (B, H, W, 3) uint8 BGR batch on the model's device.
 
-        kwargs: imgsz, conf, iou, max_det, agnostic_nms. Returns (B, max_det, 6 + E)
-        numpy detections in original-image pixels: [x1, y1, x2, y2, conf, cls,
-        *embedding, *states]; rows with conf == 0 are padding.
+        kwargs: imgsz, conf, iou, max_det, agnostic_nms, half (bf16 on the card).
+        Returns (B, max_det, 6 + E) numpy detections in original-image pixels: [x1, y1,
+        x2, y2, conf, cls, *embedding, *states]; rows with conf == 0 are padding.
         """
         return self._get_predictor(kwargs).predict_batch(frames)
 

@@ -2,6 +2,10 @@
 letterbox -> forward -> decode -> NMS -> boxes in the frame's pixels, ending in one copy
 to the host.
 
+Under `half` the letterboxed frame enters the model in bf16 and the head maps come out
+in bf16; decode and NMS then run in the dtypes the JAX predictor gives them (boxes in
+float32, class scores sigmoided in bf16, the rows promoted to float32).
+
 Two routes share that tail (`_dets_in_orig_coords`): `predict_batch` serves a uniform
 (B, H, W, 3) batch, and `__call__` / `stream_inference` stream a source (files, folders,
 globs, arrays, tensors) frame by frame with the callback bus that the trackers use.
@@ -72,10 +76,12 @@ class BasePredictor:
         return torch.cat([(dets[..., :4] - pad4) / r, dets[..., 4:]], -1)
 
     def preprocess(self, frames_u8):
-        """(B, H, W, 3) uint8 BGR -> (normalized letterboxed RGB NCHW batch on the device, r, pad)."""
+        """(B, H, W, 3) uint8 BGR -> (normalized letterboxed RGB NCHW batch on the device in
+        the model's compute dtype, r, pad)."""
         frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
         x, r, pad = letterbox_device(frames.flip(-1), self.imgsz, scaleup=False)
-        return x.permute(0, 3, 1, 2).contiguous() / 255.0, r, pad
+        dtype = getattr(self.model, "compute_dtype", torch.float32)
+        return (x.permute(0, 3, 1, 2).contiguous() / 255.0).to(dtype), r, pad
 
     @torch.no_grad()
     def predict_batch(self, frames_u8) -> np.ndarray:

@@ -24,6 +24,16 @@ the run's save dir and, with `save`, writes the checkpoints `weights/last`,
 `weights/best` on improvement and `weights/epoch{n}` every `save_period` epochs
 (`utils/checkpoint.py`); `resume` continues a run from one, exactly where the
 uninterrupted run would be (the dropout stream included).
+
+Precision is the JAX package's rule: bf16 compute over float32 parameters exactly
+when `amp` (the default) or `half` is on and the model's device is CUDA
+(`amp_dtype`), after `check_bf16` confirms the bf16 forward tracks the float32 one
+(otherwise a warning and float32). The images enter the model in its compute dtype;
+the loss, the optimizer, the EMA and the checkpoints stay float32. `remat` checkpoints
+every block but the head; `multi_scale` resizes each batch to a random stride
+multiple in [0.5, 1.5] x imgsz on the host before the step (either route);
+`profile='trace'` writes a torch.profiler trace of steps 1-3 of epoch 0 to
+`save_dir/trace`.
 """
 
 from __future__ import annotations
@@ -38,17 +48,26 @@ import torch
 
 from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.build import DataLoader
+from sar_yolo_tpu_torch.data.cv import resize
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.data.device_augment import AUG_KEYS, device_train_augment, draw_params
 from sar_yolo_tpu_torch.engine.validator import JDEValidator
-from sar_yolo_tpu_torch.nn.modules.conv import set_generator
+from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype, set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from sar_yolo_tpu_torch.utils.checks import check_bf16
 from sar_yolo_tpu_torch.utils.loss import jde_loss
 
 CLIP_NORM = 10.0
 LOSS_NAMES = ("box", "cls", "dfl", "emb", "state")
+ADAM_ALIASES = ("Adam", "AdamW", "NAdam", "RAdam")  # all optax.adamw in the JAX package
+
+
+def amp_dtype(args, device: torch.device) -> torch.dtype:
+    """The train compute dtype: bf16 where `half` or `amp` is on and the device is CUDA
+    (the JAX package's bf16 on its accelerator), float32 elsewhere."""
+    return torch.bfloat16 if (args.half or args.amp) and device.type == "cuda" else torch.float32
 
 
 def build_lr_schedule(args, nb: int, lr0: float, warm_start: float = 0.0):
@@ -83,9 +102,39 @@ def group_label(name: str, p: torch.Tensor) -> str:
     return "nodecay"
 
 
+class RMSProp(torch.optim.Optimizer):
+    """optax's `chain(add_decayed_weights(wd), rmsprop(lr, momentum=m))` per group:
+    g' = g + wd p; nu = 0.1 g'^2 + 0.9 nu (nu starts at 0); u = -lr g' / sqrt(nu + 1e-8);
+    t = u + m t; p = p + t. torch.optim.RMSprop differs on every point (alpha 0.99, eps
+    outside the root, momentum before the learning rate)."""
+
+    DECAY, EPS = 0.9, 1e-8  # optax.rmsprop's defaults
+
+    def __init__(self, params, momentum: float):
+        super().__init__(params, dict(lr=0.0, momentum=momentum, weight_decay=0.0))
+
+    @torch.no_grad()
+    def step(self):
+        d = self.DECAY
+        for group in self.param_groups:
+            lr, m, wd = group["lr"], group["momentum"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"], state["trace"] = torch.zeros_like(p), torch.zeros_like(p)
+                g = p.grad + wd * p if wd else p.grad
+                nu = state["nu"].copy_((1 - d) * g.square() + d * state["nu"])
+                u = torch.rsqrt(nu + self.EPS) * g * (-lr)
+                t = state["trace"].copy_(u + m * state["trace"])
+                p.add_(t)
+
+
 class Optimizer:
-    """Global-norm clip, then SGD or AdamW over the decay / nodecay / bias groups, one
-    update per `accumulate` micro-steps (call `step` after every backward).
+    """Global-norm clip, then SGD, AdamW (also for Adam, NAdam and RAdam, which the JAX
+    package maps to optax.adamw) or optax's RMSProp over the decay / nodecay / bias
+    groups, one update per `accumulate` micro-steps (call `step` after every backward).
 
     `schedules` are the lr schedules of groups pg0 (decay), pg1 (nodecay), pg2 (bias).
     """
@@ -116,8 +165,10 @@ class Optimizer:
                 {"params": groups["bias"], "weight_decay": 0.0}]
         if name == "SGD":
             self.opt = torch.optim.SGD(spec, lr=0.0, momentum=momentum, nesterov=True)
-        elif name == "AdamW":
+        elif name in ADAM_ALIASES:
             self.opt = torch.optim.AdamW(spec, lr=0.0, betas=(momentum, 0.999), eps=1e-8)
+        elif name == "RMSProp":
+            self.opt = RMSProp(spec, momentum=momentum)
         else:
             raise NotImplementedError(f"optimizer '{name}' is not part of this port yet")
         self.name = name
@@ -242,7 +293,8 @@ class JDETrainer:
         args = self.args
         self.train_set, self.val_set, self.data = self.get_dataset()
         nc = 1 if args.single_cls else self.data["nc"]
-        model, self.meta = build_model(args.model, nc=nc)
+        dtype = amp_dtype(args, self.device)
+        model, self.meta = build_model(args.model, nc=nc, dtype=dtype)
         if self.meta["task"] != "jde":
             raise NotImplementedError(f"'{args.model}' is a {self.meta['task']} model; this port "
                                       "trains JDE models only")
@@ -251,6 +303,14 @@ class JDETrainer:
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).train()
+        if dtype == torch.bfloat16 and not check_bf16(self.model, imgsz=min(args.imgsz, 64)):
+            LOGGER.warning("bf16 forward diverges from f32 on this model; falling back to f32 "
+                           "compute (AMP disabled)")
+            set_compute_dtype(self.model, torch.float32)
+        self.model.remat = bool(args.remat)
+        if args.remat:
+            LOGGER.info("remat=True: per-block activation checkpointing (larger batches at "
+                        "~1/3 extra backward FLOPs)")
         self.eval_model = None  # validate's copy, made at the first validation
         self.generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)  # dropout
         set_generator(self.model, self.generator)
@@ -266,6 +326,9 @@ class JDETrainer:
         self.device_augment = bool(getattr(self.train_set, "device_augment", False))
         self._mosaic_on = self.device_augment and float(args.mosaic or 0) > 0
         self.aug_hyp = {k: float(getattr(args, k) or 0) for k in AUG_KEYS}
+        self._ms_rng = np.random.default_rng(args.seed + 7)  # multi_scale's sizes
+        self._trace = None      # the active torch.profiler capture of profile='trace'
+        self._traced = False
         if self.device_augment:
             LOGGER.info("device_augment: mosaic/affine/HSV/flip run in the train step on the "
                         "device (the host decodes and letterboxes only)")
@@ -281,17 +344,56 @@ class JDETrainer:
                            M=batch["bboxes"].shape[1])
 
     def to_device(self, batch: dict, i: int = 0) -> dict:
-        """Numpy batch i of the epoch -> device tensors, its uint8 NHWC images -> float NCHW
-        in [0, 1]; on the device route augmented there first."""
+        """Numpy batch i of the epoch -> device tensors, its uint8 NHWC images -> NCHW in
+        [0, 1] in the model's compute dtype; on the device route augmented there first."""
+        dtype = self.model.compute_dtype
         out = {k: torch.from_numpy(np.asarray(v)).to(self.device, non_blocking=True)
                for k, v in batch.items()}
         if self.device_augment:
             out = device_train_augment(out, self.aug_params(out, i).to(self.device), self.aug_hyp,
-                                       mosaic=self._mosaic_on, partner_span=out["img"].shape[0])
+                                       mosaic=self._mosaic_on, partner_span=out["img"].shape[0],
+                                       dtype=dtype)
             out["img"] = out["img"].permute(0, 3, 1, 2)
         else:
-            out["img"] = out["img"].permute(0, 3, 1, 2).float() / 255.0
+            out["img"] = (out["img"].permute(0, 3, 1, 2).float() / 255.0).to(dtype)
         return out
+
+    def _multi_scale(self, batch: dict) -> dict:
+        """The JAX package's multi-scale training: the whole numpy batch resized (OpenCV's
+        INTER_LINEAR, `data/cv.py`) to a random multiple of the grid stride in
+        [0.5, 1.5] x imgsz, drawn from a generator seeded with seed + 7. The boxes are
+        normalized, so the labels stay as they are."""
+        gs = max(int(max(self.meta["strides"])), 32)
+        imgsz = self.args.imgsz
+        sz = int(self._ms_rng.integers(int(imgsz * 0.5), int(imgsz * 1.5) + gs) // gs * gs)
+        if sz == batch["img"].shape[1]:
+            return batch
+        return {**batch, "img": np.stack([resize(im, (sz, sz)) for im in np.asarray(batch["img"])])}
+
+    def _start_trace(self):
+        """Start profile='trace''s torch.profiler capture (CPU, and CUDA on the card)."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda"
+                                         else [])
+        self._trace, self._traced = profile(activities=acts), True  # one capture per run
+        self._trace.start()
+
+    def _stop_trace(self):
+        """Close the active capture, if any, and write it to save_dir/trace as a Chrome
+        trace; safe on the exception path (a capture never outlives its steps)."""
+        if self._trace is None:
+            return
+        trace, self._trace = self._trace, None
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            trace.stop()
+            out = self.save_dir / "trace" / "train_steps.pt.trace.json"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            trace.export_chrome_trace(str(out))
+            LOGGER.info(f"torch.profiler trace written to {out}")
+        except Exception as e:  # noqa: BLE001 — tracing is best-effort
+            LOGGER.warning(f"profile='trace': closing the capture failed: {e}")
 
     def loss(self, feats, batch: dict):
         """(total, items (5,), new cb_counts) of the head maps on a device batch."""
@@ -344,9 +446,22 @@ class JDETrainer:
             self.train_loader.set_epoch(epoch)
             te, total, n = time.time(), None, 0
             for i, batch in enumerate(self.train_loader):
-                _, items = self.train_step(batch, i)
+                if args.multi_scale:
+                    batch = self._multi_scale(batch)
+                # profile='trace': steps 1-3 of epoch 0 (step 0 when the epoch has one batch)
+                if str(args.profile).lower() == "trace" and epoch == 0 and not self._traced \
+                        and (i == 1 or len(self.train_loader) <= 1):
+                    self._start_trace()
+                try:
+                    _, items = self.train_step(batch, i)
+                except BaseException:
+                    self._stop_trace()
+                    raise
+                if i >= 3:
+                    self._stop_trace()
                 total = items if total is None else total + items
                 n += 1
+            self._stop_trace()  # an epoch of under 4 batches
             mloss = (total / max(n, 1)).cpu().numpy()
             u = self.step // self.accumulate
             self.lr = {f"lr/pg{i}": s(u) for i, s in enumerate(self.optimizer.schedules)}
@@ -407,7 +522,8 @@ class JDETrainer:
         state = {"model": self.model.state_dict(),
                  "ema": {n: e for (n, _), e in zip(self.model.named_parameters(), self.ema)},
                  "cb_counts": self.cb_counts, "optimizer": self.optimizer.state_dict(),
-                 "rng": self.generator.get_state()}
+                 "rng": self.generator.get_state(),
+                 "ms_rng": self._ms_rng.bit_generator.state}
         metadata = {"epoch": self.epoch, "best_fitness": float(self.best_fitness),
                     "train_args": vars(self.args), "model_yaml": self.meta["cfg"], "task": "jde",
                     "nc": self.meta["nc"], "strides": self.meta["strides"], "step": self.step,
@@ -437,6 +553,8 @@ class JDETrainer:
                            "schedule counters start fresh")
         if state.get("rng") is not None:
             self.generator.set_state(state["rng"])
+        if state.get("ms_rng") is not None:
+            self._ms_rng.bit_generator.state = state["ms_rng"]
         LOGGER.info(f"Resumed from {path} at epoch {self.epoch}")
 
     @torch.no_grad()

@@ -5,6 +5,7 @@ conv (epsilon 1e-3), leaving a biased conv and `bn = None`: the module
 structure of the JAX package's `fused=True` trace, so `utils/convert.py` maps
 a JAX `fuse_variables` tree onto it. A BatchNorm anywhere else is a structure
 this slice does not know, and `fuse_model` raises rather than serve it unfused.
+`half_model` then takes a folded model to bf16 for `half` serving.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sar_yolo_tpu_torch.nn.modules.conv import Conv, DSConv
+from sar_yolo_tpu_torch.nn.modules.conv import Conv, DSConv, set_compute_dtype
 
 
 @torch.no_grad()
@@ -34,4 +35,11 @@ def fuse_model(model: nn.Module) -> nn.Module:
     left = [name for name, mod in model.named_modules() if isinstance(mod, nn.BatchNorm2d)]
     if left:
         raise ValueError(f"fuse_model: BatchNorm outside Conv/DSConv at {left[:5]}")
+    return model
+
+
+def half_model(model: nn.Module) -> nn.Module:
+    """`half` serving, in place: the (already float32-folded) parameters and the compute
+    in bf16, as the JAX package casts its fused variables and model. Returns `model`."""
+    set_compute_dtype(model.to(torch.bfloat16), torch.bfloat16)
     return model

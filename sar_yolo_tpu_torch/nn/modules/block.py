@@ -2,10 +2,15 @@
 
 Submodule names are the Flax scope names (`cv1`, `m0_0`, `attn`, `qk`, ...).
 Tokens of a (B, C, H, W) map are taken as `x.flatten(2).transpose(1, 2)`,
-which gives the JAX package's row-major (B, H*W, C) order.
+which gives the JAX package's row-major (B, H*W, C) order. Under a bf16 compute
+dtype the blocks follow the JAX modules' dtypes: parameters used outside a
+Conv2d or Linear (prototypes, gamma, gate) are cast to the data's dtype, and
+softmaxes run in float32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -13,7 +18,7 @@ from torch.nn import functional as F
 
 from sar_yolo_tpu_torch.ops.cuda.flash_attention import area_attention_plain, flash_area_attention
 
-from .conv import Conv, Dropout, DSConv
+from .conv import Conv, Dropout, DSConv, Linear
 
 
 def _tokens(x):
@@ -177,7 +182,7 @@ class A2C2f(nn.Module):
                 ys.append(getattr(self, f"m{i}")(ys[-1]))
         out = self.cv2(torch.cat(ys, 1))
         if self.residual:
-            return x + self.gamma.view(1, -1, 1, 1) * out
+            return x + self.gamma.to(out.dtype).view(1, -1, 1, 1) * out
         return out
 
 
@@ -250,8 +255,8 @@ class AdaHyperedgeGen(nn.Module):
         self.prototype_base = nn.Parameter(torch.empty(num_hyperedges, node_dim))
         nn.init.xavier_uniform_(self.prototype_base)
         ctx_dim = 2 * node_dim if context == "both" else node_dim
-        self.context_net = nn.Linear(ctx_dim, num_hyperedges * node_dim)
-        self.pre_head_proj = nn.Linear(node_dim, node_dim)
+        self.context_net = Linear(ctx_dim, num_hyperedges * node_dim)
+        self.pre_head_proj = Linear(node_dim, node_dim)
         self.dropout = Dropout(dropout)
 
     def forward(self, X):
@@ -263,10 +268,13 @@ class AdaHyperedgeGen(nn.Module):
             ctx = X.amax(1)
         else:
             ctx = torch.cat([X.mean(1), X.amax(1)], -1)
-        prototypes = self.prototype_base[None] + self.context_net(ctx).view(B, self.E, D)
+        offsets = self.context_net(ctx).view(B, self.E, D)
+        prototypes = self.prototype_base.to(offsets.dtype)[None] + offsets
         Xh = self.pre_head_proj(X).view(B, N, self.h, hd)
         Ph = prototypes.view(B, self.E, self.h, hd)
-        logits = torch.einsum("bnhd,behd->bhne", Xh, Ph) / hd ** 0.5
+        # the JAX module divides by sqrt(hd) rounded to the data's dtype
+        scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(Xh.dtype)
+        logits = torch.einsum("bnhd,behd->bhne", Xh, Ph) / scale
         logits = self.dropout(logits.mean(1))  # (B, N, E): mean over heads
         return logits.float().softmax(1).to(X.dtype)
 
@@ -279,8 +287,8 @@ class AdaHGConv(nn.Module):
         super().__init__()
         self.edge_generator = AdaHyperedgeGen(embed_dim, num_hyperedges, num_heads, dropout,
                                               context)
-        self.edge_proj = nn.Linear(embed_dim, embed_dim)
-        self.node_proj = nn.Linear(embed_dim, embed_dim)
+        self.edge_proj = Linear(embed_dim, embed_dim)
+        self.node_proj = Linear(embed_dim, embed_dim)
 
     def forward(self, X):
         A = self.edge_generator(X)
@@ -399,4 +407,4 @@ class FullPAD_Tunnel(nn.Module):
         self.gate = nn.Parameter(torch.zeros(()))
 
     def forward(self, xs):
-        return xs[0] + self.gate * xs[1]
+        return xs[0] + self.gate.to(xs[0].dtype) * xs[1]

@@ -4,10 +4,17 @@ Submodules carry the Flax scope names of the JAX package (`conv`, `bn`, `dw`,
 `pw`), so `utils/convert.py` maps weights between the two mechanically.
 BatchNorm uses the JAX package's epsilon 1e-3 and momentum 0.97 (torch's
 `momentum=0.03`), not torch's defaults, and Flax's train-mode statistics.
+
+Precision follows Flax's `dtype=..., param_dtype=float32`: parameters stay
+float32, and `Conv2d` and `Linear` cast their input and parameters to their
+`compute_dtype` (set by `set_compute_dtype`; None: the parameters' dtype) and
+output in it. BatchNorm takes its statistics and normalizes in float32, then
+returns the input's dtype.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -52,26 +59,78 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
     return p
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `compute_dtype` (None: the weight's dtype)."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype` (None: the weight's dtype)."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def set_compute_dtype(model: nn.Module, dtype):
+    """Run every Conv2d and Linear of `model` in `dtype` (its parameters keep theirs).
+    float32 means the parameters' own dtype, so a `.double()` copy computes in float64."""
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            m.compute_dtype = None if dtype == torch.float32 else dtype
+    model.compute_dtype = dtype
+
+
+_FROZEN_STATS = [False]
+
+
+@contextlib.contextmanager
+def frozen_bn_stats():
+    """While active, train-mode BatchNorm leaves its running statistics as they are
+    (a checkpointed block's recomputation must not move them a second time)."""
+    _FROZEN_STATS.append(True)
+    try:
+        yield
+    finally:
+        _FROZEN_STATS.pop()
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with Flax's train-mode statistics.
+    """BatchNorm with Flax's train-mode statistics and float32 reductions.
 
     Train mode normalizes with the biased batch variance max(E[x^2] - E[x]^2, 0)
     (Flax's `use_fast_variance`) and moves the running mean and variance toward
     the batch mean and that same variance at momentum 0.97. Gradients flow
-    through the batch statistics. Eval mode is torch's.
+    through the batch statistics. Eval mode is torch's where the input has the
+    parameters' dtype. Statistics and normalization run in at least float32 and the
+    output takes the input's dtype, as Flax's BatchNorm with `dtype` does.
     """
 
     def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # Flax: at least float32
         if not self.training:
-            return super().forward(x)
-        mean = x.mean((0, 2, 3))
-        var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
-            self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
+            if x.dtype == self.weight.dtype:
+                return super().forward(x)
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+            if not _FROZEN_STATS[-1]:
+                with torch.no_grad():
+                    keep = 1.0 - self.momentum
+                    self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
+                    self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def batch_norm(c: int) -> BatchNorm2d:
@@ -121,7 +180,7 @@ class Conv(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
                  g: int = 1, d: int = 1, act=True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = batch_norm(c2)
         self.act = _activation(act)
 
@@ -145,8 +204,8 @@ class DSConv(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: int | None = None, d: int = 1):
         super().__init__()
         pad = p if p is not None else (d * (k - 1)) // 2
-        self.dw = nn.Conv2d(c1, c1, k, s, pad, dilation=d, groups=c1, bias=False)
-        self.pw = nn.Conv2d(c1, c2, 1, bias=False)
+        self.dw = Conv2d(c1, c1, k, s, pad, dilation=d, groups=c1, bias=False)
+        self.pw = Conv2d(c1, c2, 1, bias=False)
         self.bn = batch_norm(c2)
 
     def forward(self, x):

@@ -1,6 +1,7 @@
 """Detect and JDE heads in NCHW (port of `sar_yolo_tpu/nn/modules/head.py`).
 
-Heads return raw per-level maps (B, no, H, W); decoding lives in `ops/decode.py`.
+Heads return raw per-level maps (B, no, H, W) in the compute dtype, as the JAX
+heads do; decoding lives in `ops/decode.py`, and the loss takes them to float32.
 Submodules carry the Flax names (`cv2_0_0`, `cv3_0_pred`, `cv4_1_1`, `state_fc1`).
 """
 
@@ -10,7 +11,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .conv import Conv, Dropout, DWConv
+from .conv import Conv, Conv2d, Dropout, DWConv, Linear
 
 
 class Detect(nn.Module):
@@ -29,7 +30,7 @@ class Detect(nn.Module):
         for i, c in enumerate(ch):
             self.add_module(f"cv2_{i}_0", Conv(c, c2, 3))
             self.add_module(f"cv2_{i}_1", Conv(c2, c2, 3))
-            self.add_module(f"cv2_{i}_pred", nn.Conv2d(c2, 4 * reg_max, 1))
+            self.add_module(f"cv2_{i}_pred", Conv2d(c2, 4 * reg_max, 1))
             if legacy:
                 self.add_module(f"cv3_{i}_0", Conv(c, c3, 3))
                 self.add_module(f"cv3_{i}_1", Conv(c3, c3, 3))
@@ -38,7 +39,7 @@ class Detect(nn.Module):
                 self.add_module(f"cv3_{i}_0pw", Conv(c, c3, 1))
                 self.add_module(f"cv3_{i}_1dw", DWConv(c3, c3, 3))
                 self.add_module(f"cv3_{i}_1pw", Conv(c3, c3, 1))
-            self.add_module(f"cv3_{i}_pred", nn.Conv2d(c3, nc, 1))
+            self.add_module(f"cv3_{i}_pred", Conv2d(c3, nc, 1))
 
     @property
     def no(self) -> int:
@@ -78,10 +79,10 @@ class JDE(Detect):
         for i, c in enumerate(ch):
             self.add_module(f"cv4_{i}_0", Conv(c, c4, 3))
             self.add_module(f"cv4_{i}_1", Conv(c4, c4, 3))
-            self.add_module(f"cv4_{i}_pred", nn.Conv2d(c4, embed_dim, 1))
+            self.add_module(f"cv4_{i}_pred", Conv2d(c4, embed_dim, 1))
         if state_classes is not None:
-            self.state_fc1 = nn.Linear(embed_dim, embed_dim // 2)
-            self.state_fc2 = nn.Linear(embed_dim // 2, state_classes)
+            self.state_fc1 = Linear(embed_dim, embed_dim // 2)
+            self.state_fc2 = Linear(embed_dim // 2, state_classes)
             self.dropout = Dropout(0.1)
 
     @property

@@ -8,6 +8,7 @@ save-dict; its layers live in `blocks` (Flax scope `blocks_<i>`).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from dataclasses import dataclass
@@ -15,6 +16,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sar_yolo_tpu_torch.cfg.models import model_config
 from sar_yolo_tpu_torch.nn.modules import block as B
@@ -203,11 +205,19 @@ def _build_module(spec: LayerSpec, c_in) -> nn.Module:
 
 
 class GraphModel(nn.Module):
-    """Runs a parsed layer graph with an explicit save-dict; returns the head's per-level maps."""
+    """Runs a parsed layer graph with an explicit save-dict; returns the head's per-level maps.
+
+    `remat`: in train mode every block but the head runs under activation
+    checkpointing (the JAX package's `nn.remat` per block): its activations are
+    recomputed in the backward. The recomputation draws the same dropout masks
+    and leaves the BN running statistics alone, so a step equals the plain one.
+    """
 
     def __init__(self, specs: tuple, save: tuple, act: str = "silu"):
         super().__init__()
         self.specs, self.save = specs, frozenset(save)
+        self.remat = False
+        self.compute_dtype = torch.float32
         outs: list[int] = []
         blocks = []
         with C.default_act(act):
@@ -234,20 +244,46 @@ class GraphModel(nn.Module):
                 inp = saved[f]
             else:
                 inp = [out if j == -1 else saved[j] for j in f]
-            out = blk(inp)
+            remat = self.remat and self.training and spec is not self.specs[-1]
+            out = _checkpointed(blk, inp) if remat else blk(inp)
             if spec.i in self.save:
                 saved[spec.i] = out
         return out
 
 
-def build_model(name: str | dict, nc: int | None = None):
+def _checkpointed(blk: nn.Module, inp):
+    """blk(inp) under activation checkpointing. The dropout generators of blk are
+    rewound to their state at this call for the recomputation and put back after it,
+    and the recomputation leaves the BN running statistics as they are."""
+    gens = list({id(m.generator): m.generator for m in blk.modules()
+                 if isinstance(m, C.Dropout) and m.generator is not None}.values())
+    at_call = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in gens]
+        for g, st in zip(gens, at_call):
+            g.set_state(st)
+        try:
+            with C.frozen_bn_stats():
+                yield
+        finally:
+            for g, st in zip(gens, now):
+                g.set_state(st)
+
+    return checkpoint(blk, inp, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
+
+
+def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32):
     """Build a GraphModel from a model name ('yolov13n-JDE.yaml') or a config dict (a
     checkpoint's `model_yaml`, the JAX package's included). Returns (model, meta).
 
     `nc` replaces the config's class count (the trainer builds the model for
-    its dataset's). The model is on the CPU, in eval mode, with torch's
-    default weights until `init_weights` runs; meta["strides"] comes from a
-    forward probe.
+    its dataset's). `dtype` is the compute dtype (the JAX `build_model`'s
+    `dtype`): parameters stay float32. The model is on the CPU, in eval mode,
+    with torch's default weights until `init_weights` runs; meta["strides"]
+    comes from a forward probe.
     """
     d = copy.deepcopy(name) if isinstance(name, dict) else model_config(name)
     if nc is not None:
@@ -260,6 +296,7 @@ def build_model(name: str | dict, nc: int | None = None):
         meta["embed_dim"] = head.args[1] if len(head.args) > 1 else 128
         meta["state_classes"] = head.args[2] if len(head.args) > 2 else None
     model = GraphModel(specs, save, act=meta.get("act", "silu")).eval()
+    C.set_compute_dtype(model, dtype)
     meta["strides"] = infer_strides(model)
     return model, meta
 

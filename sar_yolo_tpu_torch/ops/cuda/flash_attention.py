@@ -9,8 +9,10 @@ contiguous chunks and attention runs inside each chunk, per head.
 * A CUDA tensor launches the kernel of `csrc/flash_area_attention.cu`, or
   raises. There is no fallback. Its products run on the tensor cores: split
   TF32 (three TF32 products per float32 product) for float32, bf16 for bfloat16.
-* The backward recomputes through the plain version (as the JAX package's
-  custom VJP does); there is no backward kernel.
+* The backward recomputes through the plain version in the inputs' dtype (as
+  the JAX package's custom VJP does); there is no backward kernel.
+* `flash_area_attention.launches` counts kernel launches, and
+  `flash_area_attention.launches_by_dtype` splits them into float32 and bfloat16.
 
 The kernel is built with nvcc at first use into `sar_yolo_tpu_torch/build/`
 (a plain C interface, loaded with ctypes) and cached there under a hash of its
@@ -226,6 +228,7 @@ def _launch(q, k, v, num_heads: int, area: int):
     if rc != 0:
         raise RuntimeError(f"flash_area_attention: kernel launch failed with CUDA error {rc}")
     flash_area_attention.launches += 1
+    flash_area_attention.launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
     return out
 
 
@@ -259,4 +262,10 @@ def flash_area_attention(q, k, v, num_heads: int, area: int = 1):
     return _FlashAreaAttention.apply(q, k, v, num_heads, area)
 
 
-flash_area_attention.launches = 0  # kernel launches in this process
+def reset_launches():
+    """Set the launch counts (the total and each dtype's) to 0."""
+    flash_area_attention.launches = 0
+    flash_area_attention.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+
+reset_launches()  # kernel launches in this process

@@ -185,8 +185,10 @@ def test_unported_options_and_sources_raise(tiny, frames_dir, tmp_path):
     _, pyolo = tiny
     with pytest.raises(NotImplementedError, match="save=True"):
         pyolo.predict(str(frames_dir), imgsz=64, save=True)
+    with pytest.raises(NotImplementedError, match="int8 serving"):
+        pyolo.predict(str(frames_dir), imgsz=64, int8=True)
     with pytest.raises(TypeError, match="unsupported predict arguments"):
-        pyolo.predict(str(frames_dir), imgsz=64, half=True)
+        pyolo.predict(str(frames_dir), imgsz=64, visualize=True)
     (tmp_path / "clip.mp4").write_bytes(b"\0" * 16)
     for source in (str(tmp_path / "clip.mp4"), "rtsp://localhost/cam", "screen 0", "0"):
         with pytest.raises(NotImplementedError, match="not part of this port"):

@@ -3,11 +3,13 @@
 
     python3 tools/torch_port_profile.py [--imgsz 640] [--batch 8] [--model yolov13n-JDE.yaml]
     python3 tools/torch_port_profile.py --train [--imgsz 640] [--batch 16]
+    ... [--precision bf16]   # half=True serving / amp training (default float32)
 
 Serving: seeded random weights (as chip_smoke.py builds them) through
 `YOLO.predict_batched` on ragged 720x1280 uint8 frames. Training (--train): SGD
 train steps of the seeded model on one batch of the port's synthetic data
-(float32, TF32 off). Prints, as JSON lines:
+(float32, TF32 off; with --precision bf16: `half=True` serving, `amp=True` training).
+Prints, as JSON lines:
   * the host-clock time of one call or step, and of its stages (serving: frames
     to the card and letterbox, forward, decode + NMS, result to the host;
     training: batch to the card, forward, loss, backward, optimizer + EMA),
@@ -44,19 +46,21 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=None, help="8 serving, 16 training")
     ap.add_argument("--conf", type=float, default=0.005)
     ap.add_argument("--train", action="store_true", help="profile a train step instead")
+    ap.add_argument("--precision", choices=("f32", "bf16"), default="f32")
     a = ap.parse_args()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = a.precision == "bf16"
     if a.train:
-        return profile_train(a.model, a.imgsz, a.batch or 16)
+        return profile_train(a.model, a.imgsz, a.batch or 16, bf16)
     a.batch = a.batch or 8
 
     yolo = chip_smoke._perturbed_yolo(a.model, 0, a.imgsz)
     frames = np.random.default_rng(0).integers(0, 256, (a.batch, 720, 1280, 3), np.uint8)
-    kw = dict(imgsz=a.imgsz, conf=a.conf)
+    kw = dict(imgsz=a.imgsz, conf=a.conf, half=bf16)
     for _ in range(3):
         yolo.predict_batched(frames, **kw)
-    model, meta = yolo._fused_for_serving(), yolo.meta
+    model, meta = yolo._fused_for_serving(bf16), yolo.meta
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -81,25 +85,27 @@ def main() -> int:
             dets, stages["decode_nms_ms"] = timed(post)
             _, stages["d2h_ms"] = timed(lambda: dets.cpu().numpy())
     _, call_ms = timed(lambda: yolo.predict_batched(frames, **kw))
-    print(json.dumps({"model": a.model, "imgsz": a.imgsz, "batch": a.batch, "call_ms": call_ms,
-                      **stages, "device": torch.cuda.get_device_name(0)}))
+    print(json.dumps({"model": a.model, "imgsz": a.imgsz, "batch": a.batch,
+                      "precision": a.precision, "call_ms": call_ms, **stages,
+                      "device": torch.cuda.get_device_name(0)}))
 
     print_device_time(lambda: yolo.predict_batched(frames, **kw))
     return 0
 
 
-def profile_train(model: str, imgsz: int, batch: int) -> int:
+def profile_train(model: str, imgsz: int, batch: int, bf16: bool) -> int:
     """Stage times and device breakdown of one SGD train step on one synthetic batch."""
     import torch
 
     import chip_smoke
     from sar_yolo_tpu_torch.engine.trainer import JDETrainer
     tr = JDETrainer(dict(model=model, data="synthetic", imgsz=imgsz, batch=batch, nbs=batch,
-                         optimizer="SGD", warmup_epochs=0.0))
+                         optimizer="SGD", warmup_epochs=0.0, amp=bf16))
     tr.setup()
     data = next(iter(tr.train_loader))
     timing = chip_smoke._timed_steps(tr, data)
-    print(json.dumps({"model": model, "imgsz": imgsz, "batch": batch, "train": True, **timing,
+    print(json.dumps({"model": model, "imgsz": imgsz, "batch": batch, "train": True,
+                      "compute_dtype": str(tr.model.compute_dtype), **timing,
                       "device": torch.cuda.get_device_name(0)}))
     print_device_time(lambda: tr.train_step(data))
     return 0
