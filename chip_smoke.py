@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
      registers and spills are printed (a spill fails), and cuobjdump must find
      tensor-core (HMMA) instructions in the library.
   3. kernel vs plain: every on-path shape of the kernel, float32 and bfloat16,
-     against the plain PyTorch version (max abs error <= 1e-4 f32, <= 2e-2 bf16),
+     against the plain PyTorch version computed in float32 on the same inputs (max abs
+     error <= 1e-4 f32, <= 2e-2 bf16; the plain version's own bf16 error is printed),
      gradients through the autograd Function against the plain version's, and
      times (device time of 20 launches replayed from a CUDA graph): kernel,
      plain version, F.scaled_dot_product_attention as a yardstick, and the
@@ -19,7 +20,8 @@ Phases, in order; any failure exits non-zero:
      then, for correctness only, channel-contiguous inputs and the chunk
      lengths of imgsz 480 and 320 and of a chunk shorter than one key stage.
      At every shape the library's launch plan must equal the wrapper's mirror.
-     The timed shapes include those of phase 8's rect batches (Na = 252).
+     The timed shapes include those of phase 8's rect batches (Na = 252) and of
+     yolov12n's batch of 128 in phase 14 (B·area 512 at P4, 128 at P5).
   4. serving yolov13n-JDE @640: seeded and perturbed weights, 4 ragged 720x1280
      BGR frames through `YOLO.predict_batched`; 8 kernel launches per forward;
      the same detections as the model with `use_flash=False`; head maps of the
@@ -99,7 +101,23 @@ Phases, in order; any failure exits non-zero:
      float32 and remat steps; then `YOLO.train(data="synthetic", epochs=1)` with no
      precision key: bf16 throughout (check_bf16's two forwards, 4 steps, the epoch's
      validation of the bf16 eval copy), and `predict_batched` of the trained model in bf16.
- 14. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
+ 14. the detect task on `bench.py`'s geometry (ragged uint8 480x640 BGR frames letterboxed
+     at 640 on the card): yolov8n, yolo11n and yolov12n served BN-folded (seeded, perturbed
+     weights, the class logits scaled to a largest magnitude of 6 so that scores do not tie
+     at 1.0), 4 frames one at a time, each at a threshold where NMS's choices do not hang
+     on rounding: the same rows as the model in float64 (boxes within what the head maps'
+     own float32 rounding moves them) and, for yolov12n, as `use_flash=False` (phase 4's
+     gates; 8 kernel launches a forward in float32 and in bf16, none elsewhere); bf16 head
+     maps against float32 as phase 11; img/s at batch 1, 8 and 128 in float32 and bf16 in
+     turns, at bench.py's conf 0.25, with peak memory and NMS's candidates a frame at 128
+     (their stage split is `tools/torch_port_profile.py --phase14`'s); yolo11n-JDE the
+     same at batch 8; the kernel's time a yolov12n forward at 128. Training yolov8n @640 (nc 3, synthetic data, SGD): the loss falls
+     over 2% in 20 steps on one batch (float32, cuDNN deterministic); step time, img/s, its
+     split and peak memory, float32 and amp, at batch 16 and 128; yolov12n's float32 and
+     amp train steps (8 launches in the forward, none in the backward); `YOLO.train(epochs=1)`
+     of yolov8n with its detect validation, then `YOLO(checkpoint)` served and validated as
+     a detect model with its nc and names.
+ 15. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
      step's forward), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
@@ -134,6 +152,8 @@ KERNEL_SHAPES = [
     ("640 P4 b16", 16, 64, 40, 40, 2, 4), ("640 P5 b16", 16, 128, 20, 20, 4, 1),
     # a 16:9 frame's rect val batch at 640 (384x672): Na = 252, not a multiple of 16
     ("rect 384x672 P4 b16", 16, 64, 24, 42, 2, 4), ("rect 384x672 P5 b16", 16, 128, 12, 21, 4, 1),
+    # yolov12n served at bench.py's batch (phase 14)
+    ("640 P4 b128", 128, 64, 40, 40, 2, 4), ("640 P5 b128", 128, 128, 20, 20, 4, 1),
 ]
 # (label, B, C, H, W, heads, area, layout), correctness only: channel-contiguous
 # (B, N, C) inputs; imgsz 480 P4 (Na = 225: chunk starts not 16-byte aligned);
@@ -302,15 +322,20 @@ def phase_kernel():
         return qk, vm, q, k, v
 
     def compare(label, dname, q, k, v, heads, area):
+        """The kernel against the plain version in float32 on the same inputs (in bf16 the
+        plain version rounds its scores and weights, which puts it farther from the exact
+        result than the kernel, which accumulates in float32); returns the kernel's max abs
+        error, the plain version's own in the inputs' dtype, and the launch plan."""
         geo = fa.geometry_of(q, k, v, heads, area)
         lib_geo = fa.library_geometry(q, k, v, heads, area)
         check(lib_geo == geo, f"{label} {dname}: library plan {lib_geo}, wrapper's mirror {geo}")
         got = flash_area_attention(q, k, v, heads, area)
-        want = area_attention_plain(q, k, v, heads, area)
+        want = area_attention_plain(q.float(), k.float(), v.float(), heads, area)
+        plain = area_attention_plain(q, k, v, heads, area)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        err = (got.float() - want).abs().max().item()
         check(err <= TOL[dname], f"kernel vs plain {label} {dname}: max abs err {err}")
-        return err, geo
+        return err, (plain.float() - want).abs().max().item(), geo
 
     rows = []
     for label, B, C, H, W, heads, area in KERNEL_SHAPES:
@@ -318,7 +343,7 @@ def phase_kernel():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             qk, vm, q, k, v = inputs(B, C, H, W, dtype)
-            err, geo = compare(label, dname, q, k, v, heads, area)
+            err, plain_err, geo = compare(label, dname, q, k, v, heads, area)
             w = torch.randn(B, N, C, device="cuda", generator=g).to(dtype)
             grads = []
             for fn in (flash_area_attention, area_attention_plain):
@@ -344,7 +369,8 @@ def phase_kernel():
                 backward_ms = event_ms(lambda: torch.autograd.grad(out, (q_l, k_l, v_l), w,
                                                                    retain_graph=True))
             row = {"shape": label, "dtype": dname, "B_area": B * area, "Na": Na, "heads": heads,
-                   "max_abs_err": err, "grad_max_abs_err": grad_err, "backward_ms": backward_ms,
+                   "max_abs_err": err, "plain_max_abs_err": plain_err,
+                   "grad_max_abs_err": grad_err, "backward_ms": backward_ms,
                    "kernel_ms": device_ms(lambda: flash_area_attention(q, k, v, heads, area)),
                    "plain_ms": device_ms(lambda: area_attention_plain(q, k, v, heads, area)),
                    "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
@@ -360,19 +386,36 @@ def phase_kernel():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             *_, q, k, v = inputs(B, C, H, W, dtype, layout)
-            err, geo = compare(label, dname, q, k, v, heads, area)
+            err, plain_err, geo = compare(label, dname, q, k, v, heads, area)
             print(json.dumps({"check": label, "dtype": dname, "Na": H * W // area, "layout": layout,
-                              "max_abs_err": err, "stage_bytes": geo["stage_bytes"]}))
+                              "max_abs_err": err, "plain_max_abs_err": plain_err,
+                              "stage_bytes": geo["stage_bytes"]}))
     return rows
+
+
+def calibrate_bn(model, x):
+    """Set every BatchNorm's running statistics to those of the batch x, as training would
+    leave them: one forward with only BN in train mode (dropout stays off) at momentum 1.
+    Leaves the model in eval mode and BN at momentum 0.03. The CPU tests share it."""
+    import torch
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for bn in bns:
+        bn.momentum = 1.0
+        bn.train()
+    with torch.no_grad():
+        model(x)
+    model.eval()
+    for bn in bns:
+        bn.momentum = 0.03
 
 
 def _perturbed_yolo(name: str, seed: int, imgsz: int):
     """YOLO on cuda with seeded weights, every parameter and BN statistic perturbed.
 
-    The BN statistics are first set to those of a calibration batch (one
-    train-mode forward with momentum 1, as training would leave them), so that
-    activations keep their scale through the depth and the scores, boxes and
-    embeddings depend on the image instead of collapsing to the head biases.
+    The BN statistics are first set to those of a calibration batch
+    (`calibrate_bn`), so that activations keep their scale through the depth
+    and the scores, boxes and embeddings depend on the image instead of
+    collapsing to the head biases.
     """
     import torch
 
@@ -392,14 +435,9 @@ def _perturbed_yolo(name: str, seed: int, imgsz: int):
             else:
                 std = p.std().item() if p.numel() > 1 else 0.0
                 p.add_((0.3 * std if std > 0 else 0.1) * noise(p))
-        bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-        for bn in bns:  # only BN in train mode: dropout stays off
-            bn.momentum = 1.0
-            bn.train()
-        model(torch.rand(2, 3, imgsz, imgsz, generator=gen).to(yolo.device))
-        model.eval()
-        for bn in bns:
-            bn.momentum = 0.03
+    calibrate_bn(model, torch.rand(2, 3, imgsz, imgsz, generator=gen).to(yolo.device))
+    with torch.no_grad():
+        for bn in (m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)):
             bn.running_mean.add_(0.1 * bn.running_var.sqrt() * noise(bn.running_mean))
             bn.running_var.mul_(0.8 + 0.45 * torch.rand(bn.running_var.shape,
                                                          generator=gen).to(bn.running_var.device))
@@ -434,14 +472,19 @@ def _compare_detections(got, want, n_emb: int, label: str, by_row: bool = False)
         cols = np.r_[0:5, 6:6 + n_emb] if by_row else np.r_[0:4]
         match = (np.abs(g[:, None, cols] - w[None, :, cols]).max(-1)
                  + 1e9 * (g[:, None, 5] != w[None, :, 5])).argmin(1)
-        check(np.array_equal(np.sort(match), np.arange(len(w))),
-              f"{label}: frame {b} kept boxes do not pair up one to one")
+        hits = np.bincount(match, minlength=len(w))
+        check(hits.max() == 1, f"{label}: frame {b} kept boxes do not pair up one to one; "
+              f"rows [box, score, class] of the second unpaired: {w[hits == 0, :6].tolist()}, "
+              f"of the first paired to one: {g[hits[match] > 1, :6].tolist()}")
         w = w[match]
         check(np.array_equal(g[:, 5], w[:, 5]), f"{label}: frame {b} classes differ")
-        check(np.array_equal(g[:, 6 + n_emb:].argmax(1), w[:, 6 + n_emb:].argmax(1)),
-              f"{label}: frame {b} states differ")
-        for key, sl in (("box_err_px", slice(0, 4)), ("score_err", slice(4, 5)),
-                        ("embed_err", slice(6, 6 + n_emb))):
+        if got.shape[2] > 6 + n_emb:  # JDE posture states
+            check(np.array_equal(g[:, 6 + n_emb:].argmax(1), w[:, 6 + n_emb:].argmax(1)),
+                  f"{label}: frame {b} states differ")
+        parts = [("box_err_px", slice(0, 4)), ("score_err", slice(4, 5))]
+        if n_emb:
+            parts.append(("embed_err", slice(6, 6 + n_emb)))
+        for key, sl in parts:
             errs[key] = max(errs[key], float(np.abs(g[:, sl] - w[:, sl]).max()))
         kept.append(len(g))
     return kept, errs
@@ -456,32 +499,34 @@ def _img_per_s(yolo, frames, kw, n: int = 10):
     return n * len(frames) / (time.perf_counter() - t0)
 
 
-def _maps_errors(yolo, plain, x, conf: float):
-    """Head maps of the served (BN-folded) models on the letterboxed batch x.
+def _candidates(predictor, feats, conf: float) -> list:
+    """Serving NMS's candidates a frame (single-label: one an anchor): the anchors whose best
+    class score passes `conf`. NMS keeps the first PRE_TOPK of them."""
+    preds, _ = predictor.decode(feats)
+    return (preds[..., 4:4 + predictor.meta["nc"]].amax(-1) >= conf).sum(1).tolist()
+
+
+def _maps_errors(yolo, plain, x, conf: float, exact=None):
+    """Head maps of the served (BN-folded) models on the letterboxed batch x; `exact`: the
+    plain model BN-folded in float64 (made from `plain` if not given).
 
     Returns the largest differences kernel vs plain, kernel vs the plain model
-    in float64 and plain vs float64, and per frame the anchors whose best
-    class score passes `conf` (the candidates NMS's top-k cut sees).
+    in float64 and plain vs float64, and NMS's candidates a frame at `conf`.
     """
     import torch
 
-    from sar_yolo_tpu_torch.ops.decode import decode_detect
-    meta = yolo.meta
-    exact = copy.deepcopy(plain._fused_for_serving()).double()
+    if exact is None:
+        exact = copy.deepcopy(plain._fused_for_serving()).double()
     with torch.no_grad():
         ref = exact(x.double())
         kern, flat = yolo._fused_for_serving()(x), plain._fused_for_serving()(x)
-        preds, _ = decode_detect(kern, meta["strides"], meta["nc"], meta["reg_max"],
-                                 extra_sigmoid=meta["state_classes"],
-                                 split_extras=meta["embed_dim"])
+        candidates = _candidates(yolo._get_predictor({}), kern, conf)
 
     def err(a, b):
         return max((p.double() - q.double()).abs().max().item() for p, q in zip(a, b))
 
     return {"maps_kernel_vs_plain": err(kern, flat), "maps_kernel_vs_f64": err(kern, ref),
-            "maps_plain_vs_f64": err(flat, ref),
-            "candidates_per_frame": (preds[..., 4:4 + meta["nc"]].amax(-1) >= conf)
-            .sum(1).tolist()}
+            "maps_plain_vs_f64": err(flat, ref), "candidates_per_frame": candidates}
 
 
 def phase_serve(name: str, imgsz: int, conf: float, box_tol: float, batch: int, seed: int,
@@ -1877,6 +1922,308 @@ def phase_amp_train(card: str, seed: int = 0):
             "predict_batched after amp training": LAUNCHES_PER_FORWARD}, timing
 
 
+# phase 14: the detect task on bench.py's geometry (ragged 480x640 frames, batch 128)
+DETECT_SERVE = (("yolov8n.yaml", 0, (1, 8, 128)), ("yolo11n.yaml", 0, (1, 8, 128)),
+                ("yolov12n.yaml", LAUNCHES_PER_FORWARD, (1, 8, 128)),
+                ("yolo11n-JDE.yaml", 0, (8,)))  # (model, kernel launches a forward, batches)
+DETECT_IMGSZ = 640        # bench.py's serving size
+BENCH_HW = (480, 640)     # bench.py's frames
+BENCH_BATCH = 128         # bench.py's serving and train_yolov8n batch
+DETECT_AB_BATCH = 4       # frames of the detection A/Bs
+F64_BOX_TOL = 32e-3       # px: 1e-3 of a DFL bin at stride 32, float32's floor for wide boxes
+DETECT_CANDIDATES = 64    # the A/Bs' threshold leaves fewer (anchor, class) pairs a frame
+MAX_LOGIT = 6.0           # the damped class logits' largest magnitude: sigmoid 0.9975
+
+
+def _damp_class_logits(yolo, frames):
+    """Scale the head's class-logit convolutions (weight and bias) so that the largest class
+    logit on `frames` is MAX_LOGIT. Perturbed weights drive many class scores to 1.0 in
+    float32, where NMS orders the tied scores arbitrarily. Returns the gain."""
+    import torch
+    meta = yolo.meta
+    predictor = yolo._get_predictor({"imgsz": DETECT_IMGSZ})
+    with torch.no_grad():
+        maps = predictor.model(predictor.preprocess(frames)[0])
+        top = max(m[:, 4 * meta["reg_max"]:4 * meta["reg_max"] + meta["nc"]].abs().max().item()
+                  for m in maps)
+        gain = min(1.0, MAX_LOGIT / top)
+        head = yolo.model.blocks[meta["head_index"]]
+        for name, p in head.named_parameters():
+            if name.startswith("cv3_") and "_pred." in name:
+                p.mul_(gain)
+    yolo._fused = yolo._half = yolo._predictor_cache = None
+    return gain
+
+
+def _nms_stable_conf(rows: np.ndarray, nc: int, iou_thres: float, max_cand: int,
+                     margin: float = 1e-4):
+    """A threshold at which greedy NMS keeps the same rows under rounding: above it every
+    frame of `rows` (B, N, 4 + nc: decoded xywh boxes and class scores, float64) has fewer
+    than `max_cand` (anchor, class) candidates; no two candidates of a class overlap by an
+    IoU within 1e-3 of `iou_thres` or, overlapping beyond it, score within `margin` of each
+    other; and no score lies within `margin` of the threshold. Returns (threshold, half its
+    gap)."""
+    level = -np.inf
+    for r in rows:
+        s = r[:, 4:4 + nc]
+        flat = np.sort(s.ravel())
+        level = max(level, flat[-max_cand])
+        anchor, cls = np.nonzero(s > flat[-max_cand])
+        xy, wh = r[anchor, :2], r[anchor, 2:4]
+        lo, hi = xy - wh / 2, xy + wh / 2
+        inter = np.clip(np.minimum(hi[:, None], hi[None]) - np.maximum(lo[:, None], lo[None]),
+                        0, None).prod(-1)
+        area = wh.prod(-1)
+        iou = inter / (area[:, None] + area[None] - inter)
+        sc = s[anchor, cls]
+        same = (cls[:, None] == cls[None]) & ~np.eye(len(cls), dtype=bool)
+        close = same & ((np.abs(iou - iou_thres) < 1e-3)
+                        | ((iou > iou_thres) & (np.abs(sc[:, None] - sc[None]) < margin)))
+        if close.any():  # the threshold must drop the lower of each such pair
+            level = max(level, np.minimum(sc[:, None], sc[None])[close].max())
+    above = np.unique(rows[..., 4:4 + nc][rows[..., 4:4 + nc] > level])
+    check(len(above) >= 2, f"under 2 scores above {level}")
+    gaps = np.diff(above)
+    wide = np.flatnonzero(gaps > 2 * margin)
+    j = int(wide[0]) if len(wide) else int(gaps.argmax())
+    return float((above[j] + above[j + 1]) / 2), float(gaps[j] / 2)
+
+
+def _detect_model(name: str, n_frames: int, seed: int = 3):
+    """Phase 14's served model and frames, which `tools/torch_port_profile.py --phase14`
+    profiles: `name` with seeded, perturbed weights, its class logits damped on the first
+    DETECT_AB_BATCH frames, and `n_frames` ragged 480x640 uint8 frames (the same first
+    frames whatever their number). Returns (yolo, frames, gain)."""
+    yolo = _perturbed_yolo(name, seed, DETECT_IMGSZ)
+    frames = np.random.default_rng(seed).integers(
+        0, 256, (max(n_frames, DETECT_AB_BATCH), *BENCH_HW, 3), np.uint8)
+    gain = _damp_class_logits(yolo, frames[:DETECT_AB_BATCH])
+    return yolo, frames[:n_frames], gain
+
+
+def _candidate_summary(counts: list) -> dict:
+    """min, median and max of NMS's candidates a frame, and the frames at its pre_topk."""
+    return {"min": min(counts), "median": statistics.median(counts), "max": max(counts),
+            "frames_at_pre_topk": sum(c >= PRE_TOPK for c in counts)}
+
+
+def _float64_copy(yolo):
+    """A copy of `yolo` that serves its BN-folded model in float64 (attention on the plain
+    path: the kernel has no float64 variant)."""
+    from sar_yolo_tpu_torch.nn.fuse import fuse_model
+    exact = copy.deepcopy(yolo)
+    _set_flash(exact, False)
+    exact._fused = fuse_model(copy.deepcopy(exact.model)).double().eval()
+    exact._half, exact._predictor_cache = None, None
+    return exact
+
+
+def phase_detect_serve(name: str, launches: int, batches, card: str, seed: int = 3) -> dict:
+    """Serve `name` at 640 on ragged 480x640 frames (see the module docstring, phase 14);
+    returns its kernel launches by path and dtype."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    yolo, frames, gain = _detect_model(name, max(batches), seed)
+    meta, n_emb = yolo.meta, yolo.meta.get("embed_dim") or 0
+    ab = frames[:max(DETECT_AB_BATCH, min(batches))]
+    plain = copy.deepcopy(yolo)
+    _set_flash(plain, False)
+    exact = _float64_copy(yolo)
+    yolo.predict_batched(frames[:1], imgsz=DETECT_IMGSZ, half=True)  # warm-up: fold, cast
+    # frame by frame, each at a threshold where NMS's choices do not hang on rounding
+    predictor = yolo._get_predictor({"imgsz": DETECT_IMGSZ})
+    confs = []
+    for i in range(len(ab)):
+        with torch.no_grad():
+            rows, _ = predictor.decode(predictor.model(predictor.preprocess(ab[i:i + 1])[0]))
+        confs.append(_nms_stable_conf(rows.double().cpu().numpy(), meta["nc"], 0.7,
+                                      DETECT_CANDIDATES)[0])
+    out = {"got": [], "half": [], "plain": [], "f64": []}
+    reset_launches()
+    for i, conf in enumerate(confs):
+        kw = dict(imgsz=DETECT_IMGSZ, conf=conf)
+        for key, m, args in (("got", yolo, kw), ("half", yolo, {**kw, "half": True}),
+                             ("plain", plain, kw), ("f64", exact, kw)):
+            out[key].append(m.predict_batched(ab[i:i + 1], **args))
+        plain.predict_batched(ab[i:i + 1], **kw, half=True)
+    by = dict(flash_area_attention.launches_by_dtype)
+    check(by == {"float32": launches * len(ab), "bfloat16": launches * len(ab)},
+          f"{name}: kernel launches by dtype {by} in {len(ab)} forwards of each precision, "
+          f"expected {launches} a forward (use_flash=False launches none)")
+    got, got_half, want, want64 = (np.concatenate(out[k]) for k in ("got", "half", "plain", "f64"))
+    n_rows = 6 + n_emb + (meta.get("state_classes") or 0)
+    check(got.shape == got_half.shape == (len(ab), 300, n_rows) and np.isfinite(got_half).all(),
+          f"{name}: detections of shape {got.shape}, half {got_half.shape}")
+    kept, errs = _compare_detections(got, want, n_emb, f"{name} kernel vs plain")
+    kept64, errs64 = _compare_detections(got, want64, n_emb, f"{name} float32 vs float64")
+    x, _, _ = predictor.preprocess(ab)
+    maps = _maps_errors(yolo, plain, x, min(confs), exact=exact._fused)
+    xh, _, _ = yolo._get_predictor({"imgsz": DETECT_IMGSZ, "half": True}).preprocess(ab)
+    maps_half = _maps_vs_f32(yolo._fused_for_serving(True), plain._fused_for_serving(True),
+                             plain._fused_for_serving(), xh, x)
+    # rates at bench.py's threshold, NMS's candidates a frame there beside them (decode and
+    # NMS cost what they cost at that count: tools/torch_port_profile.py --phase14 splits it)
+    kw, hkw = dict(imgsz=DETECT_IMGSZ, conf=0.25), dict(imgsz=DETECT_IMGSZ, conf=0.25, half=True)
+    del plain, exact
+    torch.cuda.empty_cache()
+    rates = {}
+    for b in batches:
+        r = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
+                   lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+        rates.update({f"img_per_s_b{b}_{k}": v for k, v in r.items()})
+    big = max(batches)
+    memory, candidates = {}, {}
+    for label, args in (("f32", kw), ("bf16", hkw)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        yolo.predict_batched(frames[:big], **args)
+        memory[f"max_memory_allocated_gib_b{big}_{label}"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        p = yolo._get_predictor(args)
+        with torch.no_grad():
+            candidates[f"candidates_per_frame_b{big}_{label}"] = _candidate_summary(
+                _candidates(p, p.model(p.preprocess(frames[:big])[0]), 0.25))
+    print(json.dumps({"serve_detect": name, "task": yolo.task, "nc": meta["nc"],
+                      "imgsz": DETECT_IMGSZ,
+                      "frames": f"{BENCH_HW[0]}x{BENCH_HW[1]}", "ab_frames": len(ab),
+                      "ab_confs": confs, "class_logit_gain": gain, "rates_conf": 0.25,
+                      "kernel_launches_f32": launches,
+                      "kernel_launches_bf16": launches, "kept_per_frame": kept,
+                      "kept_per_frame_f64": kept64, "kept_per_frame_bf16":
+                      (got_half[..., 4] > 0).sum(1).tolist(), **errs,
+                      **{f"{k}_vs_f64": v for k, v in errs64.items()}, **maps, **maps_half,
+                      **rates, **memory, **candidates, "card": card}))
+    check(max(maps["candidates_per_frame"]) < PRE_TOPK, f"{name}: over {PRE_TOPK} candidates")
+    # boxes hundreds of px wide: 1e-3 of a 32 px DFL bin (phase 10's bound); the head maps
+    # against float64 below are the arbiter
+    for key, tol in (("box_err_px", F64_BOX_TOL), ("score_err", 1e-3), ("embed_err", 1e-3)):
+        check(errs[key] <= tol, f"{name} kernel vs plain: {key} {errs[key]}")
+    # float32 against float64: as far as the head maps' own rounding moves them (a box side
+    # is a DFL expectation times the stride, up to 32; an embedding is a map channel)
+    d = maps["maps_plain_vs_f64"]
+    for key, tol in (("box_err_px", max(F64_BOX_TOL, 2 * 32 * d)), ("score_err", max(1e-3, d)),
+                     ("embed_err", max(1e-3, 2 * d))):
+        check(errs64[key] <= tol, f"{name} float32 vs float64: {key} {errs64[key]} (head maps "
+              f"{d} apart)")
+    check(maps["maps_kernel_vs_f64"] <= 2 * maps["maps_plain_vs_f64"],
+          f"{name}: kernel path {maps['maps_kernel_vs_f64']} from float64, plain path "
+          f"{maps['maps_plain_vs_f64']}")
+    check(maps_half["maps_bf16_kernel_vs_f32"] <= 2 * maps_half["maps_bf16_plain_vs_f32"],
+          f"{name} half: kernel path {maps_half['maps_bf16_kernel_vs_f32']} from float32, plain "
+          f"path {maps_half['maps_bf16_plain_vs_f32']}")
+    label = f"{name.removesuffix('.yaml')}@{DETECT_IMGSZ}, {len(ab)} calls of batch 1"
+    return {"float32": {f"serve {label}": by["float32"]},
+            "bfloat16": {f"serve half {label}": by["bfloat16"]}}
+
+
+def phase_detect_train(card: str, seed: int = 0) -> dict:
+    """The yolov8n train step (f32 and amp, batch 16 and 128), yolov12n's train steps and a
+    one-epoch `YOLO.train` of yolov8n, then its checkpoint (see the module docstring,
+    phase 14). Returns the kernel launches by path and dtype."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+
+    def trainer(model, batch, **kw):
+        tr = DetectionTrainer(dict(model=model, data="synthetic", imgsz=TRAIN_IMGSZ, batch=batch,
+                                   seed=seed, optimizer="SGD", nbs=batch, warmup_epochs=0.0, **kw))
+        tr.setup()
+        return tr, next(iter(DataLoader(tr.train_set, batch, seed=seed)))
+
+    # the loss falls on one batch (float32, cuDNN deterministic, as phase 6)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    tr, batch = trainer("yolov8n.yaml", TRAIN_BATCH, amp=False)
+    check(tr.meta["task"] == "detect" and tr.loss_names == ("box", "cls", "dfl"),
+          f"yolov8n trainer: task {tr.meta['task']}, losses {tr.loss_names}")
+    totals = [tr.train_step(batch)[0].item() for _ in range(20)]
+    print(json.dumps({"detect_train_fixed_batch_total_loss": totals, "model": "yolov8n"}))
+    check(all(np.isfinite(totals)) and np.mean(totals[-3:]) < 0.98 * np.mean(totals[:3]),
+          f"yolov8n: the total loss did not fall over 20 steps on one batch: {totals}")
+    torch.backends.cudnn.deterministic = False
+    timing = {f"f32_b{TRAIN_BATCH}": _timed_steps(tr, batch)}
+    del tr
+    torch.cuda.empty_cache()
+    tr, _ = trainer("yolov8n.yaml", TRAIN_BATCH)
+    check(tr.model.compute_dtype == torch.bfloat16, "yolov8n amp: not bf16 (check_bf16 failed?)")
+    timing[f"amp_b{TRAIN_BATCH}"] = _timed_steps(tr, batch)
+    del tr
+    for label, kw in (("f32", {"amp": False}), ("amp", {})):
+        torch.cuda.empty_cache()
+        tr, big = trainer("yolov8n.yaml", BENCH_BATCH, **kw)
+        timing[f"{label}_b{BENCH_BATCH}"] = _timed_steps(tr, big, n=3, warmup=2)
+        del tr, big
+    torch.cuda.empty_cache()
+    print(json.dumps({"detect_train_step": f"yolov8n @{TRAIN_IMGSZ}, SGD, synthetic data",
+                      **timing, "card": card}))
+
+    # yolov12n: the kernel in the train step's forward, none in its backward
+    steps = {}
+    for label, kw in (("f32", {"amp": False}), ("amp", {})):
+        tr, b = trainer("yolov12n.yaml", TRAIN_BATCH, **kw)
+        reset_launches()
+        items, _, lk = _train_step_parts(tr, b)
+        by = dict(flash_area_attention.launches_by_dtype)
+        dname = "float32" if label == "f32" else "bfloat16"
+        check(lk == (LAUNCHES_PER_FORWARD, 0) and by[dname] == LAUNCHES_PER_FORWARD
+              and np.isfinite(items).all(),
+              f"yolov12n {label} train step: launches (forward, backward) {lk}, by dtype {by}, "
+              f"items {items}")
+        steps[label] = {"launches": lk, "by_dtype": by, "items": items.tolist()}
+        del tr
+        torch.cuda.empty_cache()
+    print(json.dumps({"detect_train_yolov12n_step": steps, "card": card}))
+
+    # YOLO.train with its detect validation (amp, the default), then the checkpoint
+    yolo = YOLO("yolov8n.yaml")
+    t0 = time.perf_counter()
+    metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
+                         seed=seed, project="runs", name="chip_smoke_detect", exist_ok=True)
+    train_s = time.perf_counter() - t0
+    check(all(np.isfinite(list(metrics.values()))) and "metrics/mAP50(B)" in metrics
+          and "train/dfl" in metrics and "train/emb" not in metrics,
+          f"YOLO.train yolov8n: metrics {metrics}")
+    ckpt = YOLO(yolo.ckpt_dir)
+    check(ckpt.task == "detect" and ckpt.meta["nc"] == 3 and ckpt.names == yolo.names,
+          f"YOLO(checkpoint): task {ckpt.task}, nc {ckpt.meta['nc']}, names {ckpt.names}")
+    frames = np.random.default_rng(seed).integers(0, 256, (2, *BENCH_HW, 3), np.uint8)
+    dets, dets_ckpt = (m.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-3)
+                       for m in (yolo, ckpt))
+    check(dets.shape == (2, 300, 6) and np.isfinite(dets).all(), f"served rows {dets.shape}")
+    val = ckpt.val(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, project="runs",
+                   name="chip_smoke_detect_val", exist_ok=True)
+    check(all(np.isfinite(list(val.values()))), f"YOLO(checkpoint).val: {val}")
+    print(json.dumps({"yolo_train_detect": metrics, "seconds": train_s,
+                      "steps": yolo.trainer.step, "checkpoint": str(yolo.ckpt_dir),
+                      "checkpoint_task": ckpt.task, "checkpoint_val": val,
+                      "served_rows_kept": (dets[..., 4] > 0).sum(1).tolist(),
+                      "checkpoint_rows_equal": bool(np.array_equal(dets, dets_ckpt)),
+                      "card": card}))
+    key = f"yolov12n train step forward @{TRAIN_IMGSZ} b{TRAIN_BATCH}"
+    return {"float32": {key: steps["f32"]["launches"][0],
+                        key.replace("forward", "backward"): steps["f32"]["launches"][1]},
+            "bfloat16": {f"amp {key}": steps["amp"]["launches"][0],
+                         f"amp {key}".replace("forward", "backward"): steps["amp"]["launches"][1]}}
+
+
+def phase_detect(card: str) -> dict:
+    """Phase 14: the detect models served, trained and validated; their launches by path."""
+    t0 = time.perf_counter()
+    out = {"float32": {}, "bfloat16": {}}
+    for name, launches, batches in DETECT_SERVE:
+        t1 = time.perf_counter()
+        for dname, paths in phase_detect_serve(name, launches, batches, card).items():
+            out[dname].update(paths)
+        print(json.dumps({"detect_serve_s": {name: time.perf_counter() - t1}}))
+    for dname, paths in phase_detect_train(card).items():
+        out[dname].update(paths)
+    print(json.dumps({"phase_detect_s": time.perf_counter() - t0}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1885,9 +2232,17 @@ def main() -> int:
     import sar_yolo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(label: str):  # each phase's seconds
+        laps.append(time.perf_counter())
+        print(json.dumps({"phase_s": {label: laps[-1] - laps[-2]}}))
     card = phase_card()
+    lap("card")
     phase_build()
+    lap("build")
     rows = phase_kernel()
+    lap("kernel")
     serve_launches = phase_serve("yolov13n-JDE.yaml", 640, 0.005, 1e-3, MAIN_BATCH, seed=0,
                                  throughput_batches=(1, 8))
     # At 1280, float32 rounding alone moves this random-weight model's boxes by
@@ -1897,33 +2252,47 @@ def main() -> int:
     # coarsest level's box-regression unit (a 32 px DFL bin at r = 1).
     p24_launches = phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1,
                                throughput_batches=(1,))
+    lap("serve")
     step_launches, train_launches, _, yolo = phase_train(card)
+    lap("train")
     seeded_val_launches, val_launches = phase_val(yolo, card)
+    lap("val")
     del yolo
     disk_train_launches, rect_val_launches, host_loader, data = phase_data(card)
+    lap("data")
     ckpt_launches = phase_checkpoint(card, data, host_loader)
+    lap("checkpoint")
     shutil.rmtree(data["path"], ignore_errors=True)
     jpeg_launches = phase_jpeg(card)
+    lap("jpeg")
     half_launches = {
         f"serve half yolov13n-JDE@640 b{HALF_BATCH}": phase_half(
             "yolov13n-JDE.yaml", 640, 0.005, HALF_BATCH, 0, (1, HALF_BATCH), card),
         "serve half yolov13n-JDE_P24@1280 b1": phase_half(
             "yolov13n-JDE_P24.yaml", 1280, 0.5, 1, 1, (1,), card),
         f"YOLO.predict half {JPEG_FRAMES} JPEG frames x 3 calls": phase_half_jpeg(card)}
+    lap("half")
     amp_launches, _ = phase_amp_train(card)
+    lap("amp_train")
+    detect_launches = phase_detect(card)
+    lap("detect")
 
-    # the main path's kernel work: one train step's forward (640, batch 16), 4 calls at the
-    # P4 shape and 4 at P5, in float32 (amp=False) and in bf16 (amp, the default)
-    def step_forward(dname):
+    # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
+    def per_forward(dname, batch):
         fwd = [r for r in rows if r["dtype"] == dname
-               and r["shape"] in (f"640 P4 b{TRAIN_BATCH}", f"640 P5 b{TRAIN_BATCH}")]
-        out = {key: 4 * sum(r[key] for r in fwd)
+               and r["shape"] in (f"640 P4 b{batch}", f"640 P5 b{batch}")]
+        out = {key: 4 * sum(r[key] or 0.0 for r in fwd)
                for key in ("kernel_ms", "plain_ms", "library_ms", "backward_ms", "flops", "bytes")}
         t_ops, t_bytes = out["flops"] / PEAK_FLOPS[dname] * 1e3, out["bytes"] / PEAK_BYTES * 1e3
         out["bound_ms"] = max(t_ops, t_bytes)
         out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         return out
-    total, total_bf16 = step_forward("float32"), step_forward("bfloat16")
+    print(json.dumps({"kernel_per_forward": f"yolov12n served @640 b{BENCH_BATCH}",
+                      **{d: {k: v for k, v in per_forward(d, BENCH_BATCH).items()
+                             if k != "backward_ms"} for d in ("float32", "bfloat16")}}))
+    # the main path's: one train step's forward (640, batch 16), in float32 (amp=False) and
+    # in bf16 (amp, the default)
+    total, total_bf16 = per_forward("float32", TRAIN_BATCH), per_forward("bfloat16", TRAIN_BATCH)
     print(json.dumps({"kernels": [{
         "name": "flash_area_attention", "route": "cuda",
         "source": "sar_yolo_tpu_torch/csrc/flash_area_attention.cu",
@@ -1947,7 +2316,8 @@ def main() -> int:
                      "bound_ms": total_bf16["bound_ms"], "bound_by": total_bf16["bound_by"],
                      "library_ms": total_bf16["library_ms"],
                      "plain_backward_ms": total_bf16["backward_ms"]},
-        "launches_by_path_bfloat16": {**half_launches, **amp_launches},
+        "launches_by_path_bfloat16": {**half_launches, **amp_launches,
+                                      **detect_launches["bfloat16"]},
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
                              "serve yolov13n-JDE_P24@1280 b1": p24_launches,
                              **train_launches,
@@ -1958,7 +2328,8 @@ def main() -> int:
                              f"YOLO.train on a disk dataset @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 "
                              "epochs (8 steps + 2 validations)": disk_train_launches,
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
-                                 rect_val_launches, **ckpt_launches, **jpeg_launches}}]}))
+                                 rect_val_launches, **ckpt_launches, **jpeg_launches,
+                             **detect_launches["float32"]}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,8 @@
 """YOLO facade of the port: build, seed or load weights (a checkpoint directory too),
 train, validate, fuse, serve batches, predict and track sources (port of the serving,
-tracking, training and validation part of `sar_yolo_tpu/engine/model.py`)."""
+tracking, training and validation part of `sar_yolo_tpu/engine/model.py`), for the
+detect and JDE tasks: each call takes the trainer (`TRAINERS`, whose `validator_cls`
+validates) or the predictor (`PREDICTORS`) of the model's task."""
 
 from __future__ import annotations
 
@@ -11,9 +13,8 @@ import torch
 
 from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, NOT_PORTED, get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
-from sar_yolo_tpu_torch.engine.predictor import JDEPredictor
-from sar_yolo_tpu_torch.engine.trainer import JDETrainer
-from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
+from sar_yolo_tpu_torch.engine.predictor import PREDICTORS
+from sar_yolo_tpu_torch.engine.trainer import TRAINERS
 from sar_yolo_tpu_torch.nn.fuse import fuse_model, half_model
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import select_device
@@ -32,6 +33,8 @@ class YOLO:
     Examples:
         >>> m = YOLO("yolov13n-JDE.yaml")           # on cuda; raises without CUDA
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6 + 256 + 6)
+        >>> m = YOLO("yolov8n.yaml")                # detect: yolov8n, yolo11n, yolov12n
+        >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6)
         >>> dets = m.predict_batched(frames_u8, half=True)  # bf16 on the card
         >>> m = YOLO("tinyjde.yaml", device="cpu")
         >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
@@ -84,6 +87,13 @@ class YOLO:
         self._weights_ready = True
         self._fused = None
 
+    def _ported_task(self) -> str:
+        """The model's task, which must be one this port trains, validates and serves."""
+        if self.task not in TRAINERS:
+            raise NotImplementedError(f"task '{self.task}' is not part of this port yet "
+                                      f"(ported: {sorted(TRAINERS)})")
+        return self.task
+
     def _ensure_variables(self, seed: int = 0):
         """Seeded initialization (a CPU torch.Generator), once."""
         if not self._weights_ready:
@@ -102,10 +112,8 @@ class YOLO:
         losses and, with `val` (the default), its validation metrics. Afterwards the model
         holds the EMA parameters and the live BN statistics, and keeps the run's compute
         dtype (bf16 after an `amp` run on the card), as the JAX package's model does."""
-        if self.task != "jde":
-            raise NotImplementedError(f"this port trains the JDE task only, not '{self.task}'")
-        self.trainer = JDETrainer({**self.overrides, "model": self.cfg, **kwargs},
-                                  device=self.device)
+        self.trainer = TRAINERS[self._ported_task()](
+            {**self.overrides, "model": self.cfg, **kwargs}, device=self.device)
         metrics = self.trainer.train()
         self.model = self.trainer.ema_model()
         self.meta = self.trainer.meta
@@ -120,10 +128,7 @@ class YOLO:
         returns the metrics dict. `data`: a dataset YAML file or dict (its `split`, else
         val, else train), or 'synthetic' (the default): 16 images of
         SyntheticDataset(seed=0) with min(nc, 3) classes."""
-        validators = {"jde": JDEValidator, "detect": DetectionValidator}
-        if self.task not in validators:
-            raise NotImplementedError(f"this port validates {sorted(validators)} models, "
-                                      f"not '{self.task}'")
+        validator = TRAINERS[self._ported_task()].validator_cls
         args = get_cfg({**self.overrides, "model": self.cfg, **kwargs})
         args.save_dir = str(get_save_dir(args, self.task))
         nc = self.meta["nc"]
@@ -137,8 +142,8 @@ class YOLO:
             dataset = YOLODataset(split, imgsz=args.imgsz, augment=False, hyp=args,
                                   use_tags=self.task == "jde", max_labels=args.max_labels,
                                   task=self.task, kpt_shape=tuple(data.get("kpt_shape", (17, 3))))
-        self.metrics = validators[self.task]()(model=self._fused_for_serving(), meta=self.meta,
-                                               dataset=dataset, args=args, data=data)
+        self.metrics = validator()(model=self._fused_for_serving(), meta=self.meta,
+                                   dataset=dataset, args=args, data=data)
         return self.metrics
 
     def _fused_for_serving(self, half: bool = False):
@@ -165,8 +170,7 @@ class YOLO:
         unknown = set(kwargs) - set(PREDICT_DEFAULTS)
         if unknown:
             raise TypeError(f"unsupported predict arguments {sorted(unknown)}")
-        if self.task != "jde":
-            raise NotImplementedError(f"this port serves the JDE task only, not '{self.task}'")
+        predictor_cls = PREDICTORS[self._ported_task()]
         overrides = {**{k: v for k, v in self.overrides.items() if k in PREDICT_DEFAULTS},
                      **kwargs}
         overrides.setdefault("conf", 0.25)
@@ -176,8 +180,8 @@ class YOLO:
         key = tuple(sorted((k, str(v)) for k, v in overrides.items()))
         if self._predictor_cache is None or self._predictor_cache[0] != key:
             args = SimpleNamespace(**{**PREDICT_DEFAULTS, **overrides})
-            self._predictor_cache = (key, JDEPredictor(self._fused_for_serving(args.half),
-                                                       self.meta, args, self.names))
+            self._predictor_cache = (key, predictor_cls(self._fused_for_serving(args.half),
+                                                        self.meta, args, self.names))
         predictor = self._predictor_cache[1]
         predictor.model = self._fused_for_serving(predictor.args.half)  # new weights after train()
         for event, fns in self._callbacks.items():
@@ -191,7 +195,8 @@ class YOLO:
 
         kwargs: imgsz, conf, iou, max_det, agnostic_nms, half (bf16 on the card).
         Returns (B, max_det, 6 + E) numpy detections in original-image pixels: [x1, y1,
-        x2, y2, conf, cls, *embedding, *states]; rows with conf == 0 are padding.
+        x2, y2, conf, cls, *embedding, *states] (E = 0 for a detect model); rows with
+        conf == 0 are padding.
         """
         return self._get_predictor(kwargs).predict_batch(frames)
 

@@ -54,24 +54,31 @@ class BasePredictor:
         for fn in self.callbacks.get(event, []):
             fn(self)
 
-    def _dets_in_orig_coords(self, x, r: float, pad):
-        """Normalized letterboxed NCHW batch -> decode -> NMS -> boxes in original pixels."""
-        meta, args = self.meta, self.args
-        nc = meta["nc"]
-        feats = self.model(x)
+    def decode(self, feats):
+        """Head maps -> (rows (B, N, 4 + nc + states): xywh boxes in letterboxed pixels and
+        sigmoided scores; the JDE embedding bank (B, N, E), or None)."""
+        meta = self.meta
         # JDE: the wide raw embedding channels stay out of the (B, N)-sized
         # decode/NMS work; they are gathered per kept detection after NMS
         emb_dim = meta.get("embed_dim") or 0
-        preds = decode_detect(feats, meta["strides"], nc, meta["reg_max"],
+        preds = decode_detect(feats, meta["strides"], meta["nc"], meta["reg_max"],
                               extra_sigmoid=meta.get("state_classes") or 0,
                               split_extras=emb_dim)
-        bank = None
-        if emb_dim:
-            preds, bank = preds
+        return preds if emb_dim else (preds, None)
+
+    def decode_nms(self, feats):
+        """Head maps -> decode -> NMS: (B, max_det, 6 + E) detections in letterboxed pixels."""
+        args = self.args
+        preds, bank = self.decode(feats)
         conf = args.conf if args.conf is not None else 0.25
-        dets = non_max_suppression(preds, conf_thres=conf, iou_thres=args.iou,
-                                   max_det=args.max_det, nc=nc, agnostic=args.agnostic_nms,
-                                   extras_bank=bank)
+        return non_max_suppression(preds, conf_thres=conf, iou_thres=args.iou,
+                                   max_det=args.max_det, nc=self.meta["nc"],
+                                   agnostic=args.agnostic_nms, extras_bank=bank)
+
+    def _dets_in_orig_coords(self, x, r: float, pad):
+        """Normalized letterboxed NCHW batch -> forward, decode, NMS -> boxes in original
+        pixels."""
+        dets = self.decode_nms(self.model(x))
         pad4 = torch.tensor([*pad, *pad], dtype=dets.dtype, device=dets.device)
         return torch.cat([(dets[..., :4] - pad4) / r, dets[..., 4:]], -1)
 
@@ -143,6 +150,14 @@ class BasePredictor:
             self.run_callbacks("on_predict_end")
 
 
+class DetectionPredictor(BasePredictor):
+    """Boxes only: [x1, y1, x2, y2, conf, cls] a row."""
+
+    def postprocess(self, dets, path, orig_img, speed=None) -> Results:
+        return Results(orig_img, path, self.names, boxes=self._kept(dets, orig_img)[:, :6],
+                       speed=speed)
+
+
 class JDEPredictor(BasePredictor):
     """Splits [box, conf, cls, emb, state] and exposes embeddings and the argmax state."""
 
@@ -154,3 +169,6 @@ class JDEPredictor(BasePredictor):
         states = d[:, 6 + ed:6 + ed + sc].argmax(-1) if sc else None
         return Results(orig_img, path, self.names, boxes=d[:, :6], embeds=embeds,
                        person_states=states, speed=speed)
+
+
+PREDICTORS = {"detect": DetectionPredictor, "jde": JDEPredictor}

@@ -1,5 +1,6 @@
-"""Inference results of the JDE slice: boxes (with track ids), ReID embeddings and posture
-states (the box and JDE part of `sar_yolo_tpu/engine/results.py`; numpy-backed).
+"""Inference results of the detect and JDE tasks: boxes (with track ids) and, for JDE, ReID
+embeddings and posture states (the box and JDE part of `sar_yolo_tpu/engine/results.py`;
+numpy-backed).
 
 Drawing and file writers (`plot`, `save`, `save_crop`) and the pandas tables (`to_df`,
 `to_csv`, `to_xml`) raise NotImplementedError: they need OpenCV's drawing, a JPEG

@@ -1,7 +1,10 @@
-"""JDE training on one device (port of `sar_yolo_tpu/engine/trainer.py`).
+"""Detect and JDE training on one device (port of `sar_yolo_tpu/engine/trainer.py`).
 
-Data: a YOLO-format dataset (a dataset YAML file or dict; 6-column JDE labels) or the
-synthetic set. Where the hyperparameters allow it (`_device_augment_enabled`: no
+`BaseTrainer` holds the loop; `DetectionTrainer` (the v8 loss: box, cls, dfl) and
+`JDETrainer` (box, cls, dfl, the triplet embedding term and the class-balanced state
+term) give it the task's loss and validator. Data: a YOLO-format dataset (a dataset
+YAML file or dict; 5-column detect labels, 6-column JDE labels with the track id) or
+the synthetic set. Where the hyperparameters allow it (`_device_augment_enabled`: no
 rotation, shear, perspective, copy-paste or mosaic9), the host only letterboxes and
 the train step augments the uint8 batch on the device (`data/device_augment.py`),
 with draws keyed by (seed, epoch, batch index); otherwise the host augments
@@ -51,16 +54,15 @@ from sar_yolo_tpu_torch.data.build import DataLoader
 from sar_yolo_tpu_torch.data.cv import resize
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.data.device_augment import AUG_KEYS, device_train_augment, draw_params
-from sar_yolo_tpu_torch.engine.validator import JDEValidator
+from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype, set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.checks import check_bf16
-from sar_yolo_tpu_torch.utils.loss import jde_loss
+from sar_yolo_tpu_torch.utils.loss import detection_loss, jde_loss
 
 CLIP_NORM = 10.0
-LOSS_NAMES = ("box", "cls", "dfl", "emb", "state")
 ADAM_ALIASES = ("Adam", "AdamW", "NAdam", "RAdam")  # all optax.adamw in the JAX package
 
 
@@ -225,26 +227,29 @@ def _explicit_on(v) -> bool:
     return v in (True, "True", "true", "on", 1)
 
 
-class JDETrainer:
-    """Trains a JDE model on one device.
+class BaseTrainer:
+    """Trains a model of the subclass's `task` on one device; a subclass gives the task,
+    its `loss_names`, its `validator_cls` and its `loss`."""
 
-    Examples:
-        >>> tr = JDETrainer({"model": "tinyjde.yaml", "data": "path/to/SARD.yaml", "imgsz": 64,
-        ...                  "batch": 2, "epochs": 1}, device="cpu")
-        >>> metrics = tr.train()
-    """
+    task: str
+    loss_names: tuple
+    validator_cls: type
 
     def __init__(self, overrides: dict | None = None, device=None):
         self.args = get_cfg(overrides)
         self.device = select_device(device)
-        self.save_dir = get_save_dir(self.args, "jde")
+        self.save_dir = get_save_dir(self.args, self.task)
         self.args.save_dir = str(self.save_dir)  # the validator writes there too
         self.wdir = self.save_dir / "weights"
         self.csv = self.save_dir / "results.csv"
         self.model = self.eval_model = None
-        self.validator = JDEValidator()
+        self.validator = self.validator_cls()
         self.metrics, self.fitness, self.best_fitness = {}, None, -math.inf
         self.epoch = 0
+
+    def loss(self, feats, batch: dict):
+        """(total, items, new cb_counts) of the head maps on a device batch."""
+        raise NotImplementedError
 
     def get_dataset(self):
         """(train set, val set, info) for args.data: a dataset YAML file or dict, or the
@@ -254,15 +259,15 @@ class JDETrainer:
         if data is None or str(data).startswith("synthetic"):
             nc = 3
             train = SyntheticDataset(n=max(64, int(args.batch or 16)), imgsz=args.imgsz, nc=nc,
-                                     max_labels=args.max_labels, task="jde")
+                                     max_labels=args.max_labels, task=self.task)
             train.device_augment = _explicit_on(args.device_augment) and \
                 self._device_augment_enabled()
             val = SyntheticDataset(n=16, imgsz=args.imgsz, nc=nc, max_labels=args.max_labels,
-                                   seed=1, task="jde")
+                                   seed=1, task=self.task)
             return train, val, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)}}
         info = check_det_dataset(data)
-        kw = dict(imgsz=args.imgsz, hyp=args, use_tags=True, max_labels=args.max_labels,
-                  single_cls=args.single_cls, task="jde",
+        kw = dict(imgsz=args.imgsz, hyp=args, use_tags=self.task == "jde",
+                  max_labels=args.max_labels, single_cls=args.single_cls, task=self.task,
                   kpt_shape=tuple(info.get("kpt_shape", (17, 3))))
         train = YOLODataset(info["train"], augment=True, fraction=args.fraction, cache=args.cache,
                             device_augment=self._device_augment_enabled(), **kw)
@@ -295,9 +300,9 @@ class JDETrainer:
         nc = 1 if args.single_cls else self.data["nc"]
         dtype = amp_dtype(args, self.device)
         model, self.meta = build_model(args.model, nc=nc, dtype=dtype)
-        if self.meta["task"] != "jde":
-            raise NotImplementedError(f"'{args.model}' is a {self.meta['task']} model; this port "
-                                      "trains JDE models only")
+        if self.meta["task"] != self.task:
+            raise ValueError(f"'{args.model}' is a {self.meta['task']} model, not a "
+                             f"{self.task} model")
         if state_dict is None:
             init_weights(model, self.meta, torch.Generator().manual_seed(args.seed))
         else:
@@ -320,7 +325,7 @@ class JDETrainer:
         self.optimizer = Optimizer(args, self.nb, nc, self.model)
         self.accumulate = self.optimizer.accumulate
         self.ema = [p.detach().clone() for p in self.model.parameters()]
-        self.cb_counts = torch.zeros(self.meta["state_classes"] or 1, device=self.device)
+        self.cb_counts = torch.zeros(self.meta.get("state_classes") or 1, device=self.device)
         self.step = 0  # micro-steps so far
         self.epoch = 0
         self.device_augment = bool(getattr(self.train_set, "device_augment", False))
@@ -395,14 +400,6 @@ class JDETrainer:
         except Exception as e:  # noqa: BLE001 — tracing is best-effort
             LOGGER.warning(f"profile='trace': closing the capture failed: {e}")
 
-    def loss(self, feats, batch: dict):
-        """(total, items (5,), new cb_counts) of the head maps on a device batch."""
-        meta = self.meta
-        out = jde_loss(feats, batch, self.args, nc=meta["nc"], reg_max=meta["reg_max"],
-                       strides=tuple(meta["strides"]), embed_dim=meta["embed_dim"],
-                       state_classes=meta["state_classes"] or 1, cb_counts=self.cb_counts)
-        return out.total, out.items, out.cb_counts
-
     @torch.no_grad()
     def update(self, cb_counts):
         """After the backward: the optimizer, the EMA (d = 0.9999 (1 - exp(-step/2000)),
@@ -465,9 +462,9 @@ class JDETrainer:
             mloss = (total / max(n, 1)).cpu().numpy()
             u = self.step // self.accumulate
             self.lr = {f"lr/pg{i}": s(u) for i, s in enumerate(self.optimizer.schedules)}
-            losses = {f"train/{k}": float(v) for k, v in zip(LOSS_NAMES, mloss)}
+            losses = {f"train/{k}": float(v) for k, v in zip(self.loss_names, mloss)}
             LOGGER.info(f"epoch {epoch + 1}/{args.epochs}  " +
-                        "  ".join(f"{k}={v:.4f}" for k, v in zip(LOSS_NAMES, mloss)) +
+                        "  ".join(f"{k}={v:.4f}" for k, v in zip(self.loss_names, mloss)) +
                         f"  lr={self.lr['lr/pg0']:.5f}  {time.time() - te:.1f}s")
             self.metrics = dict(losses)
             self.fitness = -float(mloss.sum())
@@ -525,9 +522,9 @@ class JDETrainer:
                  "rng": self.generator.get_state(),
                  "ms_rng": self._ms_rng.bit_generator.state}
         metadata = {"epoch": self.epoch, "best_fitness": float(self.best_fitness),
-                    "train_args": vars(self.args), "model_yaml": self.meta["cfg"], "task": "jde",
-                    "nc": self.meta["nc"], "strides": self.meta["strides"], "step": self.step,
-                    "names": self.data["names"]}
+                    "train_args": vars(self.args), "model_yaml": self.meta["cfg"],
+                    "task": self.task, "nc": self.meta["nc"], "strides": self.meta["strides"],
+                    "step": self.step, "names": self.data["names"]}
         save_checkpoint(self.wdir / "last", state, metadata)
         if improved:
             save_checkpoint(self.wdir / "best", state, metadata)
@@ -563,3 +560,47 @@ class JDETrainer:
         for p, e in zip(self.model.parameters(), self.ema):
             p.copy_(e)
         return self.model.eval()
+
+
+class DetectionTrainer(BaseTrainer):
+    """Trains a detect model: the v8 loss (box, cls, dfl), the detect validator.
+
+    Examples:
+        >>> tr = DetectionTrainer({"model": "yolov8n.yaml", "data": "coco8.yaml", "imgsz": 64,
+        ...                        "batch": 2, "epochs": 1}, device="cpu")
+        >>> metrics = tr.train()
+    """
+
+    task = "detect"
+    loss_names = ("box", "cls", "dfl")
+    validator_cls = DetectionValidator
+
+    def loss(self, feats, batch: dict):
+        meta = self.meta
+        out = detection_loss(feats, batch, self.args, nc=meta["nc"], reg_max=meta["reg_max"],
+                             strides=tuple(meta["strides"]))
+        return out.total, out.items, self.cb_counts
+
+
+class JDETrainer(BaseTrainer):
+    """Trains a JDE model: the v13 JDE loss (box, cls, dfl, emb, state), the JDE validator.
+
+    Examples:
+        >>> tr = JDETrainer({"model": "tinyjde.yaml", "data": "path/to/SARD.yaml", "imgsz": 64,
+        ...                  "batch": 2, "epochs": 1}, device="cpu")
+        >>> metrics = tr.train()
+    """
+
+    task = "jde"
+    loss_names = ("box", "cls", "dfl", "emb", "state")
+    validator_cls = JDEValidator
+
+    def loss(self, feats, batch: dict):
+        meta = self.meta
+        out = jde_loss(feats, batch, self.args, nc=meta["nc"], reg_max=meta["reg_max"],
+                       strides=tuple(meta["strides"]), embed_dim=meta["embed_dim"],
+                       state_classes=meta["state_classes"] or 1, cb_counts=self.cb_counts)
+        return out.total, out.items, out.cb_counts
+
+
+TRAINERS = {"detect": DetectionTrainer, "jde": JDETrainer}

@@ -1,4 +1,5 @@
-"""YOLO blocks of the yolov13-JDE slice in NCHW (port of `sar_yolo_tpu/nn/modules/block.py`).
+"""YOLO blocks of the yolov8, yolo11, yolov12 and yolov13 graphs in NCHW (port of
+`sar_yolo_tpu/nn/modules/block.py`).
 
 Submodule names are the Flax scope names (`cv1`, `m0_0`, `attn`, `qk`, ...).
 Tokens of a (B, C, H, W) map are taken as `x.flatten(2).transpose(1, 2)`,
@@ -58,6 +59,28 @@ class C2f(nn.Module):
         self.cv1 = Conv(c1, 2 * c, 1, 1)
         for i in range(n):
             self.add_module(f"m{i}", Bottleneck(c, c, shortcut, g, (3, 3), 1.0))
+        self.cv2 = Conv((2 + n) * c, c2, 1)
+
+    def forward(self, x):
+        ys = list(self.cv1(x).split(self.c, 1))
+        for i in range(self.n):
+            ys.append(getattr(self, f"m{i}")(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class C3k2(nn.Module):
+    """C2f whose inner blocks are C3k stacks (c3k=True) or plain Bottlenecks. The plain
+    Bottleneck keeps its own e=0.5, unlike C2f's e=1.0."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 g: int = 1, shortcut: bool = True):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        for i in range(n):
+            self.add_module(f"m{i}", C3k(c, c, 2, shortcut, g) if c3k
+                            else Bottleneck(c, c, shortcut, g, (3, 3), 0.5))
         self.cv2 = Conv((2 + n) * c, c2, 1)
 
     def forward(self, x):
@@ -184,6 +207,69 @@ class A2C2f(nn.Module):
         if self.residual:
             return x + self.gamma.to(out.dtype).view(1, -1, 1, 1) * out
         return out
+
+
+class YoloAttention(nn.Module):
+    """Multi-head self-attention over all tokens with a conv qkv and a depthwise 3x3
+    position term (key_dim = head_dim * attn_ratio). The qkv conv's channels are
+    head-major, [q_h | k_h | v_h] for each head h, as the JAX module reshapes its NHWC
+    output to (B, N, heads, 2 key_dim + head_dim). The softmax runs in float32."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.hd = dim // num_heads
+        self.kd = int(self.hd * attn_ratio)
+        self.qkv = Conv(dim, dim + 2 * self.kd * num_heads, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        kd = self.kd
+        t = self.qkv(x).view(B, self.num_heads, 2 * kd + self.hd, H * W)
+        q, k, v = t[:, :, :kd], t[:, :, kd:2 * kd], t[:, :, 2 * kd:]
+        attn = (q.transpose(-2, -1) @ k) * (kd ** -0.5)  # (B, heads, Nq, Nk)
+        attn = attn.float().softmax(-1).to(v.dtype)
+        out = (v @ attn.transpose(-2, -1)).reshape(B, C, H, W)
+        return self.proj(out + self.pe(v.reshape(B, C, H, W)))
+
+
+class PSABlock(nn.Module):
+    """YoloAttention and a 2x feed-forward, each with a shortcut."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4,
+                 shortcut: bool = True):
+        super().__init__()
+        self.shortcut = shortcut
+        self.attn = YoloAttention(c, num_heads, attn_ratio)
+        self.ffn1 = Conv(c, 2 * c, 1)
+        self.ffn2 = Conv(2 * c, c, 1, act=False)
+
+    def forward(self, x):
+        a = self.attn(x)
+        x = x + a if self.shortcut else a
+        f = self.ffn2(self.ffn1(x))
+        return x + f if self.shortcut else f
+
+
+class C2PSA(nn.Module):
+    """n PSABlocks on one half of a CSP split (heads = c // 64)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        for i in range(n):
+            self.add_module(f"m{i}", PSABlock(c, 0.5, max(c // 64, 1)))
+        self.cv2 = Conv(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split(self.c, 1)
+        for i in range(self.n):
+            b = getattr(self, f"m{i}")(b)
+        return self.cv2(torch.cat([a, b], 1))
 
 
 class DSBottleneck(nn.Module):

@@ -1,8 +1,8 @@
 """Model graph builder: config dict -> torch module graph (port of `sar_yolo_tpu/nn/tasks.py`).
 
 `parse_model` does the JAX package's channel, depth and width arithmetic and
-returns the same LayerSpec records, for the modules of the yolov13-JDE slice
-(it raises on any other module). `GraphModel` walks the specs with the same
+returns the same LayerSpec records, for the modules of the yolov8, yolo11,
+yolov12 and yolov13 detect and JDE graphs (it raises on any other module). `GraphModel` walks the specs with the same
 save-dict; its layers live in `blocks` (Flax scope `blocks_<i>`).
 """
 
@@ -42,9 +42,9 @@ class LayerSpec:
 
 
 # modules whose first yaml arg is the (width-scaled) output channel count
-_CH_SCALED = {"Conv", "DSConv", "Bottleneck", "C2f", "SPPF", "A2C2f", "DSC3k2"}
+_CH_SCALED = {"Conv", "DSConv", "Bottleneck", "C2f", "C3k2", "SPPF", "A2C2f", "DSC3k2", "C2PSA"}
 # subset that takes an inserted repeat count n
-_REPEAT_ARG = {"C2f", "A2C2f", "DSC3k2"}
+_REPEAT_ARG = {"C2f", "C3k2", "A2C2f", "DSC3k2", "C2PSA"}
 _HEADS = {"Detect", "JDE"}
 
 
@@ -95,9 +95,9 @@ def parse_model(d: dict, ch: int = 3):
             if m in _REPEAT_ARG:
                 args.insert(1, n)
                 n = 1
-            if m == "DSC3k2":
+            if m in ("C3k2", "DSC3k2"):
                 legacy = False
-                if scale in "lx":  # force dsc3k inner blocks on large scales
+                if scale in "lx":  # force c3k / dsc3k inner blocks on large scales
                     if len(args) >= 3:
                         args[2] = True
                     else:
@@ -183,6 +183,10 @@ def _build_module(spec: LayerSpec, c_in) -> nn.Module:
         return B.Bottleneck(c_in, *a)
     if name == "C2f":
         return B.C2f(c_in, *a)
+    if name == "C3k2":
+        return B.C3k2(c_in, *a)
+    if name == "C2PSA":
+        return B.C2PSA(c_in, *a)
     if name == "SPPF":
         return B.SPPF(c_in, *a)
     if name == "A2C2f":

@@ -1,5 +1,6 @@
 """BoT-SORT: ByteTrack with ReID embedding fusion (port of
-`sar_yolo_tpu/trackers/bot_sort.py`), the JDE head's embeddings as the ReID features.
+`sar_yolo_tpu/trackers/bot_sort.py`), the JDE head's embeddings as the ReID features. A
+detect model's Results carry no embeddings: its tracks then match by IoU alone.
 
 Camera-motion compensation (the JAX package's `trackers/gmc.py`) is built on OpenCV's
 optical flow and RANSAC: a `gmc_method` other than "none" raises NotImplementedError.

@@ -34,10 +34,15 @@ def write_jde_dataset(root, n_train: int, n_val: int, seed: int = 0) -> dict:
     return {"path": str(root), "train": "images/train", "val": "images/val", "names": {0: "person"}}
 
 
-def jax_and_port_yolo(cfg: str, seed: int, bias_init: bool = False, cls_gain: float = 1.0):
+def jax_and_port_yolo(cfg: str, seed: int, bias_init: bool = False, cls_gain: float = 1.0,
+                      box_gain: float = 1.0, calibrate: int | None = None):
     """JAX and port YOLO objects (the port's on the CPU) of `cfg` with the same
     numpy-filled weights; `bias_init`: the head's class bias init (scores near 0.01);
-    `cls_gain`: the class logits' last convolutions scaled, so that scores spread."""
+    `cls_gain`, `box_gain`: the class and box logits' last convolutions scaled, so that
+    scores spread and boxes stay near their anchors. `calibrate`: every BN's statistics
+    set to those of 4 seeded random images of that side (one train-mode forward of the
+    port with momentum 1), in both packages; without it a deep model's activations
+    fade through the depth and its outputs hardly depend on the image."""
     import jax
     import jax.numpy as jnp
 
@@ -55,10 +60,30 @@ def jax_and_port_yolo(cfg: str, seed: int, bias_init: bool = False, cls_gain: fl
     for name, sub in head.items():
         if name.startswith("cv3_") and name.endswith("_pred"):
             sub["kernel"] = sub["kernel"] * np.float32(cls_gain)
+        if name.startswith("cv2_") and name.endswith("_pred"):
+            sub["kernel"] = sub["kernel"] * np.float32(box_gain)
     jyolo.variables = variables
     pyolo = YOLO(cfg, device="cpu")
     pyolo.load_jax_variables(variables)
+    if calibrate:
+        _calibrate_bn(variables, pyolo, calibrate)
     return jyolo, pyolo
+
+
+def _calibrate_bn(variables, pyolo, imgsz: int):
+    """BN statistics of 4 seeded random images (`chip_smoke.calibrate_bn` on the port),
+    written into the port and into `variables["batch_stats"]` in place."""
+    from chip_smoke import calibrate_bn
+    from sar_yolo_tpu_torch.utils.convert import _flatten, _module_path
+    model = pyolo.model
+    calibrate_bn(model, torch.rand(4, 3, imgsz, imgsz, generator=torch.Generator().manual_seed(0)))
+    state = model.state_dict()
+    for (*scope, leaf), _ in list(_flatten(variables["batch_stats"])):
+        node = variables["batch_stats"]
+        for key in scope:
+            node = node[key]
+        node[leaf] = state[f"{_module_path(tuple(scope))}.running_{leaf}"].numpy().copy()
+    pyolo._fused = None
 
 
 def write_jax_checkpoint(path, train_args: dict) -> dict:
@@ -104,10 +129,10 @@ def close_to_max(got, want, what=""):
                                atol=1e-4 * max(np.abs(want).max(), 1e-30), err_msg=what)
 
 
-def jax_jde_trainer(overrides: dict, seed: int, monkeypatch):
-    """The JAX package's JDETrainer after `_setup_train`, its weights from
-    `fill_variables` and the head's bias init (so that the class term does not
-    swamp the others).
+def jax_jde_trainer(overrides: dict, seed: int, monkeypatch, task: str = "jde"):
+    """The JAX package's JDETrainer (DetectionTrainer for task 'detect') after
+    `_setup_train`, its weights from `fill_variables` and the head's bias init
+    (so that the class term does not swamp the others).
 
     The real init (about 20 s for yolov13n-JDE on this CPU) is swapped for
     `jax.eval_shape` + `fill_variables`, and Flax's Dropout for the identity:
@@ -129,21 +154,22 @@ def jax_jde_trainer(overrides: dict, seed: int, monkeypatch):
 
     monkeypatch.setattr(jax_trainer_module, "init_model", init_model)
     monkeypatch.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
-    trainer = jax_trainer_module.JDETrainer(overrides=overrides)
+    cls = jax_trainer_module.JDETrainer if task == "jde" else jax_trainer_module.DetectionTrainer
+    trainer = cls(overrides=overrides)
     trainer._setup_train()
     return trainer
 
 
 def port_trainer_like(jtr, overrides: dict):
-    """The port's JDETrainer on the CPU with the JAX trainer's weights, dropout off."""
+    """The port's trainer of the JAX trainer's task on the CPU with its weights, dropout off."""
     import jax
 
-    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.engine.trainer import TRAINERS
     from sar_yolo_tpu_torch.nn.modules.conv import Dropout
     from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
     variables = jax.device_get({"params": jtr.state.params, "batch_stats": jtr.state.batch_stats})
-    ptr = JDETrainer(overrides, device="cpu")
+    ptr = TRAINERS[jtr.task](overrides, device="cpu")
     ptr.setup(state_dict=from_jax_variables(variables))
     for m in ptr.model.modules():
         if isinstance(m, Dropout):
@@ -155,8 +181,8 @@ def assert_trajectories_match(jtr, ptr, steps: int = 10, param_tol: float = 1e-4
     """`steps` train steps of both trainers on the JAX loader's batches.
 
     Tolerances. Step 1 (same weights, same batch): every loss item within 1e-5
-    relative, the triplet item within 1e-5 absolute per unit of its gain (it is
-    a difference of distances on the unit sphere, which are of order 1).
+    relative, the JDE triplet item within 1e-5 absolute per unit of its gain (it
+    is a difference of distances on the unit sphere, which are of order 1).
     Later steps: every item within 1e-2 relative, because float32 rounding
     (about 1e-7) drifts through the steps and the assigner's top-k and the
     triplet miner's hardest / semi-hard picks turn it into jumps. The
@@ -177,7 +203,9 @@ def assert_trajectories_match(jtr, ptr, steps: int = 10, param_tol: float = 1e-4
         state, _, jitems = jtr._train_step(state, shard_batch(jtr.mesh, batch), jtr._mosaic_on)
         _, pitems = ptr.train_step(batch)
         got, want = pitems.numpy(), np.asarray(jitems)
-        if i == 0:
+        if i == 0 and len(want) == 3:  # detect: box, cls, dfl
+            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg="loss items, step 1")
+        elif i == 0:
             np.testing.assert_allclose(got[[0, 1, 2, 4]], want[[0, 1, 2, 4]], rtol=1e-5,
                                        err_msg="loss items, step 1")
             np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-5 * ptr.args.clr,

@@ -2,18 +2,23 @@
 """Where the serving or training time of the PyTorch/CUDA port goes, on one NVIDIA GPU.
 
     python3 tools/torch_port_profile.py [--imgsz 640] [--batch 8] [--model yolov13n-JDE.yaml]
-    python3 tools/torch_port_profile.py --train [--imgsz 640] [--batch 16]
+    python3 tools/torch_port_profile.py --model yolov8n.yaml --phase14 --batch 128 \
+        --conf 0.25                            # bench.py's serving geometry
+    python3 tools/torch_port_profile.py --train [--imgsz 640] [--batch 16] [--model ...]
     ... [--precision bf16]   # half=True serving / amp training (default float32)
 
 Serving: seeded random weights (as chip_smoke.py builds them) through
-`YOLO.predict_batched` on ragged 720x1280 uint8 frames. Training (--train): SGD
+`YOLO.predict_batched` on ragged uint8 720x1280 frames, for a detect
+or a JDE model; with --phase14, the weights and frames whose img/s chip_smoke.py's
+phase 14 measures (seed 3, class logits damped, 480x640 frames). Training (--train): SGD
 train steps of the seeded model on one batch of the port's synthetic data
 (float32, TF32 off; with --precision bf16: `half=True` serving, `amp=True` training).
 Prints, as JSON lines:
   * the host-clock time of one call or step, and of its stages (serving: frames
     to the card and letterbox, forward, decode + NMS, result to the host;
     training: batch to the card, forward, loss, backward, optimizer + EMA),
-    each ended by a device synchronize;
+    each ended by a device synchronize; serving NMS's candidates a frame at --conf
+    (min, median, max, frames at its pre_topk);
   * torch.profiler's device time per kernel name over one call or step, top 15,
     with the total device time and the share of the wall time the device was busy.
 """
@@ -37,14 +42,14 @@ def main() -> int:
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
-    from sar_yolo_tpu_torch.ops.decode import decode_detect
-    from sar_yolo_tpu_torch.ops.nms import non_max_suppression
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="yolov13n-JDE.yaml")
     ap.add_argument("--imgsz", type=int, default=640)
     ap.add_argument("--batch", type=int, default=None, help="8 serving, 16 training")
     ap.add_argument("--conf", type=float, default=0.005)
+    ap.add_argument("--phase14", action="store_true",
+                    help="chip_smoke.py phase 14's weights and 480x640 frames")
     ap.add_argument("--train", action="store_true", help="profile a train step instead")
     ap.add_argument("--precision", choices=("f32", "bf16"), default="f32")
     a = ap.parse_args()
@@ -55,12 +60,15 @@ def main() -> int:
         return profile_train(a.model, a.imgsz, a.batch or 16, bf16)
     a.batch = a.batch or 8
 
-    yolo = chip_smoke._perturbed_yolo(a.model, 0, a.imgsz)
-    frames = np.random.default_rng(0).integers(0, 256, (a.batch, 720, 1280, 3), np.uint8)
+    if a.phase14:
+        yolo, frames, _ = chip_smoke._detect_model(a.model, a.batch)
+        a.imgsz = chip_smoke.DETECT_IMGSZ
+    else:
+        yolo = chip_smoke._perturbed_yolo(a.model, 0, a.imgsz)
+        frames = np.random.default_rng(0).integers(0, 256, (a.batch, 720, 1280, 3), np.uint8)
     kw = dict(imgsz=a.imgsz, conf=a.conf, half=bf16)
     for _ in range(3):
         yolo.predict_batched(frames, **kw)
-    model, meta = yolo._fused_for_serving(bf16), yolo.meta
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -74,19 +82,16 @@ def main() -> int:
     with torch.no_grad():
         for _ in range(3):  # the last repetition is reported
             (x, _, _), stages["h2d_letterbox_ms"] = timed(lambda: predictor.preprocess(frames))
-            feats, stages["forward_ms"] = timed(lambda: model(x))
-
-            def post():
-                preds, bank = decode_detect(feats, meta["strides"], meta["nc"], meta["reg_max"],
-                                            extra_sigmoid=meta["state_classes"],
-                                            split_extras=meta["embed_dim"])
-                return non_max_suppression(preds, conf_thres=a.conf, nc=meta["nc"],
-                                           extras_bank=bank)
-            dets, stages["decode_nms_ms"] = timed(post)
+            feats, stages["forward_ms"] = timed(lambda: predictor.model(x))
+            dets, stages["decode_nms_ms"] = timed(lambda: predictor.decode_nms(feats))
             _, stages["d2h_ms"] = timed(lambda: dets.cpu().numpy())
+        candidates = chip_smoke._candidate_summary(chip_smoke._candidates(predictor, feats, a.conf))
     _, call_ms = timed(lambda: yolo.predict_batched(frames, **kw))
     print(json.dumps({"model": a.model, "imgsz": a.imgsz, "batch": a.batch,
+                      "frames": "x".join(map(str, frames.shape[1:3])),
+                      "weights": "phase 14" if a.phase14 else "seed 0", "conf": a.conf,
                       "precision": a.precision, "call_ms": call_ms, **stages,
+                      "candidates_per_frame": candidates,
                       "device": torch.cuda.get_device_name(0)}))
 
     print_device_time(lambda: yolo.predict_batched(frames, **kw))
@@ -98,9 +103,11 @@ def profile_train(model: str, imgsz: int, batch: int, bf16: bool) -> int:
     import torch
 
     import chip_smoke
-    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
-    tr = JDETrainer(dict(model=model, data="synthetic", imgsz=imgsz, batch=batch, nbs=batch,
-                         optimizer="SGD", warmup_epochs=0.0, amp=bf16))
+    from sar_yolo_tpu_torch.engine.trainer import TRAINERS
+    from sar_yolo_tpu_torch.nn.tasks import build_model
+    task = build_model(model)[1]["task"]
+    tr = TRAINERS[task](dict(model=model, data="synthetic", imgsz=imgsz, batch=batch, nbs=batch,
+                             optimizer="SGD", warmup_epochs=0.0, amp=bf16))
     tr.setup()
     data = next(iter(tr.train_loader))
     timing = chip_smoke._timed_steps(tr, data)
