@@ -20,8 +20,10 @@ Phases, in order; any failure exits non-zero:
      then, for correctness only, channel-contiguous inputs and the chunk
      lengths of imgsz 480 and 320 and of a chunk shorter than one key stage.
      At every shape the library's launch plan must equal the wrapper's mirror.
-     The timed shapes include those of phase 8's rect batches (Na = 252) and of
-     yolov12n's batch of 128 in phase 14 (B·area 512 at P4, 128 at P5).
+     The timed shapes include those of phase 8's rect batches (Na = 252), of
+     yolov12n's batch of 128 in phase 14 (B·area 512 at P4, 128 at P5) and of
+     yolov13-JDE's s, l and x scales at 640, batch 8 (4/8, 8/8 and 12/12 heads, C up to
+     384; yolov12m's calls are l's).
   4. serving yolov13n-JDE @640: seeded and perturbed weights, 4 ragged 720x1280
      BGR frames through `YOLO.predict_batched`; 8 kernel launches per forward;
      the same detections as the model with `use_flash=False`; head maps of the
@@ -59,6 +61,9 @@ Phases, in order; any failure exits non-zero:
      per batch; then `YOLO.val(data=<dict>, rect=True)`: batches of 384x672 and
      672x384, 16 launches at Na = 252, the A/B against `use_flash=False` of phase 7,
      ms per image and its split with the loader's part (PNG decode, resize, letterbox).
+     The A/B compares the detections over the candidates whose fate in greedy NMS no
+     float32 rounding can decide (`_tie_free_dets`): the trained model scores chains of
+     overlapping boxes within rounding of each other.
   9. device augmentation and checkpoints, on phase 8's dataset (cuDNN deterministic):
      `YOLO.train(copy_paste=0.0, epochs=2, close_mosaic=1, save_period=1)` takes the
      device route (the loader yields uint8 letterbox tiles; mosaic on the card in epoch
@@ -117,7 +122,20 @@ Phases, in order; any failure exits non-zero:
      amp train steps (8 launches in the forward, none in the backward); `YOLO.train(epochs=1)`
      of yolov8n with its detect validation, then `YOLO(checkpoint)` served and validated as
      a detect model with its nc and names.
- 15. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
+ 15. the fork's CBAM JDE configs (seeded, perturbed weights): yolov13n-JDE_CBAM @640 served
+     at batch 8 as phase 4 serves (8 kernel launches a forward, the same detections as
+     `use_flash=False` at a threshold in a gap of the scores, head maps against float64),
+     img/s at batch 1 and 8, and with `half=True` as phase 11; yolov13n-P24_CBAM_JDE @1280,
+     batch 1, the same in float32 and bf16 (the kernel at Na = 1600); yolo11n-JDE_CBAM @640
+     as phase 14 serves yolo11n-JDE (no kernel), img/s at batch 8; the yolov13n-JDE_CBAM
+     train step @640, batch 16: one step kernel against plain in float32 (phase 6's
+     `_train_ab`) and in amp (phase 13's `_amp_ab`), step ms (median of 10 after 3) and
+     peak memory in both; then the facade: `YOLO.train(epochs=1)` with a callback on each
+     of the ten trainer events (each called at the expected count, at epoch 0), `save` and
+     `YOLO(checkpoint)` serving the same detections, `fuse()` serving the same detections,
+     `info(detailed=True)`, `profile()`, and an `Ensemble` of two checkpoints over the 12
+     JPEG frames (192 launches).
+ 16. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
      step's forward), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
@@ -154,6 +172,11 @@ KERNEL_SHAPES = [
     ("rect 384x672 P4 b16", 16, 64, 24, 42, 2, 4), ("rect 384x672 P5 b16", 16, 128, 12, 21, 4, 1),
     # yolov12n served at bench.py's batch (phase 14)
     ("640 P4 b128", 128, 64, 40, 40, 2, 4), ("640 P5 b128", 128, 128, 20, 20, 4, 1),
+    # the other scales of yolov13-JDE served at 640, batch 8 (A2C2f: heads = c2 e / 32;
+    # s runs 4 calls of each shape a forward, l and x 8); yolov12m's calls are l's (4 each)
+    ("640 P4 b8 s", 8, 128, 40, 40, 4, 4), ("640 P5 b8 s", 8, 256, 20, 20, 8, 1),
+    ("640 P4 b8 l, yolov12m", 8, 256, 40, 40, 8, 4), ("640 P5 b8 l, yolov12m", 8, 256, 20, 20, 8, 1),
+    ("640 P4 b8 x", 8, 384, 40, 40, 12, 4), ("640 P5 b8 x", 8, 384, 20, 20, 12, 1),
 ]
 # (label, B, C, H, W, heads, area, layout), correctness only: channel-contiguous
 # (B, N, C) inputs; imgsz 480 P4 (Na = 225: chunk starts not 16-byte aligned);
@@ -538,14 +561,24 @@ def phase_serve(name: str, imgsz: int, conf: float, box_tol: float, batch: int, 
     the order of near-equal scores at a cut. Scores and embeddings must agree
     to 1e-3, boxes to `box_tol` px. The head maps of the kernel path must lie
     no farther from the plain model run in float64 than twice the plain
-    float32 path's own distance: the kernel adds no error of its own.
+    float32 path's own distance: the kernel adds no error of its own. `conf=None`: the
+    threshold `_ab_conf` reads off the kernel path's scores of the batch (under max_det
+    candidates a frame, in a gap of the scores).
     """
+    import torch
+
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
     yolo = _perturbed_yolo(name, seed, imgsz)
     plain = copy.deepcopy(yolo)
     _set_flash(plain, False)
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 256, (max(batch, *throughput_batches), 720, 1280, 3), np.uint8)
+    if conf is None:
+        predictor = yolo._get_predictor({"imgsz": imgsz})
+        with torch.no_grad():
+            preds, _ = predictor.decode(predictor.model(predictor.preprocess(frames[:batch])[0]))
+        nc = yolo.meta["nc"]
+        conf = _ab_conf(preds[..., 4:4 + nc].amax(-1).double().cpu().numpy(), 300)[0]
     kw = dict(imgsz=imgsz, conf=conf)
     yolo.predict_batched(frames[:1], **kw)  # first call: fuse and warm up
     flash_area_attention.launches = 0
@@ -570,7 +603,7 @@ def phase_serve(name: str, imgsz: int, conf: float, box_tol: float, batch: int, 
     check(maps["maps_kernel_vs_f64"] <= 2 * maps["maps_plain_vs_f64"],
           f"{name}: kernel path {maps['maps_kernel_vs_f64']} from float64, plain path "
           f"{maps['maps_plain_vs_f64']}")
-    return launches
+    return launches, rates
 
 
 def _train_state(tr) -> dict:
@@ -973,7 +1006,7 @@ def phase_val(yolo, card: str):
     return fresh_launches, launches
 
 
-def _val_ab(yolo, kw: dict, xs: list, label: str) -> dict:
+def _val_ab(yolo, kw: dict, xs: list, label: str, tie_free: bool = False) -> dict:
     """`yolo.val(**kw)` on the kernel path against the model with `use_flash=False`.
 
     Both validate at a threshold `_ab_conf` picks from the head maps of the val
@@ -983,6 +1016,11 @@ def _val_ab(yolo, kw: dict, xs: list, label: str) -> dict:
     their detections are held to each other as phase 4 holds them, and their metrics
     within 1e-3. The head maps, as phase 4 holds them: the kernel path no farther from
     the model run in float64 than twice the plain path. Returns the numbers.
+
+    `tie_free`: the detections are compared over the candidates whose fate in greedy NMS
+    no float32 rounding can decide (`_tie_free_dets`): a model trained on phase 8's
+    frames scores chains of overlapping boxes within rounding of each other at the top
+    of every image, so no threshold leaves them out (PERF.md section 6).
     """
     import torch
 
@@ -1007,7 +1045,11 @@ def _val_ab(yolo, kw: dict, xs: list, label: str) -> dict:
     with _recorded_dets(JDEValidator) as pseen:
         pmetrics = plain.val(conf=conf, **kw)
     check(flash_area_attention.launches == n0, f"{label}: use_flash=False launched the kernel")
-    got, want = np.concatenate(kseen), np.concatenate(pseen)
+    left_out = None
+    if tie_free:
+        got, want, left_out = _tie_free_dets(yolo, plain, xs, conf)
+    else:
+        got, want = np.concatenate(kseen), np.concatenate(pseen)
     frames = [b for b in range(len(got)) if (got[b, :, 4] > 0).any() or (want[b, :, 4] > 0).any()]
     check(len(frames) > 0, f"{label} at conf {conf}: no image keeps a detection")
     kept, errs = _compare_detections(got[frames], want[frames], meta["embed_dim"], label)
@@ -1029,8 +1071,74 @@ def _val_ab(yolo, kw: dict, xs: list, label: str) -> dict:
     check(errs["score_err"] <= 1e-3, f"{label}: score err {errs['score_err']}")
     check(errs["embed_err"] <= 1e-3, f"{label}: embedding err {errs['embed_err']}")
     check(metric_err <= 1e-3, f"{label}: metrics differ by {metric_err} from use_flash=False")
-    return {"ab_conf": conf, "ab_conf_margin": margin, "ab_candidates_max": candidates,
-            "ab_kept_per_image": kept, **errs, "ab_metric_max_abs_err": metric_err, **maps}
+    out = {"ab_conf": conf, "ab_conf_margin": margin, "ab_candidates_max": candidates,
+           "ab_kept_per_image": kept, **errs, "ab_metric_max_abs_err": metric_err, **maps}
+    if tie_free:
+        out["ab_candidates_left_out_per_image"] = left_out
+    return out
+
+
+def _tie_free_dets(yolo, plain, xs: list, conf: float):
+    """The validator's decode and NMS (at `conf`, IoU 0.7, max_det 300, as `YOLO.val` runs
+    them) of each val image's head maps on the kernel path and on `plain`, over the same
+    candidates on both: those whose fate no float32 rounding can decide. A candidate
+    (anchor, class) with a score over conf is left out of both when, in the model run in
+    float64, its score lies within the margin of conf, or it overlaps another candidate of
+    its class by an IoU within the IoU margin of 0.7, or beyond 0.7 with scores within the
+    margin. The margins are the reach of float32 rounding in that image: 4 times the plain
+    float32 path's largest score distance from float64 (1e-8 at least), and 8 times its
+    largest box distance over the smallest candidate side (1e-6 at least). Returns (kernel
+    rows, plain rows, candidates left out per image)."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    from sar_yolo_tpu_torch.ops.nms import non_max_suppression
+    meta, nc = yolo.meta, yolo.meta["nc"]
+    exact = _float64_copy(yolo)._fused
+    got, want, left_out = [], [], []
+    for x in xs:
+        with torch.no_grad():
+            paths = [decode_detect(m(x), meta["strides"], nc, meta["reg_max"],
+                                   extra_sigmoid=meta["state_classes"],
+                                   split_extras=meta["embed_dim"])
+                     for m in (yolo._fused_for_serving(), plain._fused_for_serving())]
+            r64 = decode_detect_rows(exact(x.double()), meta)[..., :4 + nc]
+        r32 = paths[1][0][..., :4 + nc].double().cpu().numpy()
+        for i in range(x.shape[0]):
+            s64 = r64[i, :, 4:]
+            margin = max(4 * float(np.abs(r32[i, :, 4:] - s64).max()), 1e-8)
+            anchor, cls = np.nonzero(s64 >= conf - margin)
+            xy, wh = r64[i, anchor, :2], r64[i, anchor, 2:4]
+            iou_margin = max(8 * float(np.abs(r32[i, anchor, :4] - r64[i, anchor, :4]).max(initial=0))
+                             / max(float(wh.min(initial=np.inf)), 1e-9), 1e-6)
+            lo, hi = xy - wh / 2, xy + wh / 2
+            inter = np.clip(np.minimum(hi[:, None], hi[None]) - np.maximum(lo[:, None], lo[None]),
+                            0, None).prod(-1)
+            area = wh.prod(-1)
+            iou = inter / (area[:, None] + area[None] - inter)
+            sc = s64[anchor, cls]
+            same = (cls[:, None] == cls[None]) & ~np.eye(len(cls), dtype=bool)
+            close = same & ((np.abs(iou - 0.7) < iou_margin)
+                            | ((iou > 0.7) & (np.abs(sc[:, None] - sc[None]) < margin)))
+            out = close.any(1) | (np.abs(sc - conf) < margin)
+            drop = (torch.as_tensor(anchor[out]), torch.as_tensor(4 + cls[out]))
+            for preds, _ in paths:
+                preds[i][drop[0].to(preds.device), drop[1].to(preds.device)] = 0.0
+            left_out.append(int(out.sum()))
+        for dets, (preds, bank) in zip((got, want), paths):
+            dets.append(non_max_suppression(preds, conf_thres=conf, iou_thres=0.7, max_det=300,
+                                            nc=nc, extras_bank=bank, multi_label=nc > 1)
+                        .cpu().numpy())
+    return np.concatenate(got), np.concatenate(want), left_out
+
+
+def decode_detect_rows(feats, meta) -> np.ndarray:
+    """Decoded (B, N, 4 + nc + states) rows of head maps, float64 on the host."""
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    rows = decode_detect(feats, meta["strides"], meta["nc"], meta["reg_max"],
+                         extra_sigmoid=meta.get("state_classes") or 0,
+                         split_extras=meta.get("embed_dim") or 0)
+    return (rows[0] if meta.get("embed_dim") else rows).double().cpu().numpy()
 
 
 def _png_file(rgb: np.ndarray, level: int = 1) -> bytes:
@@ -1230,7 +1338,7 @@ def phase_data(card: str, seed: int = 0):
     ds.init_rect(TRAIN_BATCH)
     xs = [JDEValidator.preprocess(b["img"], yolo.device)
           for b in build.DataLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=False, pad_last=True)]
-    ab = _val_ab(yolo, kw, xs, "YOLO.val rect")
+    ab = _val_ab(yolo, kw, xs, "YOLO.val rect", tie_free=True)
     print(json.dumps({"yolo_val_rect": vmetrics, "batch_shapes": shapes,
                       "chunk_lengths": sorted(set(lengths)), "kernel_launches": val_launches,
                       "ms_per_image": statistics.median(ms_per_image),
@@ -1788,22 +1896,21 @@ def phase_half_jpeg(card: str, seed: int = 2) -> int:
     return 3 * JPEG_FRAMES * LAUNCHES_PER_FORWARD
 
 
-def phase_amp_train(card: str, seed: int = 0):
-    """The amp train step, remat and a one-epoch `YOLO.train` with amp on (see the module
-    docstring, phase 13). Returns the bf16 launches by path and the step timings."""
+def _amp_ab(base: dict, seed: int, remat: bool, card: str):
+    """One amp train step from one state on one batch on the bf16 kernel path, the bf16
+    plain path, the float32 plain path and, with `remat`, `remat=True` (cuDNN
+    deterministic; see the module docstring, phase 13), with its checks. Returns the
+    trainers and the batch."""
     import torch
 
-    from sar_yolo_tpu_torch import YOLO
     from sar_yolo_tpu_torch.data.build import DataLoader
     from sar_yolo_tpu_torch.engine.trainer import JDETrainer
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
-    base = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
-                seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     trainers = {}
-    for label, extra, use_flash in (("bf16", {}, None), ("bf16_plain", {}, False),
-                                    ("f32_plain", {"amp": False}, False),
-                                    ("bf16_remat", {"remat": True}, None)):
+    paths = (("bf16", {}, None), ("bf16_plain", {}, False), ("f32_plain", {"amp": False}, False))
+    for label, extra, use_flash in paths + ((("bf16_remat", {"remat": True}, None),) if remat
+                                            else ()):
         tr = trainers[label] = JDETrainer({**base, **extra})
         tr.setup()
         _set_flash(tr, use_flash)
@@ -1827,18 +1934,22 @@ def phase_amp_train(card: str, seed: int = 0):
         out[label] = _train_step_parts(tr, batch)
         by[label] = dict(flash_area_attention.launches_by_dtype)
         after[label] = tr.model.state_dict()
-    (ik, gk, lk), (ip, gp, lp), (if32, gf, lf), (ir, gr, lr) = (
-        out[x] for x in ("bf16", "bf16_plain", "f32_plain", "bf16_remat"))
+    (ik, gk, lk), (ip, gp, lp), (if32, gf, lf) = (
+        out[x] for x in ("bf16", "bf16_plain", "f32_plain"))
     check(lk == (LAUNCHES_PER_FORWARD, 0) and by["bf16"]["bfloat16"] == LAUNCHES_PER_FORWARD
           and by["bf16"]["float32"] == 0 and lp == lf == (0, 0),
           f"amp train step: kernel launches (forward, backward) {lk}, by dtype {by['bf16']}; "
           f"plain paths {lp}, {lf}")
-    # remat recomputes the checkpointed blocks, the attention included, in the backward
-    check(lr == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD) and by["bf16_remat"]["float32"] == 0,
-          f"remat step: kernel launches {lr}, by dtype {by['bf16_remat']}")
-    remat_equal = (np.array_equal(ir, ik) and all(torch.equal(gr[n], g) for n, g in gk.items())
-                   and all(torch.equal(after["bf16_remat"][k], v)
-                           for k, v in after["bf16"].items()))
+    remat_equal = None
+    if remat:
+        ir, gr, lr = out["bf16_remat"]
+        # remat recomputes the checkpointed blocks, the attention included, in the backward
+        check(lr == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD)
+              and by["bf16_remat"]["float32"] == 0,
+              f"remat step: kernel launches {lr}, by dtype {by['bf16_remat']}")
+        remat_equal = (np.array_equal(ir, ik) and all(torch.equal(gr[n], g) for n, g in gk.items())
+                       and all(torch.equal(after["bf16_remat"][k], v)
+                               for k, v in after["bf16"].items()))
 
     def flat(g):
         return torch.cat([g[n].double().flatten() for n in gf])
@@ -1859,8 +1970,8 @@ def phase_amp_train(card: str, seed: int = 0):
           "grad_worst_bf16_plain_vs_f32": [{"param": n, "l2_diff": e, "l2_f32": w}
                                            for e, n, w in worst],
           "remat_step_equal": remat_equal}
-    print(json.dumps({"amp_train_ab": ab, "card": card}))
-    check(remat_equal, "remat=True: the step differs from the plain step")
+    print(json.dumps({"amp_train_ab": ab, "model": base["model"], "card": card}))
+    check(remat_equal is not False, "remat=True: the step differs from the plain step")
     check(np.isfinite(ik).all() and np.isfinite(fk.cpu().numpy()).all(), "amp step: not finite")
     check(ab["maps_rel_l2_bf16_kernel_vs_f32"] <= 2 * ab["maps_rel_l2_bf16_plain_vs_f32"],
           f"amp step: kernel-path head maps {ab['maps_rel_l2_bf16_kernel_vs_f32']} from float32, "
@@ -1870,12 +1981,26 @@ def phase_amp_train(card: str, seed: int = 0):
           f"plain path {ab['grad_rel_l2_bf16_plain_vs_f32']}")
     # (the 5 loss items are printed, not gated: two bf16 runs part from float32 by rounding
     # noise that 5 numbers do not average, while the gradient's 2.5M entries do)
+    return trainers, batch
+
+
+def phase_amp_train(card: str, seed: int = 0):
+    """The amp train step, remat and a one-epoch `YOLO.train` with amp on (see the module
+    docstring, phase 13). Returns the bf16 launches by path and the step timings."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    base = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
+                seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0)
+    trainers, batch = _amp_ab(base, seed, True, card)
 
     # times and peak memory, cuDNN's fastest choices; the f32 step on its kernel path
     torch.backends.cudnn.deterministic = False
     f32 = trainers.pop("f32_plain")
     _set_flash(f32, None)
-    del trainers["bf16_plain"], out, after, heads, gk, gp, gf, gr, fk, fp, ff
+    del trainers["bf16_plain"]
     timing = {}
     for label, tr in (("bf16", trainers["bf16"]), ("f32", f32),
                       ("bf16_remat", trainers["bf16_remat"])):
@@ -1956,13 +2081,13 @@ def _damp_class_logits(yolo, frames):
 
 
 def _nms_stable_conf(rows: np.ndarray, nc: int, iou_thres: float, max_cand: int,
-                     margin: float = 1e-4):
+                     margin: float = 1e-4, iou_margin: float = 1e-3):
     """A threshold at which greedy NMS keeps the same rows under rounding: above it every
     frame of `rows` (B, N, 4 + nc: decoded xywh boxes and class scores, float64) has fewer
     than `max_cand` (anchor, class) candidates; no two candidates of a class overlap by an
-    IoU within 1e-3 of `iou_thres` or, overlapping beyond it, score within `margin` of each
-    other; and no score lies within `margin` of the threshold. Returns (threshold, half its
-    gap)."""
+    IoU within `iou_margin` of `iou_thres` or, overlapping beyond it, score within `margin`
+    of each other; and no score lies within `margin` of the threshold. Returns (threshold,
+    half its gap)."""
     level = -np.inf
     for r in rows:
         s = r[:, 4:4 + nc]
@@ -1977,7 +2102,7 @@ def _nms_stable_conf(rows: np.ndarray, nc: int, iou_thres: float, max_cand: int,
         iou = inter / (area[:, None] + area[None] - inter)
         sc = s[anchor, cls]
         same = (cls[:, None] == cls[None]) & ~np.eye(len(cls), dtype=bool)
-        close = same & ((np.abs(iou - iou_thres) < 1e-3)
+        close = same & ((np.abs(iou - iou_thres) < iou_margin)
                         | ((iou > iou_thres) & (np.abs(sc[:, None] - sc[None]) < margin)))
         if close.any():  # the threshold must drop the lower of each such pair
             level = max(level, np.minimum(sc[:, None], sc[None])[close].max())
@@ -2224,6 +2349,125 @@ def phase_detect(card: str) -> dict:
     return out
 
 
+# phase 15: the fork's CBAM JDE configs and the facade's remaining methods
+CBAM_BATCH = 8            # frames of the served CBAM batch (yolov13n-JDE_CBAM @640)
+TRAIN_EVENTS = ("on_pretrain_routine_start", "on_pretrain_routine_end", "on_train_start",
+                "on_train_epoch_start", "on_train_batch_start", "on_train_batch_end",
+                "on_train_epoch_end", "on_fit_epoch_end", "on_train_end", "on_model_save")
+
+
+def phase_cbam(card: str, seed: int = 0) -> dict:
+    """Phase 15 (see the module docstring): the CBAM configs served and trained, then the
+    facade. Returns the kernel launches by path and dtype."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.engine.model import Ensemble
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    out = {"float32": {}, "bfloat16": {}}
+    t0 = time.perf_counter()
+    name, p24 = "yolov13n-JDE_CBAM.yaml", "yolov13n-P24_CBAM_JDE.yaml"
+    out["float32"][f"serve yolov13n-JDE_CBAM@640 b{CBAM_BATCH}"], _ = phase_serve(
+        name, 640, None, 1e-3, CBAM_BATCH, seed, (1, CBAM_BATCH))
+    out["bfloat16"][f"serve half yolov13n-JDE_CBAM@640 b{CBAM_BATCH}"] = phase_half(
+        name, 640, 0.005, CBAM_BATCH, seed, (1, CBAM_BATCH), card)
+    # at 1280 the box bound is phase 5's: 1e-3 of a 32 px DFL bin
+    out["float32"]["serve yolov13n-P24_CBAM_JDE@1280 b1"], _ = phase_serve(
+        p24, 1280, None, 32e-3, 1, seed + 1, (1,))
+    out["bfloat16"]["serve half yolov13n-P24_CBAM_JDE@1280 b1"] = phase_half(
+        p24, 1280, 0.5, 1, seed + 1, (1,), card)
+    for dname, paths in phase_detect_serve("yolo11n-JDE_CBAM.yaml", 0, (CBAM_BATCH,),
+                                           card).items():
+        out[dname].update(paths)
+    t_serve = time.perf_counter()
+
+    # the train step: one A/B step in float32 (phase 6's) and in amp (phase 13's), then times
+    base = dict(model=name, data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, seed=seed,
+                optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    train_set, _, _ = JDETrainer({**base, "amp": False}).get_dataset()
+    batch = next(iter(DataLoader(train_set, TRAIN_BATCH, seed=seed)))
+    tr, step_launches = _train_ab({**base, "amp": False}, [batch])
+    torch.backends.cudnn.deterministic = False
+    timing = {"f32": _timed_steps(tr, batch)}
+    del tr
+    torch.cuda.empty_cache()
+    trainers, amp_batch = _amp_ab(base, seed, False, card)
+    torch.backends.cudnn.deterministic = False
+    timing["bf16"] = _timed_steps(trainers["bf16"], amp_batch)
+    del trainers
+    torch.cuda.empty_cache()
+    print(json.dumps({"cbam_train_step": f"yolov13n-JDE_CBAM @{TRAIN_IMGSZ}, batch {TRAIN_BATCH}, "
+                      "SGD", **timing, "card": card}))
+    out["float32"][f"train step forward yolov13n-JDE_CBAM@{TRAIN_IMGSZ} b{TRAIN_BATCH}"] = \
+        step_launches[0]
+    out["bfloat16"][f"amp train step forward yolov13n-JDE_CBAM@{TRAIN_IMGSZ} b{TRAIN_BATCH}"] = \
+        LAUNCHES_PER_FORWARD
+    t_train = time.perf_counter()
+
+    # the facade: YOLO.train's callbacks, save and YOLO(checkpoint), fuse, info, profile
+    yolo = YOLO(name)
+    seen = {e: [] for e in TRAIN_EVENTS}
+    for event in TRAIN_EVENTS:
+        yolo.add_callback(event, lambda trainer, event=event: seen[event].append(trainer.epoch))
+    reset_launches()
+    metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
+                         seed=seed, amp=False, project="runs", name="chip_smoke_cbam",
+                         exist_ok=True)
+    train_launches, steps = flash_area_attention.launches, yolo.trainer.step
+    val_batches = -(-VAL_IMAGES // TRAIN_BATCH)
+    want = {e: [0] * (steps if "batch" in e else 1) for e in TRAIN_EVENTS}
+    check(seen == want, f"YOLO.train callbacks: epochs seen {seen}, expected {want}")
+    check(train_launches == (steps + val_batches) * LAUNCHES_PER_FORWARD
+          and all(np.isfinite(list(metrics.values()))),
+          f"YOLO.train: {train_launches} kernel launches, metrics {metrics}")
+    frames = np.random.default_rng(seed).integers(0, 256, (CBAM_BATCH, 720, 1280, 3), np.uint8)
+    kw = dict(imgsz=TRAIN_IMGSZ, conf=0.001)
+    reset_launches()
+    before = yolo.predict_batched(frames, **kw)
+    check(flash_area_attention.launches == LAUNCHES_PER_FORWARD and np.isfinite(before).all()
+          and (before[..., 4] > 0).any(), f"predict_batched after training: "
+          f"{flash_area_attention.launches} kernel launches")
+    ckpt = yolo.save(Path("runs") / "chip_smoke_cbam_saved")
+    served = YOLO(ckpt).predict_batched(frames, **kw)
+    check(np.array_equal(served, before), "YOLO(checkpoint of save()) serves other detections: "
+          f"max diff {np.abs(served - before).max()}")
+    yolo.fuse()
+    check(not any(isinstance(m, torch.nn.BatchNorm2d) for m in yolo.model.modules()),
+          "fuse(): a BatchNorm is left")
+    fused = yolo.predict_batched(frames, **kw)
+    check(np.array_equal(fused, before), "predict_batched after fuse() differs: max diff "
+          f"{np.abs(fused - before).max()}")
+    summary = yolo.info(detailed=True, verbose=False)
+    print(summary)
+    profile = yolo.profile()
+    other = _perturbed_yolo(name, seed + 2, TRAIN_IMGSZ).save(Path("runs") / "chip_smoke_cbam_other")
+    reset_launches()
+    merged = Ensemble([ckpt, other]).predict(str(JPEG_DIR / "frames"), imgsz=TRAIN_IMGSZ,
+                                             conf=0.01)
+    ens_launches = flash_area_attention.launches
+    check(len(merged) == JPEG_FRAMES and sum(len(m) for m in merged) > 0
+          and all(np.isfinite(m).all() and m.shape[1] == 6 for m in merged) and ens_launches == 2 * JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+          f"Ensemble: {len(merged)} frames, rows {[m.shape for m in merged]}, {ens_launches} "
+          "kernel launches")
+    print(json.dumps({"cbam_facade": name, "yolo_train": metrics, "callbacks_epochs": seen,
+                      "save_then_serve_equal": True, "fuse_then_serve_equal": True,
+                      "kept_per_frame": (before[..., 4] > 0).sum(1).tolist(),
+                      "info": summary.splitlines()[0], "profile": profile,
+                      "ensemble_rows_per_frame": [len(m) for m in merged],
+                      "kernel_launches": {"train": train_launches, "ensemble": ens_launches},
+                      "card": card}))
+    out["float32"].update({
+        f"YOLO.train yolov13n-JDE_CBAM, 1 epoch ({steps} steps + validation)": train_launches,
+        "predict_batched after YOLO.train of yolov13n-JDE_CBAM": LAUNCHES_PER_FORWARD,
+        f"Ensemble of 2 checkpoints, {JPEG_FRAMES} JPEG frames": ens_launches})
+    print(json.dumps({"phase_cbam_s": {"serve": t_serve - t0, "train_step": t_train - t_serve,
+                                       "facade": time.perf_counter() - t_train}}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2243,15 +2487,15 @@ def main() -> int:
     lap("build")
     rows = phase_kernel()
     lap("kernel")
-    serve_launches = phase_serve("yolov13n-JDE.yaml", 640, 0.005, 1e-3, MAIN_BATCH, seed=0,
-                                 throughput_batches=(1, 8))
+    serve_launches, _ = phase_serve("yolov13n-JDE.yaml", 640, 0.005, 1e-3, MAIN_BATCH, seed=0,
+                                    throughput_batches=(1, 8))
     # At 1280, float32 rounding alone moves this random-weight model's boxes by
     # ~1e-2 px: its head maps lie ~1e-3 from the same model in float64 on the
     # plain path and ~3e-4 on the kernel path (phase_serve prints both and holds
     # the kernel path to the plain one's). The box bound there is 1e-3 of the
     # coarsest level's box-regression unit (a 32 px DFL bin at r = 1).
-    p24_launches = phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1,
-                               throughput_batches=(1,))
+    p24_launches, _ = phase_serve("yolov13n-JDE_P24.yaml", 1280, 0.5, 32e-3, 1, seed=1,
+                                  throughput_batches=(1,))
     lap("serve")
     step_launches, train_launches, _, yolo = phase_train(card)
     lap("train")
@@ -2276,6 +2520,8 @@ def main() -> int:
     lap("amp_train")
     detect_launches = phase_detect(card)
     lap("detect")
+    cbam_launches = phase_cbam(card)
+    lap("cbam")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -2317,7 +2563,7 @@ def main() -> int:
                      "library_ms": total_bf16["library_ms"],
                      "plain_backward_ms": total_bf16["backward_ms"]},
         "launches_by_path_bfloat16": {**half_launches, **amp_launches,
-                                      **detect_launches["bfloat16"]},
+                                      **detect_launches["bfloat16"], **cbam_launches["bfloat16"]},
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
                              "serve yolov13n-JDE_P24@1280 b1": p24_launches,
                              **train_launches,
@@ -2329,7 +2575,7 @@ def main() -> int:
                              "epochs (8 steps + 2 validations)": disk_train_launches,
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
-                             **detect_launches["float32"]}}]}))
+                             **detect_launches["float32"], **cbam_launches["float32"]}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

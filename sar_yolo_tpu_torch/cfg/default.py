@@ -13,6 +13,7 @@ from pathlib import Path
 from types import SimpleNamespace
 
 DEFAULT_CFG = {
+    "task": "detect",         # the model's task; the facade passes the model's own
     "model": None,            # model config name, e.g. 'yolov13n-JDE.yaml'
     "data": None,             # a dataset YAML file or dict, or 'synthetic'
     "epochs": 100,

@@ -1,24 +1,31 @@
-"""YOLO facade of the port: build, seed or load weights (a checkpoint directory too),
-train, validate, fuse, serve batches, predict and track sources (port of the serving,
-tracking, training and validation part of `sar_yolo_tpu/engine/model.py`), for the
-detect and JDE tasks: each call takes the trainer (`TRAINERS`, whose `validator_cls`
-validates) or the predictor (`PREDICTORS`) of the model's task."""
+"""YOLO facade of the port: build from a config name or YAML path, seed or load weights (a
+checkpoint directory too), train, validate, fuse, save, serve batches, predict and track
+sources, summarize and profile (port of `sar_yolo_tpu/engine/model.py` without export,
+`embed`, `benchmark` and `tune`), for the detect and JDE tasks: each call takes the
+trainer (`TRAINERS`, whose `validator_cls` validates) or the predictor (`PREDICTORS`) of
+the model's task. `Ensemble` merges the detections of several models."""
 
 from __future__ import annotations
 
 import copy
+import time
 from types import SimpleNamespace
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
 from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, NOT_PORTED, get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.engine.predictor import PREDICTORS
 from sar_yolo_tpu_torch.engine.trainer import TRAINERS
 from sar_yolo_tpu_torch.nn.fuse import fuse_model, half_model
+from sar_yolo_tpu_torch.nn.modules.block import AAttn
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
-from sar_yolo_tpu_torch.utils import select_device
-from sar_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint
+from sar_yolo_tpu_torch.ops.slicing import merge_tile_detections
+from sar_yolo_tpu_torch.utils import LOGGER, select_device
+from sar_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
 # the arguments the predictor reads, with the JAX package's defaults for predict
@@ -42,29 +49,33 @@ class YOLO:
         >>> m = YOLO("runs/jde/jde/weights/best", device="cpu")  # a trained checkpoint
         >>> results = m.predict("frames/")                 # a folder of JPEG/PNG frames
         >>> results = m.track("frames/", tracker="bytetrack.yaml")  # boxes.id: track ids
+        >>> m = YOLO("path/to/yolov13n-JDE_CBAM.yaml", device="cpu")  # a YAML file path
+        >>> m.save("ckpt"); m.fuse(); print(m.info(detailed=True)); m.profile(imgsz=64)
     """
 
-    def __init__(self, model: str = "yolov13n-JDE.yaml", device=None):
+    def __init__(self, model: str = "yolov13n-JDE.yaml", task: str | None = None, device=None):
         self.device = select_device(device)
         self.overrides: dict = {}  # a checkpoint's non-default train args, under each call's
         self.ckpt_dir = None
         self._half = None  # the bf16 copy of the folded model (half serving)
         self._callbacks: dict = {}
         self._predictor_cache = None
+        self._unfused = None  # after fuse(): the unfused state dict, for save()
         if is_checkpoint(model):
-            self._load(model)
+            self._load(model, task)
         else:
-            self._new(model)
+            self._new(model, task)
+        self.overrides["task"] = self.task
 
-    def _new(self, cfg: str):
+    def _new(self, cfg: str, task: str | None = None):
         self.cfg = cfg
         model, self.meta = build_model(cfg)
         self.model = model.to(self.device)
-        self.task = self.meta["task"]
+        self.task = task or self.meta["task"]
         self._weights_ready = False
         self._fused = None
 
-    def _load(self, ckpt_dir):
+    def _load(self, ckpt_dir, task: str | None = None):
         """The checkpoint's model (`model_yaml` with its nc) with the EMA parameters (the
         raw ones where it has no EMA) and the BN statistics; its task, class names and
         non-default train args."""
@@ -78,7 +89,7 @@ class YOLO:
         self.meta["strides"] = metadata.get("strides") or self.meta["strides"]
         names = metadata.get("names")
         self.meta["names"] = {int(k): v for k, v in names.items()} if names else None
-        self.task = metadata.get("task") or self.meta["task"]
+        self.task = task or metadata.get("task") or self.meta["task"]
         train_args = metadata.get("train_args", {})
         self.cfg = train_args.get("model") or metadata["model_yaml"]
         self.overrides = {k: v for k, v in train_args.items()
@@ -103,9 +114,9 @@ class YOLO:
 
     def load_jax_variables(self, variables):
         """Load the JAX package's unfused {"params", "batch_stats"} tree (numpy arrays)."""
-        self.model.load_state_dict(from_jax_variables(variables), strict=True)
+        self._unfused_model().load_state_dict(from_jax_variables(variables), strict=True)
         self._weights_ready = True
-        self._fused = None
+        self._drop_caches()
 
     def train(self, **kwargs) -> dict:
         """Train on this model's device (keys of `cfg/default.py`); returns the last epoch's
@@ -114,13 +125,16 @@ class YOLO:
         dtype (bf16 after an `amp` run on the card), as the JAX package's model does."""
         self.trainer = TRAINERS[self._ported_task()](
             {**self.overrides, "model": self.cfg, **kwargs}, device=self.device)
+        for event, fns in self._callbacks.items():
+            for fn in fns:
+                self.trainer.add_callback(event, fn)
         metrics = self.trainer.train()
         self.model = self.trainer.ema_model()
         self.meta = self.trainer.meta
         self.meta["names"] = self.trainer.data["names"]
         self.ckpt_dir = str(self.trainer.wdir / "best")
         self._weights_ready = True
-        self._fused = None
+        self._fused, self._unfused = None, None
         return metrics
 
     def val(self, **kwargs) -> dict:
@@ -186,7 +200,7 @@ class YOLO:
         predictor.model = self._fused_for_serving(predictor.args.half)  # new weights after train()
         for event, fns in self._callbacks.items():
             for fn in fns:
-                if fn not in predictor.callbacks[event]:
+                if fn not in predictor.callbacks.get(event, []):
                     predictor.add_callback(event, fn)
         return predictor
 
@@ -230,10 +244,202 @@ class YOLO:
         return predictor(source, stream=stream)
 
     def add_callback(self, event: str, func) -> None:
-        """Register a callback (an `on_predict_*` event) for every predictor this object
-        makes, the ones made already included."""
+        """Register a callback for every trainer (`on_train_*`, `on_fit_epoch_end`, ...) and
+        every predictor (`on_predict_*`) this object makes, the predictor made already
+        included; each is called with the trainer or the predictor."""
         self._callbacks.setdefault(event, []).append(func)
+
+    def clear_callback(self, event: str) -> None:
+        """Drop the callbacks registered for `event` (here and on the cached predictor)."""
+        fns = self._callbacks.pop(event, [])
+        if self._predictor_cache is not None:
+            listed = self._predictor_cache[1].callbacks.get(event, [])
+            listed[:] = [f for f in listed if f not in fns]
+
+    def reset_callbacks(self) -> None:
+        """Drop every registered callback."""
+        for event in list(self._callbacks):
+            self.clear_callback(event)
 
     @property
     def names(self):
         return self.meta.get("names") or {i: f"c{i}" for i in range(self.meta["nc"])}
+
+    @property
+    def fused(self) -> bool:
+        return self._unfused is not None
+
+    def _drop_caches(self):
+        self._fused, self._half, self._predictor_cache = None, None, None
+
+    def _unfused_model(self):
+        """self.model as built from its config (unfused; used where fuse() folded it)."""
+        if self.fused:
+            model, _ = build_model(self.meta["cfg"], nc=self.meta["nc"])
+            self.model = model.to(self.device)
+            self._unfused = None
+        return self.model
+
+    def save(self, ckpt_dir="saved_model_ckpt") -> str:
+        """Write the current weights as a checkpoint directory (`utils/checkpoint.py`) that
+        `YOLO(ckpt_dir)` serves: always the unfused weights (after `fuse()`, those it kept);
+        the metadata: the config, nc, strides, task, class names and `overrides`."""
+        self._ensure_variables()
+        if self.fused:
+            state = self._unfused
+        elif not any(isinstance(m, torch.nn.BatchNorm2d) for m in self.model.modules()):
+            raise ValueError("cannot save a fused model without its unfused weights (load a "
+                             "checkpoint, or call save() before folding it)")
+        else:
+            state = self.model.state_dict()
+        meta = {"model_yaml": self.meta["cfg"], "nc": self.meta["nc"],
+                "strides": self.meta["strides"], "task": self.task,
+                "train_args": {**self.overrides, "model": self.cfg},
+                "names": self.meta.get("names")}
+        save_checkpoint(ckpt_dir, {"model": {k: v.detach().cpu() for k, v in state.items()}},
+                        meta)
+        self.ckpt_dir = str(ckpt_dir)
+        return self.ckpt_dir
+
+    def load(self, ckpt_dir) -> "YOLO":
+        """Load a checkpoint's weights (its EMA parameters where it has them) and BN
+        statistics into this model, unfused; the serving caches are dropped."""
+        state, _ = load_checkpoint(ckpt_dir)
+        model = self._unfused_model()
+        model.load_state_dict(state["model"], strict=True)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_((state.get("ema") or state["model"])[name])
+        self._weights_ready = True
+        self._drop_caches()
+        return self
+
+    def reset_weights(self) -> "YOLO":
+        """A fresh seeded initialization (seed 0), unfused; the serving caches are dropped."""
+        init_weights(self._unfused_model(), self.meta, torch.Generator().manual_seed(0))
+        self._weights_ready = True
+        self._drop_caches()
+        return self
+
+    def fuse(self) -> "YOLO":
+        """Fold every BatchNorm into its convolution in place (`nn/fuse.py`); the unfused
+        weights are kept for `save`, and serving uses the folded model as it is."""
+        self._ensure_variables()
+        if not self.fused:
+            self._unfused = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            self._drop_caches()
+            self._fused = fuse_model(self.model).eval()
+        return self
+
+    def info(self, detailed: bool = False, verbose: bool = True, imgsz: int = 640) -> str:
+        """Summary: the task, the parameter count and the strides; `detailed=True` adds a
+        table of each layer's index, module, parameters and output shape (NCHW), from one
+        forward of a copy of the model on the `meta` device (shapes only: nothing runs on
+        the card)."""
+        self._ensure_variables()
+        n = sum(p.numel() for p in self.model.parameters())
+        s = f"{type(self).__name__} task={self.task} params={n:,} strides={self.meta['strides']}"
+        if detailed:
+            model, shapes = _meta_copy(self.model), {}
+            for i, blk in enumerate(model.blocks):
+                blk.register_forward_hook(lambda m, a, out, i=i: shapes.__setitem__(
+                    i, tuple(out.shape) if torch.is_tensor(out) else [tuple(o.shape) for o in out]))
+            with torch.no_grad():
+                model(torch.zeros(1, 3, imgsz, imgsz, device="meta"))
+            lines = [f"{'idx':>4} {'module':<20} {'params':>12}  output"]
+            for spec, blk in zip(self.model.specs, self.model.blocks):
+                n_i = sum(p.numel() for p in blk.parameters())
+                lines.append(f"{spec.i:>4} {spec.name:<20} {n_i:>12,}  {shapes.get(spec.i, '-')}")
+            s = s + "\n" + "\n".join(lines)
+        if verbose:
+            LOGGER.info(s)
+        return s
+
+    def profile(self, imgsz: int = 640, batch: int = 1, n_iter: int = 10) -> dict:
+        """The JAX package's `profile` keys for one eval forward of a (batch, 3, imgsz, imgsz)
+        input. These are not XLA's cost-analysis counts: `gflops` is
+        `torch.utils.flop_counter.FlopCounterMode`'s count (convolutions and matmuls, 2 per
+        multiply-add; elementwise work is not counted), `bytes_accessed_gb` the sum of the
+        bytes each aten op reads and writes (views excluded; no fusion), both over one
+        forward on the `meta` device; `latency_ms` and `imgs_per_sec` time `n_iter`
+        forwards on the model's device (CUDA events on the card, the host clock on the
+        CPU)."""
+        self._ensure_variables()
+        model = _meta_copy(self.model)
+        x = torch.zeros(batch, 3, imgsz, imgsz, device="meta")
+        with torch.no_grad(), FlopCounterMode(display=False) as flops, _BytesCounter() as nbytes:
+            model(x)
+        live = self.model.eval()
+        x = torch.zeros(batch, 3, imgsz, imgsz, device=self.device,
+                        dtype=getattr(live, "compute_dtype", torch.float32))
+        with torch.no_grad():
+            live(x)  # warm-up
+            if self.device.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n_iter):
+                    live(x)
+                end.record()
+                end.synchronize()
+                dt = start.elapsed_time(end) / 1e3 / n_iter
+            else:
+                t0 = time.perf_counter()
+                for _ in range(n_iter):
+                    live(x)
+                dt = (time.perf_counter() - t0) / n_iter
+        info = {"params": sum(p.numel() for p in self.model.parameters()),
+                "gflops": round(flops.get_total_flops() / 1e9, 2),
+                "bytes_accessed_gb": round(nbytes.total / 1e9, 3),
+                "latency_ms": round(dt * 1e3, 2), "imgs_per_sec": round(batch / dt, 1),
+                "imgsz": imgsz, "batch": batch}
+        LOGGER.info(str(info))
+        return info
+
+
+def _meta_copy(model):
+    """A copy of `model` on the `meta` device with the attention on its plain path (shapes
+    and operation counts only; the kernel takes no meta tensor)."""
+    model = copy.deepcopy(model).to("meta").eval()
+    for m in model.modules():
+        if isinstance(m, AAttn):
+            m.use_flash = False
+    return model
+
+
+class _BytesCounter(TorchDispatchMode):
+    """While active, `total` sums the bytes of every tensor each aten op reads or writes
+    (view ops excluded: they move no data)."""
+
+    def __enter__(self):
+        self.total = 0
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not getattr(func, "is_view", False):
+            for t in torch.utils._pytree.tree_leaves((args, kwargs, out)):
+                if torch.is_tensor(t):
+                    self.total += t.numel() * t.element_size()
+        return out
+
+
+class Ensemble:
+    """Several models, each serving with its own predictor, their detections a frame merged
+    by one class-aware greedy NMS (`ops/slicing.py::merge_tile_detections`), as the JAX
+    package's `Ensemble` does.
+
+        ens = Ensemble(["yolov13n-JDE.yaml", "runs/jde/jde/weights/best"])
+        merged = ens.predict("frames/")   # a list of (N, 6 + ...) arrays, one a frame
+    """
+
+    def __init__(self, models, device=None):
+        self.models = [m if isinstance(m, YOLO) else YOLO(m, device=device) for m in models]
+
+    def predict(self, source, merge_iou: float = 0.5, max_det: int = 300, **kwargs) -> list:
+        per_model = [m.predict(source, **kwargs) for m in self.models]
+        merged = []
+        for per_img in zip(*per_model):
+            dets = [np.asarray(r.boxes.data) if r.boxes is not None else
+                    np.zeros((0, 6), np.float32) for r in per_img]
+            merged.append(merge_tile_detections(dets, [(0, 0)] * len(dets), merge_iou, max_det))
+        return merged

@@ -25,12 +25,10 @@ from sar_yolo_tpu_torch.engine.results import Results
 from sar_yolo_tpu_torch.ops.decode import decode_detect
 from sar_yolo_tpu_torch.ops.nms import non_max_suppression
 from sar_yolo_tpu_torch.ops.preprocess import letterbox_device
-
-EVENTS = ("on_predict_start", "on_predict_batch_start", "on_predict_postprocess_end",
-          "on_predict_end")
+from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 
 
-class BasePredictor:
+class BasePredictor(HasCallbacks):
     """Serves a (fused) model on its device; `args` holds imgsz, conf (None: 0.25), iou,
     max_det, agnostic_nms, save_txt, save_dir, project, name and exist_ok."""
 
@@ -41,18 +39,11 @@ class BasePredictor:
         self.names = names or {i: str(i) for i in range(meta["nc"])}
         self.imgsz = args.imgsz if isinstance(args.imgsz, int) else args.imgsz[0]
         self.device = next(model.parameters()).device
-        self.callbacks = {e: [] for e in EVENTS}
+        self.init_callbacks()
         self.batch = None         # (path, orig_img, meta) of the current frame
         self.results = None       # [Results] of the current frame (callbacks may edit it)
         self.source_types = None
         self.trackers = {}        # filled by trackers.register_tracker
-
-    def add_callback(self, event: str, fn):
-        self.callbacks[event].append(fn)
-
-    def run_callbacks(self, event: str):
-        for fn in self.callbacks.get(event, []):
-            fn(self)
 
     def decode(self, feats):
         """Head maps -> (rows (B, N, 4 + nc + states): xywh boxes in letterboxed pixels and

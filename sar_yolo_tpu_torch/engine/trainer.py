@@ -58,6 +58,7 @@ from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype, set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
+from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.checks import check_bf16
 from sar_yolo_tpu_torch.utils.loss import detection_loss, jde_loss
@@ -227,9 +228,16 @@ def _explicit_on(v) -> bool:
     return v in (True, "True", "true", "on", 1)
 
 
-class BaseTrainer:
+class BaseTrainer(HasCallbacks):
     """Trains a model of the subclass's `task` on one device; a subclass gives the task,
-    its `loss_names`, its `validator_cls` and its `loss`."""
+    its `loss_names`, its `validator_cls` and its `loss`.
+
+    Callbacks (`add_callback(event, f)`; `f(trainer)`) run at the JAX trainer's points:
+    on_pretrain_routine_start / _end around `setup`, on_train_start, then per epoch
+    on_train_epoch_start, on_train_batch_start / _end around each step,
+    on_train_epoch_end (the epoch's losses in `tloss`, `metrics` still the last
+    epoch's), on_fit_epoch_end (after the validation and the checkpoints: `metrics`,
+    `fitness`), and on_train_end; on_model_save after each `save_model`."""
 
     task: str
     loss_names: tuple
@@ -237,6 +245,7 @@ class BaseTrainer:
 
     def __init__(self, overrides: dict | None = None, device=None):
         self.args = get_cfg(overrides)
+        self.args.task = self.task  # recorded in the checkpoints' train args
         self.device = select_device(device)
         self.save_dir = get_save_dir(self.args, self.task)
         self.args.save_dir = str(self.save_dir)  # the validator writes there too
@@ -246,6 +255,8 @@ class BaseTrainer:
         self.validator = self.validator_cls()
         self.metrics, self.fitness, self.best_fitness = {}, None, -math.inf
         self.epoch = 0
+        self.tloss = None  # the current epoch's mean loss items, from on_train_epoch_end
+        self.init_callbacks()
 
     def loss(self, feats, batch: dict):
         """(total, items, new cb_counts) of the head maps on a device batch."""
@@ -295,6 +306,7 @@ class BaseTrainer:
     def setup(self, state_dict: dict | None = None):
         """Data, model, optimizer and EMA; then `resume`'s checkpoint, if any. `state_dict`
         replaces the seeded initialization."""
+        self.run_callbacks("on_pretrain_routine_start")
         args = self.args
         self.train_set, self.val_set, self.data = self.get_dataset()
         nc = 1 if args.single_cls else self.data["nc"]
@@ -339,6 +351,7 @@ class BaseTrainer:
                         "device (the host decodes and letterboxes only)")
         if args.resume:
             self._resume()
+        self.run_callbacks("on_pretrain_routine_end")
 
     def aug_params(self, batch: dict, i: int):
         """The device augmentation's draws for batch i of this epoch, from a generator keyed
@@ -433,8 +446,10 @@ class BaseTrainer:
         patience = args.patience or math.inf
         last_improve = 0
         t_start = time.time()
+        self.run_callbacks("on_train_start")
         for epoch in range(self.epoch, args.epochs):
             self.epoch = epoch
+            self.run_callbacks("on_train_epoch_start")
             if args.close_mosaic and epoch >= max(args.epochs - args.close_mosaic, 0) \
                     and (getattr(self.train_set, "mosaic_enabled", False) or self._mosaic_on):
                 LOGGER.info("Closing dataloader mosaic")
@@ -443,6 +458,7 @@ class BaseTrainer:
             self.train_loader.set_epoch(epoch)
             te, total, n = time.time(), None, 0
             for i, batch in enumerate(self.train_loader):
+                self.run_callbacks("on_train_batch_start")
                 if args.multi_scale:
                     batch = self._multi_scale(batch)
                 # profile='trace': steps 1-3 of epoch 0 (step 0 when the epoch has one batch)
@@ -458,6 +474,7 @@ class BaseTrainer:
                     self._stop_trace()
                 total = items if total is None else total + items
                 n += 1
+                self.run_callbacks("on_train_batch_end")
             self._stop_trace()  # an epoch of under 4 batches
             mloss = (total / max(n, 1)).cpu().numpy()
             u = self.step // self.accumulate
@@ -466,6 +483,8 @@ class BaseTrainer:
             LOGGER.info(f"epoch {epoch + 1}/{args.epochs}  " +
                         "  ".join(f"{k}={v:.4f}" for k, v in zip(self.loss_names, mloss)) +
                         f"  lr={self.lr['lr/pg0']:.5f}  {time.time() - te:.1f}s")
+            self.tloss = losses
+            self.run_callbacks("on_train_epoch_end")
             self.metrics = dict(losses)
             self.fitness = -float(mloss.sum())
             if args.val:
@@ -478,12 +497,14 @@ class BaseTrainer:
                 self.best_fitness, last_improve = self.fitness, epoch
             if args.save:
                 self.save_model(improved)
+            self.run_callbacks("on_fit_epoch_end")
             if not improved and epoch - last_improve >= patience:
                 LOGGER.info(f"EarlyStopping: no improvement in {patience} epochs")
                 break
             if args.time and (time.time() - t_start) / 3600 > args.time:
                 LOGGER.info(f"Stopping: over the time limit of {args.time} hours")
                 break
+        self.run_callbacks("on_train_end")
         LOGGER.info(f"Training complete in {(time.time() - t_start) / 3600:.3f} hours")
         return self.metrics
 
@@ -530,6 +551,7 @@ class BaseTrainer:
             save_checkpoint(self.wdir / "best", state, metadata)
         if self.args.save_period > 0 and (self.epoch + 1) % self.args.save_period == 0:
             save_checkpoint(self.wdir / f"epoch{self.epoch + 1}", state, metadata)
+        self.run_callbacks("on_model_save")
 
     def _resume(self):
         """Restore `resume`'s checkpoint (True: this run's weights/last) and continue at the

@@ -1,5 +1,5 @@
-"""YOLO blocks of the yolov8, yolo11, yolov12 and yolov13 graphs in NCHW (port of
-`sar_yolo_tpu/nn/modules/block.py`).
+"""YOLO blocks of the yolov8, yolo11, yolov12 and yolov13 graphs and the fork's CBAM
+variants, in NCHW (port of `sar_yolo_tpu/nn/modules/block.py`).
 
 Submodule names are the Flax scope names (`cv1`, `m0_0`, `attn`, `qk`, ...).
 Tokens of a (B, C, H, W) map are taken as `x.flatten(2).transpose(1, 2)`,
@@ -19,7 +19,7 @@ from torch.nn import functional as F
 
 from sar_yolo_tpu_torch.ops.cuda.flash_attention import area_attention_plain, flash_area_attention
 
-from .conv import Conv, Dropout, DSConv, Linear
+from .conv import CBAM, Conv, Dropout, DSConv, Linear
 
 
 def _tokens(x):
@@ -88,6 +88,18 @@ class C3k2(nn.Module):
         for i in range(self.n):
             ys.append(getattr(self, f"m{i}")(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class C3k2_CBAM(C3k2):
+    """C3k2 with CBAM on its output (the fork's block)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 g: int = 1, shortcut: bool = True, kernel_size: int = 7):
+        super().__init__(c1, c2, n, c3k, e, g, shortcut)
+        self.cbam = CBAM(c2, kernel_size)
+
+    def forward(self, x):
+        return self.cbam(super().forward(x))
 
 
 class SPPF(nn.Module):
@@ -329,6 +341,19 @@ class DSC3k2(nn.Module):
         for i in range(self.n):
             ys.append(getattr(self, f"m{i}")(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class DSC3k2_CBAM(DSC3k2):
+    """DSC3k2 with CBAM on its output (the fork's block)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, dsc3k: bool = False, e: float = 0.5,
+                 g: int = 1, shortcut: bool = True, k1: int = 3, k2: int = 7, d2: int = 1,
+                 kernel_size: int = 7):
+        super().__init__(c1, c2, n, dsc3k, e, g, shortcut, k1, k2, d2)
+        self.cbam = CBAM(c2, kernel_size)
+
+    def forward(self, x):
+        return self.cbam(super().forward(x))
 
 
 class AdaHyperedgeGen(nn.Module):

@@ -215,6 +215,41 @@ class DSConv(nn.Module):
         return F.silu(x)
 
 
+class ChannelAttention(nn.Module):
+    """Channel gate: the global mean, a 1x1 conv with bias, a sigmoid; x times the gate."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.fc = Conv2d(c, c, 1, bias=True)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.fc(x.mean((2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """Spatial gate: the channel mean and max, a k x k conv without bias, a sigmoid."""
+
+    def __init__(self, kernel_size: int = 7):
+        super().__init__()
+        self.cv1 = Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
+
+    def forward(self, x):
+        pooled = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
+        return x * torch.sigmoid(self.cv1(pooled))
+
+
+class CBAM(nn.Module):
+    """Convolutional Block Attention Module: channel attention, then spatial attention."""
+
+    def __init__(self, c1: int, kernel_size: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttention(c1)
+        self.spatial_attention = SpatialAttention(kernel_size)
+
+    def forward(self, x):
+        return self.spatial_attention(self.channel_attention(x))
+
+
 class Concat(nn.Module):
     """Concatenate a list of NCHW maps along channels."""
 

@@ -2,8 +2,10 @@
 
 `parse_model` does the JAX package's channel, depth and width arithmetic and
 returns the same LayerSpec records, for the modules of the yolov8, yolo11,
-yolov12 and yolov13 detect and JDE graphs (it raises on any other module). `GraphModel` walks the specs with the same
-save-dict; its layers live in `blocks` (Flax scope `blocks_<i>`).
+yolov12 and yolov13 detect and JDE graphs and the fork's CBAM variants; a module
+the port does not have yet raises NotImplementedError naming it. `GraphModel`
+walks the specs with the same save-dict; its layers live in `blocks` (Flax scope
+`blocks_<i>`).
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ class LayerSpec:
 
 
 # modules whose first yaml arg is the (width-scaled) output channel count
-_CH_SCALED = {"Conv", "DSConv", "Bottleneck", "C2f", "C3k2", "SPPF", "A2C2f", "DSC3k2", "C2PSA"}
+_CH_SCALED = {"Conv", "DSConv", "Bottleneck", "C2f", "C3k2", "C3k2_CBAM", "SPPF", "A2C2f",
+              "DSC3k2", "DSC3k2_CBAM", "C2PSA"}
 # subset that takes an inserted repeat count n
-_REPEAT_ARG = {"C2f", "C3k2", "A2C2f", "DSC3k2", "C2PSA"}
+_REPEAT_ARG = {"C2f", "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM", "C2PSA"}
+_C3K2_FAMILY = {"C3k2", "DSC3k2", "C3k2_CBAM", "DSC3k2_CBAM"}
 _HEADS = {"Detect", "JDE"}
 
 
@@ -95,7 +99,7 @@ def parse_model(d: dict, ch: int = 3):
             if m in _REPEAT_ARG:
                 args.insert(1, n)
                 n = 1
-            if m in ("C3k2", "DSC3k2"):
+            if m in _C3K2_FAMILY:
                 legacy = False
                 if scale in "lx":  # force c3k / dsc3k inner blocks on large scales
                     if len(args) >= 3:
@@ -147,11 +151,13 @@ def parse_model(d: dict, ch: int = 3):
         elif m == "FullPAD_Tunnel":
             c2 = chs[f[0]]
             args = []
+        elif m == "CBAM":
+            c2 = chs[f]
         else:
-            raise KeyError(f"module '{m}' is not part of this port yet")
+            raise NotImplementedError(f"layer {i}: module '{m}' is not part of this port yet")
         if n != 1:
-            raise KeyError(f"layer {i}: repeated plain module '{m}' (n={n}) is not part of "
-                           "this port yet")
+            raise NotImplementedError(f"layer {i}: repeated plain module '{m}' (n={n}) is not "
+                                      "part of this port yet")
 
         def _norm(j):
             return j if j == -1 else j % i
@@ -185,6 +191,8 @@ def _build_module(spec: LayerSpec, c_in) -> nn.Module:
         return B.C2f(c_in, *a)
     if name == "C3k2":
         return B.C3k2(c_in, *a)
+    if name == "C3k2_CBAM":
+        return B.C3k2_CBAM(c_in, *a)
     if name == "C2PSA":
         return B.C2PSA(c_in, *a)
     if name == "SPPF":
@@ -193,6 +201,10 @@ def _build_module(spec: LayerSpec, c_in) -> nn.Module:
         return B.A2C2f(c_in, *a)
     if name == "DSC3k2":
         return B.DSC3k2(c_in, *a)
+    if name == "DSC3k2_CBAM":
+        return B.DSC3k2_CBAM(c_in, *a)
+    if name == "CBAM":
+        return C.CBAM(c_in, *a)
     if name == "HyperACE":
         return B.HyperACE(c_in, *a)
     if name == "DownsampleConv":
@@ -205,7 +217,7 @@ def _build_module(spec: LayerSpec, c_in) -> nn.Module:
         return H.JDE(nc=a[0], embed_dim=a[1] if len(a) > 1 else 128,
                      state_classes=a[2] if len(a) > 2 else None,
                      ch=kw["ch"], legacy=kw["legacy"])
-    raise KeyError(f"Unknown module '{name}'")
+    raise NotImplementedError(f"module '{name}' is not part of this port yet")
 
 
 class GraphModel(nn.Module):

@@ -1,5 +1,5 @@
-"""A reader of the YAML subset that dataset files use (the training machine has no YAML
-parser; the JAX package reads them with PyYAML's `safe_load`).
+"""A reader of the YAML subset that dataset and model files use (the training machine has
+no YAML parser; the JAX package reads them with PyYAML's `safe_load`).
 
 Read: `key: value` lines at any indentation (an indented block is the mapping of the
 key above it), block sequences (`- item`), flow sequences `[a, b]` over one or more
@@ -92,7 +92,8 @@ def _split_key(text: str):
 
 
 def load_yaml(path) -> dict:
-    """The mapping of a dataset YAML file; raises ValueError on a construct outside the subset."""
+    """The mapping of a dataset or model YAML file; raises ValueError on a construct outside
+    the subset."""
     lines = []  # (indent, text) of the lines that carry content
     raw = Path(path).read_text(encoding="utf-8", errors="ignore").splitlines()
     i = 0
