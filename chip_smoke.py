@@ -135,8 +135,31 @@ Phases, in order; any failure exits non-zero:
      `YOLO(checkpoint)` serving the same detections, `fuse()` serving the same detections,
      `info(detailed=True)`, `profile()`, and an `Ensemble` of two checkpoints over the 12
      JPEG frames (192 launches).
- 16. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
-     step's forward), the card line, and the result line.
+ 16. the rest of the detect family, none with an A2C2f block: 0 kernel launches in the whole
+     phase. yolov10n @640 (NMS-free: `postprocess_end2end`) on phase 14's ragged 480x640
+     frames with seeded, perturbed weights and both class-logit copies damped: its rows
+     against the model in float64 at a threshold where every frame keeps 50 rows or more,
+     over the rows whose float64 score is not within 1e-4 of that threshold or of the
+     300th score (boxes within what the head maps' own float32 rounding moves them);
+     `half=True` rows finite; `fuse()` (RepVGGDW folded into one 7x7) serving the rows of
+     the unfused model, its maps within 4x float32's floor of the unfused ones; img/s at
+     batch 1, 8 and 128 in float32 and bf16 in turns at bench.py's conf 0.25, peak memory
+     at 128; decode + `postprocess_end2end` ms at batch 128 (CUDA events; run once under
+     `torch.cuda.set_sync_debug_mode("error")`: no host sync) beside decode + greedy NMS
+     on the same maps. The yolov10n train step @640, batch 16, synthetic nc 3, SGD: the
+     dual-assignment loss falls over 2% in 20 steps on one batch (float32, cuDNN
+     deterministic); step time, its split and peak memory in float32 and amp;
+     `YOLO.train(epochs=1)` with its end2end validation; `YOLO(checkpoint)` served and
+     validated as `detect` with head v10Detect. yolov9t, yolov9e (CBLinear / CBFuse),
+     yolov5n, yolov3-tiny, yolov6n, yolov8n-ghost at 640 and yolov8n-p6 at 1280 (720x1280
+     frames), BN-folded with seeded, perturbed weights and damped class and box logits
+     (largest magnitudes 6 and 10: yolov9e's DFL logits reach ~500, where float32
+     rounding flips the DFL argmax by a bin): 2 frames
+     served one at a time at `_nms_stable_conf` thresholds, the same rows as float64
+     (boxes within 2 x the coarsest stride x the maps' float32 distance, over r), bf16
+     rows finite; img/s at batch 8 (P6: 1) in float32 and bf16 in turns.
+ 17. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
+     step's forward; phase 16's paths at 0), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -2060,13 +2083,14 @@ DETECT_CANDIDATES = 64    # the A/Bs' threshold leaves fewer (anchor, class) pai
 MAX_LOGIT = 6.0           # the damped class logits' largest magnitude: sigmoid 0.9975
 
 
-def _damp_class_logits(yolo, frames):
-    """Scale the head's class-logit convolutions (weight and bias) so that the largest class
-    logit on `frames` is MAX_LOGIT. Perturbed weights drive many class scores to 1.0 in
-    float32, where NMS orders the tied scores arbitrarily. Returns the gain."""
+def _damp_class_logits(yolo, frames, imgsz: int = DETECT_IMGSZ):
+    """Scale the head's class-logit convolutions (weight and bias; a v10 head's two copies)
+    so that the largest class logit served on `frames` is MAX_LOGIT. Perturbed weights drive
+    many class scores to 1.0 in float32, where NMS orders the tied scores arbitrarily.
+    Returns the gain."""
     import torch
     meta = yolo.meta
-    predictor = yolo._get_predictor({"imgsz": DETECT_IMGSZ})
+    predictor = yolo._get_predictor({"imgsz": imgsz})
     with torch.no_grad():
         maps = predictor.model(predictor.preprocess(frames)[0])
         top = max(m[:, 4 * meta["reg_max"]:4 * meta["reg_max"] + meta["nc"]].abs().max().item()
@@ -2074,7 +2098,7 @@ def _damp_class_logits(yolo, frames):
         gain = min(1.0, MAX_LOGIT / top)
         head = yolo.model.blocks[meta["head_index"]]
         for name, p in head.named_parameters():
-            if name.startswith("cv3_") and "_pred." in name:
+            if name.startswith(("cv3_", "o2o_cv3_")) and "_pred." in name:
                 p.mul_(gain)
     yolo._fused = yolo._half = yolo._predictor_cache = None
     return gain
@@ -2242,6 +2266,17 @@ def phase_detect_serve(name: str, launches: int, batches, card: str, seed: int =
             "bfloat16": {f"serve half {label}": by["bfloat16"]}}
 
 
+def _detect_trainer(model: str, batch: int, seed: int, **kw):
+    """A set-up DetectionTrainer of `model` on the synthetic set at TRAIN_IMGSZ (SGD, no
+    warm-up) and its first batch."""
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    tr = DetectionTrainer(dict(model=model, data="synthetic", imgsz=TRAIN_IMGSZ, batch=batch,
+                               seed=seed, optimizer="SGD", nbs=batch, warmup_epochs=0.0, **kw))
+    tr.setup()
+    return tr, next(iter(DataLoader(tr.train_set, batch, seed=seed)))
+
+
 def phase_detect_train(card: str, seed: int = 0) -> dict:
     """The yolov8n train step (f32 and amp, batch 16 and 128), yolov12n's train steps and a
     one-epoch `YOLO.train` of yolov8n, then its checkpoint (see the module docstring,
@@ -2249,15 +2284,10 @@ def phase_detect_train(card: str, seed: int = 0) -> dict:
     import torch
 
     from sar_yolo_tpu_torch import YOLO
-    from sar_yolo_tpu_torch.data.build import DataLoader
-    from sar_yolo_tpu_torch.engine.trainer import DetectionTrainer
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
 
     def trainer(model, batch, **kw):
-        tr = DetectionTrainer(dict(model=model, data="synthetic", imgsz=TRAIN_IMGSZ, batch=batch,
-                                   seed=seed, optimizer="SGD", nbs=batch, warmup_epochs=0.0, **kw))
-        tr.setup()
-        return tr, next(iter(DataLoader(tr.train_set, batch, seed=seed)))
+        return _detect_trainer(model, batch, seed, **kw)
 
     # the loss falls on one batch (float32, cuDNN deterministic, as phase 6)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -2468,6 +2498,292 @@ def phase_cbam(card: str, seed: int = 0) -> dict:
     return out
 
 
+# phase 16: the rest of the detect family (YOLOv10's NMS-free path; v3/v5/v6/v8-ghost/p6/v9)
+FAMILY_SERVE = (("yolov9t.yaml", 640), ("yolov9e.yaml", 640), ("yolov5n.yaml", 640),
+                ("yolov3-tiny.yaml", 640), ("yolov6n.yaml", 640), ("yolov8n-ghost.yaml", 640),
+                ("yolov8n-p6.yaml", 1280))  # (model, imgsz): served at FAMILY_BATCH (P6: 1)
+FAMILY_BATCH = 8          # frames of the family's served batches
+V10_BATCHES = (1, 8, 128)  # yolov10n's rate batches (128: bench.py's)
+E2E_MARGIN = 1e-4         # rows scored this near conf or the k-th score are left out
+MAX_BOX_LOGIT = 10.0      # the family's damped box-regression (DFL) logits' largest magnitude
+
+
+def _damp_box_logits(yolo, frames, imgsz: int) -> float:
+    """Scale the head's box-regression convolutions (weight and bias) so that the largest DFL
+    logit served on `frames` is MAX_BOX_LOGIT. Deep perturbed models (yolov9e) reach ~500
+    there, where the DFL softmax is an argmax that float32 rounding flips by a whole bin
+    (a stride of pixels). Returns the gain."""
+    import torch
+    meta = yolo.meta
+    predictor = yolo._get_predictor({"imgsz": imgsz})
+    with torch.no_grad():
+        maps = predictor.model(predictor.preprocess(frames)[0])
+        gain = min(1.0, MAX_BOX_LOGIT / max(m[:, :4 * meta["reg_max"]].abs().max().item()
+                                            for m in maps))
+        for name, p in yolo.model.blocks[meta["head_index"]].named_parameters():
+            if name.startswith("cv2_") and "_pred." in name:
+                p.mul_(gain)
+    yolo._fused = yolo._half = yolo._predictor_cache = None
+    return gain
+
+
+def _e2e_compare(got, want, scores64, conf: float, label: str, max_det: int = 300):
+    """End-to-end rows of `got` against `want` (the model in float64), both (B, max_det, 6),
+    over the rows whose float64 score is not within E2E_MARGIN of `conf` or of the frame's
+    max_det-th score (`scores64`: (B, N * nc) float64 class scores): their fate in the top-k
+    hangs on rounding. Returns `_compare_detections`' kept counts and errors, and the rows
+    left out."""
+    left_out, g_kept, w_kept = [], [], []
+    for b in range(len(got)):
+        s = np.sort(scores64[b])[::-1]
+        cuts = [conf] + ([s[max_det - 1]] if len(s) >= max_det else [])
+
+        def keep(rows):
+            far = np.ones(len(rows), bool)
+            for c in cuts:
+                far &= np.abs(rows[:, 4] - c) > E2E_MARGIN
+            return rows[far & (rows[:, 4] > 0)]
+        g, w = keep(got[b]), keep(want[b])
+        left_out.append(int((got[b][:, 4] > 0).sum()) - len(g))
+        g_kept.append(np.pad(g, ((0, max_det + 1 - len(g)), (0, 0))))
+        w_kept.append(np.pad(w, ((0, max_det + 1 - len(w)), (0, 0))))
+    kept, errs = _compare_detections(np.stack(g_kept), np.stack(w_kept), 0, label)
+    return kept, errs, left_out
+
+
+def _unfused_e2e(yolo, x, conf: float):
+    """yolov10n's end-to-end rows from its unfused model (eval forward, decode, top-k), in
+    letterboxed pixels."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.nms import postprocess_end2end
+    predictor, meta = yolo._get_predictor({"imgsz": DETECT_IMGSZ}), yolo.meta
+    with torch.no_grad():
+        preds, _ = predictor.decode(yolo.model.eval()(x))
+        return postprocess_end2end(preds, 300, conf, meta["nc"]).cpu().numpy()
+
+
+def phase_v10_serve(card: str, seed: int = 3) -> dict:
+    """yolov10n served end to end at 640 on phase 14's frames (see the module docstring,
+    phase 16); returns its numbers."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.nms import non_max_suppression, postprocess_end2end
+    name = "yolov10n.yaml"
+    yolo, frames, gain = _detect_model(name, max(V10_BATCHES), seed)
+    meta, nc = yolo.meta, yolo.meta["nc"]
+    check(meta["head"] == "v10Detect" and yolo.task == "detect", f"{name}: meta {meta['head']}")
+    ab = frames[:DETECT_AB_BATCH]
+    exact = _float64_copy(yolo)
+    predictor = yolo._get_predictor({"imgsz": DETECT_IMGSZ})
+    x, r, pad = predictor.preprocess(ab)
+    with torch.no_grad():
+        preds64, _ = exact._get_predictor({"imgsz": DETECT_IMGSZ}).decode(
+            exact._fused_for_serving()(x.double()))
+        maps, ref = yolo._fused_for_serving()(x), exact._fused_for_serving()(x.double())
+    scores64 = preds64[..., 4:4 + nc].flatten(1).cpu().numpy()
+    # the comparison's threshold: every frame keeps at least 50 rows (bench.py's 0.25 may
+    # leave none on these damped weights; the rates below use it)
+    conf = float(np.sort(scores64, 1)[:, -50].min())
+    kw, hkw = dict(imgsz=DETECT_IMGSZ, conf=conf), dict(imgsz=DETECT_IMGSZ, conf=conf, half=True)
+    got = yolo.predict_batched(ab, **kw)
+    want = exact.predict_batched(ab, **kw)
+    half = yolo.predict_batched(ab, **hkw)
+    check(got.shape == half.shape == (len(ab), 300, 6) and np.isfinite(half).all(),
+          f"{name}: rows {got.shape}, half {half.shape}")
+    kept, errs, left_out = _e2e_compare(got, want, scores64, conf, f"{name} float32 vs float64")
+    d = max((m.double() - q).abs().max().item() for m, q in zip(maps, ref))
+    for key, tol in (("box_err_px", max(F64_BOX_TOL, 2 * 32 * d)), ("score_err", max(1e-3, d))):
+        check(errs[key] <= tol, f"{name} float32 vs float64: {key} {errs[key]} (maps {d} apart)")
+    # fuse(): the folded model (RepVGGDW merged) serves the unfused model's rows
+    folded = copy.deepcopy(yolo).fuse()
+    check(folded.fused and not any(isinstance(m, torch.nn.BatchNorm2d)
+                                   for m in folded.model.modules()), f"{name}: fuse() left a BN")
+    fused_rows = folded.predict_batched(ab, **kw)
+    unfused = _unfused_e2e(yolo, x, conf)
+    unfused[..., :4] = (unfused[..., :4] - np.array([*pad, *pad], np.float32)) / r
+    kept_f, errs_f, _ = _e2e_compare(fused_rows, unfused, scores64, conf, f"{name} fuse()")
+    with torch.no_grad():  # two float32 roundings of the same maps: folded and unfolded
+        d_fu = max((m - q).abs().max().item() for m, q in zip(folded.model(x), yolo.model(x)))
+    check(d_fu <= 4 * d, f"{name}: fuse() maps {d_fu} from the unfused model's, float32's "
+          f"floor {d}")
+    for key, tol in (("box_err_px", max(F64_BOX_TOL, 2 * 32 * d_fu)),
+                     ("score_err", max(1e-3, d_fu))):
+        check(errs_f[key] <= tol, f"{name} fuse() vs unfused: {key} {errs_f[key]} (maps "
+              f"{d_fu} apart)")
+    del folded, exact
+    torch.cuda.empty_cache()
+    # rates at bench.py's conf 0.25, f32 and bf16 in turns; peak memory at 128
+    kw, hkw = dict(imgsz=DETECT_IMGSZ, conf=0.25), dict(imgsz=DETECT_IMGSZ, conf=0.25, half=True)
+    rates = {}
+    for b in V10_BATCHES:
+        r = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
+                   lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+        rates.update({f"img_per_s_b{b}_{k}": v for k, v in r.items()})
+    big = max(V10_BATCHES)
+    memory = {}
+    for label, args in (("f32", kw), ("bf16", hkw)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        yolo.predict_batched(frames[:big], **args)
+        memory[f"max_memory_allocated_gib_b{big}_{label}"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    # decode + the NMS-free top-k against decode + greedy NMS, on the same maps of 128 frames
+    with torch.no_grad():
+        feats = predictor.model(predictor.preprocess(frames[:big])[0])
+
+        def e2e():
+            return postprocess_end2end(predictor.decode(feats)[0], 300, 0.25, nc)
+
+        def nms():
+            return non_max_suppression(predictor.decode(feats)[0], conf_thres=0.25,
+                                       iou_thres=0.7, max_det=300, nc=nc)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the top-k path raises
+        try:
+            e2e()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        post = {f"decode_end2end_ms_b{big}": event_ms(e2e, iters=10),
+                f"decode_nms_ms_b{big}": event_ms(nms, iters=10),
+                f"nms_candidates_per_frame_b{big}": _candidate_summary(
+                    _candidates(predictor, feats, 0.25))}
+    print(json.dumps({"serve_v10": name, "imgsz": DETECT_IMGSZ,
+                      "frames": f"{BENCH_HW[0]}x{BENCH_HW[1]}", "ab_frames": len(ab),
+                      "conf": conf, "rates_conf": 0.25, "class_logit_gain": gain, "kept_per_frame": kept,
+                      "rows_left_out_per_frame": left_out, **errs, "maps_f32_vs_f64": d,
+                      "kept_per_frame_half": (half[..., 4] > 0).sum(1).tolist(),
+                      "fuse_kept_per_frame": kept_f, "fuse_maps_vs_unfused": d_fu,
+                      **{f"fuse_{k}": v for k, v in errs_f.items()}, **rates, **memory, **post,
+                      "card": card}))
+    return {"rates": rates, **post}
+
+
+def phase_v10_train(card: str, seed: int = 0) -> dict:
+    """The yolov10n train step, `YOLO.train` and its checkpoint (see the module docstring,
+    phase 16)."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    name = "yolov10n.yaml"
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    tr, batch = _detect_trainer(name, TRAIN_BATCH, seed, amp=False)
+    check(tr.meta["head"] == "v10Detect" and tr.loss_names == ("box", "cls", "dfl"),
+          f"{name} trainer: head {tr.meta['head']}, losses {tr.loss_names}")
+    totals = [tr.train_step(batch)[0].item() for _ in range(20)]
+    print(json.dumps({"v10_train_fixed_batch_total_loss": totals, "model": name}))
+    check(all(np.isfinite(totals)) and np.mean(totals[-3:]) < 0.98 * np.mean(totals[:3]),
+          f"{name}: the total loss did not fall over 20 steps on one batch: {totals}")
+    torch.backends.cudnn.deterministic = False
+    timing = {f"f32_b{TRAIN_BATCH}": _timed_steps(tr, batch)}
+    del tr
+    torch.cuda.empty_cache()
+    tr, _ = _detect_trainer(name, TRAIN_BATCH, seed)
+    check(tr.model.compute_dtype == torch.bfloat16, f"{name} amp: not bf16 (check_bf16 failed?)")
+    timing[f"amp_b{TRAIN_BATCH}"] = _timed_steps(tr, batch)
+    del tr
+    torch.cuda.empty_cache()
+    yolo = YOLO(name)
+    t0 = time.perf_counter()
+    metrics = yolo.train(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1,
+                         seed=seed, project="runs", name="chip_smoke_v10", exist_ok=True)
+    train_s = time.perf_counter() - t0
+    check(all(np.isfinite(list(metrics.values()))) and "metrics/mAP50(B)" in metrics
+          and "train/dfl" in metrics, f"YOLO.train {name}: metrics {metrics}")
+    ckpt = YOLO(yolo.ckpt_dir)
+    check(ckpt.task == "detect" and ckpt.meta["head"] == "v10Detect" and ckpt.meta["nc"] == 3
+          and ckpt.names == yolo.names,
+          f"YOLO(checkpoint): task {ckpt.task}, head {ckpt.meta['head']}, nc {ckpt.meta['nc']}")
+    frames = np.random.default_rng(seed).integers(0, 256, (2, *BENCH_HW, 3), np.uint8)
+    dets, dets_ckpt = (m.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-3)
+                       for m in (yolo, ckpt))
+    check(dets.shape == (2, 300, 6) and np.isfinite(dets).all(), f"served rows {dets.shape}")
+    val = ckpt.val(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, project="runs",
+                   name="chip_smoke_v10_val", exist_ok=True)
+    check(all(np.isfinite(list(val.values()))), f"YOLO(checkpoint).val: {val}")
+    print(json.dumps({"v10_train_step": f"{name} @{TRAIN_IMGSZ}, SGD, synthetic data",
+                      **timing, "yolo_train": metrics, "seconds": train_s,
+                      "steps": yolo.trainer.step, "checkpoint_task": ckpt.task,
+                      "checkpoint_val": val,
+                      "served_rows_kept": (dets[..., 4] > 0).sum(1).tolist(),
+                      "checkpoint_rows_equal": bool(np.array_equal(dets, dets_ckpt)),
+                      "card": card}))
+    return timing
+
+
+def phase_family_serve(name: str, imgsz: int, card: str, seed: int = 3) -> dict:
+    """`name` served BN-folded at `imgsz` (see the module docstring, phase 16): its rows
+    against float64 frame by frame at `_nms_stable_conf` thresholds, img/s in f32 and bf16."""
+    import torch
+    batch = 1 if imgsz > DETECT_IMGSZ else FAMILY_BATCH
+    hw = (720, 1280) if imgsz > DETECT_IMGSZ else BENCH_HW
+    yolo = _perturbed_yolo(name, seed, imgsz)
+    frames = np.random.default_rng(seed).integers(0, 256, (max(batch, 2), *hw, 3), np.uint8)
+    meta = yolo.meta
+    gain = _damp_class_logits(yolo, frames[:2], imgsz)
+    box_gain = _damp_box_logits(yolo, frames[:2], imgsz)
+    exact = _float64_copy(yolo)
+    predictor = yolo._get_predictor({"imgsz": imgsz})
+    confs, got, want = [], [], []
+    for i in range(2):
+        with torch.no_grad():
+            rows, _ = exact._get_predictor({"imgsz": imgsz}).decode(
+                exact._fused_for_serving()(predictor.preprocess(frames[i:i + 1])[0].double()))
+        confs.append(_nms_stable_conf(rows.cpu().numpy(), meta["nc"], 0.7, DETECT_CANDIDATES)[0])
+        got.append(yolo.predict_batched(frames[i:i + 1], imgsz=imgsz, conf=confs[-1]))
+        want.append(exact.predict_batched(frames[i:i + 1], imgsz=imgsz, conf=confs[-1]))
+    got, want = np.concatenate(got), np.concatenate(want)
+    kept, errs = _compare_detections(got, want, 0, f"{name} float32 vs float64")
+    x, r, _ = predictor.preprocess(frames[:2])
+    with torch.no_grad():
+        d = max((m.double() - q).abs().max().item() for m, q in
+                zip(yolo._fused_for_serving()(x), exact._fused_for_serving()(x.double())))
+    # a box side is a DFL expectation times the stride (64 at P6), in frame pixels over r
+    box_tol = max(F64_BOX_TOL, 2 * max(meta["strides"]) * d) / r
+    for key, tol in (("box_err_px", box_tol), ("score_err", max(1e-3, d))):
+        check(errs[key] <= tol, f"{name} float32 vs float64: {key} {errs[key]} (maps {d} apart)")
+    del exact
+    kw, hkw = dict(imgsz=imgsz, conf=0.25), dict(imgsz=imgsz, conf=0.25, half=True)
+    half = yolo.predict_batched(frames[:batch], **hkw)
+    check(half.shape == (batch, 300, 6) and np.isfinite(half).all(), f"{name} half: {half.shape}")
+    r = _rates(lambda: _img_per_s(yolo, frames[:batch], kw, n=5),
+               lambda: _img_per_s(yolo, frames[:batch], hkw, n=5))
+    out = {"serve_family": name, "imgsz": imgsz, "batch": batch, "frames": f"{hw[0]}x{hw[1]}",
+           "params": sum(p.numel() for p in yolo.model.parameters()), "confs": confs,
+           "class_logit_gain": gain, "box_logit_gain": box_gain, "kept_per_frame": kept,
+           **errs, "maps_f32_vs_f64": d,
+           **{f"img_per_s_b{batch}_{k}": v for k, v in r.items()}, "card": card}
+    print(json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_detect_family(card: str) -> dict:
+    """Phase 16: yolov10n's NMS-free path served, fused, trained and validated, and the v3,
+    v5, v6, v8-ghost, v8-p6 and v9 configs served; none runs the attention kernel. Returns
+    the launches by path."""
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    t0 = time.perf_counter()
+    reset_launches()
+    phase_v10_serve(card)
+    t_serve = time.perf_counter()
+    phase_v10_train(card)
+    t_train = time.perf_counter()
+    for name, imgsz in FAMILY_SERVE:
+        phase_family_serve(name, imgsz, card)
+    by = dict(flash_area_attention.launches_by_dtype)
+    check(by == {"float32": 0, "bfloat16": 0}, f"phase 16: attention kernel launches {by}")
+    print(json.dumps({"phase_detect_family_s": {"v10_serve": t_serve - t0,
+                                                "v10_train": t_train - t_serve,
+                                                "family_serve": time.perf_counter() - t_train},
+                      "kernel_launches_by_dtype": by}))
+    paths = {f"serve yolov10n@{DETECT_IMGSZ} end2end, f32 and bf16": 0,
+             f"yolov10n train step @{TRAIN_IMGSZ} b{TRAIN_BATCH}, f32 and amp": 0,
+             "YOLO.train yolov10n, 1 epoch + end2end validation": 0,
+             **{f"serve {n.removesuffix('.yaml')}@{s}, f32 and bf16": 0 for n, s in FAMILY_SERVE}}
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2522,6 +2838,8 @@ def main() -> int:
     lap("detect")
     cbam_launches = phase_cbam(card)
     lap("cbam")
+    family_launches = phase_detect_family(card)
+    lap("detect_family")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -2575,7 +2893,8 @@ def main() -> int:
                              "epochs (8 steps + 2 validations)": disk_train_launches,
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
-                             **detect_launches["float32"], **cbam_launches["float32"]}}]}))
+                             **detect_launches["float32"], **cbam_launches["float32"],
+                             **family_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

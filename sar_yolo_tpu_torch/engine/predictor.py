@@ -1,6 +1,6 @@
 """Serving on the device (port of `sar_yolo_tpu/engine/predictor.py`): uint8 frames ->
-letterbox -> forward -> decode -> NMS -> boxes in the frame's pixels, ending in one copy
-to the host.
+letterbox -> forward -> decode -> NMS (for a v10 head the NMS-free top-k,
+`postprocess_end2end`) -> boxes in the frame's pixels, ending in one copy to the host.
 
 Under `half` the letterboxed frame enters the model in bf16 and the head maps come out
 in bf16; decode and NMS then run in the dtypes the JAX predictor gives them (boxes in
@@ -23,7 +23,7 @@ from sar_yolo_tpu_torch.cfg.default import get_save_dir
 from sar_yolo_tpu_torch.data.loaders import load_inference_source
 from sar_yolo_tpu_torch.engine.results import Results
 from sar_yolo_tpu_torch.ops.decode import decode_detect
-from sar_yolo_tpu_torch.ops.nms import non_max_suppression
+from sar_yolo_tpu_torch.ops.nms import non_max_suppression, postprocess_end2end
 from sar_yolo_tpu_torch.ops.preprocess import letterbox_device
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 
@@ -58,10 +58,14 @@ class BasePredictor(HasCallbacks):
         return preds if emb_dim else (preds, None)
 
     def decode_nms(self, feats):
-        """Head maps -> decode -> NMS: (B, max_det, 6 + E) detections in letterboxed pixels."""
+        """Head maps -> decode -> NMS (a v10 head: the NMS-free top-k): (B, max_det, 6 + E)
+        detections in letterboxed pixels."""
         args = self.args
         preds, bank = self.decode(feats)
         conf = args.conf if args.conf is not None else 0.25
+        if self.meta.get("head") == "v10Detect":
+            return postprocess_end2end(preds, max_det=args.max_det, conf_thres=conf,
+                                       nc=self.meta["nc"])
         return non_max_suppression(preds, conf_thres=conf, iou_thres=args.iou,
                                    max_det=args.max_det, nc=self.meta["nc"],
                                    agnostic=args.agnostic_nms, extras_bank=bank)

@@ -585,7 +585,8 @@ class BaseTrainer(HasCallbacks):
 
 
 class DetectionTrainer(BaseTrainer):
-    """Trains a detect model: the v8 loss (box, cls, dfl), the detect validator.
+    """Trains a detect model: the v8 loss (box, cls, dfl; v10: its dual assignment), the
+    detect validator.
 
     Examples:
         >>> tr = DetectionTrainer({"model": "yolov8n.yaml", "data": "coco8.yaml", "imgsz": 64,
@@ -598,9 +599,16 @@ class DetectionTrainer(BaseTrainer):
     validator_cls = DetectionValidator
 
     def loss(self, feats, batch: dict):
+        """The v8 loss; a v10 head's train maps take the dual-assignment sum of the JAX
+        package: the one2many maps' loss at TAL top-k 10 plus the one2one maps' at top-k 1
+        (totals and items added)."""
         meta = self.meta
-        out = detection_loss(feats, batch, self.args, nc=meta["nc"], reg_max=meta["reg_max"],
-                             strides=tuple(meta["strides"]))
+        kw = dict(nc=meta["nc"], reg_max=meta["reg_max"], strides=tuple(meta["strides"]))
+        if meta.get("head") == "v10Detect":
+            m = detection_loss(feats["one2many"], batch, self.args, tal_topk=10, **kw)
+            o = detection_loss(feats["one2one"], batch, self.args, tal_topk=1, **kw)
+            return m.total + o.total, m.items + o.items, self.cb_counts
+        out = detection_loss(feats, batch, self.args, **kw)
         return out.total, out.items, self.cb_counts
 
 

@@ -4,7 +4,8 @@ host (port of `BaseValidator`, `DetectionValidator` and `JDEValidator` of
 
 Per batch, the uint8 NHWC RGB images go to the device as NCHW / 255; the eval
 forward, the decode and NMS (multi-label for nc > 1, the JDE embeddings gathered
-after NMS) run there, and one (B, max_det, 6 + E + S) tensor comes back.
+after NMS; for a v10 head the NMS-free top-k) run there, and one
+(B, max_det, 6 + E + S) tensor comes back.
 
 With `rect`, the dataset's images are batched by aspect ratio (`init_rect`). With
 `save_json`, boxes go back to native image pixels through each image's `ratio_pad`,
@@ -12,8 +13,8 @@ image ids are the file stems, and an 80-class model validated on a COCO dataset
 writes the COCO 91-index category ids.
 
 Not ported yet, each refused where asked for: mesh sharding, test-time
-augmentation and plots (`cfg/default.py` NOT_PORTED), the NMS-free v10 head, and
-the pose, segment, classify, OBB and RT-DETR validators.
+augmentation and plots (`cfg/default.py` NOT_PORTED), and the pose, segment,
+classify, OBB and RT-DETR validators.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from sar_yolo_tpu_torch.data.build import DataLoader
 from sar_yolo_tpu_torch.ops.decode import decode_detect
-from sar_yolo_tpu_torch.ops.nms import non_max_suppression
+from sar_yolo_tpu_torch.ops.nms import non_max_suppression, postprocess_end2end
 from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.metrics import (DetMetrics, box_iou_np, davies_bouldin,
                                               match_predictions, silhouette_cosine)
@@ -55,8 +56,6 @@ class BaseValidator:
     def __call__(self, model, meta: dict, dataset, args, data: dict | None = None) -> dict:
         """Validate `model` (in eval mode, on its device) on `dataset`; args holds batch,
         workers, conf, iou, max_det, save_json, save_txt, save_conf, verbose, save_dir."""
-        if meta.get("head") == "v10Detect":
-            raise NotImplementedError("the NMS-free v10 head is not part of this port yet")
         self.args, self.meta, self.data = args, meta, data or {}
         self.conf = args.conf if args.conf is not None else 0.001
         device = next(model.parameters()).device
@@ -111,7 +110,8 @@ class BaseValidator:
 
     def postprocess(self, feats) -> torch.Tensor:
         """Decode and NMS of the head maps; multi-label for nc > 1, as the
-        Ultralytics validator does, and the JDE embeddings gathered after NMS."""
+        Ultralytics validator does, and the JDE embeddings gathered after NMS; a v10
+        head's maps take the NMS-free top-k instead."""
         meta, args = self.meta, self.args
         nc, emb_dim = meta["nc"], meta.get("embed_dim") or 0
         preds = decode_detect(feats, meta["strides"], nc, meta["reg_max"],
@@ -120,6 +120,8 @@ class BaseValidator:
         bank = None
         if emb_dim:
             preds, bank = preds
+        if meta.get("head") == "v10Detect":
+            return postprocess_end2end(preds, max_det=args.max_det, conf_thres=self.conf, nc=nc)
         return non_max_suppression(preds, conf_thres=self.conf, iou_thres=args.iou,
                                    max_det=args.max_det, nc=nc, extras_bank=bank,
                                    multi_label=nc > 1)

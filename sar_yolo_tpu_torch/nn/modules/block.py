@@ -1,5 +1,6 @@
-"""YOLO blocks of the yolov8, yolo11, yolov12 and yolov13 graphs and the fork's CBAM
-variants, in NCHW (port of `sar_yolo_tpu/nn/modules/block.py`).
+"""YOLO blocks of the yolov3-v13 detect graphs (v10's CIB and PSA, v9's GELAN and CBLinear /
+CBFuse, v5's C3, v8's ghost and C2 blocks), the fork's CBAM variants and the PPHGNetV2 and
+ResNet backbone blocks, in NCHW (port of `sar_yolo_tpu/nn/modules/block.py`).
 
 Submodule names are the Flax scope names (`cv1`, `m0_0`, `attn`, `qk`, ...).
 Tokens of a (B, C, H, W) map are taken as `x.flatten(2).transpose(1, 2)`,
@@ -19,7 +20,7 @@ from torch.nn import functional as F
 
 from sar_yolo_tpu_torch.ops.cuda.flash_attention import area_attention_plain, flash_area_attention
 
-from .conv import CBAM, Conv, Dropout, DSConv, Linear
+from .conv import CBAM, Conv, Conv2d, Dropout, DSConv, DWConv, GhostConv, LightConv, Linear, RepConv
 
 
 def _tokens(x):
@@ -48,18 +49,17 @@ class Bottleneck(nn.Module):
         return x + y if self.add else y
 
 
-class C2f(nn.Module):
-    """CSP bottleneck with a 2-way split and a (2+n)-way concat."""
+class _CSP2f(nn.Module):
+    """The C2f pattern: cv1 to 2c channels split in two halves, the inner blocks `m{i}`
+    chained on the second, all 2 + n maps concatenated into cv2."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
-                 e: float = 0.5):
+    def __init__(self, c1: int, c2: int, c: int, inner: list):
         super().__init__()
-        self.c = c = int(c2 * e)
-        self.n = n
+        self.c, self.n = c, len(inner)
         self.cv1 = Conv(c1, 2 * c, 1, 1)
-        for i in range(n):
-            self.add_module(f"m{i}", Bottleneck(c, c, shortcut, g, (3, 3), 1.0))
-        self.cv2 = Conv((2 + n) * c, c2, 1)
+        for i, m in enumerate(inner):
+            self.add_module(f"m{i}", m)
+        self.cv2 = Conv((2 + self.n) * c, c2, 1)
 
     def forward(self, x):
         ys = list(self.cv1(x).split(self.c, 1))
@@ -68,26 +68,26 @@ class C2f(nn.Module):
         return self.cv2(torch.cat(ys, 1))
 
 
-class C3k2(nn.Module):
+class C2f(_CSP2f):
+    """CSP bottleneck with a 2-way split and a (2+n)-way concat."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5):
+        c = int(c2 * e)
+        super().__init__(c1, c2, c, [Bottleneck(c, c, shortcut, g, (3, 3), 1.0)
+                                     for _ in range(n)])
+
+
+class C3k2(_CSP2f):
     """C2f whose inner blocks are C3k stacks (c3k=True) or plain Bottlenecks. The plain
     Bottleneck keeps its own e=0.5, unlike C2f's e=1.0."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
                  g: int = 1, shortcut: bool = True):
-        super().__init__()
-        self.c = c = int(c2 * e)
-        self.n = n
-        self.cv1 = Conv(c1, 2 * c, 1, 1)
-        for i in range(n):
-            self.add_module(f"m{i}", C3k(c, c, 2, shortcut, g) if c3k
-                            else Bottleneck(c, c, shortcut, g, (3, 3), 0.5))
-        self.cv2 = Conv((2 + n) * c, c2, 1)
-
-    def forward(self, x):
-        ys = list(self.cv1(x).split(self.c, 1))
-        for i in range(self.n):
-            ys.append(getattr(self, f"m{i}")(ys[-1]))
-        return self.cv2(torch.cat(ys, 1))
+        c = int(c2 * e)
+        super().__init__(c1, c2, c, [C3k(c, c, 2, shortcut, g) if c3k
+                                     else Bottleneck(c, c, shortcut, g, (3, 3), 0.5)
+                                     for _ in range(n)])
 
 
 class C3k2_CBAM(C3k2):
@@ -163,17 +163,16 @@ class ABlock(nn.Module):
         return x + self.mlp2(self.mlp1(x))
 
 
-class C3k(nn.Module):
-    """C3 with k x k bottlenecks (the A2C2f a2=False branch)."""
+class _CSP3(nn.Module):
+    """The C3 pattern: cv1 to c_ channels -> the inner blocks `m{i}`, beside cv2, concatenated
+    into cv3."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
-                 e: float = 0.5, k: int = 3):
+    def __init__(self, c1: int, c2: int, c_: int, inner: list):
         super().__init__()
-        c_ = int(c2 * e)
-        self.n = n
+        self.n = len(inner)
         self.cv1 = Conv(c1, c_, 1, 1)
-        for i in range(n):
-            self.add_module(f"m{i}", Bottleneck(c_, c_, shortcut, g, (k, k), 1.0))
+        for i, m in enumerate(inner):
+            self.add_module(f"m{i}", m)
         self.cv2 = Conv(c1, c_, 1, 1)
         self.cv3 = Conv(2 * c_, c2, 1)
 
@@ -182,6 +181,16 @@ class C3k(nn.Module):
         for i in range(self.n):
             a = getattr(self, f"m{i}")(a)
         return self.cv3(torch.cat([a, self.cv2(x)], 1))
+
+
+class C3k(_CSP3):
+    """C3 with k x k bottlenecks (the A2C2f a2=False branch)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, k: int = 3):
+        c_ = int(c2 * e)
+        super().__init__(c1, c2, c_, [Bottleneck(c_, c_, shortcut, g, (k, k), 1.0)
+                                      for _ in range(n)])
 
 
 class A2C2f(nn.Module):
@@ -300,47 +309,25 @@ class DSBottleneck(nn.Module):
         return x + y if self.add else y
 
 
-class DSC3k(nn.Module):
+class DSC3k(_CSP3):
     """C3 with DSBottleneck inner blocks."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
                  e: float = 0.5, k1: int = 3, k2: int = 5, d2: int = 1):
-        super().__init__()
         c_ = int(c2 * e)
-        self.n = n
-        self.cv1 = Conv(c1, c_, 1, 1)
-        for i in range(n):
-            self.add_module(f"m{i}", DSBottleneck(c_, c_, shortcut, 1.0, k1, k2, d2))
-        self.cv2 = Conv(c1, c_, 1, 1)
-        self.cv3 = Conv(2 * c_, c2, 1)
-
-    def forward(self, x):
-        a = self.cv1(x)
-        for i in range(self.n):
-            a = getattr(self, f"m{i}")(a)
-        return self.cv3(torch.cat([a, self.cv2(x)], 1))
+        super().__init__(c1, c2, c_, [DSBottleneck(c_, c_, shortcut, 1.0, k1, k2, d2)
+                                      for _ in range(n)])
 
 
-class DSC3k2(nn.Module):
+class DSC3k2(_CSP2f):
     """C2f whose inner blocks are DSC3k stacks (dsc3k=True) or DSBottlenecks."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, dsc3k: bool = False, e: float = 0.5,
                  g: int = 1, shortcut: bool = True, k1: int = 3, k2: int = 7, d2: int = 1):
-        super().__init__()
-        self.c = c = int(c2 * e)
-        self.n = n
-        self.cv1 = Conv(c1, 2 * c, 1, 1)
-        for i in range(n):
-            inner = (DSC3k(c, c, 2, shortcut, g, 1.0, k1, k2, d2) if dsc3k
-                     else DSBottleneck(c, c, shortcut, 1.0, k1, k2, d2))
-            self.add_module(f"m{i}", inner)
-        self.cv2 = Conv((2 + n) * c, c2, 1)
-
-    def forward(self, x):
-        ys = list(self.cv1(x).split(self.c, 1))
-        for i in range(self.n):
-            ys.append(getattr(self, f"m{i}")(ys[-1]))
-        return self.cv2(torch.cat(ys, 1))
+        c = int(c2 * e)
+        super().__init__(c1, c2, c, [DSC3k(c, c, 2, shortcut, g, 1.0, k1, k2, d2) if dsc3k
+                                     else DSBottleneck(c, c, shortcut, 1.0, k1, k2, d2)
+                                     for _ in range(n)])
 
 
 class DSC3k2_CBAM(DSC3k2):
@@ -519,3 +506,419 @@ class FullPAD_Tunnel(nn.Module):
 
     def forward(self, xs):
         return xs[0] + self.gate.to(xs[0].dtype) * xs[1]
+
+
+def _pool(x, k: int, s: int = 1):
+    """k x k max-pool with 'same' padding k // 2 (padding with -inf)."""
+    return F.max_pool2d(x, k, s, k // 2)
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs: n Bottlenecks in sequence on one half of the split."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        for i in range(n):
+            self.add_module(f"m{i}", Bottleneck(c, c, shortcut, g, (3, 3), 1.0))
+        self.cv2 = Conv(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split(self.c, 1)
+        for i in range(self.n):
+            a = getattr(self, f"m{i}")(a)
+        return self.cv2(torch.cat([a, b], 1))
+
+
+class C3(_CSP3):
+    """CSP bottleneck with 3 convs; the Bottlenecks' kernels are (k[0][0], k[1][0])."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, k: tuple = ((1, 1), (3, 3))):
+        c_ = int(c2 * e)
+        super().__init__(c1, c2, c_, [Bottleneck(c_, c_, shortcut, g, (k[0][0], k[1][0]), 1.0)
+                                      for _ in range(n)])
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck: GhostConv -> (depthwise stride-2 Conv) -> linear GhostConv, plus the
+    input, or on stride 2 a depthwise + pointwise shortcut of it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv_0 = GhostConv(c1, c_, 1, 1)
+        self.conv_1 = DWConv(c_, c_, k, s, act=False) if s == 2 else None
+        self.conv_2 = GhostConv(c_, c2, 1, 1, act=False)
+        if s == 2:
+            self.shortcut_0 = DWConv(c1, c1, k, s, act=False)
+            self.shortcut_1 = Conv(c1, c2, 1, 1, act=False)
+        self.s = s
+
+    def forward(self, x):
+        y = self.conv_0(x)
+        if self.conv_1 is not None:
+            y = self.conv_1(y)
+        y = self.conv_2(y)
+        return y + (self.shortcut_1(self.shortcut_0(x)) if self.s == 2 else x)
+
+
+class C3Ghost(_CSP3):
+    """C3 with GhostBottleneck inner blocks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        c_ = int(c2 * e)
+        super().__init__(c1, c2, c_, [GhostBottleneck(c_, c_) for _ in range(n)])
+
+
+class RepBottleneck(nn.Module):
+    """Bottleneck whose first conv is a RepConv."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k: tuple = (3, 3),
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = RepConv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class RepCSP(_CSP3):
+    """C3 with RepBottleneck inner blocks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        c_ = int(c2 * e)
+        super().__init__(c1, c2, c_, [RepBottleneck(c_, c_, shortcut, g, (3, 3), 1.0)
+                                      for _ in range(n)])
+
+
+class RepNCSPELAN4(nn.Module):
+    """CSP-ELAN: a 1x1 split, two RepCSP + 3x3 Conv stages on the second half, and a 1x1
+    fuse of the 4-way concat."""
+
+    def __init__(self, c1: int, c2: int, c3: int = 64, c4: int = 32, n: int = 1):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2_0 = RepCSP(c3 - self.c, c4, n)
+        self.cv2_1 = Conv(c4, c4, 3, 1)
+        self.cv3_0 = RepCSP(c4, c4, n)
+        self.cv3_1 = Conv(c4, c4, 3, 1)
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, :self.c], y[:, self.c:]]
+        ys.append(self.cv2_1(self.cv2_0(ys[-1])))
+        ys.append(self.cv3_1(self.cv3_0(ys[-1])))
+        return self.cv4(torch.cat(ys, 1))
+
+
+class ELAN1(nn.Module):
+    """Light ELAN: RepNCSPELAN4 with plain 3x3 Convs in place of the RepCSP stages."""
+
+    def __init__(self, c1: int, c2: int, c3: int = 32, c4: int = 16):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = Conv(c3 - self.c, c4, 3, 1)
+        self.cv3 = Conv(c4, c4, 3, 1)
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, :self.c], y[:, self.c:]]
+        ys.append(self.cv2(ys[-1]))
+        ys.append(self.cv3(ys[-1]))
+        return self.cv4(torch.cat(ys, 1))
+
+
+class AConv(nn.Module):
+    """2x2 stride-1 average pool (no padding), then a 3x3 stride-2 Conv."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3, 2, 1)
+
+    def forward(self, x):
+        return self.cv1(F.avg_pool2d(x, 2, 1, 0))
+
+
+class ADown(nn.Module):
+    """2x2 stride-1 average pool, then a 3x3 stride-2 Conv on the first channel half and a
+    3x3 stride-2 max-pool + 1x1 Conv on the second, concatenated."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.half = c1 // 2
+        self.cv1 = Conv(self.half, c2 // 2, 3, 2, 1)
+        self.cv2 = Conv(c1 - self.half, c2 // 2, 1, 1, 0)
+
+    def forward(self, x):
+        x = F.avg_pool2d(x, 2, 1, 0)
+        x1, x2 = x[:, :self.half], x[:, self.half:]
+        return torch.cat([self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))], 1)
+
+
+class SPPELAN(nn.Module):
+    """SPP-ELAN: a 1x1 Conv, three cumulative k x k max-pools, a 1x1 fuse."""
+
+    def __init__(self, c1: int, c2: int, c3: int = 64, k: int = 5):
+        super().__init__()
+        self.k = k
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv5 = Conv(4 * c3, c2, 1, 1)
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(_pool(ys[-1], self.k))
+        return self.cv5(torch.cat(ys, 1))
+
+
+class CBLinear(nn.Module):
+    """One biased conv whose output channels split into a tuple of chunks of sizes c2s."""
+
+    def __init__(self, c1: int, c2s, k: int = 1, s: int = 1, g: int = 1):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = Conv2d(c1, sum(self.c2s), k, s, k // 2, groups=g, bias=True)
+
+    def forward(self, x):
+        return tuple(self.conv(x).split(self.c2s, 1))
+
+
+def resize_nearest(x, h: int, w: int):
+    """Nearest resize of an NCHW map with `jax.image.resize(..., "nearest")`'s sampling: output
+    index i reads floor((i + 0.5) * n_in / n_out), computed in float32 (half-pixel centres,
+    which `F.interpolate(mode="nearest")` does not use)."""
+    for dim, n in ((2, h), (3, w)):
+        m = x.shape[dim]
+        if m != n:
+            src = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n)
+            x = x.index_select(dim, src.floor().long())
+    return x
+
+
+class CBFuse(nn.Module):
+    """The sum of the last input and chunk idx[i] of each CBLinear output before it, each
+    resized (`resize_nearest`) to the last input's grid."""
+
+    def __init__(self, idx):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    def forward(self, xs):
+        target = xs[-1]
+        h, w = target.shape[2:]
+        acc = target
+        for i, x in enumerate(xs[:-1]):
+            acc = acc + resize_nearest(x[self.idx[i]], h, w)
+        return acc
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: a 1x1 Conv, parallel k x k max-pools, a 1x1 fuse."""
+
+    def __init__(self, c1: int, c2: int, k: tuple = (5, 9, 13)):
+        super().__init__()
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c1 // 2, 1, 1)
+        self.cv2 = Conv(c1 // 2 * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [_pool(y, k) for k in self.k], 1))
+
+
+class SCDown(nn.Module):
+    """Separable downsample: a 1x1 Conv, then a depthwise k x k stride-s Conv (no
+    activation)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """Depthwise 7x7 and 3x3 Convs (no activation) in parallel, summed, then SiLU. `nn/fuse.py`
+    folds both into one biased depthwise 7x7 `conv` (a Conv2d) and drops conv1."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = Conv(ed, ed, 7, 1, 3, g=ed, act=False)
+        self.conv1 = Conv(ed, ed, 3, 1, 1, g=ed, act=False)
+
+    def forward(self, x):
+        if self.conv1 is None:
+            return F.silu(self.conv(x))
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Compact inverted block: depthwise 3x3, pointwise expand, a large-kernel RepVGGDW (lk)
+    or a depthwise 3x3, pointwise, depthwise 3x3; residual when channels match."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5,
+                 lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1_0 = Conv(c1, c1, 3, g=c1)
+        self.cv1_1 = Conv(c1, 2 * c_, 1)
+        self.cv1_2 = RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_)
+        self.cv1_3 = Conv(2 * c_, c2, 1)
+        self.cv1_4 = Conv(c2, c2, 3, g=c2)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1_4(self.cv1_3(self.cv1_2(self.cv1_1(self.cv1_0(x)))))
+        return x + y if self.add else y
+
+
+class C2fCIB(_CSP2f):
+    """C2f with CIB inner blocks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False,
+                 g: int = 1, e: float = 0.5):
+        c = int(c2 * e)
+        super().__init__(c1, c2, c, [CIB(c, c, shortcut, 1.0, lk) for _ in range(n)])
+
+
+class PSA(nn.Module):
+    """Position-sensitive attention: one PSABlock (heads = c // 64) on one half of a CSP
+    split."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        self.m = PSABlock(c, 0.5, max(c // 64, 1))
+        self.cv2 = Conv(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split(self.c, 1)
+        return self.cv2(torch.cat([a, self.m(b)], 1))
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2 stem (ReLU Convs): 3x3/2, then a 2x2 conv pair beside a 2x2 stride-1 max-pool
+    of the bottom/right-padded map, concatenated, 3x3/2 and 1x1."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = Conv(c1, cm, 3, 2, act=nn.ReLU())
+        self.stem2a = Conv(cm, cm // 2, 2, 1, p=0, act=nn.ReLU())
+        self.stem2b = Conv(cm // 2, cm, 2, 1, p=0, act=nn.ReLU())
+        self.stem3 = Conv(2 * cm, cm, 3, 2, act=nn.ReLU())
+        self.stem4 = Conv(cm, c2, 1, 1, act=nn.ReLU())
+
+    def forward(self, x):
+        xp = F.pad(self.stem1(x), (0, 1, 0, 1))
+        x2 = self.stem2b(F.pad(self.stem2a(xp), (0, 1, 0, 1)))
+        x1 = F.max_pool2d(xp, 2, 1)
+        return self.stem4(self.stem3(torch.cat([x1, x2], 1)))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2 block: n (Light)Convs in a chain, their dense concat with the input
+    squeezed to c2 / 2 and excited to c2 (ReLU throughout)."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6,
+                 lightconv: bool = False, shortcut: bool = False):
+        super().__init__()
+        self.n = n
+        for i in range(n):
+            ci = c1 if i == 0 else cm
+            self.add_module(f"m{i}", LightConv(ci, cm, k) if lightconv
+                            else Conv(ci, cm, k, act=nn.ReLU()))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, 1, act=nn.ReLU())
+        self.ec = Conv(c2 // 2, c2, 1, 1, act=nn.ReLU())
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        ys = [x]
+        for i in range(self.n):
+            ys.append(getattr(self, f"m{i}")(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, 1)))
+        return y + x if self.add else y
+
+
+class RepC3(nn.Module):
+    """CSP block with a RepConv chain: cv1 -> n RepConvs, plus cv2, then cv3 when c_ != c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, c_, 1, 1)
+        for i in range(n):
+            self.add_module(f"m{i}", RepConv(c_, c_))
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(c_, c2, 1) if c_ != c2 else None
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m{i}")(a)
+        y = a + self.cv2(x)
+        return self.cv3(y) if self.cv3 is not None else y
+
+
+class ResNetBlock(nn.Module):
+    """ResNet block: 1x1, 3x3/s, 1x1 to e * c2 (no activation on the last), or for e = 1 the
+    two-3x3 basic block; ReLU of its sum with the input or a 1x1/s projection of it."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        if e == 1:
+            self.cv1 = Conv(c1, c2, 3, s, p=1)
+            self.cv2 = Conv(c2, c3, 3, 1, p=1, act=False)
+            self.cv3 = None
+        else:
+            self.cv1 = Conv(c1, c2, 1, 1)
+            self.cv2 = Conv(c2, c2, 3, s, p=1)
+            self.cv3 = Conv(c2, c3, 1, act=False)
+        self.shortcut_0 = Conv(c1, c3, 1, s, act=False) if s != 1 or c1 != c3 else None
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        if self.cv3 is not None:
+            y = self.cv3(y)
+        return F.relu(y + (self.shortcut_0(x) if self.shortcut_0 is not None else x))
+
+
+class ResNetLayer(nn.Module):
+    """ResNet stage: a 7x7/2 Conv and a 3x3/2 max-pool when is_first, else n ResNetBlocks (the
+    first with stride s). c1 is the input's channels (the YAML's own c1 is not read)."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1,
+                 e: int = 4):
+        super().__init__()
+        self.is_first, self.n = is_first, n
+        if is_first:
+            self.layer_0 = Conv(c1, c2, 7, 2, p=3)
+        else:
+            for j in range(n):
+                self.add_module(f"layer_{j}", ResNetBlock(c1 if j == 0 else e * c2, c2,
+                                                          s if j == 0 else 1, e))
+
+    def forward(self, x):
+        if self.is_first:
+            return F.max_pool2d(self.layer_0(x), 3, 2, 1)
+        for j in range(self.n):
+            x = getattr(self, f"layer_{j}")(x)
+        return x

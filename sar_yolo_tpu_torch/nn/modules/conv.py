@@ -6,7 +6,7 @@ BatchNorm uses the JAX package's epsilon 1e-3 and momentum 0.97 (torch's
 `momentum=0.03`), not torch's defaults, and Flax's train-mode statistics.
 
 Precision follows Flax's `dtype=..., param_dtype=float32`: parameters stay
-float32, and `Conv2d` and `Linear` cast their input and parameters to their
+float32, and `Conv2d`, `ConvTranspose` and `Linear` cast their input and parameters to their
 `compute_dtype` (set by `set_compute_dtype`; None: the parameters' dtype) and
 output in it. BatchNorm takes its statistics and normalizes in float32, then
 returns the input's dtype.
@@ -70,6 +70,18 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d computing in `compute_dtype` (None: the weight's dtype)."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in `compute_dtype` (None: the weight's dtype)."""
 
@@ -81,10 +93,11 @@ class Linear(nn.Linear):
 
 
 def set_compute_dtype(model: nn.Module, dtype):
-    """Run every Conv2d and Linear of `model` in `dtype` (its parameters keep theirs).
-    float32 means the parameters' own dtype, so a `.double()` copy computes in float64."""
+    """Run every Conv2d, ConvTranspose and Linear of `model` in `dtype` (its parameters keep
+    theirs). float32 means the parameters' own dtype, so a `.double()` copy computes in
+    float64."""
     for m in model.modules():
-        if isinstance(m, (Conv2d, Linear)):
+        if isinstance(m, (Conv2d, ConvTranspose, Linear)):
             m.compute_dtype = None if dtype == torch.float32 else dtype
     model.compute_dtype = dtype
 
@@ -268,3 +281,118 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return x.repeat_interleave(self.scale, 2).repeat_interleave(self.scale, 3)
+
+
+class LightConv(nn.Module):
+    """1x1 Conv without activation, then a depthwise k x k Conv with ReLU."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act=nn.ReLU())
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class RepConv(nn.Module):
+    """RepVGG conv: a k x k and a 1x1 Conv (no activation) in parallel, summed, then SiLU
+    (whatever the model's default activation). `nn/fuse.py` folds both branches into one
+    biased k x k `conv` and drops conv1 and conv2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, k, s, act=False)
+        self.conv2 = Conv(c1, c2, 1, s, act=False)
+        self.conv = None
+
+    def forward(self, x):
+        if self.conv is not None:
+            return F.silu(self.conv(x))
+        return F.silu(self.conv1(x) + self.conv2(x))
+
+
+class Conv2(nn.Module):
+    """A k x k and a 1x1 convolution in parallel into one BatchNorm, then the activation.
+    After `nn/fuse.py`, `conv` carries both and a bias, and cv2 and bn are None."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: int | None = None,
+                 g: int = 1, d: int = 1, act=True):
+        super().__init__()
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
+        self.cv2 = Conv2d(c1, c2, 1, s, autopad(1, p, d), groups=g, bias=False)
+        self.bn = batch_norm(c2)
+        self.act = _activation(act)
+
+    def forward(self, x):
+        y = self.conv(x)
+        if self.cv2 is not None:
+            y = self.bn(y + self.cv2(x))
+        return self.act(y)
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: a primary Conv to c2 / 2 channels, and a cheap 5x5 depthwise Conv
+    of it, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class Index(nn.Module):
+    """One tensor of a list input."""
+
+    def __init__(self, c2: int = 0, index: int = 0):
+        super().__init__()
+        self.index = index
+
+    def forward(self, xs):
+        return xs[self.index]
+
+
+class ConvTranspose2d(nn.Module):
+    """The YAML's `nn.ConvTranspose2d [c2, k, s, p]`: a biased transposed convolution
+    (`conv`), no BatchNorm or activation; output side (H - 1) s - 2p + k."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.conv = ConvTranspose(c1, c2, k, s, p, bias=True)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class MaxPool2d(nn.Module):
+    """The YAML's `nn.MaxPool2d [k, s, p]` (padding with -inf)."""
+
+    def __init__(self, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = k, s, p
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.k, self.s, self.p)
+
+
+class ZeroPad2d(nn.Module):
+    """The YAML's `nn.ZeroPad2d [[left, right, top, bottom]]`."""
+
+    def __init__(self, pads: tuple = (0, 1, 0, 1)):
+        super().__init__()
+        self.pads = tuple(pads)
+
+    def forward(self, x):
+        return F.pad(x, self.pads)
+
+
+class Identity(nn.Module):
+    """The YAML's `nn.Identity` (yolov9e's input tap)."""
+
+    def forward(self, x):
+        return x

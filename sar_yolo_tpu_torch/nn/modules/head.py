@@ -1,4 +1,4 @@
-"""Detect and JDE heads in NCHW (port of `sar_yolo_tpu/nn/modules/head.py`).
+"""Detect, v10Detect and JDE heads in NCHW (port of `sar_yolo_tpu/nn/modules/head.py`).
 
 Heads return raw per-level maps (B, no, H, W) in the compute dtype, as the JAX
 heads do; decoding lives in `ops/decode.py`, and the loss takes them to float32.
@@ -25,21 +25,28 @@ class Detect(nn.Module):
         super().__init__()
         self.nc, self.ch, self.reg_max, self.legacy = nc, tuple(ch), reg_max, legacy
         self.nl = len(ch)
+        self._add_branches()
+
+    def _add_branches(self, prefix: str = ""):
+        """The box (cv2) and cls (cv3) branches of every level, named with `prefix`."""
+        ch, nc, reg_max = self.ch, self.nc, self.reg_max
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
         for i, c in enumerate(ch):
-            self.add_module(f"cv2_{i}_0", Conv(c, c2, 3))
-            self.add_module(f"cv2_{i}_1", Conv(c2, c2, 3))
-            self.add_module(f"cv2_{i}_pred", Conv2d(c2, 4 * reg_max, 1))
-            if legacy:
-                self.add_module(f"cv3_{i}_0", Conv(c, c3, 3))
-                self.add_module(f"cv3_{i}_1", Conv(c3, c3, 3))
+            p = f"{prefix}cv2_{i}"
+            self.add_module(f"{p}_0", Conv(c, c2, 3))
+            self.add_module(f"{p}_1", Conv(c2, c2, 3))
+            self.add_module(f"{p}_pred", Conv2d(c2, 4 * reg_max, 1))
+            p = f"{prefix}cv3_{i}"
+            if self.legacy:
+                self.add_module(f"{p}_0", Conv(c, c3, 3))
+                self.add_module(f"{p}_1", Conv(c3, c3, 3))
             else:
-                self.add_module(f"cv3_{i}_0dw", DWConv(c, c, 3))
-                self.add_module(f"cv3_{i}_0pw", Conv(c, c3, 1))
-                self.add_module(f"cv3_{i}_1dw", DWConv(c3, c3, 3))
-                self.add_module(f"cv3_{i}_1pw", Conv(c3, c3, 1))
-            self.add_module(f"cv3_{i}_pred", Conv2d(c3, nc, 1))
+                self.add_module(f"{p}_0dw", DWConv(c, c, 3))
+                self.add_module(f"{p}_0pw", Conv(c, c3, 1))
+                self.add_module(f"{p}_1dw", DWConv(c3, c3, 3))
+                self.add_module(f"{p}_1pw", Conv(c3, c3, 1))
+            self.add_module(f"{p}_pred", Conv2d(c3, nc, 1))
 
     @property
     def no(self) -> int:
@@ -48,20 +55,46 @@ class Detect(nn.Module):
     def _sub(self, name: str) -> nn.Module:
         return self._modules[name]
 
-    def _box(self, x, i: int):
-        y = self._sub(f"cv2_{i}_1")(self._sub(f"cv2_{i}_0")(x))
-        return self._sub(f"cv2_{i}_pred")(y)
+    def _box(self, x, i: int, prefix: str = ""):
+        p = f"{prefix}cv2_{i}"
+        return self._sub(f"{p}_pred")(self._sub(f"{p}_1")(self._sub(f"{p}_0")(x)))
 
-    def _cls(self, x, i: int):
+    def _cls(self, x, i: int, prefix: str = ""):
+        p = f"{prefix}cv3_{i}"
         if self.legacy:
-            y = self._sub(f"cv3_{i}_1")(self._sub(f"cv3_{i}_0")(x))
+            y = self._sub(f"{p}_1")(self._sub(f"{p}_0")(x))
         else:
-            y = self._sub(f"cv3_{i}_0pw")(self._sub(f"cv3_{i}_0dw")(x))
-            y = self._sub(f"cv3_{i}_1pw")(self._sub(f"cv3_{i}_1dw")(y))
-        return self._sub(f"cv3_{i}_pred")(y)
+            y = self._sub(f"{p}_0pw")(self._sub(f"{p}_0dw")(x))
+            y = self._sub(f"{p}_1pw")(self._sub(f"{p}_1dw")(y))
+        return self._sub(f"{p}_pred")(y)
+
+    def _maps(self, xs, prefix: str = ""):
+        return [torch.cat([self._box(x, i, prefix), self._cls(x, i, prefix)], 1)
+                for i, x in enumerate(xs)]
 
     def forward(self, xs):
-        return [torch.cat([self._box(x, i), self._cls(x, i)], 1) for i, x in enumerate(xs)]
+        return self._maps(xs)
+
+
+class v10Detect(Detect):
+    """The NMS-free head: a one2many copy of the Detect branches and a one2one copy
+    (`o2o_` names). Train mode returns {"one2many": maps, "one2one": maps}; eval mode the
+    one2one maps only, which `ops/nms.py::postprocess_end2end` serves without NMS.
+
+    As in the JAX package, the one2one branch reads the live feature maps (Ultralytics
+    detaches them, so there its loss sends no gradient into the neck), and the cls branch
+    follows `legacy` (`nn/tasks.py` passes False: the depthwise one).
+    """
+
+    def __init__(self, nc: int = 80, ch: tuple = (), reg_max: int = 16, legacy: bool = False):
+        super().__init__(nc, ch, reg_max, legacy)
+        self._add_branches("o2o_")
+
+    def forward(self, xs):
+        o2o = self._maps(xs, "o2o_")
+        if not self.training:
+            return o2o
+        return {"one2many": self._maps(xs), "one2one": o2o}
 
 
 class JDE(Detect):

@@ -1,11 +1,13 @@
 """Model graph builder: config dict -> torch module graph (port of `sar_yolo_tpu/nn/tasks.py`).
 
 `parse_model` does the JAX package's channel, depth and width arithmetic and
-returns the same LayerSpec records, for the modules of the yolov8, yolo11,
-yolov12 and yolov13 detect and JDE graphs and the fork's CBAM variants; a module
-the port does not have yet raises NotImplementedError naming it. `GraphModel`
-walks the specs with the same save-dict; its layers live in `blocks` (Flax scope
-`blocks_<i>`).
+returns the same LayerSpec records, for the modules of the yolov3-v13 detect
+graphs (v10's NMS-free head included), the JDE graphs and the fork's CBAM
+variants, and the PPHGNetV2 / ResNet backbone blocks; a module the port does not
+have yet raises NotImplementedError naming it. `GraphModel` walks the specs with
+the same save-dict (a CBLinear's tuple of chunks included); its layers live in
+`blocks` (Flax scope `blocks_<i>`), and a plain module repeated n times is a
+`Repeat` whose copies take Flax's automatic names (`Conv_0`, `Conv_1`, ...).
 """
 
 from __future__ import annotations
@@ -44,12 +46,22 @@ class LayerSpec:
 
 
 # modules whose first yaml arg is the (width-scaled) output channel count
-_CH_SCALED = {"Conv", "DSConv", "Bottleneck", "C2f", "C3k2", "C3k2_CBAM", "SPPF", "A2C2f",
-              "DSC3k2", "DSC3k2_CBAM", "C2PSA"}
+_CH_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "SPPF", "C2", "C2f", "C3", "C3k",
+              "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM", "RepC3", "PSA", "C2PSA",
+              "SCDown", "C2fCIB", "GhostConv", "Conv2", "ConvTranspose2d", "SPP",
+              "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "GhostBottleneck",
+              "C3Ghost", "RepConv"}
 # subset that takes an inserted repeat count n
-_REPEAT_ARG = {"C2f", "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM", "C2PSA"}
+_REPEAT_ARG = {"C2", "C2f", "C3", "C3k", "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM",
+               "RepC3", "C2PSA", "C2fCIB", "C3Ghost"}
 _C3K2_FAMILY = {"C3k2", "DSC3k2", "C3k2_CBAM", "DSC3k2_CBAM"}
-_HEADS = {"Detect", "JDE"}
+# torch-layer yaml aliases -> module names
+_NN_ALIAS = {"nn.ConvTranspose2d": "ConvTranspose2d", "nn.MaxPool2d": "MaxPool2d",
+             "nn.ZeroPad2d": "ZeroPad2d", "nn.Identity": "Identity"}
+TASK_BY_HEAD = {"Detect": "detect", "JDE": "jde", "v10Detect": "detect"}
+_HEADS = set(TASK_BY_HEAD)
+# modules whose output has the input's channels
+_PASS_THROUGH = {"CBAM", "MaxPool2d", "Identity"}
 
 
 def _resolve_arg(a, names: dict):
@@ -89,6 +101,7 @@ def parse_model(d: dict, ch: int = 3):
         meta["act"] = key
 
     for i, (f, n, m, args) in enumerate(d["backbone"] + d["head"]):
+        m = _NN_ALIAS.get(m, m)
         args = [_resolve_arg(a, names) for a in args]
         n = max(round(n * depth), 1) if n > 1 else n
         kwargs: dict[str, Any] = {}
@@ -151,13 +164,34 @@ def parse_model(d: dict, ch: int = 3):
         elif m == "FullPAD_Tunnel":
             c2 = chs[f[0]]
             args = []
-        elif m == "CBAM":
+        elif m == "HGStem":
+            c2 = args[1]  # [cm, c2]
+        elif m == "HGBlock":
+            c2 = args[1]
+            args.insert(3, n)  # (cm, c2, k, n, lightconv, shortcut)
+            n = 1
+        elif m == "ResNetLayer":
+            # [c1, c2, s, is_first, n, (e)]: c2 is not width-scaled; the output is e * c2
+            c2 = args[1] if args[3] else args[1] * (args[5] if len(args) > 5 else 4)
+        elif m == "CBLinear":
+            c2 = tuple(args[0])  # the chunk sizes, not width-scaled
+            args = [c2, *args[1:]]
+        elif m == "CBFuse":
+            c2 = chs[f[-1]]
+            args = [tuple(args[0])]
+        elif m == "Index":
+            c2 = args[0]
+            args = [c2, args[1] if len(args) > 1 else 0]
+        elif m == "ZeroPad2d":
+            c2 = chs[f]
+            args = [tuple(args[0])]
+        elif m in _PASS_THROUGH:
             c2 = chs[f]
         else:
             raise NotImplementedError(f"layer {i}: module '{m}' is not part of this port yet")
-        if n != 1:
-            raise NotImplementedError(f"layer {i}: repeated plain module '{m}' (n={n}) is not "
-                                      "part of this port yet")
+        if n != 1:  # a plain module repeated n times (v3's Bottlenecks, v6's Convs)
+            kwargs["repeat"] = n
+            n = 1
 
         def _norm(j):
             return j if j == -1 else j % i
@@ -174,45 +208,51 @@ def parse_model(d: dict, ch: int = 3):
     return tuple(specs), tuple(sorted(set(save))), meta
 
 
+# modules built as Module(c_in, *args): the input's channels, then the spec's args
+_C_IN_FIRST = {"Conv": C.Conv, "DWConv": C.DWConv, "DSConv": C.DSConv, "CBAM": C.CBAM,
+               "GhostConv": C.GhostConv, "Conv2": C.Conv2, "RepConv": C.RepConv,
+               "ConvTranspose2d": C.ConvTranspose2d, "Bottleneck": B.Bottleneck, "C2": B.C2,
+               "C2f": B.C2f, "C3": B.C3, "C3k": B.C3k, "C3k2": B.C3k2, "C3k2_CBAM": B.C3k2_CBAM,
+               "C2PSA": B.C2PSA, "SPPF": B.SPPF, "A2C2f": B.A2C2f, "DSC3k2": B.DSC3k2,
+               "DSC3k2_CBAM": B.DSC3k2_CBAM, "HyperACE": B.HyperACE, "PSA": B.PSA,
+               "SCDown": B.SCDown, "C2fCIB": B.C2fCIB, "SPP": B.SPP, "GhostBottleneck":
+               B.GhostBottleneck, "C3Ghost": B.C3Ghost, "RepNCSPELAN4": B.RepNCSPELAN4,
+               "ELAN1": B.ELAN1, "AConv": B.AConv, "ADown": B.ADown, "SPPELAN": B.SPPELAN,
+               "CBLinear": B.CBLinear, "HGStem": B.HGStem, "HGBlock": B.HGBlock,
+               "RepC3": B.RepC3}
+# modules built from the spec's args alone
+_ARGS_ONLY = {"Upsample": C.Upsample, "Concat": C.Concat, "DownsampleConv": B.DownsampleConv,
+              "FullPAD_Tunnel": B.FullPAD_Tunnel, "Index": C.Index, "MaxPool2d": C.MaxPool2d,
+              "ZeroPad2d": C.ZeroPad2d, "Identity": C.Identity, "CBFuse": B.CBFuse}
+
+
+class Repeat(nn.Sequential):
+    """n copies of one plain module in sequence, named as Flax names them (`Conv_0`, ...)."""
+
+    def __init__(self, spec: LayerSpec, c_in, n: int):
+        super().__init__()
+        for j in range(n):
+            m = _build_module(spec, c_in if j == 0 else spec.c2)
+            self.add_module(f"{type(m).__name__}_{j}", m)
+
+
 def _build_module(spec: LayerSpec, c_in) -> nn.Module:
     """The torch module for a LayerSpec; c_in is its input channels (a tuple for lists)."""
     a, kw, name = spec.args, dict(spec.kwargs), spec.name
-    if name == "Conv":
-        return C.Conv(c_in, *a)
-    if name == "DSConv":
-        return C.DSConv(c_in, *a)
-    if name == "Upsample":
-        return C.Upsample(*a)
-    if name == "Concat":
-        return C.Concat()
-    if name == "Bottleneck":
-        return B.Bottleneck(c_in, *a)
-    if name == "C2f":
-        return B.C2f(c_in, *a)
-    if name == "C3k2":
-        return B.C3k2(c_in, *a)
-    if name == "C3k2_CBAM":
-        return B.C3k2_CBAM(c_in, *a)
-    if name == "C2PSA":
-        return B.C2PSA(c_in, *a)
-    if name == "SPPF":
-        return B.SPPF(c_in, *a)
-    if name == "A2C2f":
-        return B.A2C2f(c_in, *a)
-    if name == "DSC3k2":
-        return B.DSC3k2(c_in, *a)
-    if name == "DSC3k2_CBAM":
-        return B.DSC3k2_CBAM(c_in, *a)
-    if name == "CBAM":
-        return C.CBAM(c_in, *a)
-    if name == "HyperACE":
-        return B.HyperACE(c_in, *a)
-    if name == "DownsampleConv":
-        return B.DownsampleConv(*a)
-    if name == "FullPAD_Tunnel":
-        return B.FullPAD_Tunnel()
+    n = kw.pop("repeat", None)
+    if n:
+        return Repeat(LayerSpec(spec.i, spec.f, name, a, spec.c2, tuple(sorted(kw.items()))),
+                      c_in, n)
+    if name in _C_IN_FIRST:
+        return _C_IN_FIRST[name](c_in, *a)
+    if name in _ARGS_ONLY:
+        return _ARGS_ONLY[name](*a)
+    if name == "ResNetLayer":  # the YAML's c1 (a[0]) is not the input's channels
+        return B.ResNetLayer(c_in, *a[1:])
     if name == "Detect":
         return H.Detect(nc=a[0], ch=kw["ch"], legacy=kw["legacy"])
+    if name == "v10Detect":  # the depthwise cls branch whatever `legacy` says, as in JAX
+        return H.v10Detect(nc=a[0], ch=kw["ch"], legacy=False)
     if name == "JDE":
         return H.JDE(nc=a[0], embed_dim=a[1] if len(a) > 1 else 128,
                      state_classes=a[2] if len(a) > 2 else None,
@@ -306,7 +346,7 @@ def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32):
         d["nc"] = nc
     specs, save, meta = parse_model(d)
     meta["cfg"] = d
-    meta["task"] = {"JDE": "jde", "Detect": "detect"}[specs[-1].name]
+    meta["task"] = TASK_BY_HEAD[specs[-1].name]
     head = specs[-1]
     if head.name == "JDE":
         meta["embed_dim"] = head.args[1] if len(head.args) > 1 else 128
@@ -334,7 +374,7 @@ def init_weights(model: GraphModel, meta: dict, generator: torch.Generator):
     prototype_base: xavier uniform. Draws on the CPU from `generator`.
     """
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = mod.weight[0].numel()
             bound = fan_in ** -0.5
             mod.weight.copy_(torch.rand(mod.weight.shape, generator=generator) * 2 * bound - bound)
@@ -360,8 +400,11 @@ def init_weights(model: GraphModel, meta: dict, generator: torch.Generator):
 
 @torch.no_grad()
 def bias_init_head(model: GraphModel, meta: dict):
-    """Box pred bias -> 1.0; cls pred bias -> log(5 / nc / (640 / stride)^2)."""
+    """Box pred bias -> 1.0; cls pred bias -> log(5 / nc / (640 / stride)^2), in both branch
+    copies of a v10Detect."""
     head = model.blocks[meta["head_index"]]
+    prefixes = ("", "o2o_") if isinstance(head, H.v10Detect) else ("",)
     for i, s in enumerate(meta["strides"]):
-        head._sub(f"cv2_{i}_pred").bias.fill_(1.0)
-        head._sub(f"cv3_{i}_pred").bias.fill_(math.log(5 / meta["nc"] / (640 / s) ** 2))
+        for pre in prefixes:
+            head._sub(f"{pre}cv2_{i}_pred").bias.fill_(1.0)
+            head._sub(f"{pre}cv3_{i}_pred").bias.fill_(math.log(5 / meta["nc"] / (640 / s) ** 2))

@@ -1,5 +1,7 @@
 """Batched class-aware NMS with a fixed (B, max_det, 6 + E) output, single- or
-multi-label (port of `sar_yolo_tpu/ops/nms.py`: `_nms_single` and `non_max_suppression`)."""
+multi-label, and the NMS-free top-k of end-to-end (v10) heads (port of
+`sar_yolo_tpu/ops/nms.py`: `_nms_single`, `non_max_suppression` and
+`postprocess_end2end`)."""
 
 from __future__ import annotations
 
@@ -109,3 +111,30 @@ def non_max_suppression(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
     kept = torch.where(out[..., 4:5] > 0, kept.to(out.dtype), torch.zeros((), dtype=out.dtype,
                                                                            device=out.device))
     return torch.cat([out[..., :6], kept, out[..., 6:-1]], -1)
+
+
+def postprocess_end2end(preds, max_det: int = 300, conf_thres: float = 0.0, nc: int = 80):
+    """NMS-free detections of an end-to-end (v10) head: the global top `max_det` of the
+    flattened (anchor, class) scores of each image, one `torch.topk` for the batch and no
+    host sync.
+
+    preds (B, N, 4 + nc): xywh boxes and sigmoided class scores. Returns (B, max_det, 6)
+    rows [x1, y1, x2, y2, conf, cls], highest score first and, among equal scores, the
+    lower flat index (anchor * nc + class) first, as `jax.lax.top_k` orders them (which k
+    rows tie at the k-th score is torch's choice); a score under conf_thres becomes 0 and
+    its box zeros, and rows past N * nc are zero padding.
+    """
+    B, N, _ = preds.shape
+    boxes = xywh2xyxy(preds[..., :4])
+    flat = preds[..., 4:4 + nc].reshape(B, N * nc)
+    k = min(max_det, N * nc)
+    topv, topi = torch.topk(flat, k, dim=1)
+    # torch.topk orders equal values as it likes: re-sort the k by (value desc, index asc)
+    topi, perm = topi.sort(dim=1)
+    topv, order = torch.gather(topv, 1, perm).sort(dim=1, descending=True, stable=True)
+    topi = torch.gather(topi, 1, order)
+    b = torch.gather(boxes, 1, (topi // nc)[..., None].expand(-1, -1, 4))
+    conf = torch.where(topv >= conf_thres, topv, torch.zeros_like(topv))
+    b = torch.where(conf[..., None] > 0, b, torch.zeros_like(b))
+    out = torch.cat([b, conf[..., None], (topi % nc).to(preds.dtype)[..., None]], -1)
+    return torch.nn.functional.pad(out, (0, 0, 0, max_det - k)) if k < max_det else out

@@ -3,12 +3,16 @@
 The port names its submodules after the Flax scopes, so the map is mechanical:
 
     params/blocks_6/m0_0/attn/qk/conv/kernel  (1, 1, I/g, O)  -> blocks.6.m0_0.attn.qk.conv.weight (O, I/g, 1, 1)
+    params/blocks_11/conv/kernel (transposed conv, (k, k, O, I)) -> blocks.11.conv.weight (I, O, k, k)
     params/.../state_fc1/kernel               (in, out)       -> ....state_fc1.weight (out, in)
     params/.../bn/{scale, bias}                               -> ....bn.{weight, bias}
     batch_stats/.../bn/{mean, var}                            -> ....bn.{running_mean, running_var}
     params/.../{gate, gamma, prototype_base}                  -> unchanged
 
-Each BatchNorm also gets torch's `num_batches_tracked` counter (0). Unfused
+A transposed conv's kernel (Flax `ConvTranspose(transpose_kernel=True)`: the kernel of the
+conv it is the gradient of) takes the same transpose, with no spatial flip. A v10 head's
+one2one copy keeps its `o2o_` names. Each BatchNorm also gets torch's
+`num_batches_tracked` counter (0). Unfused
 and `fuse_variables`-fused trees both convert; `load_jax_variables` loads the
 result with `strict=True`, so a key left over or missing on either side raises.
 """

@@ -97,12 +97,12 @@ def test_named_config_builds_with_jax_parameter_count(name):
     assert (meta["task"], meta["scale"], meta["nl"]) == (jmeta["task"], jmeta["scale"], jmeta["nl"])
 
 
-@pytest.mark.parametrize("name, module", [("yolov10n.yaml", "SCDown"),
+@pytest.mark.parametrize("name, module", [("yolov8n-pose.yaml", "Pose"),
                                           ("yolov8n-cls.yaml", "Classify"),
                                           ("yolov8n-seg.yaml", "Segment"),
-                                          ("yolov9t.yaml", "ELAN1"),
-                                          ("rtdetr-l.yaml", "HGStem"),
-                                          ("yolov3.yaml", "Bottleneck")])
+                                          ("yolov8s-world.yaml", "C2fAttn"),
+                                          ("rtdetr-l.yaml", "AIFI"),
+                                          ("yolov8n-rtdetr.yaml", "RTDETRDecoder")])
 def test_unported_module_raises_not_implemented(name, module):
     with pytest.raises(NotImplementedError, match=f"'{module}'"):
         build_model(name)
