@@ -158,8 +158,28 @@ Phases, in order; any failure exits non-zero:
      served one at a time at `_nms_stable_conf` thresholds, the same rows as float64
      (boxes within 2 x the coarsest stride x the maps' float32 distance, over r), bf16
      rows finite; img/s at batch 8 (P6: 1) in float32 and bf16 in turns.
- 17. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
-     step's forward; phase 16's paths at 0), the card line, and the result line.
+ 17. the pose and segment tasks, none with an A2C2f block: 0 kernel launches in the whole
+     phase. A 17-keypoint pose dataset (COCO's flip_idx) and a two-class polygon dataset, each
+     32 train and 16 val PNG frames at 720x1280 written under runs/ from a seed. yolov8n-pose
+     (nc 1, 17 x 3) and yolov8n-seg (nc 80, 32 prototypes) on phase 14's ragged 480x640 frames,
+     BN-folded with seeded, perturbed weights and damped class and box logits: 2 frames served
+     one at a time at `_nms_stable_conf` thresholds against the model in float64 (boxes and
+     keypoint xy within 2 x 32 x the maps' float32 distance or 1e-3 of a 32 px DFL bin,
+     scores within 1e-3 or that distance, visibilities within 1e-5 or it; masks equal to
+     float64's wherever its probability is not within 1e-4 of 0.5, its logit not within the
+     float32 path's own logit distance of 0, and the pixel not on a crop edge within the
+     boxes' error); `half=True` rows finite; `fuse()` serving the same rows and masks; img/s
+     at batch 1, 8 and 128 (segment: 1 and 8) in float32 and bf16 in turns at conf 0.25,
+     peak memory and (segment) the bytes of the rows and masks that cross to the host;
+     yolo11n-pose, yolo11n-seg and yolov9c-seg the same at batch 8. The yolov8n-pose train
+     step @640, batch 16, on its dataset on the host route (copy_paste 0.1) and the device
+     route (copy_paste 0), yolov8n-seg on the host route with copy_paste 0.5, each float32
+     and amp: one step's items finite, then 13 timed steps (`_timed_steps`); `YOLO.train(
+     epochs=1)` of each with its (P) or (M) validation, `YOLO.val`, `YOLO(checkpoint)` served
+     and validated as its task, and `YOLO.predict` of the 12 JPEG frames (Results.keypoints,
+     Results.masks).
+ 18. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
+     step's forward; phases 16 and 17's paths at 0), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -2083,6 +2103,11 @@ DETECT_CANDIDATES = 64    # the A/Bs' threshold leaves fewer (anchor, class) pai
 MAX_LOGIT = 6.0           # the damped class logits' largest magnitude: sigmoid 0.9975
 
 
+def _head_maps(out):
+    """The per-level head maps of a forward (a Segment head's (maps, protos): the maps)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _damp_class_logits(yolo, frames, imgsz: int = DETECT_IMGSZ):
     """Scale the head's class-logit convolutions (weight and bias; a v10 head's two copies)
     so that the largest class logit served on `frames` is MAX_LOGIT. Perturbed weights drive
@@ -2092,7 +2117,7 @@ def _damp_class_logits(yolo, frames, imgsz: int = DETECT_IMGSZ):
     meta = yolo.meta
     predictor = yolo._get_predictor({"imgsz": imgsz})
     with torch.no_grad():
-        maps = predictor.model(predictor.preprocess(frames)[0])
+        maps = _head_maps(predictor.model(predictor.preprocess(frames)[0]))
         top = max(m[:, 4 * meta["reg_max"]:4 * meta["reg_max"] + meta["nc"]].abs().max().item()
                   for m in maps)
         gain = min(1.0, MAX_LOGIT / top)
@@ -2517,7 +2542,7 @@ def _damp_box_logits(yolo, frames, imgsz: int) -> float:
     meta = yolo.meta
     predictor = yolo._get_predictor({"imgsz": imgsz})
     with torch.no_grad():
-        maps = predictor.model(predictor.preprocess(frames)[0])
+        maps = _head_maps(predictor.model(predictor.preprocess(frames)[0]))
         gain = min(1.0, MAX_BOX_LOGIT / max(m[:, :4 * meta["reg_max"]].abs().max().item()
                                             for m in maps))
         for name, p in yolo.model.blocks[meta["head_index"]].named_parameters():
@@ -2784,6 +2809,339 @@ def phase_detect_family(card: str) -> dict:
     return paths
 
 
+# phase 17: the pose and segment tasks (no A2C2f block in any of their graphs)
+POSE_SEG_SERVE = (("yolov8n-pose.yaml", (1, 8, 128)), ("yolov8n-seg.yaml", (1, 8)),
+                  ("yolo11n-pose.yaml", (FAMILY_BATCH,)), ("yolo11n-seg.yaml", (FAMILY_BATCH,)),
+                  ("yolov9c-seg.yaml", (FAMILY_BATCH,)))  # (model, rate batches)
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+POSE_SEG_TRAIN, POSE_SEG_VAL = 32, 16  # frames of phase 17's datasets, 720x1280
+MASK_MARGIN = 1e-4        # mask pixels whose float64 probability is this near 0.5 are left out
+VIS_TOL = 1e-5            # keypoint visibility against float64 (or the maps' own distance)
+
+
+def _write_pose_seg_dataset(root: Path, task: str, seed: int) -> dict:
+    """A pose (17 keypoints, COCO's flip_idx) or segment (polygons of 6-12 vertices, two
+    classes) dataset of PNG frames at 720x1280 under `root`, terrain as phase 8's, 1-12
+    instances of 20-120 px a frame drawn into the pixels. Returns the dataset dict."""
+    from sar_yolo_tpu_torch.data.cv import fill_poly
+    rng = np.random.default_rng(seed)
+    h, w = 720, 1280
+    for split, n in (("train", POSE_SEG_TRAIN), ("val", POSE_SEG_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            cells = rng.integers(40, 200, (h // 80 + 1, w // 80 + 1, 3), np.uint8)
+            img = np.repeat(np.repeat(cells, 80, 0), 80, 1)[:h, :w]
+            img = (img + rng.integers(0, 24, (h, w, 3), np.uint8)).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 13))):
+                bw, bh = (int(v) for v in rng.integers(20, 121, 2))
+                x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                colour = rng.integers(0, 256, 3, np.uint8)
+                if task == "pose":
+                    img[y1:y1 + bh, x1:x1 + bw] = colour
+                    k = np.stack([rng.uniform(x1, x1 + bw, 17) / w, rng.uniform(y1, y1 + bh, 17) / h,
+                                  rng.integers(0, 3, 17)], 1)
+                    rows.append(f"0 {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} {bw / w:.6f} "
+                                f"{bh / h:.6f} " + " ".join(f"{v:.6f}" for v in k.ravel()))
+                else:
+                    m = int(rng.integers(6, 13))
+                    ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+                    rad = rng.uniform(0.5, 1.0, m)
+                    poly = np.stack([x1 + bw / 2 * (1 + rad * np.cos(ang)),
+                                     y1 + bh / 2 * (1 + rad * np.sin(ang))], 1)
+                    inside = fill_poly(np.zeros((h, w), np.uint8), np.round(poly).astype(np.int32), 1)
+                    img[inside > 0] = colour
+                    rows.append(f"{int(rng.integers(0, 2))} " +
+                                " ".join(f"{v:.6f}" for v in (poly / [w, h]).ravel()))
+            (root / "images" / split / f"{i:04d}.png").write_bytes(_png_file(img))
+            (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    data = {"path": str(root.resolve()), "train": "images/train", "val": "images/val"}
+    if task == "pose":
+        return {**data, "names": {0: "person"}, "kpt_shape": [17, 3], "flip_idx": COCO_FLIP_IDX}
+    return {**data, "names": {0: "person", 1: "vehicle"}}
+
+
+def _paired_rows(g, w):
+    """The kept rows of one frame, `w`'s reordered to pair `g`'s by class and box."""
+    g, w = g[g[:, 4] > 0], w[w[:, 4] > 0]
+    match = (np.abs(g[:, None, :4] - w[None, :, :4]).max(-1)
+             + 1e9 * (g[:, None, 5] != w[None, :, 5])).argmin(1)
+    return g, w[match], match
+
+
+def _mask_mismatches(masks, rows64, logit32, logit64, box_err: float, H: int) -> dict:
+    """The served masks (k, mh, mw) against float64's (logit64 > 0, cropped) where no rounding
+    decides: a pixel is undecided where float64's probability lies within MASK_MARGIN of 0.5
+    or its logit within the largest float32 - float64 logit distance (logit32: the served
+    path's own mask logits of the same rows) of 0, or where it lies within the boxes' float32
+    error of a crop edge (at mask scale). `rows64`, `logit64`: float64's paired to the masks.
+    Returns the mismatched and undecided pixel counts and that distance."""
+    mh, mw = masks.shape[1:]
+    dist = float(np.abs(logit32 - logit64).max()) if len(masks) else 0.0
+    scale = np.array([mw / H, mh / H, mw / H, mh / H])
+    edges = rows64[:, :4] * scale
+    tol = 2 * box_err * mw / H + 1e-6
+    c, r = np.arange(mw)[None, None, :], np.arange(mh)[None, :, None]
+    near_edge = ((np.abs(c - edges[:, None, None, 0]) <= tol) | (np.abs(c - edges[:, None, None, 2]) <= tol)
+                 | (np.abs(r - edges[:, None, None, 1]) <= tol) | (np.abs(r - edges[:, None, None, 3]) <= tol))
+    inside = ((c >= edges[:, None, None, 0]) & (c < edges[:, None, None, 2])
+              & (r >= edges[:, None, None, 1]) & (r < edges[:, None, None, 3]))
+    undecided = (np.abs(logit64) <= max(4 * MASK_MARGIN, dist)) | near_edge
+    ref = (logit64 > 0) & inside
+    return {"mismatched": int(((masks != ref) & ~undecided).sum()),
+            "undecided": int(undecided.sum()), "logit_f32_vs_f64": dist}
+
+
+def phase_pose_seg_serve(name: str, batches, card: str, seed: int = 3) -> dict:
+    """`name` served at 640 on phase 14's ragged 480x640 frames (see the module docstring,
+    phase 17): rows (and keypoints or masks) against float64, half, fuse(), img/s."""
+    import torch
+    yolo, frames, gain = _detect_model(name, max(max(batches), 2), seed)
+    meta, task = yolo.meta, yolo.task
+    box_gain = _damp_box_logits(yolo, frames[:2], DETECT_IMGSZ)
+    ab = frames[:2]
+    exact = _float64_copy(yolo)
+    predictor = yolo._get_predictor({"imgsz": DETECT_IMGSZ})
+    p64 = exact._get_predictor({"imgsz": DETECT_IMGSZ})
+    x, r, pad = predictor.preprocess(ab)
+    check(r == 1.0, f"{name}: 480x640 frames at 640 letterbox with r {r}")
+    with torch.no_grad():
+        out, out64 = yolo._fused_for_serving()(x), exact._fused_for_serving()(x.double())
+    d = max((m.double() - q).abs().max().item()
+            for m, q in zip(_head_maps(out), _head_maps(out64)))
+    confs, got, want, half, f64_full = [], [], [], [], []
+    for i in range(len(ab)):
+        with torch.no_grad():
+            o64 = exact._fused_for_serving()(x[i:i + 1].double())
+            rows, _ = p64.decode(_head_maps(o64))
+            conf = _nms_stable_conf(rows.cpu().numpy(), meta["nc"], 0.7, DETECT_CANDIDATES)[0]
+        confs.append(conf)
+        kw = dict(imgsz=DETECT_IMGSZ, conf=conf)
+        got.append(yolo.predict_batched(ab[i:i + 1], **kw))
+        want.append(exact.predict_batched(ab[i:i + 1], **kw))
+        half.append(yolo.predict_batched(ab[i:i + 1], **kw, half=True))
+        if task == "segment":  # both paths' letterbox rows with coefficients, and mask logits
+            logits = []
+            for pr, o in ((predictor, yolo._fused_for_serving()(x[i:i + 1])), (p64, o64)):
+                conf0, pr.args.conf = pr.args.conf, conf
+                with torch.no_grad():
+                    full = pr.decode_nms(o[0])
+                    logits.append(torch.einsum("bnc,bchw->bnhw", full[..., 6:].float() if pr is
+                                               predictor else full[..., 6:], o[1].to(full.dtype)
+                                               if pr is predictor else o[1])[0].double().cpu().numpy())
+                pr.args.conf = conf0
+            f64_full.append((full[0].cpu().numpy(), *logits))
+    out_json = {"serve_pose_seg": name, "task": task, "nc": meta["nc"], "imgsz": DETECT_IMGSZ,
+                "frames": f"{BENCH_HW[0]}x{BENCH_HW[1]}", "confs": confs,
+                "class_logit_gain": gain, "box_logit_gain": box_gain, "maps_f32_vs_f64": d}
+    box_tol, score_tol = max(F64_BOX_TOL, 2 * 32 * d), max(1e-3, d)
+    kept, errs = [], {"box_err_px": 0.0, "score_err": 0.0}
+    if task == "pose":
+        K, D = meta["kpt_shape"]
+        xy = np.r_[[6 + D * k + j for k in range(K) for j in (0, 1)]]
+        vis = np.r_[[6 + D * k + 2 for k in range(K)]] if D == 3 else np.r_[[]].astype(int)
+        errs.update(kpt_xy_err_px=0.0, kpt_vis_err=0.0)
+        for g, w, h in zip(got, want, half):
+            check(g.shape == h.shape == (1, 300, 6 + K * D) and np.isfinite(h).all(),
+                  f"{name}: rows {g.shape}, half {h.shape}")
+            k_, e_ = _compare_detections(g[..., :6], w[..., :6], 0, f"{name} float32 vs float64")
+            kept += k_
+            gg, ww, _ = _paired_rows(g[0], w[0])
+            errs["box_err_px"] = max(errs["box_err_px"], e_["box_err_px"])
+            errs["score_err"] = max(errs["score_err"], e_["score_err"])
+            errs["kpt_xy_err_px"] = max(errs["kpt_xy_err_px"],
+                                        float(np.abs(gg[:, xy] - ww[:, xy]).max()))
+            if len(vis):
+                errs["kpt_vis_err"] = max(errs["kpt_vis_err"],
+                                          float(np.abs(gg[:, vis] - ww[:, vis]).max()))
+        check(errs["kpt_xy_err_px"] <= box_tol and errs["kpt_vis_err"] <= max(VIS_TOL, d),
+              f"{name} float32 vs float64: keypoints {errs} (maps {d} apart)")
+    else:
+        mism, undecided, dist = 0, 0, 0.0
+        for (g, gm), (w, _), (h, hm), (full, logit32, logit64) in zip(got, want, half, f64_full):
+            check(g.shape == h.shape == (1, 300, 6) and gm.shape == hm.shape and gm.dtype == bool
+                  and np.isfinite(h).all(), f"{name}: rows {g.shape}, masks {gm.shape}")
+            k_, e_ = _compare_detections(g, w, 0, f"{name} float32 vs float64")
+            kept += k_
+            errs["box_err_px"] = max(errs["box_err_px"], e_["box_err_px"])
+            errs["score_err"] = max(errs["score_err"], e_["score_err"])
+            # the masks against float64's probabilities, pairing the letterbox rows
+            pad4 = np.array([*pad, *pad])
+            check(np.allclose(full[:, :4] - pad4, w[0][:, :4], atol=1e-6) and
+                  np.array_equal(full[:, 4:6], w[0][:, 4:6]), f"{name}: float64 rows")
+            n = int((g[0][:, 4] > 0).sum())
+            _, _, match = _paired_rows(g[0], w[0])
+            mm = _mask_mismatches(gm[0][:n], full[match], logit32[:n], logit64[match],
+                                  e_["box_err_px"], DETECT_IMGSZ)
+            mism, undecided = mism + mm["mismatched"], undecided + mm["undecided"]
+            dist = max(dist, mm["logit_f32_vs_f64"])
+        errs.update(mask_pixels_mismatched=mism, mask_pixels_undecided=undecided,
+                    mask_pixels_compared=sum(int((g[0][:, 4] > 0).sum()) for g, _ in got)
+                    * int(np.prod(got[0][1].shape[2:])) - undecided,
+                    mask_logit_f32_vs_f64=dist, mask_shape=list(got[0][1].shape[2:]))
+        check(mism == 0, f"{name}: {mism} mask pixels differ from float64 where no rounding "
+              f"decides ({undecided} left out)")
+    for key, tol in (("box_err_px", box_tol), ("score_err", score_tol)):
+        check(errs[key] <= tol, f"{name} float32 vs float64: {key} {errs[key]} (maps {d} apart)")
+    del exact
+    # fuse(): the folded model serves the rows (and masks) of the serving copy
+    folded = copy.deepcopy(yolo).fuse()
+    check(not any(isinstance(m, torch.nn.BatchNorm2d) for m in folded.model.modules()),
+          f"{name}: fuse() left a BN")
+    kw = dict(imgsz=DETECT_IMGSZ, conf=confs[0])
+    a, b = folded.predict_batched(ab[:1], **kw), yolo.predict_batched(ab[:1], **kw)
+    same = all(np.array_equal(u, v) for u, v in zip(a, b)) if task == "segment" else \
+        np.array_equal(a, b)
+    check(same, f"{name}: fuse() serves other rows than the BN-folded serving copy")
+    del folded
+    torch.cuda.empty_cache()
+    kw, hkw = dict(imgsz=DETECT_IMGSZ, conf=0.25), dict(imgsz=DETECT_IMGSZ, conf=0.25, half=True)
+    rates = {}
+    for bsz in batches:
+        rr = _rates(lambda: _img_per_s(yolo, frames[:bsz], kw, n=5),
+                    lambda: _img_per_s(yolo, frames[:bsz], hkw, n=5))
+        rates.update({f"img_per_s_b{bsz}_{k}": v for k, v in rr.items()})
+    big = max(batches)
+    memory = {}
+    for label, args in (("f32", kw), ("bf16", hkw)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = yolo.predict_batched(frames[:big], **args)
+        memory[f"max_memory_allocated_gib_b{big}_{label}"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    if task == "segment":
+        memory["bytes_to_host_b" + str(big)] = {"rows": int(res[0].nbytes), "masks": int(res[1].nbytes)}
+    out_json.update(kept_per_frame=kept, **errs, **rates, **memory, card=card)
+    print(json.dumps(out_json))
+    torch.cuda.empty_cache()
+    return out_json
+
+
+def _pose_seg_trainer(task: str, data: dict, seed: int, **kw):
+    """A set-up PoseTrainer / SegmentTrainer of yolov8n-pose / -seg on `data` at TRAIN_IMGSZ
+    (SGD, no warm-up) and its first batch."""
+    from sar_yolo_tpu_torch.engine.trainer import TRAINERS
+    name = {"pose": "yolov8n-pose.yaml", "segment": "yolov8n-seg.yaml"}[task]
+    tr = TRAINERS[task](dict(model=name, data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, seed=seed,
+                             optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0, workers=8,
+                             project="runs", name=f"chip_smoke_{task}", exist_ok=True, **kw))
+    tr.setup()
+    return tr, next(iter(tr.train_loader))
+
+
+def phase_pose_seg_train(task: str, data: dict, card: str, seed: int = 0) -> dict:
+    """The yolov8n-pose / -seg train step on its dataset (pose on the host and on the device
+    route), `YOLO.train(epochs=1)`, `YOLO.val`, `YOLO(checkpoint)` and `YOLO.predict` of the 12
+    JPEG frames (see the module docstring, phase 17)."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    routes = {"pose": (("host", {}, False), ("device", {"copy_paste": 0.0}, True)),
+              "segment": (("host", {"copy_paste": 0.5}, False),)}[task]
+    steps = {}
+    for route, rkw, on_device in routes:
+        for label, kw in (("f32", {"amp": False}), ("amp", {})):
+            tr, batch = _pose_seg_trainer(task, data, seed, **rkw, **kw)
+            check(tr.device_augment == on_device and tr.meta["task"] == task,
+                  f"{task} {route}: device_augment {tr.device_augment}")
+            check((tr.model.compute_dtype == torch.bfloat16) == (label == "amp"),
+                  f"{task} {route} {label}: compute dtype {tr.model.compute_dtype}")
+            if task == "pose":
+                check(tr.meta["kpt_shape"] == (17, 3) and batch["keypoints"].shape[2:] == (17, 3),
+                      f"pose: kpt_shape {tr.meta['kpt_shape']}")
+            else:
+                check(batch["masks"].shape[1:] == (TRAIN_IMGSZ // 4,) * 2 and batch["masks"].max() > 1,
+                      f"segment: masks {batch['masks'].shape}")
+            total, items = tr.train_step(batch)
+            items = items.cpu().numpy()
+            check(np.isfinite(items).all() and (items[:2] > 0).all(),
+                  f"{task} {route} {label} step: items {items}")
+            steps[f"{route}_{label}"] = {"items": items.tolist(), **_timed_steps(tr, batch)}
+            del tr, batch
+            torch.cuda.empty_cache()
+    print(json.dumps({"pose_seg_train_step": task, "loss_names": {"pose": "box pose kobj cls dfl",
+                      "segment": "box seg cls dfl"}[task], **steps, "card": card}))
+    name = {"pose": "yolov8n-pose.yaml", "segment": "yolov8n-seg.yaml"}[task]
+    yolo = YOLO(name)
+    t0 = time.perf_counter()
+    metrics = yolo.train(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1, seed=seed,
+                         workers=8, project="runs", name=f"chip_smoke_{task}_train", exist_ok=True,
+                         **({"copy_paste": 0.5} if task == "segment" else {}))
+    train_s = time.perf_counter() - t0
+    key = {"pose": "(P)", "segment": "(M)"}[task]
+    check(all(np.isfinite(list(metrics.values()))) and f"metrics/mAP50-95{key}" in metrics,
+          f"YOLO.train {name}: metrics {metrics}")
+    t0 = time.perf_counter()
+    val = yolo.val(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, workers=8, project="runs",
+                   name=f"chip_smoke_{task}_val", exist_ok=True)
+    val_s = time.perf_counter() - t0
+    check(f"metrics/mAP50{key}" in val and all(np.isfinite(list(val.values()))),
+          f"YOLO.val {name}: {val}")
+    ckpt = YOLO(yolo.ckpt_dir)
+    check(ckpt.task == task and ckpt.meta.get("kpt_shape") == yolo.meta.get("kpt_shape")
+          and ckpt.meta.get("nm") == yolo.meta.get("nm") and ckpt.names == yolo.names,
+          f"YOLO(checkpoint): task {ckpt.task}, meta {ckpt.meta.get('kpt_shape')}")
+    # the trained object keeps the amp run's bf16 compute; the checkpoint serves float32
+    frames = np.random.default_rng(seed).integers(0, 256, (2, *BENCH_HW, 3), np.uint8)
+    a, b = (m.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-3) for m in (yolo, ckpt))
+    rows = (b[0] if task == "segment" else b)
+    check(rows.shape[:2] == (2, 300) and np.isfinite(rows).all(),
+          f"YOLO(checkpoint) {name}: served rows {rows.shape}")
+    ckpt_val = ckpt.val(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, workers=8,
+                        project="runs", name=f"chip_smoke_{task}_ckpt_val", exist_ok=True)
+    check(f"metrics/mAP50{key}" in ckpt_val and all(np.isfinite(list(ckpt_val.values()))),
+          f"YOLO(checkpoint).val {name}: {ckpt_val}")
+    t0 = time.perf_counter()
+    results = ckpt.predict(str(JPEG_DIR / "frames"), imgsz=TRAIN_IMGSZ, conf=1e-3)
+    predict_s = time.perf_counter() - t0
+    check(len(results) == JPEG_FRAMES and all(
+        (r.keypoints is not None) if task == "pose" else (r.masks is not None) for r in results),
+        f"YOLO.predict {name}: {len(results)} results")
+    print(json.dumps({"pose_seg_yolo_train": name, "metrics": metrics, "seconds": train_s,
+                      "val": val, "val_s": val_s, "val_ms_per_image": val.get("speed/ms_per_image"),
+                      "checkpoint_task": ckpt.task, "checkpoint_val": ckpt_val,
+                      "checkpoint_rows_kept": ((b[0] if task == "segment" else b)[..., 4] > 0)
+                      .sum(1).tolist(), "predict_jpeg_frames_per_s": JPEG_FRAMES / predict_s,
+                      "predict_kept_per_frame": [len(r) for r in results], "card": card}))
+    return {"steps": steps, "val": val}
+
+
+def phase_pose_seg(card: str, seed: int = 5) -> dict:
+    """Phase 17: the pose and segment tasks served, fused, trained and validated on their own
+    datasets; no graph of theirs has an A2C2f block. Returns the launches by path."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    t0 = time.perf_counter()
+    reset_launches()
+    roots = {t: Path("runs") / f"chip_smoke_{t}_data" for t in ("pose", "segment")}
+    data = {}
+    for task, root in roots.items():
+        shutil.rmtree(root, ignore_errors=True)
+        data[task] = _write_pose_seg_dataset(root, task, seed + len(data))
+    t_data = time.perf_counter()
+    for name, batches in POSE_SEG_SERVE:
+        phase_pose_seg_serve(name, batches, card)
+    t_serve = time.perf_counter()
+    for task in ("pose", "segment"):
+        phase_pose_seg_train(task, data[task], card)
+        torch.cuda.empty_cache()
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    by = dict(flash_area_attention.launches_by_dtype)
+    check(by == {"float32": 0, "bfloat16": 0}, f"phase 17: attention kernel launches {by}")
+    print(json.dumps({"phase_pose_seg_s": {"datasets": t_data - t0, "serve": t_serve - t_data,
+                                           "train_val": time.perf_counter() - t_serve},
+                      "kernel_launches_by_dtype": by}))
+    return {**{f"serve {n.removesuffix('.yaml')}@{DETECT_IMGSZ}, f32 and bf16": 0
+               for n, _ in POSE_SEG_SERVE},
+            f"yolov8n-pose train step @{TRAIN_IMGSZ} b{TRAIN_BATCH}, host and device route, f32 "
+            "and amp": 0,
+            f"yolov8n-seg train step @{TRAIN_IMGSZ} b{TRAIN_BATCH}, f32 and amp": 0,
+            "YOLO.train / val / predict yolov8n-pose and yolov8n-seg": 0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2840,6 +3198,8 @@ def main() -> int:
     lap("cbam")
     family_launches = phase_detect_family(card)
     lap("detect_family")
+    pose_seg_launches = phase_pose_seg(card)
+    lap("pose_seg")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -2894,7 +3254,7 @@ def main() -> int:
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
                              **detect_launches["float32"], **cbam_launches["float32"],
-                             **family_launches}}]}))
+                             **family_launches, **pose_seg_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

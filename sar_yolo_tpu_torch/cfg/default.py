@@ -56,6 +56,8 @@ DEFAULT_CFG = {
     "box": 7.5,
     "cls": 0.5,
     "dfl": 1.5,
+    "pose": 12.0,             # pose: keypoint (OKS) loss gain
+    "kobj": 1.0,              # pose: keypoint visibility loss gain
     "clr": 0.5,               # jde: triplet embedding loss gain
     "state": 1.0,             # jde: state loss gain
     "state_focal_gamma": 2.0,
@@ -83,6 +85,9 @@ DEFAULT_CFG = {
     "multi_scale": False,     # train at a random stride multiple in [0.5, 1.5] x imgsz
     "profile": False,         # 'trace': a torch.profiler trace of steps 1-3 of epoch 0
     "dropout": 0.0,           # the classify head's dropout (no classify head in this port)
+    "overlap_mask": True,     # segment: accepted and unread, as in the JAX package (its masks
+    "mask_ratio": 4,          # are always one overlap map at imgsz // 4)
+    "retina_masks": False,    # segment: accepted and unread, as in the JAX package
 }
 
 # keys of the JAX package whose feature this port does not have yet

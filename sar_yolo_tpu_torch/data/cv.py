@@ -15,6 +15,8 @@ level here and there; each function below repeats OpenCV's integer arithmetic:
 * `bgr2hsv` / `hsv2bgr` on uint8: OpenCV's division tables one way, its float32
   sector formula (fused multiply-adds) the other.
 * `copy_make_border`, constant border. (cv2.LUT is numpy indexing, at its caller.)
+* `fill_poly` (cv2.fillPoly: 8-connected edges, then the fixed-point scan fill) and
+  `resize_nearest_cv` (cv2.resize INTER_NEAREST), for the segment task's masks.
 """
 
 from __future__ import annotations
@@ -158,3 +160,158 @@ def hsv2bgr(img: np.ndarray) -> np.ndarray:
     bgr[:, :, :k] = np.trunc(bgr[:, :, :k])
     bgr[:, :, k:] = np.rint(bgr[:, :, k:])
     return np.clip(bgr, 0, 255).astype(np.uint8).transpose(1, 2, 0)
+
+
+_XY_SHIFT = 16              # drawing.cpp's fixed point of the polygon edges
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _clip_line(w: int, h: int, p1, p2):
+    """cv::clipLine on an image of w x h in int64 arithmetic: (inside, p1, p2), the points as
+    OpenCV leaves them (moved part of the way where the segment misses the image)."""
+    (x1, y1), (x2, y2) = p1, p2
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line8(img: np.ndarray, p1, p2, value):
+    """cv::Line(img, p1, p2, color, 8): the 8-connected Bresenham line of LineIterator
+    (clipped to the image, drawn left to right)."""
+    h, w = img.shape[:2]
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        inside, p1, p2 = _clip_line(w, h, p1, p2)
+        if not inside:
+            return
+    (x, y), (x2, y2) = p1, p2
+    dx, dy = x2 - x, y2 - y
+    if dx < 0:
+        dx, dy, (x, y) = -dx, -dy, (x2, y2)
+    sy = 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err, plus, minus = dx - 2 * dy, 2 * dx, -2 * dy
+    for _ in range(dx + 1):
+        img[y, x] = value
+        step = err < 0
+        err += minus + (plus if step else 0)
+        if vert:
+            y += sy
+            x += 1 if step else 0
+        else:
+            x += 1
+            y += sy if step else 0
+
+
+def fill_poly(img: np.ndarray, poly, value) -> np.ndarray:
+    """cv2.fillPoly(img, [poly], value) in place with the defaults (8-connected edges, shift 0):
+    `poly` is (n, 2) int32 vertices. OpenCV draws each edge with `cv::Line`, then fills the
+    rows between the edges with its fixed-point scan (`FillEdgeCollection`: edges half open at
+    their lower end, an edge that leaves the image starting from its clipped ends, spans from
+    ceil(x_left) to floor(x_right), the active edges re-sorted by x on every row). Returns
+    img."""
+    pts = [(int(x), int(y)) for x, y in np.asarray(poly).reshape(-1, 2)]
+    h, w = img.shape[:2]
+    edges = []  # [y0, y1, x, dx] in 16.16 fixed point, as PolyEdge
+    x0, y0 = pts[-1][0] << _XY_SHIFT, pts[-1][1]
+    for px, py in pts:
+        x1, y1 = px << _XY_SHIFT, py
+        t0 = ((x0 + (_XY_ONE >> 1)) >> _XY_SHIFT, y0)
+        t1 = ((x1 + (_XY_ONE >> 1)) >> _XY_SHIFT, y1)
+        _line8(img, t0, t1, value)
+        c0, c1 = [x0, y0], [x1, y1]
+        if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+            _, t0, t1 = _clip_line(w, h, t0, t1)
+            if t0[1] != t1[1]:
+                c0[1], c1[1] = t0[1], t1[1]
+            c0[0], c1[0] = t0[0] << _XY_SHIFT, t1[0] << _XY_SHIFT
+        if y0 != y1:
+            dx = int((c1[0] - c0[0]) / (c1[1] - c0[1]))  # C++ division: toward zero
+            if y0 < y1:
+                edges.append([y0, y1, c0[0] + (y0 - c0[1]) * dx, dx])
+            else:
+                edges.append([y1, y0, c1[0] + (y1 - c1[1]) * dx, dx])
+        x0, y0 = x1, y1
+    _fill_edges(img, edges, value)
+    return img
+
+
+def _fill_edges(img: np.ndarray, edges: list, value):
+    """drawing.cpp's FillEdgeCollection for 8-connected (not anti-aliased) polygons."""
+    h, w = img.shape[:2]
+    if len(edges) < 2:
+        return
+    y_min = min(e[0] for e in edges)
+    y_max = max(e[1] for e in edges)
+    xs = [e[2] for e in edges] + [e[2] + (e[1] - e[0]) * e[3] for e in edges]
+    if y_max < 0 or y_min >= h or max(xs) < 0 or min(xs) >= (w << _XY_SHIFT):
+        return
+    edges = sorted(edges, key=lambda e: (e[0], e[2], e[3]))
+    n, i, active = len(edges), 0, []
+    for y in range(edges[0][0], min(y_max, h)):
+        # one pass over the active list, as OpenCV's: edges ending at y leave it, edges
+        # starting at y join before the first remaining edge whose x is not smaller
+        merged, li = [], 0
+        while li < len(active) or (i < n and edges[i][0] == y):
+            last = active[li] if li < len(active) else None
+            if last is not None and last[1] == y:
+                li += 1
+                continue
+            if last is not None and (i >= n or edges[i][0] > y or last[2] < edges[i][2]):
+                merged.append(last)
+                li += 1
+            elif i < n:
+                merged.append(edges[i])
+                i += 1
+            else:
+                break
+        active = merged
+        for k in range(0, len(active) - 1, 2):  # spans between pairs, then their x steps
+            a, b = active[k], active[k + 1]
+            if y >= 0:
+                left, right = (b, a) if a[2] > b[2] else (a, b)
+                x1, x2 = (left[2] + _XY_ONE - 1) >> _XY_SHIFT, right[2] >> _XY_SHIFT
+                if x1 < w and x2 >= 0:
+                    img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+            a[2] += a[3]
+            b[2] += b[3]
+        active.sort(key=lambda e: e[2])  # OpenCV's bubble sort by x: stable
+
+
+def resize_nearest_cv(img: np.ndarray, dsize) -> np.ndarray:
+    """cv2.resize(img, dsize=(w, h), interpolation=cv2.INTER_NEAREST): destination index i
+    reads source floor(i * n_src / n_dst), in double, clamped to the last index (not
+    `jax.image.resize`'s half-pixel rule)."""
+    w, h = int(dsize[0]), int(dsize[1])
+    h0, w0 = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / w0))).astype(np.int64), w0 - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / h0))).astype(np.int64), h0 - 1)
+    return img[ys[:, None], xs[None, :]]

@@ -1,6 +1,6 @@
-"""Detection and JDE datasets: YOLO-format folders on disk and procedural data (port of
-the detect/JDE branches of `sar_yolo_tpu/data/dataset.py`: `check_det_dataset`,
-`YOLODataset`, `SyntheticDataset`)."""
+"""Detection, JDE, pose and segment datasets: YOLO-format folders on disk and procedural
+data (port of the box, keypoint and polygon branches of `sar_yolo_tpu/data/dataset.py`:
+`check_det_dataset`, `YOLODataset`, `SyntheticDataset`)."""
 
 from __future__ import annotations
 
@@ -26,14 +26,18 @@ class SyntheticDataset:
     xywh, 'mask' (M,), and for JDE 'tags' (M,) person ids, all float32 and
     padded to M = max_labels rows; 1-5 rectangles with sides 0.1-0.3 of the
     image. Under JDE a rectangle's colour follows its identity tag, so the
-    embedding and state heads have a signal.
+    embedding and state heads have a signal. Pose adds 'keypoints' (M, K, D): the
+    first K of the rectangle's corners and centre (visibility 2), the rest zero;
+    segment adds 'masks' (s/4, s/4): the rectangles at a quarter of the size, instance
+    i + 1 where the i-th lies.
     """
 
-    def __init__(self, n=64, imgsz=640, nc=3, max_labels=128, seed=0, task="detect"):
-        if task not in ("detect", "jde"):
+    def __init__(self, n=64, imgsz=640, nc=3, max_labels=128, seed=0, task="detect",
+                 kpt_shape=(5, 3)):
+        if task not in ("detect", "jde", "pose", "segment"):
             raise ValueError(f"SyntheticDataset: task '{task}' is not part of this port yet")
         self.n, self.imgsz, self.nc, self.max_labels = n, imgsz, nc, max_labels
-        self.seed, self.task = seed, task
+        self.seed, self.task, self.kpt_shape = seed, task, tuple(kpt_shape)
         self.device_augment = False  # the trainer's: augment these tiles on the device
 
     def __len__(self):
@@ -48,6 +52,9 @@ class SyntheticDataset:
         boxes = np.zeros((M, 4), np.float32)
         mask = np.zeros(M, np.float32)
         tags = np.zeros(M, np.float32)
+        K, kd = self.kpt_shape
+        kpts = np.zeros((M, K, kd), np.float32)
+        seg = np.zeros((s // 4, s // 4), np.float32)
         for j in range(n_obj):
             c = int(rng.integers(0, self.nc))
             w = rng.uniform(0.1, 0.3) * s
@@ -59,9 +66,19 @@ class SyntheticDataset:
             img[y1:y2, x1:x2] = _COLORS[(tag if self.task == "jde" else c) % len(_COLORS)]
             boxes[j] = [cx / s, cy / s, w / s, h / s]
             cls[j], mask[j], tags[j] = c, 1.0, tag
+            if self.task == "pose":
+                pts = [(x1, y1), (x2, y1), (x2, y2), (x1, y2), (cx, cy)][:K]
+                for ki, (px, py) in enumerate(pts):
+                    kpts[j, ki] = [px / s, py / s, 2.0][:kd]
+            if self.task == "segment":
+                seg[y1 // 4:y2 // 4, x1 // 4:x2 // 4] = j + 1
         out = {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
         if self.task == "jde":
             out["tags"] = tags
+        if self.task == "pose":
+            out["keypoints"] = kpts
+        if self.task == "segment":
+            out["masks"] = seg
         return out
 
 
@@ -106,11 +123,13 @@ def check_det_dataset(data) -> dict:
 
 
 class YOLODataset:
-    """Detection and JDE samples from an image folder (or list file) with YOLO txt labels
-    (port of the detect/JDE branches of `sar_yolo_tpu/data/dataset.py::YOLODataset`).
+    """Detection, JDE, pose and segment samples from an image folder (or list file) with
+    YOLO txt labels (port of `sar_yolo_tpu/data/dataset.py::YOLODataset`).
 
-    Each label row: `class cx cy w h [person_id]`, normalized; the 6th column becomes
-    `tags` under JDE. Labels and image shapes are verified once and kept in
+    Each label row, normalized: `class cx cy w h [person_id]` (the 6th column becomes
+    `tags` under JDE); pose `class cx cy w h x1 y1 v1 ... xK yK vK` (K x D values of
+    `kpt_shape`); segment `class x1 y1 x2 y2 ...` (a polygon: an odd value count above 5;
+    the box is the polygon's extent). Labels and image shapes are verified once and kept in
     `labels/<split>.cache.npz` under the JAX package's name, hash and layout, so either
     package reads a cache the other wrote. Images that cannot be read or are under
     10 px are dropped, as are unreadable label files.
@@ -122,15 +141,20 @@ class YOLODataset:
     letterboxes (upscaling, as training does) and the trainer augments on the device
     (`data/device_augment.py`). augment=False letterboxes to imgsz, or to the batch
     shapes of `init_rect`, and adds `ratio_pad`, `ori_shape` and `im_file`.
-    Items are padded to `max_labels` rows, images uint8 HWC RGB.
+    Items are padded to `max_labels` rows, images uint8 HWC RGB; pose items carry
+    'keypoints' (M, K, D) normalized, segment items 'masks' (imgsz/4, imgsz/4): each
+    polygon drawn by `cv.fill_poly` at round(poly / 4) with its instance number (later
+    ones over earlier ones), on a square map also in rect batches, as in the JAX package.
+    `flip_idx` permutes the keypoints of a horizontal flip.
     """
 
     def __init__(self, img_path, imgsz=640, augment=False, hyp=None, use_tags=False,
                  max_labels=128, single_cls=False, fraction=1.0, task="detect",
-                 kpt_shape=(17, 3), cache=False, device_augment=False):
-        if task not in ("detect", "jde"):
+                 kpt_shape=(17, 3), cache=False, device_augment=False, flip_idx=None):
+        if task not in ("detect", "jde", "pose", "segment"):
             raise NotImplementedError(f"YOLODataset: task '{task}' is not part of this port yet")
         self.imgsz = imgsz
+        self.flip_idx = flip_idx
         self.device_augment = bool(device_augment and augment)
         self.scaleup = augment
         self.augment = augment and not self.device_augment
@@ -276,21 +300,41 @@ class YOLODataset:
         return files
 
     def _load_label(self, lf) -> dict:
-        """One label file -> {cls, bboxes (normalized xywh), tags}."""
+        """One label file -> {cls, bboxes (normalized xywh), tags[, keypoints (n, K, D)]
+        [, polygons (a list of (k, 2))]}."""
         lines = []
         if Path(lf).is_file():
             lines = [ln.split() for ln in Path(lf).read_text().splitlines() if ln.strip()]
-        cls, boxes, tags = [], [], []
+        K, kd = self.kpt_shape
+        cls, boxes, tags, kpts, polys = [], [], [], [], []
         for parts in lines:
             vals = [float(x) for x in parts]
-            if len(vals) >= 5:
+            if self.task == "segment" and len(vals) > 5 and (len(vals) - 1) % 2 == 0:
+                poly = np.array(vals[1:], np.float32).reshape(-1, 2)
+                x1, y1 = poly.min(0)
+                x2, y2 = poly.max(0)
+                boxes.append([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1])
+                polys.append(poly)
+                cls.append(vals[0])
+                tags.append(0.0)
+            elif self.task == "pose" and len(vals) >= 5 + K * kd:
+                cls.append(vals[0])
+                boxes.append(vals[1:5])
+                kpts.append(np.array(vals[5:5 + K * kd], np.float32).reshape(K, kd))
+                tags.append(0.0)
+            elif len(vals) >= 5:
                 cls.append(vals[0])
                 boxes.append(vals[1:5])
                 tags.append(vals[5] if len(vals) > 5 else 0.0)
         n = len(cls)
-        return {"cls": np.zeros(n, np.float32) if self.single_cls else np.array(cls, np.float32),
-                "bboxes": np.array(boxes, np.float32).reshape(n, 4),
-                "tags": np.array(tags, np.float32)}
+        out = {"cls": np.zeros(n, np.float32) if self.single_cls else np.array(cls, np.float32),
+               "bboxes": np.array(boxes, np.float32).reshape(n, 4),
+               "tags": np.array(tags, np.float32)}
+        if self.task == "pose":
+            out["keypoints"] = np.stack(kpts) if kpts else np.zeros((0, K, kd), np.float32)
+        if self.task == "segment":
+            out["polygons"] = polys
+        return out
 
     def __len__(self):
         return len(self.im_files)
@@ -329,6 +373,14 @@ class YOLODataset:
                 "im_file": self.im_files[i]}
         if self.use_tags:
             item["tags"] = lb["tags"].copy()
+        if self.task == "pose" and "keypoints" in lb:
+            k = lb["keypoints"].copy()
+            if len(k):
+                k[..., 0] *= w
+                k[..., 1] *= h
+            item["keypoints"] = k
+        if self.task == "segment":
+            item["polygons"] = [p * np.array([w, h], np.float32) for p in lb.get("polygons", [])]
         return item
 
     def _item_rng(self, i):
@@ -362,6 +414,12 @@ class YOLODataset:
                 item["bboxes"] = item["bboxes"] * r
                 item["bboxes"][:, [0, 2]] += padx
                 item["bboxes"][:, [1, 3]] += pady
+            if "keypoints" in item and len(item["keypoints"]):
+                item["keypoints"][..., 0] = item["keypoints"][..., 0] * r + padx
+                item["keypoints"][..., 1] = item["keypoints"][..., 1] * r + pady
+            if "polygons" in item:
+                item["polygons"] = [p * r + np.array([padx, pady], np.float32)
+                                    for p in item["polygons"]]
             item["img"] = img
             if self.augment:
                 if getattr(hyp, "copy_paste", 0):
@@ -371,7 +429,8 @@ class YOLODataset:
                                           perspective=hyp.perspective, rng=rng)
         if self.augment:
             item["img"] = augment_hsv(item["img"], hyp.hsv_h, hyp.hsv_s, hyp.hsv_v, rng=rng)
-            item = random_flip(item, fliplr=hyp.fliplr, flipud=hyp.flipud, rng=rng)
+            item = random_flip(item, fliplr=hyp.fliplr, flipud=hyp.flipud, rng=rng,
+                               flip_idx=self.flip_idx)
         return self._format(item)
 
     def _format(self, item) -> dict:
@@ -403,4 +462,19 @@ class YOLODataset:
             out["im_file"] = item["im_file"]
         if self.use_tags:
             out["tags"] = tags
+        if self.task == "pose":
+            K, kd = self.kpt_shape
+            kp = np.zeros((M, K, kd), np.float32)
+            if n and "keypoints" in item and len(item["keypoints"]):
+                kk = item["keypoints"][:n].copy()
+                kk[..., 0] /= w
+                kk[..., 1] /= h
+                kp[:n] = kk
+            out["keypoints"] = kp
+        if self.task == "segment":
+            ms = self.imgsz // 4
+            seg = np.zeros((ms, ms), np.float32)
+            for j, poly in enumerate(item.get("polygons", [])[:n]):
+                cv.fill_poly(seg, np.round(poly / 4).astype(np.int32), float(j + 1))
+            out["masks"] = seg
         return out

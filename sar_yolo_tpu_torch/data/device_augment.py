@@ -13,7 +13,8 @@ the host from a numpy generator with the JAX package's distributions (it does no
 reproduce JAX's threefry stream), and tests can hand in JAX's own draws. The
 semantics, including the deviations from the host path that the JAX module lists
 (no rotation, shear or perspective; float HSV; mosaic seams blend with gray), are
-the JAX package's; the keypoint branches are left out, since the port trains JDE only.
+the JAX package's. Pose keypoints move with the boxes, lose their visibility outside
+the canvas, and a horizontal flip permutes them by `hyp["flip_idx"]`.
 """
 
 from __future__ import annotations
@@ -122,7 +123,7 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
     """Augment a batch of device tensors with the draws `params` (on the same device).
 
     batch: img (B, S, S, 3) uint8 letterboxed tiles; cls, mask, tags (B, M); bboxes
-    (B, M, 4) normalized xywh. Returns the same keys with img `dtype` RGB in [0, 1]
+    (B, M, 4) normalized xywh; keypoints (B, M, K, D) normalized (pose). Returns the same keys with img `dtype` RGB in [0, 1]
     (B, S, S, 3) and the labels moved; the label count becomes max_labels (default
     M): where more survive, a random subset (ordered by params.shuf_u) is kept.
     Runs no host synchronization. As in the JAX package, the warp (tiles, weights,
@@ -140,6 +141,7 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
     tiles = img[idx].to(dtype)                                           # (B, T, S, S, 3)
     cls_t, box_t, msk_t = batch["cls"][idx], batch["bboxes"][idx], batch["mask"][idx]
     tag_t = batch["tags"][idx] if "tags" in batch else None
+    kpt_t = batch["keypoints"][idx] if "keypoints" in batch else None
 
     # affine sampling grid: canvas -> output is y' = s (u - C) + t
     C = float(S) if mosaic else 0.5 * S
@@ -194,6 +196,15 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
             "mask": valid.reshape(B, T * M).to(batch["mask"].dtype)}
     if tag_t is not None:
         pool["tags"] = tag_t.reshape(B, T * M)
+    if kpt_t is not None:  # (B, T, M, K, D): as the boxes, visibility 0 off the canvas
+        kxy = kpt_t[..., :2] * S + torch.stack([ox, oy], -1)[:, :, None, None, :]
+        kxy = sca[..., None] * (kxy - C) + toff[..., None, :]
+        parts = [kxy / S]
+        if kpt_t.shape[-1] == 3:
+            inside = ((kxy >= 0) & (kxy <= S)).all(-1)
+            parts.append(torch.where(inside, kpt_t[..., 2], 0.0)[..., None])
+        kk = torch.cat(parts, -1)
+        pool["keypoints"] = kk.reshape(B, T * M, *kk.shape[3:])
 
     # mixup (reference MixUp): blend with the partner one place on within the span
     if mosaic and float(hyp.get("mixup", 0.0)) > 0:
@@ -226,6 +237,14 @@ def device_train_augment(batch: dict, params: AugParams, hyp: dict, *, mosaic: b
     comp["bboxes"] = torch.stack([torch.where(p.fliplr[:, None], 1.0 - bx[..., 0], bx[..., 0]),
                                   torch.where(p.flipud[:, None], 1.0 - bx[..., 1], bx[..., 1]),
                                   bx[..., 2], bx[..., 3]], -1)
+    if "keypoints" in comp:
+        kk, fl = comp["keypoints"], p.fliplr[:, None, None, None]
+        kk = torch.cat([torch.where(fl, 1.0 - kk[..., :1], kk[..., :1]),
+                        torch.where(p.flipud[:, None, None, None], 1.0 - kk[..., 1:2], kk[..., 1:2]),
+                        kk[..., 2:]], -1)
+        if hyp.get("flip_idx") is not None:
+            kk = torch.where(fl, kk[:, :, list(hyp["flip_idx"])], kk)
+        comp["keypoints"] = kk
 
     # HSV and normalization
     x01 = torch.clamp(out.float() / 255.0, 0.0, 1.0)

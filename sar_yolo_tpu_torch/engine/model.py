@@ -1,7 +1,8 @@
 """YOLO facade of the port: build from a config name or YAML path, seed or load weights (a
 checkpoint directory too), train, validate, fuse, save, serve batches, predict and track
 sources, summarize and profile (port of `sar_yolo_tpu/engine/model.py` without export,
-`embed`, `benchmark` and `tune`), for the detect and JDE tasks: each call takes the
+`embed`, `benchmark` and `tune`), for the detect, JDE, pose and segment tasks: each call
+takes the
 trainer (`TRAINERS`, whose `validator_cls` validates) or the predictor (`PREDICTORS`) of
 the model's task. `Ensemble` merges the detections of several models."""
 
@@ -42,6 +43,8 @@ class YOLO:
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6 + 256 + 6)
         >>> m = YOLO("yolov8n.yaml")                # detect: yolov8n, yolo11n, yolov12n
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6)
+        >>> dets = YOLO("yolov8n-pose.yaml").predict_batched(frames_u8)  # (B, 300, 6 + 17 x 3)
+        >>> dets, masks = YOLO("yolov8n-seg.yaml").predict_batched(frames_u8)  # masks 160 x 160
         >>> dets = m.predict_batched(frames_u8, half=True)  # bf16 on the card
         >>> m = YOLO("tinyjde.yaml", device="cpu")
         >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
@@ -141,7 +144,7 @@ class YOLO:
         """Validate the BN-folded model on this model's device (keys of `cfg/default.py`);
         returns the metrics dict. `data`: a dataset YAML file or dict (its `split`, else
         val, else train), or 'synthetic' (the default): 16 images of
-        SyntheticDataset(seed=0) with min(nc, 3) classes."""
+        SyntheticDataset(seed=0) with min(nc, 3) classes (a pose model's keypoint shape)."""
         validator = TRAINERS[self._ported_task()].validator_cls
         args = get_cfg({**self.overrides, "model": self.cfg, **kwargs})
         args.save_dir = str(get_save_dir(args, self.task))
@@ -149,7 +152,8 @@ class YOLO:
         if args.data in (None, "synthetic"):
             data = {"nc": nc, "names": {i: f"c{i}" for i in range(nc)}}
             dataset = SyntheticDataset(n=16, imgsz=args.imgsz, nc=min(nc, 3),
-                                       max_labels=args.max_labels, task=self.task)
+                                       max_labels=args.max_labels, task=self.task,
+                                       kpt_shape=self.meta.get("kpt_shape", (5, 3)))
         else:
             data = check_det_dataset(args.data)
             split = data.get(args.split) or data.get("val") or data["train"]
@@ -209,8 +213,10 @@ class YOLO:
 
         kwargs: imgsz, conf, iou, max_det, agnostic_nms, half (bf16 on the card).
         Returns (B, max_det, 6 + E) numpy detections in original-image pixels: [x1, y1,
-        x2, y2, conf, cls, *embedding, *states] (E = 0 for a detect model); rows with
-        conf == 0 are padding.
+        x2, y2, conf, cls, *embedding, *states] (E = 0 for a detect model; pose: the K x D
+        keypoints, xy in original pixels); rows with conf == 0 are padding. A segment
+        model returns (rows (B, max_det, 6), masks (B, max_det, imgsz / 4, imgsz / 4) bool
+        in the letterboxed input's frame).
         """
         return self._get_predictor(kwargs).predict_batch(frames)
 
@@ -343,7 +349,8 @@ class YOLO:
             model, shapes = _meta_copy(self.model), {}
             for i, blk in enumerate(model.blocks):
                 blk.register_forward_hook(lambda m, a, out, i=i: shapes.__setitem__(
-                    i, tuple(out.shape) if torch.is_tensor(out) else [tuple(o.shape) for o in out]))
+                    i, tuple(out.shape) if torch.is_tensor(out) else
+                    [tuple(o.shape) for o in torch.utils._pytree.tree_leaves(out)]))
             with torch.no_grad():
                 model(torch.zeros(1, 3, imgsz, imgsz, device="meta"))
             lines = [f"{'idx':>4} {'module':<20} {'params':>12}  output"]

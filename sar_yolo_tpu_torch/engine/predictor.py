@@ -1,6 +1,12 @@
 """Serving on the device (port of `sar_yolo_tpu/engine/predictor.py`): uint8 frames ->
 letterbox -> forward -> decode -> NMS (for a v10 head the NMS-free top-k,
-`postprocess_end2end`) -> boxes in the frame's pixels, ending in one copy to the host.
+`postprocess_end2end`) -> boxes in the frame's pixels, ending in one copy to the host
+(a segment model: two, the rows and the boolean masks).
+
+Pose rows carry the keypoints, un-letterboxed like the boxes (the boxes are clipped to
+the frame in Results, the keypoints not). Segment rows are [box, conf, cls]; their masks
+(B, max_det, mh, mw) stay at the prototypes' resolution in the letterboxed input's frame
+(`process_mask` over the square (imgsz, imgsz) input), as the JAX package returns them.
 
 Under `half` the letterboxed frame enters the model in bf16 and the head maps come out
 in bf16; decode and NMS then run in the dtypes the JAX predictor gives them (boxes in
@@ -23,6 +29,7 @@ from sar_yolo_tpu_torch.cfg.default import get_save_dir
 from sar_yolo_tpu_torch.data.loaders import load_inference_source
 from sar_yolo_tpu_torch.engine.results import Results
 from sar_yolo_tpu_torch.ops.decode import decode_detect
+from sar_yolo_tpu_torch.ops.masks import process_mask
 from sar_yolo_tpu_torch.ops.nms import non_max_suppression, postprocess_end2end
 from sar_yolo_tpu_torch.ops.preprocess import letterbox_device
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
@@ -54,7 +61,8 @@ class BasePredictor(HasCallbacks):
         emb_dim = meta.get("embed_dim") or 0
         preds = decode_detect(feats, meta["strides"], meta["nc"], meta["reg_max"],
                               extra_sigmoid=meta.get("state_classes") or 0,
-                              split_extras=emb_dim)
+                              split_extras=emb_dim,
+                              kpt_shape=meta["kpt_shape"] if meta.get("head") == "Pose" else None)
         return preds if emb_dim else (preds, None)
 
     def decode_nms(self, feats):
@@ -77,6 +85,10 @@ class BasePredictor(HasCallbacks):
         pad4 = torch.tensor([*pad, *pad], dtype=dets.dtype, device=dets.device)
         return torch.cat([(dets[..., :4] - pad4) / r, dets[..., 4:]], -1)
 
+    def serve(self, x, r: float, pad):
+        """The task's outputs of a letterboxed batch, on the device (the rows here)."""
+        return self._dets_in_orig_coords(x, r, pad)
+
     def preprocess(self, frames_u8):
         """(B, H, W, 3) uint8 BGR -> (normalized letterboxed RGB NCHW batch on the device in
         the model's compute dtype, r, pad)."""
@@ -86,10 +98,11 @@ class BasePredictor(HasCallbacks):
         return (x.permute(0, 3, 1, 2).contiguous() / 255.0).to(dtype), r, pad
 
     @torch.no_grad()
-    def predict_batch(self, frames_u8) -> np.ndarray:
+    def predict_batch(self, frames_u8):
         """Serve a (B, H, W, 3) uint8 BGR batch; returns (B, max_det, 6 + E) detections
-        in original-image pixels (rows with conf == 0 are padding)."""
-        return self._dets_in_orig_coords(*self.preprocess(frames_u8)).cpu().numpy()
+        in original-image pixels (rows with conf == 0 are padding); pose: (B, max_det,
+        6 + K D); segment: (rows (B, max_det, 6), masks (B, max_det, mh, mw) bool)."""
+        return _numpy(self.serve(*self.preprocess(frames_u8)))
 
     @staticmethod
     def _kept(dets, orig_img) -> np.ndarray:
@@ -128,7 +141,7 @@ class BasePredictor(HasCallbacks):
                 x, r, pad = self.preprocess(img[None])
                 self._sync()
                 t1 = time.perf_counter()
-                dets = self._dets_in_orig_coords(x, r, pad).cpu().numpy()
+                dets = _numpy(self.serve(x, r, pad))
                 t2 = time.perf_counter()
                 speed = {"preprocess": (t1 - t0) * 1e3, "inference": (t2 - t1) * 1e3}
                 res = self.postprocess(dets, path, img, speed)
@@ -143,6 +156,11 @@ class BasePredictor(HasCallbacks):
                 yield res
         finally:
             self.run_callbacks("on_predict_end")
+
+
+def _numpy(out):
+    """A device tensor, or a tuple of them, on the host as numpy."""
+    return tuple(t.cpu().numpy() for t in out) if isinstance(out, tuple) else out.cpu().numpy()
 
 
 class DetectionPredictor(BasePredictor):
@@ -166,4 +184,43 @@ class JDEPredictor(BasePredictor):
                        person_states=states, speed=speed)
 
 
-PREDICTORS = {"detect": DetectionPredictor, "jde": JDEPredictor}
+class PosePredictor(BasePredictor):
+    """Rows [box, conf, cls, K x (x, y[, visibility])], the keypoints un-letterboxed;
+    Results.keypoints (n, K, D)."""
+
+    def serve(self, x, r: float, pad):
+        dets = self._dets_in_orig_coords(x, r, pad)
+        K, D = self.meta["kpt_shape"]
+        k = dets[..., 6:6 + K * D].reshape(*dets.shape[:2], K, D)
+        pad2 = torch.tensor(pad, dtype=dets.dtype, device=dets.device)
+        k = torch.cat([(k[..., :2] - pad2) / r, k[..., 2:]], -1)
+        return torch.cat([dets[..., :6], k.reshape(*dets.shape[:2], K * D)], -1)
+
+    def postprocess(self, dets, path, orig_img, speed=None) -> Results:
+        d = self._kept(dets, orig_img)
+        K, D = self.meta["kpt_shape"]
+        return Results(orig_img, path, self.names, boxes=d[:, :6],
+                       keypoints=d[:, 6:6 + K * D].reshape(-1, K, D), speed=speed)
+
+
+class SegmentPredictor(BasePredictor):
+    """(rows [box, conf, cls], masks at the prototypes' resolution of the letterboxed
+    input); Results.masks (n, mh, mw) bool."""
+
+    def serve(self, x, r: float, pad):
+        feats, protos = self.model(x)
+        dets = self.decode_nms(feats)
+        H = x.shape[2]
+        masks = process_mask(protos, dets[..., 6:], dets[..., :4], (H, H))
+        pad4 = torch.tensor([*pad, *pad], dtype=dets.dtype, device=dets.device)
+        return torch.cat([(dets[..., :4] - pad4) / r, dets[..., 4:6]], -1), masks
+
+    def postprocess(self, out, path, orig_img, speed=None) -> Results:
+        dets, masks = out
+        keep = dets[0][:, 4] > 0
+        return Results(orig_img, path, self.names, boxes=self._kept(dets, orig_img)[:, :6],
+                       masks=masks[0][keep], speed=speed)
+
+
+PREDICTORS = {"detect": DetectionPredictor, "jde": JDEPredictor, "pose": PosePredictor,
+              "segment": SegmentPredictor}

@@ -1,10 +1,11 @@
-"""Inference results of the detect and JDE tasks: boxes (with track ids) and, for JDE, ReID
-embeddings and posture states (the box and JDE part of `sar_yolo_tpu/engine/results.py`;
-numpy-backed).
+"""Inference results: boxes (with track ids), for JDE ReID embeddings and posture states,
+pose keypoints and segment masks (port of `sar_yolo_tpu/engine/results.py` without probs
+and OBB; numpy-backed).
 
-Drawing and file writers (`plot`, `save`, `save_crop`) and the pandas tables (`to_df`,
-`to_csv`, `to_xml`) raise NotImplementedError: they need OpenCV's drawing, a JPEG
-encoder or pandas, which the card's machine does not have.
+Drawing and file writers (`plot`, `save`, `save_crop`), the pandas tables (`to_df`,
+`to_csv`, `to_xml`) and the mask contours (`Masks.xy`, `Masks.xyn`: cv2.findContours)
+raise NotImplementedError: they need OpenCV, a JPEG encoder or pandas, which the card's
+machine does not have.
 """
 
 from __future__ import annotations
@@ -68,32 +69,93 @@ class Boxes:
         return self.data.shape[1] > 6
 
 
+class _Rows:
+    """`data` of one image with its `orig_shape`; len, indexing, cpu() and numpy()."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = data
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, i):
+        return type(self)(self.data[i][None] if isinstance(i, (int, np.integer)) else self.data[i],
+                          self.orig_shape)
+
+    def cpu(self):
+        return self
+
+    def numpy(self):
+        return self
+
+
+class Masks(_Rows):
+    """Instance masks (n, H, W), bool."""
+
+    @property
+    def xy(self):
+        raise NotImplementedError("Masks.xy is not part of this port yet (it needs "
+                                  "cv2.findContours)")
+
+    @property
+    def xyn(self):
+        raise NotImplementedError("Masks.xyn is not part of this port yet (it needs "
+                                  "cv2.findContours)")
+
+
+class Keypoints(_Rows):
+    """Pose keypoints (n, K, 2 or 3) in the frame's pixels."""
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.data[..., :2] / np.array([w, h])
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
 class Results:
-    """One image's detections, with `embeds` (n, E) and `person_states` (n,) for JDE."""
+    """One image's detections, with `embeds` (n, E) and `person_states` (n,) for JDE,
+    `keypoints` for pose and `masks` for segment."""
 
     def __init__(self, orig_img, path, names, boxes=None, embeds=None, person_states=None,
-                 speed=None):
+                 speed=None, masks=None, keypoints=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(np.asarray(masks), self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(np.asarray(keypoints), self.orig_shape) \
+            if keypoints is not None else None
         self.embeds = embeds
         self.person_states = person_states
         self.speed = speed or {}
         self.frame = None
 
     def __len__(self):
-        return 0 if self.boxes is None else len(self.boxes)
+        for rows in (self.boxes, self.masks, self.keypoints):
+            if rows is not None:
+                return len(rows)
+        return 0
 
     def new(self) -> "Results":
         """Empty Results carrying the same image and names."""
         return Results(orig_img=self.orig_img, path=self.path, names=self.names)
 
-    def update(self, boxes=None):
-        """Replace the boxes in place."""
+    def update(self, boxes=None, masks=None):
+        """Replace the boxes or masks in place."""
         if boxes is not None:
             self.boxes = Boxes(np.asarray(boxes), self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(np.asarray(masks), self.orig_shape)
         return self
 
     def summary(self, normalize: bool = False) -> list:

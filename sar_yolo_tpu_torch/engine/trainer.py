@@ -1,11 +1,16 @@
-"""Detect and JDE training on one device (port of `sar_yolo_tpu/engine/trainer.py`).
+"""Detect, JDE, pose and segment training on one device (port of
+`sar_yolo_tpu/engine/trainer.py`).
 
-`BaseTrainer` holds the loop; `DetectionTrainer` (the v8 loss: box, cls, dfl) and
+`BaseTrainer` holds the loop; `DetectionTrainer` (the v8 loss: box, cls, dfl),
 `JDETrainer` (box, cls, dfl, the triplet embedding term and the class-balanced state
-term) give it the task's loss and validator. Data: a YOLO-format dataset (a dataset
-YAML file or dict; 5-column detect labels, 6-column JDE labels with the track id) or
-the synthetic set. Where the hyperparameters allow it (`_device_augment_enabled`: no
-rotation, shear, perspective, copy-paste or mosaic9), the host only letterboxes and
+term), `PoseTrainer` (box, pose, kobj, cls, dfl) and `SegmentTrainer` (box, seg, cls,
+dfl) give it the task's loss and validator. Data: a YOLO-format dataset (a dataset
+YAML file or dict; 5-column detect labels, 6-column JDE labels with the track id,
+keypoint or polygon rows) or the synthetic set. A pose model takes its dataset's
+`kpt_shape` (as Ultralytics rebuilds the head; the JAX package leaves the model's and
+fails where they differ). Where the hyperparameters allow it
+(`_device_augment_enabled`: not segment; no rotation, shear, perspective, copy-paste or
+mosaic9), the host only letterboxes and
 the train step augments the uint8 batch on the device (`data/device_augment.py`),
 with draws keyed by (seed, epoch, batch index); otherwise the host augments
 (`data/augment.py`). Mosaic is off for the last `close_mosaic` epochs on either route.
@@ -51,17 +56,18 @@ import torch
 
 from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.build import DataLoader
-from sar_yolo_tpu_torch.data.cv import resize
+from sar_yolo_tpu_torch.data.cv import resize, resize_nearest_cv
 from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
 from sar_yolo_tpu_torch.data.device_augment import AUG_KEYS, device_train_augment, draw_params
-from sar_yolo_tpu_torch.engine.validator import DetectionValidator, JDEValidator
+from sar_yolo_tpu_torch.engine.validator import (DetectionValidator, JDEValidator, PoseValidator,
+                                                 SegmentValidator)
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype, set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.checks import check_bf16
-from sar_yolo_tpu_torch.utils.loss import detection_loss, jde_loss
+from sar_yolo_tpu_torch.utils.loss import detection_loss, jde_loss, pose_loss, segmentation_loss
 
 CLIP_NORM = 10.0
 ADAM_ALIASES = ("Adam", "AdamW", "NAdam", "RAdam")  # all optax.adamw in the JAX package
@@ -264,22 +270,23 @@ class BaseTrainer(HasCallbacks):
 
     def get_dataset(self):
         """(train set, val set, info) for args.data: a dataset YAML file or dict, or the
-        synthetic sets (None or 'synthetic'). Synthetic data trains un-augmented unless
-        `device_augment=True`."""
+        synthetic sets (None or 'synthetic'; 5 keypoints a pose instance, as the JAX
+        package's). Synthetic data trains un-augmented unless `device_augment=True`."""
         data, args = self.args.data, self.args
         if data is None or str(data).startswith("synthetic"):
             nc = 3
-            train = SyntheticDataset(n=max(64, int(args.batch or 16)), imgsz=args.imgsz, nc=nc,
-                                     max_labels=args.max_labels, task=self.task)
+            kw = dict(imgsz=args.imgsz, nc=nc, max_labels=args.max_labels, task=self.task,
+                      kpt_shape=(5, 3))
+            train = SyntheticDataset(n=max(64, int(args.batch or 16)), **kw)
             train.device_augment = _explicit_on(args.device_augment) and \
                 self._device_augment_enabled()
-            val = SyntheticDataset(n=16, imgsz=args.imgsz, nc=nc, max_labels=args.max_labels,
-                                   seed=1, task=self.task)
-            return train, val, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)}}
+            val = SyntheticDataset(n=16, seed=1, **kw)
+            return train, val, {"nc": nc, "names": {i: f"class{i}" for i in range(nc)},
+                                "kpt_shape": (5, 3)}
         info = check_det_dataset(data)
         kw = dict(imgsz=args.imgsz, hyp=args, use_tags=self.task == "jde",
                   max_labels=args.max_labels, single_cls=args.single_cls, task=self.task,
-                  kpt_shape=tuple(info.get("kpt_shape", (17, 3))))
+                  kpt_shape=tuple(info.get("kpt_shape", (17, 3))), flip_idx=info.get("flip_idx"))
         train = YOLODataset(info["train"], augment=True, fraction=args.fraction, cache=args.cache,
                             device_augment=self._device_augment_enabled(), **kw)
         val = YOLODataset(info.get("val") or info["train"], augment=False, **kw)
@@ -287,20 +294,21 @@ class BaseTrainer(HasCallbacks):
 
     def _device_augment_enabled(self) -> bool:
         """Whether the train step augments on the device (the JAX package's
-        `_device_augment_enabled`): unless device_augment is off, whenever the
-        hyperparameters are expressible there (no rotation, shear, perspective,
-        copy-paste or mosaic9; mosaic probability 0 or 1). Asked for where they are
-        not, it warns and the host augments."""
+        `_device_augment_enabled`): unless device_augment is off, whenever the task has
+        no polygons (not segment) and the hyperparameters are expressible there (no
+        rotation, shear, perspective, copy-paste or mosaic9; mosaic probability 0 or 1).
+        Asked for where they are not, it warns and the host augments."""
         v = self.args.device_augment
         if v in (False, "False", "false", "off", 0):
             return False
         g = lambda k: float(getattr(self.args, k) or 0)  # noqa: E731
-        expressible = (g("degrees") == 0 and g("shear") == 0 and g("perspective") == 0
-                       and g("copy_paste") == 0 and g("mosaic9") == 0 and g("mosaic") in (0.0, 1.0))
+        expressible = (self.task != "segment" and g("degrees") == 0 and g("shear") == 0
+                       and g("perspective") == 0 and g("copy_paste") == 0 and g("mosaic9") == 0
+                       and g("mosaic") in (0.0, 1.0))
         if _explicit_on(v) and not expressible:
             LOGGER.warning("device_augment=True but the hyperparameters need the host "
-                           "(degrees/shear/perspective/copy_paste/mosaic9/fractional mosaic); "
-                           "using host augmentation")
+                           "(degrees/shear/perspective/copy_paste/mosaic9/fractional mosaic "
+                           "or polygons); using host augmentation")
         return expressible
 
     def setup(self, state_dict: dict | None = None):
@@ -311,7 +319,8 @@ class BaseTrainer(HasCallbacks):
         self.train_set, self.val_set, self.data = self.get_dataset()
         nc = 1 if args.single_cls else self.data["nc"]
         dtype = amp_dtype(args, self.device)
-        model, self.meta = build_model(args.model, nc=nc, dtype=dtype)
+        kpt_shape = tuple(self.data.get("kpt_shape", (17, 3))) if self.task == "pose" else None
+        model, self.meta = build_model(args.model, nc=nc, dtype=dtype, kpt_shape=kpt_shape)
         if self.meta["task"] != self.task:
             raise ValueError(f"'{args.model}' is a {self.meta['task']} model, not a "
                              f"{self.task} model")
@@ -343,6 +352,8 @@ class BaseTrainer(HasCallbacks):
         self.device_augment = bool(getattr(self.train_set, "device_augment", False))
         self._mosaic_on = self.device_augment and float(args.mosaic or 0) > 0
         self.aug_hyp = {k: float(getattr(args, k) or 0) for k in AUG_KEYS}
+        if getattr(self.train_set, "flip_idx", None) is not None:
+            self.aug_hyp["flip_idx"] = tuple(int(i) for i in self.train_set.flip_idx)
         self._ms_rng = np.random.default_rng(args.seed + 7)  # multi_scale's sizes
         self._trace = None      # the active torch.profiler capture of profile='trace'
         self._traced = False
@@ -380,13 +391,17 @@ class BaseTrainer(HasCallbacks):
         """The JAX package's multi-scale training: the whole numpy batch resized (OpenCV's
         INTER_LINEAR, `data/cv.py`) to a random multiple of the grid stride in
         [0.5, 1.5] x imgsz, drawn from a generator seeded with seed + 7. The boxes are
-        normalized, so the labels stay as they are."""
+        normalized, so the labels stay as they are; segment masks follow at sz / 4 by
+        OpenCV's INTER_NEAREST."""
         gs = max(int(max(self.meta["strides"])), 32)
         imgsz = self.args.imgsz
         sz = int(self._ms_rng.integers(int(imgsz * 0.5), int(imgsz * 1.5) + gs) // gs * gs)
         if sz == batch["img"].shape[1]:
             return batch
-        return {**batch, "img": np.stack([resize(im, (sz, sz)) for im in np.asarray(batch["img"])])}
+        out = {**batch, "img": np.stack([resize(im, (sz, sz)) for im in np.asarray(batch["img"])])}
+        if "masks" in out and out["masks"].ndim == 3:
+            out["masks"] = np.stack([resize_nearest_cv(m, (sz // 4, sz // 4)) for m in out["masks"]])
+        return out
 
     def _start_trace(self):
         """Start profile='trace''s torch.profiler capture (CPU, and CUDA on the card)."""
@@ -633,4 +648,46 @@ class JDETrainer(BaseTrainer):
         return out.total, out.items, out.cb_counts
 
 
-TRAINERS = {"detect": DetectionTrainer, "jde": JDETrainer}
+class PoseTrainer(BaseTrainer):
+    """Trains a pose model: the v8 pose loss (box, pose, kobj, cls, dfl), the pose validator.
+
+    Examples:
+        >>> tr = PoseTrainer({"model": "tinypose.yaml", "data": "synthetic", "imgsz": 64,
+        ...                   "batch": 2, "epochs": 1}, device="cpu")
+        >>> metrics = tr.train()
+    """
+
+    task = "pose"
+    loss_names = ("box", "pose", "kobj", "cls", "dfl")
+    validator_cls = PoseValidator
+
+    def loss(self, feats, batch: dict):
+        meta = self.meta
+        out = pose_loss(feats, batch, self.args, nc=meta["nc"], reg_max=meta["reg_max"],
+                        strides=tuple(meta["strides"]), kpt_shape=tuple(meta["kpt_shape"]))
+        return out.total, out.items, self.cb_counts
+
+
+class SegmentTrainer(BaseTrainer):
+    """Trains a segment model: the v8 segmentation loss (box, seg, cls, dfl), the segment
+    validator.
+
+    Examples:
+        >>> tr = SegmentTrainer({"model": "tinyseg.yaml", "data": "synthetic", "imgsz": 64,
+        ...                      "batch": 2, "epochs": 1}, device="cpu")
+        >>> metrics = tr.train()
+    """
+
+    task = "segment"
+    loss_names = ("box", "seg", "cls", "dfl")
+    validator_cls = SegmentValidator
+
+    def loss(self, feats, batch: dict):
+        meta = self.meta
+        out = segmentation_loss(feats, batch, self.args, nc=meta["nc"], reg_max=meta["reg_max"],
+                                strides=tuple(meta["strides"]), nm=meta["nm"])
+        return out.total, out.items, self.cb_counts
+
+
+TRAINERS = {"detect": DetectionTrainer, "jde": JDETrainer, "pose": PoseTrainer,
+            "segment": SegmentTrainer}

@@ -1,11 +1,13 @@
-"""Validators: the eval loop on the device, then mAP, posture-state and ReID metrics on the
-host (port of `BaseValidator`, `DetectionValidator` and `JDEValidator` of
-`sar_yolo_tpu/engine/validator.py`).
+"""Validators: the eval loop on the device, then mAP, posture-state, ReID, keypoint and
+mask metrics on the host (port of `BaseValidator`, `DetectionValidator`, `JDEValidator`,
+`PoseValidator` and `SegmentValidator` of `sar_yolo_tpu/engine/validator.py`).
 
 Per batch, the uint8 NHWC RGB images go to the device as NCHW / 255; the eval
 forward, the decode and NMS (multi-label for nc > 1, the JDE embeddings gathered
-after NMS; for a v10 head the NMS-free top-k) run there, and one
-(B, max_det, 6 + E + S) tensor comes back.
+after NMS, pose keypoints decoded to input pixels and segment mask coefficients
+carried in the rows; for a v10 head the NMS-free top-k) run there, and one copy comes
+back: the (B, max_det, 6 + E + S) rows, with a segment model's (B, nm, mh, mw)
+prototypes in the same buffer (16 x 32 x 160 x 160 float32 at 640: 52 MB a batch).
 
 With `rect`, the dataset's images are batched by aspect ratio (`init_rect`). With
 `save_json`, boxes go back to native image pixels through each image's `ratio_pad`,
@@ -13,8 +15,8 @@ image ids are the file stems, and an 80-class model validated on a COCO dataset
 writes the COCO 91-index category ids.
 
 Not ported yet, each refused where asked for: mesh sharding, test-time
-augmentation and plots (`cfg/default.py` NOT_PORTED), and the pose, segment,
-classify, OBB and RT-DETR validators.
+augmentation and plots (`cfg/default.py` NOT_PORTED), and the classify, OBB and
+RT-DETR validators.
 """
 
 from __future__ import annotations
@@ -29,11 +31,15 @@ import numpy as np
 import torch
 
 from sar_yolo_tpu_torch.data.build import DataLoader
+from sar_yolo_tpu_torch.data.cv import resize_nearest_cv
 from sar_yolo_tpu_torch.ops.decode import decode_detect
+from sar_yolo_tpu_torch.ops.masks import process_mask
 from sar_yolo_tpu_torch.ops.nms import non_max_suppression, postprocess_end2end
 from sar_yolo_tpu_torch.utils import LOGGER
-from sar_yolo_tpu_torch.utils.metrics import (DetMetrics, box_iou_np, davies_bouldin,
-                                              match_predictions, silhouette_cosine)
+from sar_yolo_tpu_torch.utils.loss import OKS_SIGMA
+from sar_yolo_tpu_torch.utils.metrics import (IOU_THRESHOLDS, DetMetrics, box_iou_np,
+                                              davies_bouldin, match_predictions,
+                                              silhouette_cosine)
 
 # COCO's 91-index category id of each of the 80 contiguous classes
 COCO80_TO_91 = [i for i in range(1, 91) if i not in {12, 26, 29, 30, 45, 66, 68, 69, 71, 83}]
@@ -72,7 +78,8 @@ class BaseValidator:
         t0 = time.perf_counter()
         for batch in loader:
             npad = int(batch.pop("_pad", 0))
-            dets = self.predict(model, self.preprocess(batch["img"], device)).cpu().numpy()
+            dets, self._protos = self._to_host(self.predict(model, self.preprocess(batch["img"],
+                                                                                   device)))
             n_eff = len(dets) - npad  # trailing pad rows are duplicate samples
             self._save_txt_batch(batch, dets, n_eff, n_img)
             if args.save_json:
@@ -103,10 +110,24 @@ class BaseValidator:
         """(B, H, W, 3) uint8 RGB -> (B, 3, H, W) float32 / 255 on the device."""
         return torch.from_numpy(img_u8).to(device).permute(0, 3, 1, 2).float() / 255.0
 
+    @staticmethod
+    def _to_host(out):
+        """The device result -> numpy (rows, prototypes or None), in one copy to the host."""
+        if not isinstance(out, tuple):
+            return out.cpu().numpy(), None
+        dets, protos = out
+        flat = torch.cat([dets.float().flatten(), protos.float().flatten()]).cpu().numpy()
+        n = dets.numel()
+        return flat[:n].reshape(dets.shape), flat[n:].reshape(protos.shape)
+
     @torch.no_grad()
-    def predict(self, model, x: torch.Tensor) -> torch.Tensor:
-        """Eval forward, then decode and NMS: (B, max_det, 6 + E + S) on the device."""
-        return self.postprocess(model(x))
+    def predict(self, model, x: torch.Tensor):
+        """Eval forward, then decode and NMS: (B, max_det, 6 + E + S) on the device; a segment
+        model's (rows, prototypes)."""
+        out = model(x)
+        if isinstance(out, tuple):
+            return self.postprocess(out[0]), out[1]
+        return self.postprocess(out)
 
     def postprocess(self, feats) -> torch.Tensor:
         """Decode and NMS of the head maps; multi-label for nc > 1, as the
@@ -116,7 +137,8 @@ class BaseValidator:
         nc, emb_dim = meta["nc"], meta.get("embed_dim") or 0
         preds = decode_detect(feats, meta["strides"], nc, meta["reg_max"],
                               extra_sigmoid=meta.get("state_classes") or 0,
-                              split_extras=emb_dim)
+                              split_extras=emb_dim,
+                              kpt_shape=meta["kpt_shape"] if meta.get("head") == "Pose" else None)
         bank = None
         if emb_dim:
             preds, bank = preds
@@ -384,3 +406,104 @@ class JDEValidator(BaseValidator):
                 LOGGER.info(f"{name:>12} {int(table['support'][i]):>8} "
                             f"{table['precision'][i]:>7.3f} {table['recall'][i]:>7.3f} "
                             f"{table['f1'][i]:>7.3f}")
+
+
+def _greedy_tp(score: np.ndarray) -> np.ndarray:
+    """(n_pred, len(IOU_THRESHOLDS)) true positives of a (G, P) similarity (OKS or mask IoU):
+    at each threshold the pairs at or over it, best first, each ground truth and each
+    prediction used once."""
+    tp = np.zeros((score.shape[1], len(IOU_THRESHOLDS)), bool)
+    for t, thr in enumerate(IOU_THRESHOLDS):
+        gi, pi = np.nonzero(score >= thr)
+        order = score[gi, pi].argsort()[::-1]
+        seen_g, seen_p = set(), set()
+        for g, p in zip(gi[order], pi[order]):
+            if g in seen_g or p in seen_p:
+                continue
+            seen_g.add(g)
+            seen_p.add(p)
+            tp[p, t] = True
+    return tp
+
+
+def _oks_matrix(gt_kpts, gt_areas, pred_kpts, sigmas):
+    """OKS between gt (G, K, 3) and predicted (P, K, >= 2) keypoints."""
+    d = ((gt_kpts[:, None, :, 0] - pred_kpts[None, :, :, 0]) ** 2 +
+         (gt_kpts[:, None, :, 1] - pred_kpts[None, :, :, 1]) ** 2)  # (G, P, K)
+    vis = gt_kpts[:, None, :, 2] > 0
+    e = d / (2 * sigmas[None, None, :]) ** 2 / (gt_areas[:, None, None] + 1e-9) / 2
+    return (np.exp(-e) * vis).sum(-1) / np.maximum(vis.sum(-1), 1)
+
+
+class PoseValidator(BaseValidator):
+    """Box mAP plus keypoint mAP under the `(P)` keys: predictions matched to the ground
+    truth by OKS (COCO's sigmas for 17 keypoints, else 1 / K; the gt area is its box's
+    times 0.53) over the IoU thresholds 0.5:0.95, class-blind as in the JAX package."""
+
+    def init_metrics(self):
+        super().init_metrics()
+        self.pose_metrics = DetMetrics(self.data.get("names"))
+        K = self.meta["kpt_shape"][0]
+        self.sigmas = OKS_SIGMA.numpy().astype(np.float32) if K == 17 else np.ones(K) / K
+
+    def _extra_update(self, d, gt_boxes, gt_cls, batch, bi):
+        if "keypoints" not in batch:
+            return
+        K, kd = self.meta["kpt_shape"]
+        h, w = batch["img"].shape[1:3]
+        gt_kpts = batch["keypoints"][bi][batch["mask"][bi] > 0].copy()  # normalized
+        gt_kpts[..., 0] *= w
+        gt_kpts[..., 1] *= h
+        gt_areas = ((gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1])) * 0.53
+        tp = np.zeros((len(d), len(IOU_THRESHOLDS)), bool)
+        if len(gt_kpts) and len(d):
+            tp = _greedy_tp(_oks_matrix(gt_kpts, gt_areas, d[:, 6:6 + K * kd].reshape(-1, K, kd),
+                                        self.sigmas))
+        self.pose_metrics.update(tp, d[:, 4], d[:, 5], gt_cls)
+
+    def finalize_metrics(self) -> dict:
+        results = super().finalize_metrics()
+        for k, v in self.pose_metrics.process().items():
+            if k.startswith("metrics/"):
+                results[k.replace("(B)", "(P)")] = v
+        return results
+
+
+class SegmentValidator(BaseValidator):
+    """Box mAP plus mask mAP under the `(M)` keys: each prediction's mask (`process_mask` at
+    the prototypes' resolution) matched by mask IoU, per class, over the IoU thresholds
+    0.5:0.95 to the ground truth's overlap map, resized to the prototypes' grid by OpenCV's
+    INTER_NEAREST where it differs (a rect batch's masks are square, as in the JAX
+    package)."""
+
+    def init_metrics(self):
+        super().init_metrics()
+        self.mask_metrics = DetMetrics(self.data.get("names"))
+
+    def _extra_update(self, d, gt_boxes, gt_cls, batch, bi):
+        if "masks" not in batch or self._protos is None or len(d) == 0:
+            return
+        nm = self.meta["nm"]
+        h, w = batch["img"].shape[1:3]
+        pred = process_mask(torch.from_numpy(self._protos[bi]), torch.from_numpy(d[:, 6:6 + nm]),
+                            torch.from_numpy(d[:, :4]), (h, w)).numpy()  # (n, mh, mw) bool
+        mh, mw = pred.shape[1:]
+        overlap = batch["masks"][bi]
+        if overlap.shape != (mh, mw):
+            overlap = resize_nearest_cv(overlap, (mw, mh))
+        gt_ids = np.nonzero(batch["mask"][bi] > 0)[0]
+        gt = np.stack([overlap == g + 1 for g in gt_ids]) if len(gt_ids) else \
+            np.zeros((0, mh, mw), bool)
+        tp = np.zeros((len(d), len(IOU_THRESHOLDS)), bool)
+        if len(gt):
+            inter = (gt[:, None] & pred[None]).sum((-1, -2)).astype(np.float64)
+            union = (gt[:, None] | pred[None]).sum((-1, -2)) + 1e-9
+            tp = _greedy_tp(inter / union * (gt_cls[:, None] == d[None, :, 5]))
+        self.mask_metrics.update(tp, d[:, 4], d[:, 5], gt_cls)
+
+    def finalize_metrics(self) -> dict:
+        results = super().finalize_metrics()
+        for k, v in self.mask_metrics.process().items():
+            if k.startswith("metrics/"):
+                results[k.replace("(B)", "(M)")] = v
+        return results

@@ -1,8 +1,10 @@
-"""Detect, v10Detect and JDE heads in NCHW (port of `sar_yolo_tpu/nn/modules/head.py`).
+"""Detect, v10Detect, JDE, Pose and Segment heads in NCHW (port of
+`sar_yolo_tpu/nn/modules/head.py`).
 
 Heads return raw per-level maps (B, no, H, W) in the compute dtype, as the JAX
-heads do; decoding lives in `ops/decode.py`, and the loss takes them to float32.
-Submodules carry the Flax names (`cv2_0_0`, `cv3_0_pred`, `cv4_1_1`, `state_fc1`).
+heads do (Segment: the maps and its (B, nm, H/4, W/4) prototypes); decoding lives in
+`ops/decode.py`, and the loss takes them to float32. Submodules carry the Flax names
+(`cv2_0_0`, `cv3_0_pred`, `cv4_1_1`, `state_fc1`, `proto.upsample`).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .conv import Conv, Conv2d, Dropout, DWConv, Linear
+from .conv import Conv, Conv2d, ConvTranspose2d, Dropout, DWConv, Linear
 
 
 class Detect(nn.Module):
@@ -133,3 +135,64 @@ class JDE(Detect):
                 parts.append(self.state_fc2(self.dropout(s)).movedim(-1, 1))
             outs.append(torch.cat(parts, 1))
         return outs
+
+
+class _ExtrasHead(Detect):
+    """Detect plus a per-level branch of `ne` extra channels (`cv4_{i}`: two 3x3 Convs of
+    max(ch[0] // 4, ne) channels and a 1x1 prediction), concatenated after box and cls."""
+
+    def __init__(self, nc: int, ne: int, ch: tuple, reg_max: int, legacy: bool):
+        super().__init__(nc, ch, reg_max, legacy)
+        self.ne = ne
+        c4 = max(ch[0] // 4, ne)
+        for i, c in enumerate(ch):
+            self.add_module(f"cv4_{i}_0", Conv(c, c4, 3))
+            self.add_module(f"cv4_{i}_1", Conv(c4, c4, 3))
+            self.add_module(f"cv4_{i}_pred", Conv2d(c4, ne, 1))
+
+    @property
+    def no(self) -> int:
+        return self.nc + self.reg_max * 4 + self.ne
+
+    def _maps(self, xs, prefix: str = ""):
+        return [torch.cat([self._box(x, i), self._cls(x, i), self._sub(f"cv4_{i}_pred")(
+            self._sub(f"cv4_{i}_1")(self._sub(f"cv4_{i}_0")(x)))], 1) for i, x in enumerate(xs)]
+
+
+class Pose(_ExtrasHead):
+    """Keypoint head: Detect plus K x D raw keypoint channels per anchor (xy offsets, then
+    the visibility logit where D is 3)."""
+
+    def __init__(self, nc: int = 80, kpt_shape: tuple = (17, 3), ch: tuple = (),
+                 reg_max: int = 16, legacy: bool = False):
+        self.kpt_shape = tuple(kpt_shape)
+        super().__init__(nc, self.kpt_shape[0] * self.kpt_shape[1], ch, reg_max, legacy)
+
+
+class Proto(nn.Module):
+    """Mask prototypes: Conv 3x3, a learned 2x upsample (`ConvTranspose2d(c_, 2, 2)`, biased,
+    no BN), Conv 3x3, Conv 1x1 to c2 channels."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+class Segment(_ExtrasHead):
+    """Segmentation head: Detect plus nm mask coefficients per anchor; returns (maps, protos),
+    the prototypes (B, nm, 2 H3, 2 W3) from the first level's features."""
+
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: tuple = (),
+                 reg_max: int = 16, legacy: bool = False):
+        super().__init__(nc, nm, ch, reg_max, legacy)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+
+    def forward(self, xs):
+        return self._maps(xs), self.proto(xs[0])

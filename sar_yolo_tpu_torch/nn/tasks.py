@@ -3,7 +3,7 @@
 `parse_model` does the JAX package's channel, depth and width arithmetic and
 returns the same LayerSpec records, for the modules of the yolov3-v13 detect
 graphs (v10's NMS-free head included), the JDE graphs and the fork's CBAM
-variants, and the PPHGNetV2 / ResNet backbone blocks; a module the port does not
+variants, the pose and segment graphs, and the PPHGNetV2 / ResNet backbone blocks; a module the port does not
 have yet raises NotImplementedError naming it. `GraphModel` walks the specs with
 the same save-dict (a CBLinear's tuple of chunks included); its layers live in
 `blocks` (Flax scope `blocks_<i>`), and a plain module repeated n times is a
@@ -58,7 +58,8 @@ _C3K2_FAMILY = {"C3k2", "DSC3k2", "C3k2_CBAM", "DSC3k2_CBAM"}
 # torch-layer yaml aliases -> module names
 _NN_ALIAS = {"nn.ConvTranspose2d": "ConvTranspose2d", "nn.MaxPool2d": "MaxPool2d",
              "nn.ZeroPad2d": "ZeroPad2d", "nn.Identity": "Identity"}
-TASK_BY_HEAD = {"Detect": "detect", "JDE": "jde", "v10Detect": "detect"}
+TASK_BY_HEAD = {"Detect": "detect", "JDE": "jde", "v10Detect": "detect", "Pose": "pose",
+                "Segment": "segment"}
 _HEADS = set(TASK_BY_HEAD)
 # modules whose output has the input's channels
 _PASS_THROUGH = {"CBAM", "MaxPool2d", "Identity"}
@@ -136,6 +137,8 @@ def parse_model(d: dict, ch: int = 3):
             ch_list = tuple(chs[x] for x in f)
             kwargs["ch"] = ch_list
             kwargs["legacy"] = legacy
+            if m == "Segment" and len(args) > 2:  # the proto channels npr are width-scaled
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             c2 = 0  # heads terminate the graph
             meta["head"] = m
             meta["head_index"] = i
@@ -257,11 +260,18 @@ def _build_module(spec: LayerSpec, c_in) -> nn.Module:
         return H.JDE(nc=a[0], embed_dim=a[1] if len(a) > 1 else 128,
                      state_classes=a[2] if len(a) > 2 else None,
                      ch=kw["ch"], legacy=kw["legacy"])
+    if name == "Pose":
+        return H.Pose(nc=a[0], kpt_shape=tuple(a[1]) if len(a) > 1 else (17, 3),
+                      ch=kw["ch"], legacy=kw["legacy"])
+    if name == "Segment":
+        return H.Segment(nc=a[0], nm=a[1] if len(a) > 1 else 32, npr=a[2] if len(a) > 2 else 256,
+                         ch=kw["ch"], legacy=kw["legacy"])
     raise NotImplementedError(f"module '{name}' is not part of this port yet")
 
 
 class GraphModel(nn.Module):
-    """Runs a parsed layer graph with an explicit save-dict; returns the head's per-level maps.
+    """Runs a parsed layer graph with an explicit save-dict; returns the head's per-level maps
+    (a Segment head: the (maps, protos) pair).
 
     `remat`: in train mode every block but the head runs under activation
     checkpointing (the JAX package's `nn.remat` per block): its activations are
@@ -331,12 +341,14 @@ def _checkpointed(blk: nn.Module, inp):
                       context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
-def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32):
+def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32,
+                kpt_shape: tuple | None = None):
     """Build a GraphModel from a model name ('yolov13n-JDE.yaml') or a config dict (a
     checkpoint's `model_yaml`, the JAX package's included). Returns (model, meta).
 
     `nc` replaces the config's class count (the trainer builds the model for
-    its dataset's). `dtype` is the compute dtype (the JAX `build_model`'s
+    its dataset's), `kpt_shape` a pose config's keypoint shape (the trainer's, for a
+    dataset whose keypoints differ, as Ultralytics rebuilds the head). `dtype` is the compute dtype (the JAX `build_model`'s
     `dtype`): parameters stay float32. The model is on the CPU, in eval mode,
     with torch's default weights until `init_weights` runs; meta["strides"]
     comes from a forward probe.
@@ -344,6 +356,8 @@ def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32):
     d = copy.deepcopy(name) if isinstance(name, dict) else model_config(name)
     if nc is not None:
         d["nc"] = nc
+    if kpt_shape is not None:
+        d["kpt_shape"] = list(kpt_shape)
     specs, save, meta = parse_model(d)
     meta["cfg"] = d
     meta["task"] = TASK_BY_HEAD[specs[-1].name]
@@ -351,6 +365,10 @@ def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32):
     if head.name == "JDE":
         meta["embed_dim"] = head.args[1] if len(head.args) > 1 else 128
         meta["state_classes"] = head.args[2] if len(head.args) > 2 else None
+    if head.name == "Pose":
+        meta["kpt_shape"] = tuple(head.args[1]) if len(head.args) > 1 else (17, 3)
+    if head.name == "Segment":
+        meta["nm"] = head.args[1] if len(head.args) > 1 else 32
     model = GraphModel(specs, save, act=meta.get("act", "silu")).eval()
     C.set_compute_dtype(model, dtype)
     meta["strides"] = infer_strides(model)
@@ -362,6 +380,8 @@ def infer_strides(model: GraphModel, imgsz: int = 64) -> list[int]:
     """Per-level strides from a forward probe on a zero image of side imgsz."""
     p = next(model.parameters())
     feats = model(torch.zeros(1, 3, imgsz, imgsz, dtype=p.dtype, device=p.device))
+    if isinstance(feats, tuple):  # Segment: (maps, protos)
+        feats = feats[0]
     return [imgsz // f.shape[2] for f in feats]
 
 

@@ -1,5 +1,5 @@
 """Prediction decode: raw NCHW head maps -> (B, N, 4 + nc + E) detections
-(port of `sar_yolo_tpu/ops/decode.py::decode_detect`, detect/JDE part, and of
+(port of `sar_yolo_tpu/ops/decode.py`: `decode_detect` without OBB, `kpts_decode` and
 `flatten_feats`)."""
 
 from __future__ import annotations
@@ -19,15 +19,17 @@ def flatten_feats(feats):
 
 
 def decode_detect(feats, strides, nc: int, reg_max: int = 16, extra_sigmoid: int = 0,
-                  split_extras: int = 0):
+                  split_extras: int = 0, kpt_shape=None):
     """Decode per-level (B, 4*reg_max + nc + E, H, W) maps.
 
     Returns (B, N, 4 + nc + E): xywh boxes in input pixels, sigmoided class
     scores, then the extra channels with the last `extra_sigmoid` of them
     sigmoided (JDE states). With split_extras > 0 the first split_extras extra
     channels (JDE embeddings) come back separately, as a (B, N, split_extras)
-    bank, and are left out of the predictions. Tokens are row-major per level,
-    levels concatenated, as in the JAX package.
+    bank, and are left out of the predictions. With `kpt_shape` (K, D) the extras are
+    pose keypoints: xy to input pixels as (k 2 + anchor - 0.5) stride, the visibility
+    (D = 3) sigmoided. Tokens are row-major per level, levels concatenated, as in the JAX
+    package.
     """
     outs, banks = [], []
     for f, s in zip(feats, strides):
@@ -39,6 +41,13 @@ def decode_detect(feats, strides, nc: int, reg_max: int = 16, extra_sigmoid: int
         anchors = make_anchors([(H, W)], [s], device=f.device)[0].T  # (2, H*W)
         dbox = dist2bbox(dfl_decode(box, reg_max, dim=1), anchors, xywh=True, dim=1) * float(s)
         parts = [dbox, cls.sigmoid()]
+        if kpt_shape is not None and extras.shape[1]:
+            K, D = kpt_shape
+            k = extras.reshape(B, K, D, H * W)
+            kxy = (k[:, :, :2] * 2.0 + (anchors[None, None] - 0.5)) * float(s)
+            k = torch.cat([kxy, k[:, :, 2:].sigmoid()], 2) if D == 3 else kxy
+            outs.append(torch.cat([*parts, k.reshape(B, K * D, H * W)], 1).transpose(1, 2))
+            continue
         tail = extras[:, extras.shape[1] - extra_sigmoid:] if extra_sigmoid else extras[:, :0]
         mid = extras[:, :extras.shape[1] - extra_sigmoid]
         if split_extras:
@@ -53,3 +62,10 @@ def decode_detect(feats, strides, nc: int, reg_max: int = 16, extra_sigmoid: int
     if split_extras:
         return preds, torch.cat(banks, 1)
     return preds
+
+
+def kpts_decode(anchor_points, pred_kpts):
+    """Keypoint offsets to grid units (the loss's): pred_kpts (B, N, K, D), xy -> xy 2 +
+    anchor - 0.5, the rest as it is."""
+    xy = pred_kpts[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)
+    return torch.cat([xy, pred_kpts[..., 2:]], -1)

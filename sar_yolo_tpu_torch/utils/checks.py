@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype
 from sar_yolo_tpu_torch.utils import LOGGER
@@ -11,7 +12,7 @@ from sar_yolo_tpu_torch.utils import LOGGER
 @torch.no_grad()
 def check_bf16(model: torch.nn.Module, imgsz: int = 64) -> bool:
     """Whether the bf16 forward of `model` tracks its float32 forward: the mean absolute
-    difference of the first head map over the float32 map's mean magnitude is under 0.1,
+    difference of the first head map (the first leaf of the output) over the float32 map's mean magnitude is under 0.1,
     on one uniform random image (seed 0) of side imgsz, in eval mode.
 
     The JAX check feeds a bf16 image to a model whose compute is already bf16; this
@@ -24,9 +25,9 @@ def check_bf16(model: torch.nn.Module, imgsz: int = 64) -> bool:
     model.eval()
     try:
         set_compute_dtype(model, torch.float32)
-        out32 = model(x)[0].float()
+        out32 = tree_leaves(model(x))[0].float()
         set_compute_dtype(model, torch.bfloat16)
-        outbf = model(x)[0].float()
+        outbf = tree_leaves(model(x))[0].float()
         rel = ((out32 - outbf).abs().mean() / (out32.abs().mean() + 1e-6)).item()
         return rel < 0.1
     except Exception as e:  # noqa: BLE001 — a failed check means f32 training

@@ -1,11 +1,14 @@
-"""Training losses: v8 detection (BCE + CIoU + DFL) and v13 JDE (+ triplet embedding
-+ class-balanced focal state), port of `sar_yolo_tpu/utils/loss.py`.
+"""Training losses: v8 detection (BCE + CIoU + DFL), v13 JDE (+ triplet embedding
++ class-balanced focal state), v8 pose (+ OKS keypoints and visibility) and v8 segment
+(+ prototype mask BCE), port of `sar_yolo_tpu/utils/loss.py`.
 
 Everything is float32 and of static shape: masked sums instead of boolean
 indexing, so no loss term synchronises the host. The class-balanced state
 counts are explicit state that the caller threads through the steps.
 `batch` holds device tensors: 'cls' (B, M), 'bboxes' (B, M, 4) normalized
-xywh, 'mask' (B, M) and, for JDE, 'tags' (B, M).
+xywh, 'mask' (B, M) and, for JDE, 'tags' (B, M); for pose 'keypoints' (B, M, K, D)
+(normalized xy, visibility), for segment 'masks' (B, h, w) (0 background, i + 1 the
+i-th instance).
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from torch.nn import functional as F
 
 from sar_yolo_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dfl_decode, dist2bbox, make_anchors,
                                           xywh2xyxy)
-from sar_yolo_tpu_torch.ops.decode import flatten_feats
+from sar_yolo_tpu_torch.nn.modules.block import resize_nearest
+from sar_yolo_tpu_torch.ops.decode import flatten_feats, kpts_decode
+from sar_yolo_tpu_torch.ops.masks import crop_mask
 from sar_yolo_tpu_torch.utils.tal import task_aligned_assigner
 
 
@@ -197,3 +202,103 @@ def jde_loss(feats, batch, hyp, *, nc: int, reg_max: int, strides, embed_dim: in
                          c["emb"] * hyp.clr,
                          c["state"] * hyp.state])
     return JDELossOut(items.sum() * c["batch_size"], items.detach(), c["cb_counts"].detach())
+
+
+# COCO's 17 keypoint OKS sigmas
+OKS_SIGMA = torch.tensor([0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
+                          0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089])
+
+
+class PoseLossOut(NamedTuple):
+    total: torch.Tensor
+    items: torch.Tensor  # (5,) box, pose, kobj, cls, dfl, detached
+
+
+def _grid(hw, strides, device):
+    """(anchor points (N, 2), strides (N, 1), input width, input height) of the maps."""
+    anchor_points, stride_t = make_anchors(hw, strides, device=device)
+    return anchor_points, stride_t, hw[0][1] * strides[0], hw[0][0] * strides[0]
+
+
+def pose_loss(feats, batch, hyp, *, nc: int, reg_max: int, strides, kpt_shape=(17, 3),
+              tal_topk: int = 10):
+    """v8 pose loss: the detection terms, the OKS keypoint term (COCO's sigmas where K is 17,
+    else 1 / K; the target box area in grid units) and the visibility BCE, both over the
+    foreground anchors' K keypoints."""
+    x, hw = flatten_feats(feats)
+    B, N, _ = x.shape
+    K, kdim = kpt_shape
+    loss_box, loss_cls, loss_dfl, assign, _ = _box_terms(
+        x, hw, batch, nc=nc, reg_max=reg_max, strides=strides, tal_topk=tal_topk, tags=False)
+    anchor_points, stride_t, imgsz_w, imgsz_h = _grid(hw, strides, x.device)
+    fg = assign.fg_mask.float()
+    pred_kpts = kpts_decode(anchor_points, x[..., 4 * reg_max + nc:].float().reshape(B, N, K, kdim))
+
+    gt = batch["keypoints"].float()  # (B, M, K, D) normalized
+    gt = torch.cat([gt[..., :1] * imgsz_w, gt[..., 1:2] * imgsz_h, gt[..., 2:]], -1)
+    sel = gt.gather(1, assign.target_gt_idx[:, :, None, None].expand(B, N, K, kdim))
+    sel = torch.cat([sel[..., :2] / stride_t[None, :, :, None], sel[..., 2:]], -1)
+    kpt_mask = (sel[..., 2] != 0).float() if kdim == 3 else torch.ones_like(sel[..., 0])
+    tb = assign.target_bboxes / stride_t[None]
+    area = (tb[..., 2] - tb[..., 0]) * (tb[..., 3] - tb[..., 1])
+    sigmas = OKS_SIGMA.to(x.device) if K == 17 else torch.full((K,), 1.0 / K, device=x.device)
+    d = (pred_kpts[..., 0] - sel[..., 0]) ** 2 + (pred_kpts[..., 1] - sel[..., 1]) ** 2
+    e = d / ((2 * sigmas) ** 2 * (area[..., None] + 1e-9) * 2)
+    factor = K / (kpt_mask.sum(-1, keepdim=True) + 1e-9)
+    n_fg_k = (fg.sum() * K).clamp(min=1.0)
+    loss_pose = (factor * (1 - torch.exp(-e)) * kpt_mask * fg[..., None]).sum() / n_fg_k
+    if kdim == 3:
+        loss_kobj = (_bce_logits(pred_kpts[..., 2], kpt_mask) * fg[..., None]).sum() / n_fg_k
+    else:
+        loss_kobj = torch.zeros((), device=x.device)
+    items = torch.stack([loss_box * hyp.box, loss_pose * hyp.pose, loss_kobj * hyp.kobj,
+                         loss_cls * hyp.cls, loss_dfl * hyp.dfl])
+    return PoseLossOut(items.sum() * B, items.detach())
+
+
+class SegLossOut(NamedTuple):
+    total: torch.Tensor
+    items: torch.Tensor  # (4,) box, seg, cls, dfl, detached
+
+
+def segmentation_loss(feats_and_proto, batch, hyp, *, nc: int, reg_max: int, strides,
+                      nm: int = 32, tal_topk: int = 10, mask_topk: int = 64):
+    """v8 segmentation loss: the detection terms and the mask BCE of the `mask_topk` anchors
+    of largest assigned weight per image (the JAX package's static-shape choice; Ultralytics
+    runs every foreground anchor), each cropped to its target box and divided by that box's
+    normalized area, the sum over the foreground count, gained by `box`. Ties in the weight
+    keep the lower anchor first, as `lax.top_k` does. The gt overlap map is resized to the
+    prototypes' grid with `jax.image.resize`'s nearest rule where it differs."""
+    feats, protos = feats_and_proto
+    x, hw = flatten_feats(feats)
+    B, N, _ = x.shape
+    mh, mw = protos.shape[2:]
+    loss_box, loss_cls, loss_dfl, assign, _ = _box_terms(
+        x, hw, batch, nc=nc, reg_max=reg_max, strides=strides, tal_topk=tal_topk, tags=False)
+    _, stride_t, imgsz_w, imgsz_h = _grid(hw, strides, x.device)
+    fg = assign.fg_mask.float()
+    weight = assign.target_scores.sum(-1) * fg
+
+    k = min(mask_topk, N)
+    sel_w, sel_idx = weight.sort(dim=1, descending=True, stable=True)
+    sel_w, sel_idx = sel_w[:, :k], sel_idx[:, :k]
+    sel_valid = (sel_w > 0).float()
+    coeffs = x[..., 4 * reg_max + nc:].float().gather(1, sel_idx[..., None].expand(B, k, nm))
+    gt_idx = assign.target_gt_idx.gather(1, sel_idx)
+    tb = assign.target_bboxes.gather(1, sel_idx[..., None].expand(B, k, 4))  # input pixels
+
+    gt_masks = batch["masks"].float()
+    if gt_masks.shape[1:] != (mh, mw):
+        gt_masks = resize_nearest(gt_masks[:, None], mh, mw)[:, 0]
+    inst = (gt_masks[:, None] == (gt_idx[..., None, None] + 1.0)).float()
+    pred_m = torch.einsum("bkc,bchw->bkhw", coeffs, protos.float())
+    norm = torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=torch.float32,
+                        device=x.device)
+    tb_n = tb / norm
+    mxyxy = tb_n * torch.tensor([mw, mh, mw, mh], dtype=torch.float32, device=x.device)
+    area = ((tb_n[..., 2] - tb_n[..., 0]) * (tb_n[..., 3] - tb_n[..., 1])).clamp(min=1e-4)
+    per_anchor = crop_mask(_bce_logits(pred_m, inst), mxyxy).mean((-1, -2)) / area
+    loss_seg = (per_anchor * sel_valid).sum() / fg.sum().clamp(min=1.0)
+    items = torch.stack([loss_box * hyp.box, loss_seg * hyp.box, loss_cls * hyp.cls,
+                         loss_dfl * hyp.dfl])
+    return SegLossOut(items.sum() * B, items.detach())

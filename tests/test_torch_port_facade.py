@@ -97,9 +97,9 @@ def test_named_config_builds_with_jax_parameter_count(name):
     assert (meta["task"], meta["scale"], meta["nl"]) == (jmeta["task"], jmeta["scale"], jmeta["nl"])
 
 
-@pytest.mark.parametrize("name, module", [("yolov8n-pose.yaml", "Pose"),
+@pytest.mark.parametrize("name, module", [("yolov8n-obb.yaml", "OBB"),
                                           ("yolov8n-cls.yaml", "Classify"),
-                                          ("yolov8n-seg.yaml", "Segment"),
+                                          ("yolo11n-obb.yaml", "OBB"),
                                           ("yolov8s-world.yaml", "C2fAttn"),
                                           ("rtdetr-l.yaml", "AIFI"),
                                           ("yolov8n-rtdetr.yaml", "RTDETRDecoder")])

@@ -130,7 +130,8 @@ def close_to_max(got, want, what=""):
 
 
 def jax_jde_trainer(overrides: dict, seed: int, monkeypatch, task: str = "jde"):
-    """The JAX package's JDETrainer (DetectionTrainer for task 'detect') after
+    """The JAX package's JDETrainer (DetectionTrainer, PoseTrainer or SegmentTrainer for
+    task 'detect', 'pose' or 'segment') after
     `_setup_train`, its weights from `fill_variables` and the head's bias init
     (so that the class term does not swamp the others).
 
@@ -154,7 +155,9 @@ def jax_jde_trainer(overrides: dict, seed: int, monkeypatch, task: str = "jde"):
 
     monkeypatch.setattr(jax_trainer_module, "init_model", init_model)
     monkeypatch.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
-    cls = jax_trainer_module.JDETrainer if task == "jde" else jax_trainer_module.DetectionTrainer
+    cls = {"jde": jax_trainer_module.JDETrainer, "detect": jax_trainer_module.DetectionTrainer,
+           "pose": jax_trainer_module.PoseTrainer,
+           "segment": jax_trainer_module.SegmentTrainer}[task]
     trainer = cls(overrides=overrides)
     trainer._setup_train()
     return trainer
@@ -181,7 +184,7 @@ def assert_trajectories_match(jtr, ptr, steps: int = 10, param_tol: float = 1e-4
     """`steps` train steps of both trainers on the JAX loader's batches.
 
     Tolerances. Step 1 (same weights, same batch): every loss item within 1e-5
-    relative, the JDE triplet item within 1e-5 absolute per unit of its gain (it
+    relative (detect, pose, segment, and JDE's but one), the JDE triplet item within 1e-5 absolute per unit of its gain (it
     is a difference of distances on the unit sphere, which are of order 1).
     Later steps: every item within 1e-2 relative, because float32 rounding
     (about 1e-7) drifts through the steps and the assigner's top-k and the
@@ -203,7 +206,7 @@ def assert_trajectories_match(jtr, ptr, steps: int = 10, param_tol: float = 1e-4
         state, _, jitems = jtr._train_step(state, shard_batch(jtr.mesh, batch), jtr._mosaic_on)
         _, pitems = ptr.train_step(batch)
         got, want = pitems.numpy(), np.asarray(jitems)
-        if i == 0 and len(want) == 3:  # detect: box, cls, dfl
+        if i == 0 and ptr.task != "jde":  # detect, pose, segment: no triplet item
             np.testing.assert_allclose(got, want, rtol=1e-5, err_msg="loss items, step 1")
         elif i == 0:
             np.testing.assert_allclose(got[[0, 1, 2, 4]], want[[0, 1, 2, 4]], rtol=1e-5,
