@@ -178,8 +178,28 @@ Phases, in order; any failure exits non-zero:
      epochs=1)` of each with its (P) or (M) validation, `YOLO.val`, `YOLO(checkpoint)` served
      and validated as its task, and `YOLO.predict` of the 12 JPEG frames (Results.keypoints,
      Results.masks).
- 18. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
-     step's forward; phases 16 and 17's paths at 0), the card line, and the result line.
+ 18. the OBB and classify tasks, none with an A2C2f block: 0 kernel launches in the whole
+     phase. yolov8n-obb (nc 80) at 1024 on 8 seeded aerial tiles (terrain and rotated
+     rectangles), BN-folded with seeded, perturbed weights and class, box and angle logits
+     damped on all 8 tiles: the decoded rows of the float32 path and of the model in float64 through the
+     rotated NMS, each tile at the threshold of its 1000th best score, over the candidates
+     whose fate no float32 rounding decides (`_tie_free_obb`): the same rows, boxes within
+     1e-3 px or 2 strides x the maps' own float32 distance, angles within 1e-5 rad or pi/4 x
+     that distance (whichever is larger), scores within 1e-5; `half=True` and `fuse()` rows; img/s at batch 1 and 8 in float32 and bf16 in
+     turns; decode + rotated NMS ms at batch 8 (CUDA events) with NMS's candidates a tile
+     at conf 0.25 and its fixed-point iterations; yolo11n-obb at batch 8. The yolov8n-obb train
+     step @1024, batch 8, on the synthetic set (nc 3), float32 and amp (`_timed_steps`), then
+     `YOLO.train(epochs=1)` with its OBB validation, `YOLO.val`, `YOLO(checkpoint)` served and
+     validated as `obb`, and `YOLO.predict` of the 12 JPEG frames (Results.obb).
+     yolov8n-cls (nc 1000) at 224 on phase 14's ragged 480x640 frames: probabilities within
+     1e-5 of float64 and the same top-5 up to the first rank that rounding could decide,
+     `half=True`, `fuse()`, img/s at batch 1, 8 and 128 in float32 and bf16 in turns;
+     yolo11n-cls and yolo11n-cls-resnet18 the same at batch 8. A class-folder dataset of PNG
+     frames (4 classes x 32 train / 8 val, 240x320) written under runs/; the yolov8n-cls
+     train step @224, batch 64, float32 and amp; `YOLO.train(epochs=1)` with its top-1 / top-5
+     validation, `YOLO.val` and `YOLO(checkpoint)`.
+ 19. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
+     step's forward; phases 16-18's paths at 0), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -2533,20 +2553,24 @@ E2E_MARGIN = 1e-4         # rows scored this near conf or the k-th score are lef
 MAX_BOX_LOGIT = 10.0      # the family's damped box-regression (DFL) logits' largest magnitude
 
 
-def _damp_box_logits(yolo, frames, imgsz: int) -> float:
-    """Scale the head's box-regression convolutions (weight and bias) so that the largest DFL
-    logit served on `frames` is MAX_BOX_LOGIT. Deep perturbed models (yolov9e) reach ~500
-    there, where the DFL softmax is an argmax that float32 rounding flips by a whole bin
-    (a stride of pixels). Returns the gain."""
+def _damp_head_logits(yolo, frames, imgsz: int, branch: str = "cv2_",
+                      limit: float = MAX_BOX_LOGIT) -> float:
+    """Scale the head's `branch` prediction convolutions (weight and bias) so that the largest
+    logit they serve on `frames` is `limit`. The box regression ("cv2_"): deep perturbed
+    models (yolov9e) reach ~500 there, where the DFL softmax is an argmax that float32
+    rounding flips by a whole bin (a stride of pixels). An OBB head's angle ("cv4_", at
+    MAX_LOGIT): where its sigmoid's float32 rounding moves the angle by over 1e-5 rad, a
+    box's centre moves by its offset from the anchor times that. Returns the gain."""
     import torch
     meta = yolo.meta
+    c0 = 4 * meta["reg_max"]
+    channels = slice(0, c0) if branch == "cv2_" else slice(c0 + meta["nc"], None)
     predictor = yolo._get_predictor({"imgsz": imgsz})
     with torch.no_grad():
         maps = _head_maps(predictor.model(predictor.preprocess(frames)[0]))
-        gain = min(1.0, MAX_BOX_LOGIT / max(m[:, :4 * meta["reg_max"]].abs().max().item()
-                                            for m in maps))
+        gain = min(1.0, limit / max(m[:, channels].abs().max().item() for m in maps))
         for name, p in yolo.model.blocks[meta["head_index"]].named_parameters():
-            if name.startswith("cv2_") and "_pred." in name:
+            if name.startswith(branch) and "_pred." in name:
                 p.mul_(gain)
     yolo._fused = yolo._half = yolo._predictor_cache = None
     return gain
@@ -2746,7 +2770,7 @@ def phase_family_serve(name: str, imgsz: int, card: str, seed: int = 3) -> dict:
     frames = np.random.default_rng(seed).integers(0, 256, (max(batch, 2), *hw, 3), np.uint8)
     meta = yolo.meta
     gain = _damp_class_logits(yolo, frames[:2], imgsz)
-    box_gain = _damp_box_logits(yolo, frames[:2], imgsz)
+    box_gain = _damp_head_logits(yolo, frames[:2], imgsz)
     exact = _float64_copy(yolo)
     predictor = yolo._get_predictor({"imgsz": imgsz})
     confs, got, want = [], [], []
@@ -2899,7 +2923,7 @@ def phase_pose_seg_serve(name: str, batches, card: str, seed: int = 3) -> dict:
     import torch
     yolo, frames, gain = _detect_model(name, max(max(batches), 2), seed)
     meta, task = yolo.meta, yolo.task
-    box_gain = _damp_box_logits(yolo, frames[:2], DETECT_IMGSZ)
+    box_gain = _damp_head_logits(yolo, frames[:2], DETECT_IMGSZ)
     ab = frames[:2]
     exact = _float64_copy(yolo)
     predictor = yolo._get_predictor({"imgsz": DETECT_IMGSZ})
@@ -3142,6 +3166,458 @@ def phase_pose_seg(card: str, seed: int = 5) -> dict:
             "YOLO.train / val / predict yolov8n-pose and yolov8n-seg": 0}
 
 
+# phase 18: the OBB and classify tasks (no A2C2f block in any of their graphs)
+OBB_IMGSZ = 1024          # DOTA's tile size
+OBB_BATCHES = (1, 8)      # served tiles a call
+OBB_TRAIN_BATCH = 8
+OBB_BOX_TOL = 1e-3        # px: served boxes against float64, over the undecided candidates
+OBB_ANGLE_TOL = 1e-5      # rad
+OBB_MIN_CANDIDATES = 100  # rotated NMS's candidates a tile at the comparison's threshold
+CLS_IMGSZ = 224           # ImageNet's size
+CLS_BATCHES = (1, 8, 128)
+CLS_TRAIN_BATCH = 64
+CLS_FOLDER = (4, 32, 8)   # classes, train and val frames a class
+PROB_TOL = 1e-5           # served probabilities against float64
+
+
+def _aerial_tiles(n: int, seed: int, size: int) -> np.ndarray:
+    """n uint8 BGR tiles of side `size`: terrain of 64 px colour cells with noise, and 24
+    rotated rectangles of 12-90 px a tile (vehicles, roofs), drawn by `cv.fill_poly`."""
+    from sar_yolo_tpu_torch.data.cv import fill_poly
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(40, 200, (n, size // 64 + 1, size // 64 + 1, 3), np.uint8)
+    tiles = np.repeat(np.repeat(cells, 64, 1), 64, 2)[:, :size, :size]
+    tiles = (tiles + rng.integers(0, 24, tiles.shape, np.uint8)).astype(np.uint8)
+    for t in tiles:
+        for _ in range(24):
+            w, h = rng.uniform(12, 90, 2)
+            r = rng.uniform(0, np.pi)
+            c = rng.uniform(60, size - 60, 2)
+            rot = np.array([[np.cos(r), np.sin(r)], [-np.sin(r), np.cos(r)]])
+            pts = np.array([[-w, -h], [w, -h], [w, h], [-w, h]]) / 2 @ rot + c
+            fill_poly(t, pts.astype(np.int32), tuple(int(v) for v in rng.integers(0, 256, 3)))
+    return tiles
+
+
+def _tie_free_obb(p32, p64, nc: int, conf: float, iou_thres: float = 0.7):
+    """Decoded OBB rows (1, N, 4 + nc + 1) of one frame on the float32 path and on the model
+    in float64, with the candidates whose fate no float32 rounding can decide zeroed in
+    both: an anchor whose best float64 score lies within the margin of conf or of its second
+    class's, or that overlaps another candidate of its class by a probiou within the pair's
+    IoU margin of iou_thres or, beyond it, scores within the margin of it. The score margin
+    is 4 x the float32 path's largest score distance from float64 (1e-8 at least); a pair's
+    IoU margin 8 x (the largest box distance plus float32's spacing at the largest
+    class-offset centre, where NMS rounds the moved centres) over the pair's smallest side
+    (1e-6 at least). Returns (p32, p64, stats)."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.boxes import probiou
+    p32, p64 = p32.clone(), p64.clone()
+    r32, r64 = p32[0].double().cpu().numpy(), p64[0].cpu().numpy()
+    s64 = r64[:, 4:4 + nc]
+    margin = max(4 * float(np.abs(r32[:, 4:4 + nc] - s64).max()), 1e-8)
+    top2 = np.sort(s64, -1)[:, -2:]
+    cand = np.flatnonzero(top2[:, -1] >= conf - margin)
+    b = r64[cand][:, [0, 1, 2, 3, -1]]
+    c, sc = s64[cand].argmax(-1), top2[cand, -1]
+    off = np.abs(b[:, :2]).max() + b[:, 2:4].max() + 1.0
+    spacing = float(np.spacing(np.float32(c.max() * off + np.abs(b[:, :2]).max())))
+    box_err = float(np.abs(r32[cand, :4] - r64[cand, :4]).max(initial=0))
+    side = b[:, 2:4].min(1)
+    iou_margin = np.maximum(8 * (box_err + spacing) / np.maximum(
+        np.minimum(side[:, None], side[None]), 1e-9), 1e-6)
+    t = torch.from_numpy(b)
+    iou = probiou(t[:, None], t[None]).squeeze(-1).numpy()
+    same = (c[:, None] == c[None]) & ~np.eye(len(c), dtype=bool)
+    overlap = (same & ((np.abs(iou - iou_thres) < iou_margin)
+                       | ((iou > iou_thres) & (np.abs(sc[:, None] - sc[None]) < margin)))).any(1)
+    at_conf = np.abs(sc - conf) < margin
+    class_tie = top2[cand, -1] - top2[cand, 0] < margin
+    out = overlap | at_conf | class_tie
+    drop = torch.as_tensor(cand[out])
+    for p in (p32, p64):
+        p[0, drop.to(p.device), 4:4 + nc] = 0.0
+    return p32, p64, {"candidates": int((sc >= conf).sum()), "left_out": int(out.sum()),
+                      "left_out_overlap": int(overlap.sum()), "left_out_at_conf":
+                      int(at_conf.sum()), "left_out_class_tie": int(class_tie.sum()),
+                      "score_margin": margin, "box_err_px": box_err,
+                      "smallest_side_px": float(side.min(initial=np.inf))}
+
+
+def _paired_obb(g, w, label: str) -> dict:
+    """Kept rotated rows [cx, cy, w, h, r, conf, cls] of one frame, `w`'s paired to `g`'s by
+    class and centre one to one; returns the largest box, angle and score differences."""
+    g, w = g[g[:, 5] > 0], w[w[:, 5] > 0]
+    check(len(g) == len(w) > 0, f"{label}: kept {len(g)} rows vs {len(w)}")
+    check(len(g) < 300, f"{label}: max_det decides the comparison")
+    match = (np.abs(g[:, None, :2] - w[None, :, :2]).max(-1)
+             + 1e9 * (g[:, None, 6] != w[None, :, 6])).argmin(1)
+    check(np.bincount(match, minlength=len(w)).max() == 1, f"{label}: rows do not pair up")
+    w = w[match]
+    check(np.array_equal(g[:, 6], w[:, 6]), f"{label}: classes differ")
+    return {"box_err_px": float(np.abs(g[:, :4] - w[:, :4]).max()),
+            "angle_err_rad": float(np.abs(g[:, 4] - w[:, 4]).max()),
+            "score_err": float(np.abs(g[:, 5] - w[:, 5]).max())}
+
+
+def phase_obb_serve(card: str, seed: int = 3) -> dict:
+    """yolov8n-obb served at 1024 on aerial tiles, against float64 over the tie-free
+    candidates; half, fuse(), img/s, decode + rotated NMS ms; yolo11n-obb at batch 8 (see
+    the module docstring, phase 18)."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops import nms
+    from sar_yolo_tpu_torch.ops.decode import decode_obb
+    nb = max(OBB_BATCHES)
+    tiles = _aerial_tiles(nb, seed, OBB_IMGSZ)
+    yolo = _perturbed_yolo("yolov8n-obb.yaml", seed, OBB_IMGSZ)
+    # damped on every tile: a tile the gain does not see can drive its class scores to 1.0,
+    # where they tie
+    gain = _damp_class_logits(yolo, tiles, OBB_IMGSZ)
+    box_gain = _damp_head_logits(yolo, tiles, OBB_IMGSZ)
+    angle_gain = _damp_head_logits(yolo, tiles, OBB_IMGSZ, "cv4_", MAX_LOGIT)
+    meta, nc = yolo.meta, yolo.meta["nc"]
+    check(yolo.task == "obb" and nc == 80, f"yolov8n-obb: task {yolo.task}, nc {nc}")
+    exact = _float64_copy(yolo)
+    predictor = yolo._get_predictor({"imgsz": OBB_IMGSZ})
+    x, r, pad = predictor.preprocess(tiles)
+    check(r == 1.0 and tuple(pad) == (0, 0), f"1024 tiles at 1024: r {r}, pad {pad}")
+    with torch.no_grad():
+        p32 = decode_obb(yolo._fused_for_serving()(x), meta["strides"], nc, meta["reg_max"])
+        m32, m64 = yolo._fused_for_serving()(x), exact._fused(x.double())
+        maps_err = max((a.double() - b).abs().max().item() for a, b in zip(m32, m64))
+        p64 = decode_obb(m64, meta["strides"], nc, meta["reg_max"])
+    check(bool(torch.isfinite(p32).all() and torch.isfinite(p64).all()), "yolov8n-obb: rows")
+    best = p64[..., 4:4 + nc].amax(-1).sort(1, descending=True).values.cpu().numpy()
+    # each tile at the threshold of its 1000th best score: under PRE_TOPK candidates
+    confs = [float(b[min(1000, len(b) - 1)]) for b in best]
+    errs = {"box_err_px": 0.0, "angle_err_rad": 0.0, "score_err": 0.0}
+    tie_stats, kept = [], []
+    for i, conf in enumerate(confs):
+        d32, d64, st = _tie_free_obb(p32[i:i + 1], p64[i:i + 1], nc, conf)
+        tie_stats.append(st)
+        kw = dict(conf_thres=conf, iou_thres=0.7, max_det=300, nc=nc)
+        with torch.no_grad():
+            got = nms.non_max_suppression_rotated(d32, **kw).cpu().numpy()
+            want = nms.non_max_suppression_rotated(d64, **kw).cpu().numpy()
+        kept.append(int((got[0, :, 5] > 0).sum()))
+        check(st["candidates"] >= OBB_MIN_CANDIDATES and kept[-1] > 0,
+              f"yolov8n-obb tile {i} at {conf}: {kept[-1]} rows kept, {st}")
+        e = _paired_obb(got[0], want[0], f"yolov8n-obb tile {i} float32 vs float64")
+        errs = {k: max(errs[k], e[k]) for k in errs}
+    # a box moves by up to 2 strides x the maps' own float32 distance (the DFL expectation
+    # over 16 bins), an angle by pi/4 x it (the sigmoid's slope); each bound is that or its
+    # floor, whichever is larger
+    box_tol = max(OBB_BOX_TOL, 2 * max(meta["strides"]) * maps_err)
+    angle_tol = max(OBB_ANGLE_TOL, np.pi / 4 * maps_err)
+    check(errs["box_err_px"] <= box_tol and errs["angle_err_rad"] <= angle_tol
+          and errs["score_err"] <= PROB_TOL, f"yolov8n-obb float32 vs float64: {errs} (maps "
+          f"{maps_err} apart)")
+    del exact
+    # the served route: rows of the BN-folded model, then half and fuse()
+    served = {}
+    for b in OBB_BATCHES:
+        for label, hkw in (("f32", {}), ("bf16", {"half": True})):
+            rows = yolo.predict_batched(tiles[:b], imgsz=OBB_IMGSZ, **hkw)
+            check(rows.shape == (b, 300, 7) and np.isfinite(rows).all()
+                  and (rows[..., 5] > 0).sum() > 0, f"yolov8n-obb b{b} {label}: {rows.shape}")
+            served[f"kept_b{b}_{label}"] = (rows[..., 5] > 0).sum(1).tolist()
+    folded = copy.deepcopy(yolo).fuse()
+    check(np.array_equal(folded.predict_batched(tiles[:2], imgsz=OBB_IMGSZ),
+                         yolo.predict_batched(tiles[:2], imgsz=OBB_IMGSZ)),
+          "yolov8n-obb: fuse() serves other rows than the BN-folded serving copy")
+    del folded
+    # decode + rotated NMS at batch 8 (CUDA events), its candidates and fixed-point iterations
+    with torch.no_grad():
+        maps = yolo._fused_for_serving()(x)
+        serve_cand = (decode_obb(maps, meta["strides"], nc, meta["reg_max"])[..., 4:4 + nc]
+                      .amax(-1) >= 0.25).sum(1).tolist()
+
+        def tail():
+            preds = decode_obb(maps, meta["strides"], nc, meta["reg_max"])
+            return nms.non_max_suppression_rotated(preds, conf_thres=0.25, iou_thres=0.7,
+                                                   max_det=300, nc=nc)
+        tail_ms = event_ms(tail, iters=5)
+        iterations = nms.last_iterations[0]
+    kw, hkw = dict(imgsz=OBB_IMGSZ), dict(imgsz=OBB_IMGSZ, half=True)
+    rates = {}
+    for b in OBB_BATCHES:
+        rr = _rates(lambda: _img_per_s(yolo, tiles[:b], kw, n=5),
+                    lambda: _img_per_s(yolo, tiles[:b], hkw, n=5))
+        rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    yolo.predict_batched(tiles, **kw)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"serve_obb": "yolov8n-obb.yaml", "imgsz": OBB_IMGSZ, "nc": nc,
+           "class_logit_gain": gain, "box_logit_gain": box_gain, "angle_logit_gain": angle_gain,
+           "maps_f32_vs_f64": maps_err, "box_tol_px": box_tol, "angle_tol_rad": angle_tol,
+           "compare_confs": confs,
+           "kept_per_tile": kept, "tie_free_per_tile": tie_stats, **errs, **served,
+           f"decode_rotated_nms_ms_b{nb}": tail_ms, "nms_candidates_per_tile_conf_0.25":
+           serve_cand, "nms_fixed_point_iterations": iterations, **rates,
+           f"max_memory_allocated_gib_b{nb}_f32": mem, "card": card}
+    print(json.dumps(out))
+    del yolo
+    torch.cuda.empty_cache()
+    # yolo11n-obb at batch 8
+    y11 = _perturbed_yolo("yolo11n-obb.yaml", seed, OBB_IMGSZ)
+    _damp_class_logits(y11, tiles, OBB_IMGSZ)
+    b8 = {}
+    for label, hkw in (("f32", {}), ("bf16", {"half": True})):
+        rows = y11.predict_batched(tiles, imgsz=OBB_IMGSZ, **hkw)
+        check(rows.shape == (nb, 300, 7) and np.isfinite(rows).all(), f"yolo11n-obb {label}")
+        b8[f"kept_{label}"] = (rows[..., 5] > 0).sum(1).tolist()
+    rr = _rates(lambda: _img_per_s(y11, tiles, kw, n=5), lambda: _img_per_s(y11, tiles, hkw, n=5))
+    print(json.dumps({"serve_obb": "yolo11n-obb.yaml", "imgsz": OBB_IMGSZ, **b8,
+                      **{f"img_per_s_b{nb}_{k}": v for k, v in rr.items()}, "card": card}))
+    del y11
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_obb_train(card: str, seed: int = 0) -> dict:
+    """The yolov8n-obb train step at 1024 on the synthetic set (float32 and amp), then
+    `YOLO.train(epochs=1)`, `YOLO.val`, `YOLO(checkpoint)` and `YOLO.predict` of the JPEG
+    frames (see the module docstring, phase 18)."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.engine.trainer import TRAINERS
+    steps = {}
+    for label, kw in (("f32", {"amp": False}), ("amp", {})):
+        tr = TRAINERS["obb"](dict(model="yolov8n-obb.yaml", data="synthetic", imgsz=OBB_IMGSZ,
+                                  batch=OBB_TRAIN_BATCH, seed=seed, optimizer="SGD",
+                                  nbs=OBB_TRAIN_BATCH, warmup_epochs=0.0, workers=8,
+                                  project="runs", name="chip_smoke_obb", exist_ok=True, **kw))
+        tr.setup()
+        check(not tr.device_augment and (tr.model.compute_dtype == torch.bfloat16) ==
+              (label == "amp"), f"obb {label}: compute dtype {tr.model.compute_dtype}")
+        batch = next(iter(tr.train_loader))
+        check(batch["bboxes"].shape[2] == 5, f"obb: bboxes {batch['bboxes'].shape}")
+        _, items = tr.train_step(batch)
+        items = items.cpu().numpy()
+        check(np.isfinite(items).all() and (items > 0).all(), f"obb {label} step: items {items}")
+        steps[label] = {"items": items.tolist(), **_timed_steps(tr, batch)}
+        del tr, batch
+        torch.cuda.empty_cache()
+    print(json.dumps({"obb_train_step":
+                      f"yolov8n-obb@{OBB_IMGSZ} b{OBB_TRAIN_BATCH} synthetic nc 3",
+                      "loss_names": "box cls dfl", **steps, "card": card}))
+    yolo = YOLO("yolov8n-obb.yaml")
+    t0 = time.perf_counter()
+    metrics = yolo.train(data="synthetic", imgsz=OBB_IMGSZ, batch=OBB_TRAIN_BATCH, epochs=1,
+                         seed=seed, workers=8, project="runs", name="chip_smoke_obb_train",
+                         exist_ok=True)
+    train_s = time.perf_counter() - t0
+    check(all(np.isfinite(list(metrics.values()))) and "metrics/mAP50-95(B)" in metrics
+          and "train/box" in metrics, f"YOLO.train yolov8n-obb: {metrics}")
+    val = yolo.val(data="synthetic", imgsz=OBB_IMGSZ, batch=OBB_TRAIN_BATCH, workers=8,
+                   project="runs", name="chip_smoke_obb_val", exist_ok=True)
+    check("metrics/mAP50(B)" in val and all(np.isfinite(list(val.values()))), f"YOLO.val: {val}")
+    ckpt = YOLO(yolo.ckpt_dir)
+    check(ckpt.task == "obb" and ckpt.meta["nc"] == 3 and ckpt.names == yolo.names,
+          f"YOLO(checkpoint): task {ckpt.task}, nc {ckpt.meta['nc']}")
+    tiles = _aerial_tiles(2, seed, OBB_IMGSZ)
+    rows = ckpt.predict_batched(tiles, imgsz=OBB_IMGSZ, conf=1e-3)
+    check(rows.shape == (2, 300, 7) and np.isfinite(rows).all(), f"checkpoint rows {rows.shape}")
+    ckpt_val = ckpt.val(data="synthetic", imgsz=OBB_IMGSZ, batch=OBB_TRAIN_BATCH, workers=8,
+                        project="runs", name="chip_smoke_obb_ckpt_val", exist_ok=True)
+    check("metrics/mAP50(B)" in ckpt_val, f"YOLO(checkpoint).val: {ckpt_val}")
+    t0 = time.perf_counter()
+    results = ckpt.predict(str(JPEG_DIR / "frames"), imgsz=OBB_IMGSZ, conf=1e-3)
+    predict_s = time.perf_counter() - t0
+    check(len(results) == JPEG_FRAMES and all(r.obb is not None and r.boxes is None
+                                              for r in results), "YOLO.predict yolov8n-obb")
+    out = {"obb_yolo_train": "yolov8n-obb.yaml", "metrics": metrics, "seconds": train_s,
+           "val": val, "checkpoint_val": ckpt_val,
+           "checkpoint_rows_kept": (rows[..., 5] > 0).sum(1).tolist(),
+           "predict_jpeg_frames_per_s": JPEG_FRAMES / predict_s,
+           "predict_kept_per_frame": [len(r) for r in results], "card": card}
+    print(json.dumps(out))
+    return {"steps": steps, "val": val}
+
+
+def _write_cls_folder(root: Path, seed: int) -> Path:
+    """A class-folder dataset of PNG frames under `root`: train/ and val/, CLS_FOLDER's
+    classes and frames a class, 240x320 (one in four 320x240), terrain as phase 8's with a
+    disc, a bar, a ring or a cross of a class colour somewhere in it."""
+    rng = np.random.default_rng(seed)
+    n_cls, n_train, n_val = CLS_FOLDER
+    colours = rng.integers(0, 256, (n_cls, 3), np.uint8)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c in range(n_cls):
+            d = root / split / f"class{c}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                h, w = (320, 240) if i % 4 == 0 else (240, 320)
+                cells = rng.integers(40, 200, (h // 40 + 1, w // 40 + 1, 3), np.uint8)
+                img = np.repeat(np.repeat(cells, 40, 0), 40, 1)[:h, :w]
+                img = (img + rng.integers(0, 24, (h, w, 3), np.uint8)).astype(np.uint8)
+                cy, cx = rng.integers(50, h - 50), rng.integers(50, w - 50)
+                yy, xx = np.mgrid[:h, :w]
+                rad = np.hypot(yy - cy, xx - cx)
+                shape = [rad < 40, (np.abs(yy - cy) < 10) & (np.abs(xx - cx) < 45),
+                         (rad < 40) & (rad > 25),
+                         ((np.abs(yy - cy) < 8) | (np.abs(xx - cx) < 8)) & (rad < 45)][c % 4]
+                img[shape] = colours[c]
+                (d / f"{i:03d}.png").write_bytes(_png_file(img))
+    return root
+
+
+def _top5_agree(l32: np.ndarray, l64: np.ndarray) -> tuple:
+    """Rows of logits: the top-5 of each row of l32 against l64's, up to the first rank at
+    which two float64 logits lie within 4 x the largest float32 distance (1e-6 at least) of
+    each other. Returns (ranks compared, rows whose order differs there)."""
+    margin = max(4 * float(np.abs(l32 - l64).max()), 1e-6)
+    compared, differ = 0, 0
+    for a, b in zip(l32, l64):
+        order = np.argsort(-b, kind="stable")[:6]
+        gaps = -np.diff(b[order])
+        k = int(np.argmax(gaps < margin)) if (gaps < margin).any() else 5
+        k = min(k, 5)
+        compared += k
+        differ += int(not np.array_equal(np.argsort(-a, kind="stable")[:k], order[:k]))
+    return compared, differ
+
+
+def phase_cls_serve(card: str, seed: int = 3) -> dict:
+    """yolov8n-cls served at 224 on phase 14's ragged 480x640 frames: probabilities and
+    top-5 against float64, half, fuse(), img/s; yolo11n-cls and yolo11n-cls-resnet18 at
+    batch 8 (see the module docstring, phase 18)."""
+    import torch
+    frames = np.random.default_rng(seed).integers(0, 256, (max(CLS_BATCHES), *BENCH_HW, 3),
+                                                  np.uint8)
+    outs = {}
+    for name in ("yolov8n-cls.yaml", "yolo11n-cls.yaml", "yolo11n-cls-resnet18.yaml"):
+        yolo = _perturbed_yolo(name, seed, CLS_IMGSZ)
+        nc = yolo.meta["nc"]
+        check(yolo.task == "classify" and yolo.meta["strides"] == [], f"{name}: {yolo.task}")
+        batches = CLS_BATCHES if name == "yolov8n-cls.yaml" else (8,)
+        exact = _float64_copy(yolo)
+        b8 = frames[:8]
+        got = yolo.predict_batched(b8, imgsz=CLS_IMGSZ)
+        want = exact.predict_batched(b8, imgsz=CLS_IMGSZ)
+        x, _, _ = yolo._get_predictor({"imgsz": CLS_IMGSZ}).preprocess(b8)
+        with torch.no_grad():
+            l32 = yolo._fused_for_serving()(x).double().cpu().numpy()
+            l64 = exact._fused(x.double()).cpu().numpy()
+        compared, differ = _top5_agree(l32, l64)
+        prob_err = float(np.abs(got - want).max())
+        check(got.shape == (8, nc) and prob_err <= PROB_TOL and differ == 0 and compared > 0,
+              f"{name} float32 vs float64: probs {prob_err}, top-5 {differ} rows differ")
+        del exact
+        half = yolo.predict_batched(b8, imgsz=CLS_IMGSZ, half=True)
+        check(half.shape == (8, nc) and np.isfinite(half).all() and
+              np.allclose(half.sum(1), 1, atol=1e-2), f"{name} half: {half.shape}")
+        folded = copy.deepcopy(yolo).fuse()
+        check(np.array_equal(folded.predict_batched(b8, imgsz=CLS_IMGSZ), got),
+              f"{name}: fuse() serves other probabilities than the BN-folded serving copy")
+        del folded
+        kw, hkw = dict(imgsz=CLS_IMGSZ), dict(imgsz=CLS_IMGSZ, half=True)
+        rates = {}
+        for b in batches:
+            rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
+                        lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+            rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
+        outs[name] = {"serve_cls": name, "imgsz": CLS_IMGSZ, "nc": nc,
+                      "frames": f"{BENCH_HW[0]}x{BENCH_HW[1]}", "prob_err_vs_f64": prob_err,
+                      "logit_err_vs_f64": float(np.abs(l32 - l64).max()),
+                      "top5_ranks_compared": compared, "top1_prob_median":
+                      float(np.median(got.max(1))), **rates, "card": card}
+        print(json.dumps(outs[name]))
+        del yolo
+        torch.cuda.empty_cache()
+    return outs
+
+
+def phase_cls_train(root: Path, card: str, seed: int = 0) -> dict:
+    """The yolov8n-cls train step at 224, batch 64, on the class folder (float32 and amp),
+    then `YOLO.train(epochs=1)`, `YOLO.val` and `YOLO(checkpoint)` (see the module
+    docstring, phase 18)."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.engine.trainer import TRAINERS
+    n_cls = CLS_FOLDER[0]
+    steps = {}
+    for label, kw in (("f32", {"amp": False}), ("amp", {})):
+        tr = TRAINERS["classify"](dict(model="yolov8n-cls.yaml", data=str(root), imgsz=CLS_IMGSZ,
+                                       batch=CLS_TRAIN_BATCH, seed=seed, optimizer="SGD",
+                                       nbs=CLS_TRAIN_BATCH, warmup_epochs=0.0, workers=8,
+                                       project="runs", name="chip_smoke_cls", exist_ok=True, **kw))
+        tr.setup()
+        check(tr.meta["nc"] == n_cls and (tr.model.compute_dtype == torch.bfloat16) ==
+              (label == "amp"), f"classify {label}: nc {tr.meta['nc']}")
+        batch = next(iter(tr.train_loader))
+        check(batch["img"].shape == (CLS_TRAIN_BATCH, CLS_IMGSZ, CLS_IMGSZ, 3),
+              f"classify batch {batch['img'].shape}")
+        _, items = tr.train_step(batch)
+        items = items.cpu().numpy()
+        check(np.isfinite(items).all() and (items > 0).all(), f"classify {label}: items {items}")
+        steps[label] = {"items": items.tolist(), **_timed_steps(tr, batch)}
+        del tr, batch
+        torch.cuda.empty_cache()
+    print(json.dumps({"cls_train_step": f"yolov8n-cls@{CLS_IMGSZ} b{CLS_TRAIN_BATCH} "
+                      f"class folder nc {n_cls}", "loss_names": "loss", **steps, "card": card}))
+    yolo = YOLO("yolov8n-cls.yaml")
+    t0 = time.perf_counter()
+    metrics = yolo.train(data=str(root), imgsz=CLS_IMGSZ, batch=CLS_TRAIN_BATCH, epochs=1,
+                         seed=seed, workers=8, project="runs", name="chip_smoke_cls_train",
+                         exist_ok=True)
+    train_s = time.perf_counter() - t0
+    check({"train/loss", "metrics/accuracy_top1", "metrics/accuracy_top5"} <= set(metrics)
+          and all(np.isfinite(list(metrics.values()))), f"YOLO.train yolov8n-cls: {metrics}")
+    val = yolo.val(data=str(root), imgsz=CLS_IMGSZ, batch=CLS_TRAIN_BATCH, workers=8,
+                   project="runs", name="chip_smoke_cls_val", exist_ok=True)
+    check(val["metrics/accuracy_top5"] >= val["metrics/accuracy_top1"] and
+          val["metrics/accuracy_top5"] == 1.0, f"YOLO.val yolov8n-cls ({n_cls} classes): {val}")
+    ckpt = YOLO(yolo.ckpt_dir)
+    check(ckpt.task == "classify" and ckpt.names == {c: f"class{c}" for c in range(n_cls)},
+          f"YOLO(checkpoint): {ckpt.task} {ckpt.names}")
+    ckpt_val = ckpt.val(data=str(root), imgsz=CLS_IMGSZ, batch=CLS_TRAIN_BATCH, workers=8,
+                        project="runs", name="chip_smoke_cls_ckpt_val", exist_ok=True)
+    check(ckpt_val.keys() == val.keys(), f"YOLO(checkpoint).val: {ckpt_val}")
+    out = {"cls_yolo_train": "yolov8n-cls.yaml", "metrics": metrics, "seconds": train_s,
+           "val": val, "checkpoint_val": ckpt_val, "card": card}
+    print(json.dumps(out))
+    return out
+
+
+def phase_obb_cls(card: str, seed: int = 6) -> dict:
+    """Phase 18: the OBB and classify tasks served, fused, trained and validated; no graph of
+    theirs has an A2C2f block. Returns the launches by path."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    t0 = time.perf_counter()
+    reset_launches()
+    phase_obb_serve(card)
+    t_obb_serve = time.perf_counter()
+    phase_obb_train(card)
+    torch.cuda.empty_cache()
+    t_obb_train = time.perf_counter()
+    phase_cls_serve(card)
+    t_cls_serve = time.perf_counter()
+    root = Path("runs") / "chip_smoke_cls_data"
+    shutil.rmtree(root, ignore_errors=True)
+    phase_cls_train(_write_cls_folder(root, seed), card)
+    shutil.rmtree(root, ignore_errors=True)
+    by = dict(flash_area_attention.launches_by_dtype)
+    check(by == {"float32": 0, "bfloat16": 0}, f"phase 18: attention kernel launches {by}")
+    print(json.dumps({"phase_obb_cls_s": {"obb_serve": t_obb_serve - t0,
+                                          "obb_train_val": t_obb_train - t_obb_serve,
+                                          "cls_serve": t_cls_serve - t_obb_train,
+                                          "cls_train_val": time.perf_counter() - t_cls_serve},
+                      "kernel_launches_by_dtype": by}))
+    return {f"serve yolov8n-obb and yolo11n-obb@{OBB_IMGSZ}, f32 and bf16": 0,
+            f"yolov8n-obb train step @{OBB_IMGSZ} b{OBB_TRAIN_BATCH}, f32 and amp": 0,
+            "YOLO.train / val / predict yolov8n-obb": 0,
+            f"serve yolov8n-cls, yolo11n-cls, yolo11n-cls-resnet18@{CLS_IMGSZ}, f32 and bf16": 0,
+            f"yolov8n-cls train step @{CLS_IMGSZ} b{CLS_TRAIN_BATCH}, f32 and amp": 0,
+            "YOLO.train / val yolov8n-cls": 0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3200,6 +3676,8 @@ def main() -> int:
     lap("detect_family")
     pose_seg_launches = phase_pose_seg(card)
     lap("pose_seg")
+    obb_cls_launches = phase_obb_cls(card)
+    lap("obb_cls")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -3254,7 +3732,7 @@ def main() -> int:
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
                              **detect_launches["float32"], **cbam_launches["float32"],
-                             **family_launches, **pose_seg_launches}}]}))
+                             **family_launches, **pose_seg_launches, **obb_cls_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -84,7 +84,7 @@ DEFAULT_CFG = {
     "remat": False,           # train with per-block activation checkpointing
     "multi_scale": False,     # train at a random stride multiple in [0.5, 1.5] x imgsz
     "profile": False,         # 'trace': a torch.profiler trace of steps 1-3 of epoch 0
-    "dropout": 0.0,           # the classify head's dropout (no classify head in this port)
+    "dropout": 0.0,           # the classify head's dropout
     "overlap_mask": True,     # segment: accepted and unread, as in the JAX package (its masks
     "mask_ratio": 4,          # are always one overlap map at imgsz // 4)
     "retina_masks": False,    # segment: accepted and unread, as in the JAX package

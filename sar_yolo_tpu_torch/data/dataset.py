@@ -1,6 +1,7 @@
-"""Detection, JDE, pose and segment datasets: YOLO-format folders on disk and procedural
-data (port of the box, keypoint and polygon branches of `sar_yolo_tpu/data/dataset.py`:
-`check_det_dataset`, `YOLODataset`, `SyntheticDataset`)."""
+"""Detection, JDE, pose and segment datasets: YOLO-format folders on disk, class folders
+and procedural data (port of `sar_yolo_tpu/data/dataset.py`: `check_det_dataset`,
+`YOLODataset` with its box, keypoint and polygon branches, `SyntheticDataset` with its OBB
+and classify branches, `ClassificationDataset`)."""
 
 from __future__ import annotations
 
@@ -29,12 +30,15 @@ class SyntheticDataset:
     embedding and state heads have a signal. Pose adds 'keypoints' (M, K, D): the
     first K of the rectangle's corners and centre (visibility 2), the rest zero;
     segment adds 'masks' (s/4, s/4): the rectangles at a quarter of the size, instance
-    i + 1 where the i-th lies.
+    i + 1 where the i-th lies. OBB: 1-5 rotated rectangles (sides 0.12-0.3, centres in
+    0.25-0.75 of the image, angle in [-pi/4, 3pi/4)) drawn by `cv.fill_poly` on their int32
+    corners, 'bboxes' (M, 5) normalized xywh and the angle. Classify: one square of the
+    class's colour in the middle, 'cls' a float32 scalar.
     """
 
     def __init__(self, n=64, imgsz=640, nc=3, max_labels=128, seed=0, task="detect",
                  kpt_shape=(5, 3)):
-        if task not in ("detect", "jde", "pose", "segment"):
+        if task not in ("detect", "jde", "pose", "segment", "obb", "classify"):
             raise ValueError(f"SyntheticDataset: task '{task}' is not part of this port yet")
         self.n, self.imgsz, self.nc, self.max_labels = n, imgsz, nc, max_labels
         self.seed, self.task, self.kpt_shape = seed, task, tuple(kpt_shape)
@@ -47,7 +51,13 @@ class SyntheticDataset:
         rng = np.random.default_rng(self.seed * 100003 + i)
         s, M = self.imgsz, self.max_labels
         img = rng.uniform(0, 60, (s, s, 3)).astype(np.uint8)
+        if self.task == "classify":
+            c = int(rng.integers(0, self.nc))
+            img[s // 4:3 * s // 4, s // 4:3 * s // 4] = _COLORS[c % 3]
+            return {"img": img, "cls": np.float32(c)}
         n_obj = int(rng.integers(1, 6))
+        if self.task == "obb":
+            return self._obb_item(rng, img, n_obj)
         cls = np.zeros(M, np.float32)
         boxes = np.zeros((M, 4), np.float32)
         mask = np.zeros(M, np.float32)
@@ -80,6 +90,26 @@ class SyntheticDataset:
         if self.task == "segment":
             out["masks"] = seg
         return out
+
+
+    def _obb_item(self, rng, img, n_obj: int) -> dict:
+        s, M = self.imgsz, self.max_labels
+        cls, mask = np.zeros(M, np.float32), np.zeros(M, np.float32)
+        boxes5 = np.zeros((M, 5), np.float32)
+        for j in range(n_obj):
+            c = int(rng.integers(0, self.nc))
+            w = rng.uniform(0.12, 0.3) * s
+            h = rng.uniform(0.12, 0.3) * s
+            cx = rng.uniform(0.25, 0.75) * s
+            cy = rng.uniform(0.25, 0.75) * s
+            r = rng.uniform(-np.pi / 4, 3 * np.pi / 4)
+            cos, sin = np.cos(r), np.sin(r)
+            pts = np.array([[-w / 2, -h / 2], [w / 2, -h / 2], [w / 2, h / 2], [-w / 2, h / 2]])
+            corners = (pts @ np.array([[cos, sin], [-sin, cos]]) + [cx, cy]).astype(np.int32)
+            cv.fill_poly(img, corners, _COLORS[c % 3])
+            boxes5[j] = [cx / s, cy / s, w / s, h / s, r]
+            cls[j], mask[j] = c, 1.0
+        return {"img": img, "cls": cls, "bboxes": boxes5, "mask": mask}
 
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
@@ -151,6 +181,12 @@ class YOLODataset:
     def __init__(self, img_path, imgsz=640, augment=False, hyp=None, use_tags=False,
                  max_labels=128, single_cls=False, fraction=1.0, task="detect",
                  kpt_shape=(17, 3), cache=False, device_augment=False, flip_idx=None):
+        if task == "obb":
+            raise NotImplementedError(
+                "YOLODataset: task 'obb' is not part of this port: the JAX package has no OBB "
+                "label branch either (a DOTA row 'class x1 y1 ... x4 y4' takes its detect branch "
+                "and becomes a 4-column box, on which its obb_loss fails), so OBB trains and "
+                "validates on data='synthetic' only")
         if task not in ("detect", "jde", "pose", "segment"):
             raise NotImplementedError(f"YOLODataset: task '{task}' is not part of this port yet")
         self.imgsz = imgsz
@@ -478,3 +514,67 @@ class YOLODataset:
                 cv.fill_poly(seg, np.round(poly / 4).astype(np.int32), float(j + 1))
             out["masks"] = seg
         return out
+
+
+class ClassificationDataset:
+    """Class-folder samples: root/<class name>/<image>, the class ids in the sorted order of
+    the folder names, each class's images (PNG or JPEG, `imageio.imread`) in sorted order
+    of their paths under it.
+
+    augment=True: a random resized crop (up to 10 draws of an area of 0.25-1 of the image
+    and an aspect ratio of 3/4-4/3; the whole image where none fits), resized to
+    imgsz x imgsz (`cv.resize`: OpenCV's INTER_LINEAR), a horizontal flip at 0.5, then
+    `augment_hsv` with hyp's gains; the draws of item i come from
+    `default_rng((seed, epoch, i))`. augment=False: the shorter side resized to imgsz (the
+    other round(side x r), Python's rounding), then the centre imgsz x imgsz crop. Items:
+    'img' (imgsz, imgsz, 3) uint8 RGB and 'cls' a float32 scalar.
+    """
+
+    def __init__(self, root, imgsz=224, augment=False, hyp=None, seed=0):
+        self.root, self.imgsz, self.augment, self.hyp = Path(root), imgsz, augment, hyp
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        if not classes:
+            raise FileNotFoundError(f"no class folders under {root}")
+        self.names = dict(enumerate(classes))
+        self.samples = [(str(f), ci) for ci, c in enumerate(classes)
+                        for f in sorted((self.root / c).rglob("*"))
+                        if f.suffix[1:].lower() in IMG_FORMATS]
+        if not self.samples:
+            raise FileNotFoundError(f"no images under {root}")
+        self.seed = seed
+        self.epoch = 0  # set by DataLoader.set_epoch; keys the per-item draws
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng((self.seed, self.epoch, i))
+        path, ci = self.samples[i]
+        img = imread(path)
+        if img is None:
+            raise FileNotFoundError(path)
+        s = self.imgsz
+        h, w = img.shape[:2]
+        if self.augment:
+            for _ in range(10):
+                area = rng.uniform(0.25, 1.0) * h * w
+                ratio = np.exp(rng.uniform(np.log(3 / 4), np.log(4 / 3)))
+                cw = int(round(np.sqrt(area * ratio)))
+                ch = int(round(np.sqrt(area / ratio)))
+                if cw <= w and ch <= h:
+                    x0 = int(rng.integers(0, w - cw + 1))
+                    y0 = int(rng.integers(0, h - ch + 1))
+                    img = img[y0:y0 + ch, x0:x0 + cw]
+                    break
+            img = cv.resize(img, (s, s))
+            if rng.random() < 0.5:
+                img = np.fliplr(img).copy()
+            if self.hyp is not None:
+                img = augment_hsv(img, self.hyp.hsv_h, self.hyp.hsv_s, self.hyp.hsv_v, rng=rng)
+        else:
+            r = s / min(h, w)
+            img = cv.resize(img, (round(w * r), round(h * r)))
+            hh, ww = img.shape[:2]
+            y0, x0 = (hh - s) // 2, (ww - s) // 2
+            img = img[y0:y0 + s, x0:x0 + s]
+        return {"img": np.ascontiguousarray(img[..., ::-1]), "cls": np.float32(ci)}

@@ -1,15 +1,16 @@
 """YOLO facade of the port: build from a config name or YAML path, seed or load weights (a
 checkpoint directory too), train, validate, fuse, save, serve batches, predict and track
 sources, summarize and profile (port of `sar_yolo_tpu/engine/model.py` without export,
-`embed`, `benchmark` and `tune`), for the detect, JDE, pose and segment tasks: each call
-takes the
-trainer (`TRAINERS`, whose `validator_cls` validates) or the predictor (`PREDICTORS`) of
-the model's task. `Ensemble` merges the detections of several models."""
+`embed`, `benchmark` and `tune`), for the detect, JDE, pose, segment, OBB and classify
+tasks: each call takes the trainer (`TRAINERS`, whose `validator_cls` validates) or the
+predictor (`PREDICTORS`) of the model's task. `Ensemble` merges the detections of several
+models."""
 
 from __future__ import annotations
 
 import copy
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -18,7 +19,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, NOT_PORTED, get_cfg, get_save_dir
-from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
+from sar_yolo_tpu_torch.data.dataset import (ClassificationDataset, SyntheticDataset, YOLODataset,
+                                             check_det_dataset)
 from sar_yolo_tpu_torch.engine.predictor import PREDICTORS
 from sar_yolo_tpu_torch.engine.trainer import TRAINERS
 from sar_yolo_tpu_torch.nn.fuse import fuse_model, half_model
@@ -45,6 +47,8 @@ class YOLO:
         >>> dets = m.predict_batched(frames_u8)     # (B, max_det, 6)
         >>> dets = YOLO("yolov8n-pose.yaml").predict_batched(frames_u8)  # (B, 300, 6 + 17 x 3)
         >>> dets, masks = YOLO("yolov8n-seg.yaml").predict_batched(frames_u8)  # masks 160 x 160
+        >>> rows = YOLO("yolov8n-obb.yaml").predict_batched(tiles, imgsz=1024)  # (B, 300, 7) xywhr
+        >>> probs = YOLO("yolov8n-cls.yaml").predict_batched(frames_u8, imgsz=224)  # (B, 1000)
         >>> dets = m.predict_batched(frames_u8, half=True)  # bf16 on the card
         >>> m = YOLO("tinyjde.yaml", device="cpu")
         >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
@@ -144,12 +148,20 @@ class YOLO:
         """Validate the BN-folded model on this model's device (keys of `cfg/default.py`);
         returns the metrics dict. `data`: a dataset YAML file or dict (its `split`, else
         val, else train), or 'synthetic' (the default): 16 images of
-        SyntheticDataset(seed=0) with min(nc, 3) classes (a pose model's keypoint shape)."""
+        SyntheticDataset(seed=0) with min(nc, 3) classes (a pose model's keypoint shape); a
+        classify model also takes a class-folder tree (its `split`, else val, test, train,
+        else the folder itself)."""
         validator = TRAINERS[self._ported_task()].validator_cls
         args = get_cfg({**self.overrides, "model": self.cfg, **kwargs})
         args.save_dir = str(get_save_dir(args, self.task))
         nc = self.meta["nc"]
-        if args.data in (None, "synthetic"):
+        if self.task == "classify" and args.data and Path(str(args.data)).is_dir():
+            root = Path(str(args.data))
+            split = next((root / s for s in (args.split or "val", "val", "test", "train")
+                          if (root / s).is_dir()), root)
+            dataset = ClassificationDataset(split, imgsz=args.imgsz, augment=False)
+            data = {"nc": len(dataset.names), "names": dataset.names}
+        elif args.data in (None, "synthetic"):
             data = {"nc": nc, "names": {i: f"c{i}" for i in range(nc)}}
             dataset = SyntheticDataset(n=16, imgsz=args.imgsz, nc=min(nc, 3),
                                        max_labels=args.max_labels, task=self.task,
@@ -216,7 +228,8 @@ class YOLO:
         x2, y2, conf, cls, *embedding, *states] (E = 0 for a detect model; pose: the K x D
         keypoints, xy in original pixels); rows with conf == 0 are padding. A segment
         model returns (rows (B, max_det, 6), masks (B, max_det, imgsz / 4, imgsz / 4) bool
-        in the letterboxed input's frame).
+        in the letterboxed input's frame); an OBB model (B, max_det, 7) rows [cx, cy, w, h,
+        r, conf, cls]; a classify model (B, nc) probabilities.
         """
         return self._get_predictor(kwargs).predict_batch(frames)
 

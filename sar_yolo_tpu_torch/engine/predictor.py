@@ -7,6 +7,9 @@ Pose rows carry the keypoints, un-letterboxed like the boxes (the boxes are clip
 the frame in Results, the keypoints not). Segment rows are [box, conf, cls]; their masks
 (B, max_det, mh, mw) stay at the prototypes' resolution in the letterboxed input's frame
 (`process_mask` over the square (imgsz, imgsz) input), as the JAX package returns them.
+OBB rows are [cx, cy, w, h, r, conf, cls]: the centres un-letterboxed, w and h over the
+ratio, the angle as it is, nothing clipped. A classify model returns the softmax of its
+logits over the letterboxed frame, (B, nc) float32.
 
 Under `half` the letterboxed frame enters the model in bf16 and the head maps come out
 in bf16; decode and NMS then run in the dtypes the JAX predictor gives them (boxes in
@@ -28,9 +31,10 @@ import torch
 from sar_yolo_tpu_torch.cfg.default import get_save_dir
 from sar_yolo_tpu_torch.data.loaders import load_inference_source
 from sar_yolo_tpu_torch.engine.results import Results
-from sar_yolo_tpu_torch.ops.decode import decode_detect
+from sar_yolo_tpu_torch.ops.decode import decode_detect, decode_obb
 from sar_yolo_tpu_torch.ops.masks import process_mask
-from sar_yolo_tpu_torch.ops.nms import non_max_suppression, postprocess_end2end
+from sar_yolo_tpu_torch.ops.nms import (non_max_suppression, non_max_suppression_rotated,
+                                        postprocess_end2end)
 from sar_yolo_tpu_torch.ops.preprocess import letterbox_device
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 
@@ -222,5 +226,35 @@ class SegmentPredictor(BasePredictor):
                        masks=masks[0][keep], speed=speed)
 
 
+class OBBPredictor(BasePredictor):
+    """Rotated rows [cx, cy, w, h, r, conf, cls] (rows with conf == 0 are padding);
+    Results.obb."""
+
+    def serve(self, x, r: float, pad):
+        args, meta = self.args, self.meta
+        preds = decode_obb(self.model(x), meta["strides"], meta["nc"], meta["reg_max"])
+        dets = non_max_suppression_rotated(preds, conf_thres=args.conf if args.conf is not None
+                                           else 0.25, iou_thres=args.iou,
+                                           max_det=args.max_det, nc=meta["nc"])
+        pad2 = torch.tensor(pad, dtype=dets.dtype, device=dets.device)
+        return torch.cat([(dets[..., :2] - pad2) / r, dets[..., 2:4] / r, dets[..., 4:]], -1)
+
+    def postprocess(self, dets, path, orig_img, speed=None) -> Results:
+        d = np.asarray(dets[0])
+        return Results(orig_img, path, self.names, obb=d[d[:, 5] > 0], speed=speed)
+
+
+class ClassificationPredictor(BasePredictor):
+    """Class probabilities (B, nc): the softmax of the logits of the letterboxed frame;
+    Results.probs."""
+
+    def serve(self, x, r: float, pad):
+        return self.model(x).softmax(-1).float()
+
+    def postprocess(self, probs, path, orig_img, speed=None) -> Results:
+        return Results(orig_img, path, self.names, probs=probs[0], speed=speed)
+
+
 PREDICTORS = {"detect": DetectionPredictor, "jde": JDEPredictor, "pose": PosePredictor,
-              "segment": SegmentPredictor}
+              "segment": SegmentPredictor, "obb": OBBPredictor,
+              "classify": ClassificationPredictor}

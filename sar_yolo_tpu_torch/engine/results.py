@@ -1,6 +1,6 @@
 """Inference results: boxes (with track ids), for JDE ReID embeddings and posture states,
-pose keypoints and segment masks (port of `sar_yolo_tpu/engine/results.py` without probs
-and OBB; numpy-backed).
+pose keypoints, segment masks, classification probabilities and rotated boxes (port of
+`sar_yolo_tpu/engine/results.py`; numpy-backed).
 
 Drawing and file writers (`plot`, `save`, `save_crop`), the pandas tables (`to_df`,
 `to_csv`, `to_xml`) and the mask contours (`Masks.xy`, `Masks.xyn`: cv2.findContours)
@@ -121,12 +121,72 @@ class Keypoints(_Rows):
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
+class Probs:
+    """Classification probabilities (nc,) of one image."""
+
+    def __init__(self, data, orig_shape=None):
+        self.data = np.asarray(data).reshape(-1)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list:
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5]
+
+
+class OBB(_Rows):
+    """Rotated boxes of one image: rows [cx, cy, w, h, r, conf, cls]."""
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, 5]
+
+    @property
+    def cls(self):
+        return self.data[:, 6]
+
+    @property
+    def xyxyxyxy(self):
+        """The corners (n, 4, 2)."""
+        cx, cy, w, h, r = (self.data[:, i] for i in range(5))
+        cos, sin = np.cos(r), np.sin(r)
+        dx = np.stack([w / 2, w / 2, -w / 2, -w / 2], 1)
+        dy = np.stack([h / 2, -h / 2, -h / 2, h / 2], 1)
+        x = cx[:, None] + dx * cos[:, None] - dy * sin[:, None]
+        y = cy[:, None] + dx * sin[:, None] + dy * cos[:, None]
+        return np.stack([x, y], -1)
+
+    @property
+    def xyxy(self):
+        """The axis-aligned envelope (n, 4) of each rotated box."""
+        c = self.xyxyxyxy
+        return np.concatenate([c.min(1), c.max(1)], 1)
+
+
 class Results:
     """One image's detections, with `embeds` (n, E) and `person_states` (n,) for JDE,
-    `keypoints` for pose and `masks` for segment."""
+    `keypoints` for pose, `masks` for segment, `obb` for OBB; or `probs` for classify."""
 
     def __init__(self, orig_img, path, names, boxes=None, embeds=None, person_states=None,
-                 speed=None, masks=None, keypoints=None):
+                 speed=None, masks=None, keypoints=None, probs=None, obb=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -135,13 +195,15 @@ class Results:
         self.masks = Masks(np.asarray(masks), self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(np.asarray(keypoints), self.orig_shape) \
             if keypoints is not None else None
+        self.probs = Probs(probs) if probs is not None else None
+        self.obb = OBB(np.asarray(obb), self.orig_shape) if obb is not None else None
         self.embeds = embeds
         self.person_states = person_states
         self.speed = speed or {}
         self.frame = None
 
     def __len__(self):
-        for rows in (self.boxes, self.masks, self.keypoints):
+        for rows in (self.boxes, self.obb, self.masks, self.keypoints):
             if rows is not None:
                 return len(rows)
         return 0
@@ -150,16 +212,24 @@ class Results:
         """Empty Results carrying the same image and names."""
         return Results(orig_img=self.orig_img, path=self.path, names=self.names)
 
-    def update(self, boxes=None, masks=None):
-        """Replace the boxes or masks in place."""
+    def update(self, boxes=None, masks=None, probs=None, obb=None):
+        """Replace the boxes, masks, probabilities or rotated boxes in place."""
         if boxes is not None:
             self.boxes = Boxes(np.asarray(boxes), self.orig_shape)
         if masks is not None:
             self.masks = Masks(np.asarray(masks), self.orig_shape)
+        if probs is not None:
+            self.probs = Probs(probs)
+        if obb is not None:
+            self.obb = obb if isinstance(obb, OBB) else OBB(np.asarray(obb), self.orig_shape)
         return self
 
     def summary(self, normalize: bool = False) -> list:
+        """One dict a detection (a classify result: one dict of its top-1 class)."""
         out = []
+        if self.probs is not None:
+            return [{"name": str(self.names.get(self.probs.top1, self.probs.top1)),
+                     "class": self.probs.top1, "confidence": self.probs.top1conf}]
         if self.boxes is None:
             return out
         h, w = self.orig_shape
@@ -182,7 +252,10 @@ class Results:
     tojson = to_json
 
     def verbose(self) -> str:
-        """One-line summary, e.g. '3 persons'."""
+        """One-line summary, e.g. '3 persons' (a classify result: its top-1 class and
+        confidence)."""
+        if self.probs is not None:
+            return f"{self.names.get(self.probs.top1, self.probs.top1)} {self.probs.top1conf:.2f}"
         if self.boxes is None or len(self.boxes) == 0:
             return "(no detections)"
         cls, counts = np.unique(self.boxes.cls.astype(int), return_counts=True)
@@ -190,9 +263,12 @@ class Results:
                          for c, n in zip(cls, counts))
 
     def save_txt(self, txt_file, save_conf: bool = True):
-        """YOLO-format label rows: class, normalized xywh, the confidence, the track id."""
+        """YOLO-format label rows: class, normalized xywh, the confidence, the track id; a
+        classify result: one row 'top1conf top1'."""
         lines = []
-        if self.boxes is not None:
+        if self.probs is not None:
+            lines.append(f"{self.probs.top1conf:.2f} {self.probs.top1}")
+        elif self.boxes is not None:
             ids = self.boxes.id
             for i, row in enumerate(self.boxes.data):
                 cx, cy, bw, bh = self.boxes.xywhn[i]

@@ -1,16 +1,18 @@
-"""Detect, JDE, pose and segment training on one device (port of
+"""Detect, JDE, pose, segment, OBB and classify training on one device (port of
 `sar_yolo_tpu/engine/trainer.py`).
 
 `BaseTrainer` holds the loop; `DetectionTrainer` (the v8 loss: box, cls, dfl),
 `JDETrainer` (box, cls, dfl, the triplet embedding term and the class-balanced state
-term), `PoseTrainer` (box, pose, kobj, cls, dfl) and `SegmentTrainer` (box, seg, cls,
-dfl) give it the task's loss and validator. Data: a YOLO-format dataset (a dataset
-YAML file or dict; 5-column detect labels, 6-column JDE labels with the track id,
-keypoint or polygon rows) or the synthetic set. A pose model takes its dataset's
+term), `PoseTrainer` (box, pose, kobj, cls, dfl), `SegmentTrainer` (box, seg, cls,
+dfl), `OBBTrainer` (box, cls, dfl of the rotated loss) and `ClassificationTrainer`
+(cross-entropy) give it the task's loss and validator. Data: a YOLO-format dataset (a
+dataset YAML file or dict; 5-column detect labels, 6-column JDE labels with the track id,
+keypoint or polygon rows), a class-folder tree (classify) or the synthetic set (OBB trains
+on it alone, as in the JAX package). A pose model takes its dataset's
 `kpt_shape` (as Ultralytics rebuilds the head; the JAX package leaves the model's and
 fails where they differ). Where the hyperparameters allow it
-(`_device_augment_enabled`: not segment; no rotation, shear, perspective, copy-paste or
-mosaic9), the host only letterboxes and
+(`_device_augment_enabled`: detect, JDE or pose; no rotation, shear, perspective,
+copy-paste or mosaic9), the host only letterboxes and
 the train step augments the uint8 batch on the device (`data/device_augment.py`),
 with draws keyed by (seed, epoch, batch index); otherwise the host augments
 (`data/augment.py`). Mosaic is off for the last `close_mosaic` epochs on either route.
@@ -57,9 +59,11 @@ import torch
 from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.build import DataLoader
 from sar_yolo_tpu_torch.data.cv import resize, resize_nearest_cv
-from sar_yolo_tpu_torch.data.dataset import SyntheticDataset, YOLODataset, check_det_dataset
+from sar_yolo_tpu_torch.data.dataset import (ClassificationDataset, SyntheticDataset, YOLODataset,
+                                             check_det_dataset)
 from sar_yolo_tpu_torch.data.device_augment import AUG_KEYS, device_train_augment, draw_params
-from sar_yolo_tpu_torch.engine.validator import (DetectionValidator, JDEValidator, PoseValidator,
+from sar_yolo_tpu_torch.engine.validator import (ClassificationValidator, DetectionValidator,
+                                                 JDEValidator, OBBValidator, PoseValidator,
                                                  SegmentValidator)
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype, set_generator
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
@@ -67,7 +71,8 @@ from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.checks import check_bf16
-from sar_yolo_tpu_torch.utils.loss import detection_loss, jde_loss, pose_loss, segmentation_loss
+from sar_yolo_tpu_torch.utils.loss import (classification_loss, detection_loss, jde_loss, obb_loss,
+                                           pose_loss, segmentation_loss)
 
 CLIP_NORM = 10.0
 ADAM_ALIASES = ("Adam", "AdamW", "NAdam", "RAdam")  # all optax.adamw in the JAX package
@@ -294,21 +299,21 @@ class BaseTrainer(HasCallbacks):
 
     def _device_augment_enabled(self) -> bool:
         """Whether the train step augments on the device (the JAX package's
-        `_device_augment_enabled`): unless device_augment is off, whenever the task has
-        no polygons (not segment) and the hyperparameters are expressible there (no
+        `_device_augment_enabled`): unless device_augment is off, whenever the task is
+        detect, JDE or pose and the hyperparameters are expressible there (no
         rotation, shear, perspective, copy-paste or mosaic9; mosaic probability 0 or 1).
         Asked for where they are not, it warns and the host augments."""
         v = self.args.device_augment
         if v in (False, "False", "false", "off", 0):
             return False
         g = lambda k: float(getattr(self.args, k) or 0)  # noqa: E731
-        expressible = (self.task != "segment" and g("degrees") == 0 and g("shear") == 0
-                       and g("perspective") == 0 and g("copy_paste") == 0 and g("mosaic9") == 0
+        expressible = (self.task in ("detect", "jde", "pose") and g("degrees") == 0
+                       and g("shear") == 0 and g("perspective") == 0 and g("copy_paste") == 0 and g("mosaic9") == 0
                        and g("mosaic") in (0.0, 1.0))
         if _explicit_on(v) and not expressible:
             LOGGER.warning("device_augment=True but the hyperparameters need the host "
                            "(degrees/shear/perspective/copy_paste/mosaic9/fractional mosaic "
-                           "or polygons); using host augmentation")
+                           "or a task without plain boxes); using host augmentation")
         return expressible
 
     def setup(self, state_dict: dict | None = None):
@@ -320,7 +325,8 @@ class BaseTrainer(HasCallbacks):
         nc = 1 if args.single_cls else self.data["nc"]
         dtype = amp_dtype(args, self.device)
         kpt_shape = tuple(self.data.get("kpt_shape", (17, 3))) if self.task == "pose" else None
-        model, self.meta = build_model(args.model, nc=nc, dtype=dtype, kpt_shape=kpt_shape)
+        model, self.meta = build_model(args.model, nc=nc, dtype=dtype, kpt_shape=kpt_shape,
+                                       dropout=float(args.dropout or 0.0))
         if self.meta["task"] != self.task:
             raise ValueError(f"'{args.model}' is a {self.meta['task']} model, not a "
                              f"{self.task} model")
@@ -689,5 +695,60 @@ class SegmentTrainer(BaseTrainer):
         return out.total, out.items, self.cb_counts
 
 
+class OBBTrainer(BaseTrainer):
+    """Trains an OBB model: the rotated v8 loss (box 1 - probiou, cls, dfl), the OBB
+    validator. Data: the synthetic set (`data="synthetic"`); a YOLO-format dataset raises
+    (`YOLODataset(task="obb")`), as the JAX package has no OBB label branch.
+
+    Examples:
+        >>> tr = OBBTrainer({"model": "tinyobb.yaml", "data": "synthetic", "imgsz": 64,
+        ...                  "batch": 2, "epochs": 1}, device="cpu")
+        >>> metrics = tr.train()
+    """
+
+    task = "obb"
+    loss_names = ("box", "cls", "dfl")
+    validator_cls = OBBValidator
+
+    def loss(self, feats, batch: dict):
+        meta = self.meta
+        out = obb_loss(feats, batch, self.args, nc=meta["nc"], reg_max=meta["reg_max"],
+                       strides=tuple(meta["strides"]))
+        return out.total, out.items, self.cb_counts
+
+
+class ClassificationTrainer(BaseTrainer):
+    """Trains a classify model: the mean cross-entropy of the logits, the top-1 / top-5
+    validator. Data: a folder with `train/` and `val/` or `test/` class-folder splits
+    (`ClassificationDataset`; without `train/` the folder itself, and the train split
+    validates where neither val nor test exists), or the synthetic set.
+
+    Examples:
+        >>> tr = ClassificationTrainer({"model": "tinycls.yaml", "data": "path/to/folder",
+        ...                             "imgsz": 64, "batch": 4, "epochs": 1}, device="cpu")
+        >>> metrics = tr.train()
+    """
+
+    task = "classify"
+    loss_names = ("loss",)
+    validator_cls = ClassificationValidator
+
+    def get_dataset(self):
+        data = self.args.data
+        if data and Path(str(data)).is_dir():
+            root = Path(str(data))
+            train_dir = root / "train" if (root / "train").is_dir() else root
+            val_dir = next((root / s for s in ("val", "test") if (root / s).is_dir()), train_dir)
+            train = ClassificationDataset(train_dir, imgsz=self.args.imgsz, augment=True,
+                                          hyp=self.args)
+            val = ClassificationDataset(val_dir, imgsz=self.args.imgsz, augment=False)
+            return train, val, {"nc": len(train.names), "names": train.names}
+        return super().get_dataset()
+
+    def loss(self, logits, batch: dict):
+        out = classification_loss(logits, batch)
+        return out.total, out.items, self.cb_counts
+
+
 TRAINERS = {"detect": DetectionTrainer, "jde": JDETrainer, "pose": PoseTrainer,
-            "segment": SegmentTrainer}
+            "segment": SegmentTrainer, "obb": OBBTrainer, "classify": ClassificationTrainer}

@@ -1,13 +1,15 @@
-"""Validators: the eval loop on the device, then mAP, posture-state, ReID, keypoint and
-mask metrics on the host (port of `BaseValidator`, `DetectionValidator`, `JDEValidator`,
-`PoseValidator` and `SegmentValidator` of `sar_yolo_tpu/engine/validator.py`).
+"""Validators: the eval loop on the device, then mAP, posture-state, ReID, keypoint,
+mask, rotated-box and top-k accuracy metrics on the host (port of `BaseValidator`,
+`DetectionValidator`, `JDEValidator`, `PoseValidator`, `SegmentValidator`,
+`OBBValidator` and `ClassificationValidator` of `sar_yolo_tpu/engine/validator.py`).
 
 Per batch, the uint8 NHWC RGB images go to the device as NCHW / 255; the eval
 forward, the decode and NMS (multi-label for nc > 1, the JDE embeddings gathered
 after NMS, pose keypoints decoded to input pixels and segment mask coefficients
-carried in the rows; for a v10 head the NMS-free top-k) run there, and one copy comes
-back: the (B, max_det, 6 + E + S) rows, with a segment model's (B, nm, mh, mw)
-prototypes in the same buffer (16 x 32 x 160 x 160 float32 at 640: 52 MB a batch).
+carried in the rows; for a v10 head the NMS-free top-k; for OBB the rotated decode and
+NMS) run there, and one copy comes back: the (B, max_det, 6 + E + S) rows, with a
+segment model's (B, nm, mh, mw) prototypes in the same buffer (16 x 32 x 160 x 160
+float32 at 640: 52 MB a batch).
 
 With `rect`, the dataset's images are batched by aspect ratio (`init_rect`). With
 `save_json`, boxes go back to native image pixels through each image's `ratio_pad`,
@@ -15,8 +17,7 @@ image ids are the file stems, and an 80-class model validated on a COCO dataset
 writes the COCO 91-index category ids.
 
 Not ported yet, each refused where asked for: mesh sharding, test-time
-augmentation and plots (`cfg/default.py` NOT_PORTED), and the classify, OBB and
-RT-DETR validators.
+augmentation and plots (`cfg/default.py` NOT_PORTED), and the RT-DETR validator.
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ import torch
 
 from sar_yolo_tpu_torch.data.build import DataLoader
 from sar_yolo_tpu_torch.data.cv import resize_nearest_cv
-from sar_yolo_tpu_torch.ops.decode import decode_detect
+from sar_yolo_tpu_torch.ops.boxes import probiou
+from sar_yolo_tpu_torch.ops.decode import decode_detect, decode_obb
 from sar_yolo_tpu_torch.ops.masks import process_mask
-from sar_yolo_tpu_torch.ops.nms import non_max_suppression, postprocess_end2end
+from sar_yolo_tpu_torch.ops.nms import (non_max_suppression, non_max_suppression_rotated,
+                                        postprocess_end2end)
 from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.loss import OKS_SIGMA
 from sar_yolo_tpu_torch.utils.metrics import (IOU_THRESHOLDS, DetMetrics, box_iou_np,
@@ -213,9 +216,11 @@ class BaseValidator:
                                      "bbox": to_native(cx - bw / 2, cy - bh / 2,
                                                        cx + bw / 2, cy + bh / 2)})
 
+    CONF = 4  # the rows' confidence column (the class follows it)
+
     def _save_txt_batch(self, batch, dets, n_eff, n_img):
         """Per-image YOLO-format label files in native normalized coordinates, the
-        confidence appended with save_conf; rows [x1 y1 x2 y2 conf cls ...]."""
+        confidence appended with save_conf (`_txt_line` writes each row)."""
         args = self.args
         if not args.save_txt:
             return
@@ -224,19 +229,21 @@ class BaseValidator:
         h, w = batch["img"].shape[1:3]
         for bi in range(n_eff):
             d = dets[bi]
-            d = d[d[:, 4] > 0]
-            stem, rt, padx, pady, oh, ow = self._native_params(batch, bi, h, w, n_img)
-            lines = []
-            for row in d:
-                conf_s = f" {float(row[4]):.6f}" if args.save_conf else ""
-                x1 = min(max((float(row[0]) - padx) / rt, 0.0), ow)
-                x2 = min(max((float(row[2]) - padx) / rt, 0.0), ow)
-                y1 = min(max((float(row[1]) - pady) / rt, 0.0), oh)
-                y2 = min(max((float(row[3]) - pady) / rt, 0.0), oh)
-                lines.append(f"{int(row[5])} {(x1 + x2) / 2 / ow:.6f} "
-                             f"{(y1 + y2) / 2 / oh:.6f} {(x2 - x1) / ow:.6f} "
-                             f"{(y2 - y1) / oh:.6f}{conf_s}")
+            stem, *native = self._native_params(batch, bi, h, w, n_img)
+            lines = [self._txt_line(row, *native) + (f" {float(row[self.CONF]):.6f}"
+                                                     if args.save_conf else "")
+                     for row in d[d[:, self.CONF] > 0]]
             (lbl_dir / f"{stem}.txt").write_text("\n".join(lines) + ("\n" if lines else ""))
+
+    @staticmethod
+    def _txt_line(row, rt, padx, pady, oh, ow) -> str:
+        """`cls cx cy w h` of a row [x1 y1 x2 y2 conf cls ...], the box clipped to the image."""
+        x1 = min(max((float(row[0]) - padx) / rt, 0.0), ow)
+        x2 = min(max((float(row[2]) - padx) / rt, 0.0), ow)
+        y1 = min(max((float(row[1]) - pady) / rt, 0.0), oh)
+        y2 = min(max((float(row[3]) - pady) / rt, 0.0), oh)
+        return (f"{int(row[5])} {(x1 + x2) / 2 / ow:.6f} {(y1 + y2) / 2 / oh:.6f} "
+                f"{(x2 - x1) / ow:.6f} {(y2 - y1) / oh:.6f}")
 
     def finalize_metrics(self) -> dict:
         return self.det_metrics.process()
@@ -506,4 +513,80 @@ class SegmentValidator(BaseValidator):
         for k, v in self.mask_metrics.process().items():
             if k.startswith("metrics/"):
                 results[k.replace("(B)", "(M)")] = v
+        return results
+
+
+class OBBValidator(BaseValidator):
+    """Rotated-box mAP under the `(B)` keys: rows [cx, cy, w, h, r, conf, cls] from the
+    rotated decode and NMS, matched to the ground truth per class by probiou (float32 on the
+    host) over the IoU thresholds 0.5:0.95, each threshold's pairs best first. `save_txt`
+    writes xywhr rows; no COCO json, as in the JAX package."""
+
+    def postprocess(self, feats) -> torch.Tensor:
+        meta, args = self.meta, self.args
+        preds = decode_obb(feats, meta["strides"], meta["nc"], meta["reg_max"])
+        return non_max_suppression_rotated(preds, conf_thres=self.conf, iou_thres=args.iou,
+                                           max_det=args.max_det, nc=meta["nc"])
+
+    def update_metrics(self, dets, batch, hw):
+        h, w = hw
+        for bi in range(dets.shape[0]):
+            d = dets[bi]
+            d = d[d[:, 5] > 0]
+            gt_mask = batch["mask"][bi] > 0
+            gt_cls = batch["cls"][bi][gt_mask]
+            gb = batch["bboxes"][bi][gt_mask]
+            gt5 = np.concatenate([gb[:, :4] * np.array([w, h, w, h]), gb[:, 4:5]], 1) \
+                if len(gb) else np.zeros((0, 5), np.float32)
+            tp = np.zeros((len(d), len(IOU_THRESHOLDS)), bool)
+            if len(d) and len(gt5):
+                iou = probiou(torch.from_numpy(gt5.astype(np.float32))[:, None],
+                              torch.from_numpy(d[:, :5])[None]).squeeze(-1).numpy()
+                tp = _greedy_tp(iou * (gt_cls[:, None] == d[None, :, 6]))
+            self.det_metrics.update(tp, d[:, 5], d[:, 6], gt_cls)
+
+    def _json_rows(self, batch, dets, n_eff, n_img):
+        """No COCO rows for rotated boxes (the JAX package's OBB validator writes none)."""
+
+    CONF = 5
+
+    @staticmethod
+    def _txt_line(row, rt, padx, pady, oh, ow) -> str:
+        """`cls cx cy w h r` of a rotated row: the centre clipped to the image, w and h over
+        the native size, the angle in radians."""
+        cx = min(max((float(row[0]) - padx) / rt, 0.0), ow)
+        cy = min(max((float(row[1]) - pady) / rt, 0.0), oh)
+        return (f"{int(row[6])} {cx / ow:.6f} {cy / oh:.6f} {float(row[2]) / rt / ow:.6f} "
+                f"{float(row[3]) / rt / oh:.6f} {float(row[4]):.6f}")
+
+
+class ClassificationValidator(BaseValidator):
+    """Top-1 and top-5 accuracy of the logits (ranked on the host by
+    `np.argsort(-logits, axis=1)`, the JAX package's call, so that ties order alike); the
+    padded tail rows are dropped; `fitness` is the top-1 accuracy."""
+
+    def __call__(self, model, meta: dict, dataset, args, data: dict | None = None) -> dict:
+        self.args, self.meta, self.data = args, meta, data or {}
+        self.det_metrics = None
+        device = next(model.parameters()).device
+        loader = DataLoader(dataset, min(args.batch, len(dataset)), workers=args.workers,
+                            shuffle=False, drop_last=False, pad_last=True)
+        top1 = top5 = n = 0
+        t0 = time.perf_counter()
+        for batch in loader:
+            npad = int(batch.pop("_pad", 0))
+            with torch.no_grad():
+                logits = model(self.preprocess(batch["img"], device)).float().cpu().numpy()
+            labels = batch["cls"].astype(int).reshape(-1)
+            if npad:
+                logits, labels = logits[:-npad], labels[:-npad]
+            order = np.argsort(-logits, axis=1)
+            top1 += int((order[:, 0] == labels).sum())
+            top5 += int(sum(labels[i] in order[i, :5] for i in range(len(labels))))
+            n += len(labels)
+        results = {"metrics/accuracy_top1": top1 / max(n, 1),
+                   "metrics/accuracy_top5": top5 / max(n, 1), "fitness": top1 / max(n, 1)}
+        if n:
+            results["speed/ms_per_image"] = (time.perf_counter() - t0) / n * 1000
+        self.print_results(results, n)
         return results

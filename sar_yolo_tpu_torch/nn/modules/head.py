@@ -1,8 +1,9 @@
-"""Detect, v10Detect, JDE, Pose and Segment heads in NCHW (port of
+"""Detect, v10Detect, JDE, Pose, Segment, OBB and Classify heads in NCHW (port of
 `sar_yolo_tpu/nn/modules/head.py`).
 
 Heads return raw per-level maps (B, no, H, W) in the compute dtype, as the JAX
-heads do (Segment: the maps and its (B, nm, H/4, W/4) prototypes); decoding lives in
+heads do (Segment: the maps and its (B, nm, H/4, W/4) prototypes; Classify: (B, nc)
+logits); decoding lives in
 `ops/decode.py`, and the loss takes them to float32. Submodules carry the Flax names
 (`cv2_0_0`, `cv3_0_pred`, `cv4_1_1`, `state_fc1`, `proto.upsample`).
 """
@@ -196,3 +197,30 @@ class Segment(_ExtrasHead):
 
     def forward(self, xs):
         return self._maps(xs), self.proto(xs[0])
+
+
+class OBB(_ExtrasHead):
+    """Oriented-box head: Detect plus `ne` raw angle channels per anchor (the angle is
+    (sigmoid - 0.25) pi, in `ops/decode.py::decode_obb` and the loss)."""
+
+    def __init__(self, nc: int = 80, ne: int = 1, ch: tuple = (), reg_max: int = 16,
+                 legacy: bool = False):
+        super().__init__(nc, ne, ch, reg_max, legacy)
+
+
+class Classify(nn.Module):
+    """Classification head: the inputs concatenated on channels (a list), a 1x1 Conv to
+    c_ = 1280 channels, the spatial mean, Dropout(dropout), then a Linear to nc logits (its
+    parameters float32, its compute in the model's dtype). Returns (B, nc) logits."""
+
+    def __init__(self, c1: int, nc: int, c_: int = 1280, dropout: float = 0.0):
+        super().__init__()
+        self.nc = nc
+        self.conv = Conv(c1, c_, 1, 1)
+        self.dropout = Dropout(dropout)
+        self.linear = Linear(c_, nc)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(x, 1)
+        return self.linear(self.dropout(self.conv(x).mean((2, 3))))

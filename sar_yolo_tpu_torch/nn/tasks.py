@@ -3,7 +3,8 @@
 `parse_model` does the JAX package's channel, depth and width arithmetic and
 returns the same LayerSpec records, for the modules of the yolov3-v13 detect
 graphs (v10's NMS-free head included), the JDE graphs and the fork's CBAM
-variants, the pose and segment graphs, and the PPHGNetV2 / ResNet backbone blocks; a module the port does not
+variants, the pose, segment, OBB and classify graphs, and the PPHGNetV2 / ResNet backbone
+blocks; a module the port does not
 have yet raises NotImplementedError naming it. `GraphModel` walks the specs with
 the same save-dict (a CBLinear's tuple of chunks included); its layers live in
 `blocks` (Flax scope `blocks_<i>`), and a plain module repeated n times is a
@@ -50,7 +51,7 @@ _CH_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "SPPF", "C2", "C2f", "C3
               "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM", "RepC3", "PSA", "C2PSA",
               "SCDown", "C2fCIB", "GhostConv", "Conv2", "ConvTranspose2d", "SPP",
               "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "GhostBottleneck",
-              "C3Ghost", "RepConv"}
+              "C3Ghost", "RepConv", "Classify"}
 # subset that takes an inserted repeat count n
 _REPEAT_ARG = {"C2", "C2f", "C3", "C3k", "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM",
                "RepC3", "C2PSA", "C2fCIB", "C3Ghost"}
@@ -59,8 +60,8 @@ _C3K2_FAMILY = {"C3k2", "DSC3k2", "C3k2_CBAM", "DSC3k2_CBAM"}
 _NN_ALIAS = {"nn.ConvTranspose2d": "ConvTranspose2d", "nn.MaxPool2d": "MaxPool2d",
              "nn.ZeroPad2d": "ZeroPad2d", "nn.Identity": "Identity"}
 TASK_BY_HEAD = {"Detect": "detect", "JDE": "jde", "v10Detect": "detect", "Pose": "pose",
-                "Segment": "segment"}
-_HEADS = set(TASK_BY_HEAD)
+                "Segment": "segment", "OBB": "obb", "Classify": "classify"}
+_HEADS = set(TASK_BY_HEAD) - {"Classify"}  # the multi-level heads; Classify is width-scaled
 # modules whose output has the input's channels
 _PASS_THROUGH = {"CBAM", "MaxPool2d", "Identity"}
 
@@ -108,7 +109,12 @@ def parse_model(d: dict, ch: int = 3):
         kwargs: dict[str, Any] = {}
 
         if m in _CH_SCALED:
-            c2 = make_divisible(min(args[0], max_channels) * width, 8)
+            c2 = args[0]
+            if m == "Classify":
+                meta["head"] = m
+                meta["head_index"] = i
+            if not (m == "Classify" and c2 == nc):  # the class count is not width-scaled
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
             args = [c2, *args[1:]]
             if m in _REPEAT_ARG:
                 args.insert(1, n)
@@ -239,8 +245,9 @@ class Repeat(nn.Sequential):
             self.add_module(f"{type(m).__name__}_{j}", m)
 
 
-def _build_module(spec: LayerSpec, c_in) -> nn.Module:
-    """The torch module for a LayerSpec; c_in is its input channels (a tuple for lists)."""
+def _build_module(spec: LayerSpec, c_in, dropout: float = 0.0) -> nn.Module:
+    """The torch module for a LayerSpec; c_in is its input channels (a tuple for lists);
+    `dropout` is a Classify head's."""
     a, kw, name = spec.args, dict(spec.kwargs), spec.name
     n = kw.pop("repeat", None)
     if n:
@@ -266,12 +273,16 @@ def _build_module(spec: LayerSpec, c_in) -> nn.Module:
     if name == "Segment":
         return H.Segment(nc=a[0], nm=a[1] if len(a) > 1 else 32, npr=a[2] if len(a) > 2 else 256,
                          ch=kw["ch"], legacy=kw["legacy"])
+    if name == "OBB":
+        return H.OBB(nc=a[0], ne=a[1] if len(a) > 1 else 1, ch=kw["ch"], legacy=kw["legacy"])
+    if name == "Classify":  # a list input is concatenated on channels
+        return H.Classify(sum(c_in) if isinstance(c_in, tuple) else c_in, a[0], dropout=dropout)
     raise NotImplementedError(f"module '{name}' is not part of this port yet")
 
 
 class GraphModel(nn.Module):
     """Runs a parsed layer graph with an explicit save-dict; returns the head's per-level maps
-    (a Segment head: the (maps, protos) pair).
+    (a Segment head: the (maps, protos) pair; a Classify head: (B, nc) logits).
 
     `remat`: in train mode every block but the head runs under activation
     checkpointing (the JAX package's `nn.remat` per block): its activations are
@@ -279,7 +290,7 @@ class GraphModel(nn.Module):
     and leaves the BN running statistics alone, so a step equals the plain one.
     """
 
-    def __init__(self, specs: tuple, save: tuple, act: str = "silu"):
+    def __init__(self, specs: tuple, save: tuple, act: str = "silu", dropout: float = 0.0):
         super().__init__()
         self.specs, self.save = specs, frozenset(save)
         self.remat = False
@@ -295,7 +306,7 @@ class GraphModel(nn.Module):
                     c_in = outs[s.f]
                 else:
                     c_in = tuple(prev if j == -1 else outs[j] for j in s.f)
-                blocks.append(_build_module(s, c_in))
+                blocks.append(_build_module(s, c_in, dropout))
                 outs.append(s.c2)
         self.blocks = nn.ModuleList(blocks)
 
@@ -342,14 +353,15 @@ def _checkpointed(blk: nn.Module, inp):
 
 
 def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32,
-                kpt_shape: tuple | None = None):
+                kpt_shape: tuple | None = None, dropout: float = 0.0):
     """Build a GraphModel from a model name ('yolov13n-JDE.yaml') or a config dict (a
     checkpoint's `model_yaml`, the JAX package's included). Returns (model, meta).
 
     `nc` replaces the config's class count (the trainer builds the model for
     its dataset's), `kpt_shape` a pose config's keypoint shape (the trainer's, for a
     dataset whose keypoints differ, as Ultralytics rebuilds the head). `dtype` is the compute dtype (the JAX `build_model`'s
-    `dtype`): parameters stay float32. The model is on the CPU, in eval mode,
+    `dtype`): parameters stay float32. `dropout`: a Classify head's (the trainer's
+    `dropout`). The model is on the CPU, in eval mode,
     with torch's default weights until `init_weights` runs; meta["strides"]
     comes from a forward probe.
     """
@@ -369,9 +381,9 @@ def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32,
         meta["kpt_shape"] = tuple(head.args[1]) if len(head.args) > 1 else (17, 3)
     if head.name == "Segment":
         meta["nm"] = head.args[1] if len(head.args) > 1 else 32
-    model = GraphModel(specs, save, act=meta.get("act", "silu")).eval()
+    model = GraphModel(specs, save, act=meta.get("act", "silu"), dropout=dropout).eval()
     C.set_compute_dtype(model, dtype)
-    meta["strides"] = infer_strides(model)
+    meta["strides"] = [] if head.name == "Classify" else infer_strides(model)
     return model, meta
 
 
@@ -421,7 +433,7 @@ def init_weights(model: GraphModel, meta: dict, generator: torch.Generator):
 @torch.no_grad()
 def bias_init_head(model: GraphModel, meta: dict):
     """Box pred bias -> 1.0; cls pred bias -> log(5 / nc / (640 / stride)^2), in both branch
-    copies of a v10Detect."""
+    copies of a v10Detect (a Classify head has no strides and keeps its init)."""
     head = model.blocks[meta["head_index"]]
     prefixes = ("", "o2o_") if isinstance(head, H.v10Detect) else ("",)
     for i, s in enumerate(meta["strides"]):

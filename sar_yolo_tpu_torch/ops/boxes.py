@@ -1,4 +1,4 @@
-"""Box geometry ops on tensors (port of the axis-aligned part of `sar_yolo_tpu/ops/boxes.py`)."""
+"""Box geometry ops on tensors, axis-aligned and rotated (port of `sar_yolo_tpu/ops/boxes.py`)."""
 
 from __future__ import annotations
 
@@ -90,3 +90,65 @@ def dfl_decode(pred_dist, reg_max: int = 16, dim: int = -1):
     proj = torch.arange(reg_max, dtype=torch.float32, device=pred_dist.device)
     proj = proj.view(reg_max, *([1] * (len(shape) - dim - 1)))
     return (p * proj).sum(dim + 1).to(pred_dist.dtype)
+
+
+def _obb_covariance(boxes):
+    """Gaussian covariance terms (a, b, c) of xywhr boxes, each (..., 1)."""
+    w, h, r = boxes[..., 2:3], boxes[..., 3:4], boxes[..., 4:5]
+    a = w ** 2 / 12.0
+    b = h ** 2 / 12.0
+    cos, sin = torch.cos(r), torch.sin(r)
+    cos2, sin2 = cos ** 2, sin ** 2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1, obb2, CIoU: bool = False, eps: float = 1e-7):
+    """Probabilistic IoU (1 - the Hellinger distance of the boxes' Gaussians) of broadcastable
+    xywhr boxes, (..., 1); the JAX package's arithmetic in its order. CIoU subtracts the
+    aspect term v alpha, alpha carrying no gradient."""
+    x1, y1 = obb1[..., 0:1], obb1[..., 1:2]
+    x2, y2 = obb2[..., 0:1], obb2[..., 1:2]
+    a1, b1, c1 = _obb_covariance(obb1)
+    a2, b2, c2 = _obb_covariance(obb2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    det1 = (a1 * b1 - c1 ** 2).clamp(min=0)
+    det2 = (a2 * b2 - c2 ** 2).clamp(min=0)
+    t3 = torch.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2) /
+                   (4 * torch.sqrt(det1 * det2) + eps) + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    hd = torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    iou = 1 - hd
+    if CIoU:
+        w1, h1 = obb1[..., 2:3], obb1[..., 3:4]
+        w2, h2 = obb2[..., 2:3], obb2[..., 3:4]
+        v = (4 / math.pi ** 2) * (torch.atan(w2 / (h2 + eps)) - torch.atan(w1 / (h1 + eps))) ** 2
+        alpha = (v / (v - iou + (1 + eps))).detach()
+        return iou - v * alpha
+    return iou
+
+
+def dist2rbox(pred_dist, pred_angle, anchor_points):
+    """Rotated boxes (cx, cy, w, h) from (l, t, r, b) distances and an angle (..., 1) around
+    anchor points: the offset (r - l, b - t) / 2 rotated by the angle."""
+    lt, rb = pred_dist.chunk(2, -1)
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, -1)
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    xy = torch.cat([x, y], -1) + anchor_points
+    return torch.cat([xy, lt + rb], -1)
+
+
+def xywhr2xyxyxyxy(boxes):
+    """xywhr -> the 4 corners (..., 4, 2)."""
+    cx, cy, w, h, r = boxes.unbind(-1)
+    cos, sin = torch.cos(r), torch.sin(r)
+    dx1, dy1 = w / 2 * cos, w / 2 * sin
+    dx2, dy2 = -h / 2 * sin, h / 2 * cos
+    p1 = torch.stack([cx + dx1 + dx2, cy + dy1 + dy2], -1)
+    p2 = torch.stack([cx + dx1 - dx2, cy + dy1 - dy2], -1)
+    p3 = torch.stack([cx - dx1 - dx2, cy - dy1 - dy2], -1)
+    p4 = torch.stack([cx - dx1 + dx2, cy - dy1 + dy2], -1)
+    return torch.stack([p1, p2, p3, p4], -2)

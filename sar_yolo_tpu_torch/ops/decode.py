@@ -1,12 +1,14 @@
 """Prediction decode: raw NCHW head maps -> (B, N, 4 + nc + E) detections
-(port of `sar_yolo_tpu/ops/decode.py`: `decode_detect` without OBB, `kpts_decode` and
+(port of `sar_yolo_tpu/ops/decode.py`: `decode_detect`, `decode_obb`, `kpts_decode` and
 `flatten_feats`)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .boxes import dfl_decode, dist2bbox, make_anchors
+from .boxes import dfl_decode, dist2bbox, dist2rbox, make_anchors
 
 
 def flatten_feats(feats):
@@ -69,3 +71,16 @@ def kpts_decode(anchor_points, pred_kpts):
     anchor - 0.5, the rest as it is."""
     xy = pred_kpts[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)
     return torch.cat([xy, pred_kpts[..., 2:]], -1)
+
+
+def decode_obb(feats, strides, nc: int, reg_max: int = 16):
+    """Decode per-level (B, 4*reg_max + nc + ne, H, W) OBB maps into (B, N, 4 + nc + 1):
+    rotated xywh in input pixels (`dist2rbox` around the anchors, times the stride),
+    sigmoided class scores, the angle (sigmoid - 0.25) pi of the first angle channel."""
+    x, hw = flatten_feats(feats)
+    anchors, stride_t = make_anchors(hw, strides, device=x.device)
+    box = x[..., :4 * reg_max]
+    cls = x[..., 4 * reg_max:4 * reg_max + nc]
+    angle = (x[..., 4 * reg_max + nc:].sigmoid() - 0.25) * math.pi
+    rbox = dist2rbox(dfl_decode(box, reg_max), angle[..., :1], anchors[None]) * stride_t[None]
+    return torch.cat([rbox, cls.sigmoid(), angle[..., :1]], -1)

@@ -1,28 +1,25 @@
 """Batched class-aware NMS with a fixed (B, max_det, 6 + E) output, single- or
-multi-label, and the NMS-free top-k of end-to-end (v10) heads (port of
-`sar_yolo_tpu/ops/nms.py`: `_nms_single`, `non_max_suppression` and
+multi-label, rotated NMS by probiou with a (B, max_det, 7) output, and the NMS-free top-k
+of end-to-end (v10) heads (port of `sar_yolo_tpu/ops/nms.py`: `_nms_single`,
+`non_max_suppression`, `_nms_single_rotated`, `non_max_suppression_rotated` and
 `postprocess_end2end`)."""
 
 from __future__ import annotations
 
 import torch
 
-from .boxes import xywh2xyxy
+from .boxes import probiou, xywh2xyxy
 
 
 def _nms_batched(boxes, scores, classes, extras, iou_thres: float, max_det: int,
                  agnostic: bool = False):
-    """Exact greedy NMS by fixed-point suppression, for a batch of images.
+    """Exact greedy NMS of a batch of images (`_suppress`), IoU of boxes moved apart by class.
 
     boxes (B, K, 4) xyxy, scores (B, K) sorted descending, classes (B, K),
-    extras (B, K, E). Greedy NMS is the fixed point of: alive[i] = valid[i] and
-    no alive, higher-ranked, overlapping box exists. Iterating that update
-    from alive = valid converges; iterating an image already at its fixed
-    point leaves it there, so the batch iterates together.
-    Returns (B, max_det, 6 + E) rows [x1, y1, x2, y2, conf, cls, *extras],
-    kept rows first in score order; unused rows are zero.
+    extras (B, K, E). Returns (B, max_det, 6 + E) rows [x1, y1, x2, y2, conf, cls,
+    *extras], kept rows first in score order; unused rows are zero.
     """
-    Bn, K, _ = boxes.shape
+    K = boxes.shape[1]
     if agnostic:
         off_boxes = boxes
     else:
@@ -41,18 +38,37 @@ def _nms_batched(boxes, scores, classes, extras, iou_thres: float, max_det: int,
     # overlap[b, i, j]: higher-ranked valid j overlaps i beyond the threshold
     overlap = (iou > iou_thres) & (rank[None, :] < rank[:, None])[None] & valid[:, None, :]
 
-    alive = valid
+    rows = torch.cat([boxes, scores[..., None], classes[..., None], extras], -1)
+    return _suppress(overlap, valid, rows, max_det)
+
+
+# fixed-point iterations of the last `_suppress` call (the host syncs once for each)
+last_iterations = [0]
+
+
+def _suppress(overlap, valid, rows, max_det: int):
+    """Greedy NMS as a fixed point, then the kept rows compacted.
+
+    overlap (B, K, K): higher-ranked j overlaps i beyond the threshold; valid (B, K); rows
+    (B, K, C) in score order. alive[i] = valid[i] and no alive j with overlap[i, j]: iterated
+    from alive = valid until it stops changing (one host sync an iteration; an image
+    already at its fixed point stays there, so the batch iterates together). Returns
+    (B, max_det, C), the alive rows first in score order; unused rows are zero.
+    """
+    alive, n = valid, 0
     while True:
+        n += 1
         new_alive = ~(overlap & alive[:, None, :]).any(2) & valid
         if torch.equal(new_alive, alive):
             break
         alive = new_alive
+    last_iterations[0] = n
 
     # compact alive rows (stable, score order) into max_det slots; slot max_det is a sink
+    Bn = rows.shape[0]
     keep_rank = torch.cumsum(alive, 1) - 1
     keep = alive & (keep_rank < max_det)
     slot = torch.where(keep, keep_rank, torch.full_like(keep_rank, max_det))
-    rows = torch.cat([boxes, scores[..., None], classes[..., None], extras], -1)
     out = torch.zeros((Bn, max_det + 1, rows.shape[-1]), dtype=rows.dtype, device=rows.device)
     src = torch.where(keep[..., None], rows, torch.zeros_like(rows))
     out.scatter_(1, slot[..., None].expand(-1, -1, rows.shape[-1]), src)
@@ -111,6 +127,36 @@ def non_max_suppression(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
     kept = torch.where(out[..., 4:5] > 0, kept.to(out.dtype), torch.zeros((), dtype=out.dtype,
                                                                            device=out.device))
     return torch.cat([out[..., :6], kept, out[..., 6:-1]], -1)
+
+
+def non_max_suppression_rotated(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
+                                max_det: int = 300, pre_topk: int = 1024, nc: int = 80):
+    """Class-aware greedy NMS of rotated boxes by probiou.
+
+    preds (B, N, 4 + nc + 1): xywh, sigmoided class scores, the angle in radians (last).
+    Each anchor is one candidate with its best class; the top `pre_topk` by score (a stable
+    sort: ties keep the lower index, as lax.top_k does) are suppressed by the K x K
+    probiou of their boxes, each class's centres moved by class x (max |xy| + max wh + 1),
+    added in the JAX package's order. Returns (B, max_det, 7) rows [cx, cy, w, h, r, conf,
+    cls]; rows with conf == 0 are padding.
+    """
+    B, N, _ = preds.shape
+    boxes5 = torch.cat([preds[..., :4], preds[..., -1:]], -1)
+    conf, cls = preds[..., 4:4 + nc].max(-1)
+    conf = torch.where(conf >= conf_thres, conf, torch.zeros_like(conf))
+    k = min(pre_topk, N)
+    top_conf, top_idx = torch.sort(conf, dim=1, descending=True, stable=True)
+    top_conf, top_idx = top_conf[:, :k], top_idx[:, :k]
+    b = torch.gather(boxes5, 1, top_idx[..., None].expand(-1, -1, 5))
+    c = torch.gather(cls.to(preds.dtype), 1, top_idx)
+    off_val = b[..., :2].abs().amax((1, 2)) + b[..., 2:4].amax((1, 2)) + 1.0
+    off = torch.cat([b[..., :2] + c[..., None] * off_val[:, None, None], b[..., 2:]], -1)
+    iou = probiou(off[:, :, None], off[:, None]).squeeze(-1)
+    valid = top_conf > 0.0
+    rank = torch.arange(k, device=preds.device)
+    overlap = (iou > iou_thres) & (rank[None, :] < rank[:, None])[None] & valid[:, None, :]
+    rows = torch.cat([b, top_conf[..., None], c[..., None]], -1)
+    return _suppress(overlap, valid, rows, max_det)
 
 
 def postprocess_end2end(preds, max_det: int = 300, conf_thres: float = 0.0, nc: int = 80):

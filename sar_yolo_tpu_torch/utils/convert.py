@@ -5,6 +5,7 @@ The port names its submodules after the Flax scopes, so the map is mechanical:
     params/blocks_6/m0_0/attn/qk/conv/kernel  (1, 1, I/g, O)  -> blocks.6.m0_0.attn.qk.conv.weight (O, I/g, 1, 1)
     params/blocks_11/conv/kernel (transposed conv, (k, k, O, I)) -> blocks.11.conv.weight (I, O, k, k)
     params/.../state_fc1/kernel               (in, out)       -> ....state_fc1.weight (out, in)
+    params/blocks_9/linear/kernel (Classify)  (in, out)       -> blocks.9.linear.weight (out, in)
     params/.../bn/{scale, bias}                               -> ....bn.{weight, bias}
     batch_stats/.../bn/{mean, var}                            -> ....bn.{running_mean, running_var}
     params/.../{gate, gamma, prototype_base}                  -> unchanged

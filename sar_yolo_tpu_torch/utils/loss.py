@@ -1,6 +1,7 @@
 """Training losses: v8 detection (BCE + CIoU + DFL), v13 JDE (+ triplet embedding
-+ class-balanced focal state), v8 pose (+ OKS keypoints and visibility) and v8 segment
-(+ prototype mask BCE), port of `sar_yolo_tpu/utils/loss.py`.
++ class-balanced focal state), v8 pose (+ OKS keypoints and visibility), v8 segment
+(+ prototype mask BCE), v8 OBB (probiou + DFL on the hull) and classification
+(cross-entropy), port of `sar_yolo_tpu/utils/loss.py`.
 
 Everything is float32 and of static shape: masked sums instead of boolean
 indexing, so no loss term synchronises the host. The class-balanced state
@@ -8,7 +9,8 @@ counts are explicit state that the caller threads through the steps.
 `batch` holds device tensors: 'cls' (B, M), 'bboxes' (B, M, 4) normalized
 xywh, 'mask' (B, M) and, for JDE, 'tags' (B, M); for pose 'keypoints' (B, M, K, D)
 (normalized xy, visibility), for segment 'masks' (B, h, w) (0 background, i + 1 the
-i-th instance).
+i-th instance); OBB's 'bboxes' are (B, M, 5) normalized xywh and the angle in radians;
+classify's batch is 'cls' (B,) alone.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from sar_yolo_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dfl_decode, dist2bbox, make_anchors,
-                                          xywh2xyxy)
+from sar_yolo_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dfl_decode, dist2bbox, dist2rbox,
+                                          make_anchors, probiou, xywh2xyxy)
 from sar_yolo_tpu_torch.nn.modules.block import resize_nearest
 from sar_yolo_tpu_torch.ops.decode import flatten_feats, kpts_decode
 from sar_yolo_tpu_torch.ops.masks import crop_mask
@@ -302,3 +304,62 @@ def segmentation_loss(feats_and_proto, batch, hyp, *, nc: int, reg_max: int, str
     items = torch.stack([loss_box * hyp.box, loss_seg * hyp.box, loss_cls * hyp.cls,
                          loss_dfl * hyp.dfl])
     return SegLossOut(items.sum() * B, items.detach())
+
+
+class OBBLossOut(NamedTuple):
+    total: torch.Tensor
+    items: torch.Tensor  # (3,) box, cls, dfl, detached
+
+
+def obb_loss(feats, batch, hyp, *, nc: int, reg_max: int, strides, tal_topk: int = 10):
+    """v8 OBB loss: the rotated assigner (probiou overlaps, candidates inside each ground
+    truth's own frame), the class BCE, 1 - probiou as the box term and the DFL of the
+    distances to the axis-aligned hull of the rotated target (`xywh2xyxy` of its xywh, as
+    Ultralytics' RotatedBboxLoss encodes it). Ground truths under 2 px a side are dropped.
+    The angle is (sigmoid - 0.25) pi of the first angle channel."""
+    x, hw = flatten_feats(feats)
+    B, N, _ = x.shape
+    pred_distri = x[..., :4 * reg_max].float()
+    pred_scores = x[..., 4 * reg_max:4 * reg_max + nc].float()
+    pred_angle = (x[..., 4 * reg_max + nc:].float().sigmoid() - 0.25) * math.pi
+    anchor_points, stride_t, imgsz_w, imgsz_h = _grid(hw, strides, x.device)
+    scale = torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=torch.float32,
+                         device=x.device)
+    gb = batch["bboxes"].float()
+    gt_bboxes = torch.cat([gb[..., :4] * scale, gb[..., 4:5]], -1)  # xywhr pixels
+    size_ok = (gt_bboxes[..., 2] >= 2) & (gt_bboxes[..., 3] >= 2)
+    mask_gt = batch["mask"].float() * size_ok
+
+    pred_rbox = dist2rbox(dfl_decode(pred_distri, reg_max), pred_angle[..., :1],
+                          anchor_points[None])  # grid units
+    pred_bboxes = torch.cat([pred_rbox, pred_angle[..., :1]], -1)
+    assign = task_aligned_assigner(
+        pred_scores.detach().sigmoid(),
+        torch.cat([pred_rbox * stride_t[None], pred_angle[..., :1]], -1).detach(),
+        anchor_points * stride_t, batch["cls"].long(), gt_bboxes, mask_gt,
+        topk=tal_topk, num_classes=nc, rotated=True)
+
+    tss = assign.target_scores.sum().clamp(min=1.0)
+    fg = assign.fg_mask.float()
+    loss_cls = _bce_logits(pred_scores, assign.target_scores).sum() / tss
+    tb = assign.target_bboxes
+    tb = torch.cat([tb[..., :4] / stride_t[None], tb[..., 4:5]], -1)
+    weight = assign.target_scores.sum(-1) * fg
+    iou = probiou(pred_bboxes, tb).squeeze(-1)
+    loss_box = ((1.0 - iou) * weight).sum() / tss
+    target_ltrb = bbox2dist(anchor_points[None], xywh2xyxy(tb[..., :4]), reg_max - 1)
+    loss_dfl = (_df_loss(pred_distri.reshape(B, N, 4, reg_max), target_ltrb, reg_max)
+                * weight).sum() / tss
+    items = torch.stack([loss_box * hyp.box, loss_cls * hyp.cls, loss_dfl * hyp.dfl])
+    return OBBLossOut(items.sum() * B, items.detach())
+
+
+class ClsLossOut(NamedTuple):
+    total: torch.Tensor
+    items: torch.Tensor  # (1,) the loss, detached
+
+
+def classification_loss(logits, batch):
+    """The mean softmax cross-entropy of (B, nc) logits in float32 against batch['cls']."""
+    ce = F.cross_entropy(logits.float(), batch["cls"].long().reshape(-1))
+    return ClsLossOut(ce, ce.detach()[None])

@@ -97,9 +97,9 @@ def test_named_config_builds_with_jax_parameter_count(name):
     assert (meta["task"], meta["scale"], meta["nl"]) == (jmeta["task"], jmeta["scale"], jmeta["nl"])
 
 
-@pytest.mark.parametrize("name, module", [("yolov8n-obb.yaml", "OBB"),
-                                          ("yolov8n-cls.yaml", "Classify"),
-                                          ("yolo11n-obb.yaml", "OBB"),
+@pytest.mark.parametrize("name, module", [("rtdetr-resnet50.yaml", "AIFI"),
+                                          ("rtdetr-x.yaml", "AIFI"),
+                                          ("tinyworld.yaml", "C2fAttn"),
                                           ("yolov8s-world.yaml", "C2fAttn"),
                                           ("rtdetr-l.yaml", "AIFI"),
                                           ("yolov8n-rtdetr.yaml", "RTDETRDecoder")])

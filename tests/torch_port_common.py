@@ -130,8 +130,9 @@ def close_to_max(got, want, what=""):
 
 
 def jax_jde_trainer(overrides: dict, seed: int, monkeypatch, task: str = "jde"):
-    """The JAX package's JDETrainer (DetectionTrainer, PoseTrainer or SegmentTrainer for
-    task 'detect', 'pose' or 'segment') after
+    """The JAX package's JDETrainer (DetectionTrainer, PoseTrainer, SegmentTrainer,
+    OBBTrainer or ClassificationTrainer for task 'detect', 'pose', 'segment', 'obb' or
+    'classify') after
     `_setup_train`, its weights from `fill_variables` and the head's bias init
     (so that the class term does not swamp the others).
 
@@ -157,7 +158,8 @@ def jax_jde_trainer(overrides: dict, seed: int, monkeypatch, task: str = "jde"):
     monkeypatch.setattr(flax.linen.Dropout, "__call__", lambda self, x, *a, **k: x)
     cls = {"jde": jax_trainer_module.JDETrainer, "detect": jax_trainer_module.DetectionTrainer,
            "pose": jax_trainer_module.PoseTrainer,
-           "segment": jax_trainer_module.SegmentTrainer}[task]
+           "segment": jax_trainer_module.SegmentTrainer, "obb": jax_trainer_module.OBBTrainer,
+           "classify": jax_trainer_module.ClassificationTrainer}[task]
     trainer = cls(overrides=overrides)
     trainer._setup_train()
     return trainer
