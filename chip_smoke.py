@@ -198,8 +198,31 @@ Phases, in order; any failure exits non-zero:
      frames (4 classes x 32 train / 8 val, 240x320) written under runs/; the yolov8n-cls
      train step @224, batch 64, float32 and amp; `YOLO.train(epochs=1)` with its top-1 / top-5
      validation, `YOLO.val` and `YOLO(checkpoint)`.
- 19. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
-     step's forward; phases 16-18's paths at 0), the card line, and the result line.
+ 19. RT-DETR and YOLO-World, no graph of theirs with an A2C2f block: 0 kernel launches in
+     the whole phase. rtdetr-l (HGNetv2, AIFI, a 6-layer deformable decoder, 300 queries,
+     nc 80) at 640 on phase 14's ragged 480x640 frames, seeded perturbed weights with the
+     decoder's box deltas damped 0.1x (perturbed random weights make each layer amplify
+     rounding ~7x, 12 px after 6 layers); 8 frames against the model in float64, each
+     query's row paired by its token: the decoder's own float32 rounding (the float32
+     decoder on the float64 model's decoder inputs: boxes within 2e-4 of imgsz, scores
+     within 1e-3, no decided class differing) over the frames whose top-300 it picks as
+     float64 does, and end to end over the frames where the float32 model picks it too
+     (within twice the decoder's own error plus its inputs' rounding's); `half=True`: the
+     bf16 decoder on the float32 inputs keeps >= 90% of the top-300 and its boxes within
+     10% relative L2 (end to end printed); img/s at batch 1, 8 and 128 in float32 and bf16
+     in turns, peak memory. rtdetr-resnet50 and yolov8n-rtdetr the same at batch 8. The
+     rtdetr-l train step @640 b16 on the synthetic set (556 queries with the denoising
+     ones), float32 and amp, split into forward, the 7 x 16 matching costs, the host
+     matching (its one copy included), the loss terms, the backward, optimizer + EMA;
+     `RTDETR.train(epochs=1)` with its RTDETRValidator, `YOLO(checkpoint)` serving (300
+     rows, no NMS). yolov8s-world after `set_classes(["person", "boat", "car",
+     "backpack"])` (the offline encoder) at 640: 2 frames at `_nms_stable_conf` thresholds
+     against float64, `half=True`, img/s at batch 1 and 8; yolov8s-worldv2 (BN contrastive
+     heads) at batch 8; the yolov8s-world train step @640 b16, float32 and amp; a grounding
+     dataset (8 PNG frames, one COCO-style json of captions and spans) through
+     `GroundingDataset` and the loader into one World forward.
+ 20. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
+     step's forward; phases 16-19's paths at 0), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -495,8 +518,8 @@ def calibrate_bn(model, x):
         bn.momentum = 0.03
 
 
-def _perturbed_yolo(name: str, seed: int, imgsz: int):
-    """YOLO on cuda with seeded weights, every parameter and BN statistic perturbed.
+def _perturbed_yolo(name: str, seed: int, imgsz: int, cls=None):
+    """YOLO (or `cls`) on cuda with seeded weights, every parameter and BN statistic perturbed.
 
     The BN statistics are first set to those of a calibration batch
     (`calibrate_bn`), so that activations keep their scale through the depth
@@ -506,7 +529,7 @@ def _perturbed_yolo(name: str, seed: int, imgsz: int):
     import torch
 
     from sar_yolo_tpu_torch import YOLO
-    yolo = YOLO(name)
+    yolo = (cls or YOLO)(name)
     yolo._ensure_variables(seed)
     model = yolo.model
     gen = torch.Generator().manual_seed(seed + 1)
@@ -3618,6 +3641,490 @@ def phase_obb_cls(card: str, seed: int = 6) -> dict:
             "YOLO.train / val yolov8n-cls": 0}
 
 
+RTDETR_IMGSZ = 640        # Ultralytics' RT-DETR serving size
+# (name, served batches, least frames of RTDETR_AB_BATCH on which float32 and float64 pick
+# the same top-300 end to end): the backbone's float32 rounding moves the encoder scores by
+# ~1e-3 (rtdetr-l) to ~2e-2 (rtdetr-resnet50) against top-k gaps of 1e-4 to 3e-2
+RTDETR_SERVE = (("rtdetr-l.yaml", (1, 8, 128), 2), ("rtdetr-resnet50.yaml", (8,), 0),
+                ("yolov8n-rtdetr.yaml", (8,), 1))
+RTDETR_AB_BATCH = 8       # frames of the float32 / float64 row comparison
+RTDETR_TRAIN_BATCH = 16
+RTDETR_BOX_TOL = 2e-4     # of imgsz (0.128 px at 640): the float32 decoder's boxes vs float64
+RTDETR_SCORE_TOL = 1e-3   # served scores against float64
+RTDETR_BF16_OVERLAP = 0.9  # bf16 decoder on float32's inputs: least top-k overlap a frame
+RTDETR_BF16_BOX_REL = 0.1  # and largest box relative L2 a frame
+RTDETR_BOX_GAIN = 0.1     # on the decoder layers' box deltas (see phase_rtdetr_serve)
+WORLD_SERVE = (("yolov8s-world.yaml", (1, 8)), ("yolov8s-worldv2.yaml", (8,)))
+WORLD_NAMES = ["person", "boat", "car", "backpack"]
+GROUNDING_FRAMES = (8, (480, 640))  # the grounding dataset's PNG frames and their size
+
+
+def _overlap_rel(a: dict, b: dict) -> tuple:
+    """Per frame: the share of b's top-nq tokens that a selects too, and the relative L2
+    distance of a's boxes from b's over those tokens."""
+    nq = a["box"].shape[1]
+    overlap, rel = [], []
+    for f in range(len(a["box"])):
+        ia = np.argsort(-np.nan_to_num(a["best"][f], nan=-np.inf), kind="stable")[:nq]
+        ib = np.argsort(-b["best"][f], kind="stable")[:nq]
+        both = np.intersect1d(ia, ib)
+        overlap.append(len(both) / nq)
+        ga = a["box"][f][[int(np.flatnonzero(ia == t)[0]) for t in both]]
+        gb = b["box"][f][[int(np.flatnonzero(ib == t)[0]) for t in both]]
+        rel.append(float(np.linalg.norm(ga - gb) / np.linalg.norm(gb)))
+    return overlap, rel
+
+
+def _rtdetr_half_vs_f32(yolo, frames) -> dict:
+    """`half` serving against float32: the served rows finite; the bf16 decoder on the
+    float32 model's decoder inputs (rounded to bf16) against the float32 decoder on them
+    (its own rounding: top-k overlap and box relative L2), and end to end."""
+    import torch
+    rows = yolo.predict_batched(frames, imgsz=RTDETR_IMGSZ, conf=0.0, half=True)
+    p = yolo._get_predictor({"imgsz": RTDETR_IMGSZ, "conf": 0.0})
+    x, _, _ = p.preprocess(frames)
+    m32, mh = yolo._fused_for_serving(), yolo._fused_for_serving(True)
+    inputs = {}
+    for key, m, xx in (("f32", m32, x), ("bf16", mh, x.to(torch.bfloat16))):
+        hook = m.blocks[-1].register_forward_pre_hook(
+            lambda mod, a, key=key: inputs.__setitem__(key, [t.clone() for t in a[0]]))
+        with torch.no_grad():
+            m(xx)
+        hook.remove()
+    ref = _decoder_run(m32.blocks[-1], inputs["f32"], RTDETR_IMGSZ)
+    own = _decoder_run(mh.blocks[-1], [t.to(torch.bfloat16) for t in inputs["f32"]],
+                       RTDETR_IMGSZ)
+    e2e = _decoder_run(mh.blocks[-1], inputs["bf16"], RTDETR_IMGSZ)
+    own_ov, own_rel = _overlap_rel(own, ref)
+    e2e_ov, e2e_rel = _overlap_rel(e2e, ref)
+    return {"rows_finite": bool(np.isfinite(rows).all()) and rows.shape[2] == 6,
+            "decoder_own_topk_overlap": own_ov, "decoder_own_box_rel_l2": own_rel,
+            "end_to_end_topk_overlap": e2e_ov, "end_to_end_box_rel_l2": e2e_rel}
+
+
+def _decoder_run(dec, xs, imgsz: int) -> dict:
+    """The RT-DETR decoder `dec` (eval) on its input maps xs: the last layer's boxes in
+    letterboxed px (B, nq, 4) and class probabilities (B, nq, nc), and the best valid encoder
+    score of every token (B, tokens), all float64 numpy."""
+    import torch
+    seen = {}
+    hook = dec.enc_score_head.register_forward_hook(lambda m, a, o: seen.__setitem__("enc", o))
+    try:
+        with torch.no_grad():
+            dec_b, dec_s = dec(xs)[:2]
+    finally:
+        hook.remove()
+    _, valid = dec._anchors([tuple(x.shape[2:]) for x in xs], xs[0].device)
+    best = torch.where(valid[..., 0], seen["enc"].amax(-1).double(), -torch.inf)
+    return {"box": (dec_b[-1].double() * imgsz).cpu().numpy(),
+            "prob": torch.sigmoid(dec_s[-1].double()).cpu().numpy(), "best": best.cpu().numpy()}
+
+
+def _decoder_vs(a: dict, b: dict) -> dict:
+    """Per frame, run a against run b: tie-free (the same top-nq tokens, and b's nq-th and
+    (nq + 1)-th best encoder scores farther apart than twice the two runs' largest encoder
+    score difference), and over each token's query the largest box (px) and best-class
+    score differences and the class mismatches where b's top two classes are farther apart
+    than twice the runs' largest probability difference."""
+    nq = a["box"].shape[1]
+    out = []
+    for f in range(len(a["box"])):
+        fin = np.isfinite(b["best"][f])
+        err = float(np.abs(a["best"][f][fin] - b["best"][f][fin]).max())
+        s = np.sort(b["best"][f][fin])[::-1]
+        ia = np.argsort(-a["best"][f], kind="stable")[:nq]
+        ib = np.argsort(-b["best"][f], kind="stable")[:nq]
+        tie_free = bool(s[nq - 1] - s[nq] > 2 * err) and set(ia) == set(ib)
+        pa, pb = a["prob"][f][np.argsort(ia)], b["prob"][f][np.argsort(ib)]
+        box = np.abs(a["box"][f][np.argsort(ia)] - b["box"][f][np.argsort(ib)]).max()
+        top2 = np.sort(pb, -1)[:, -2:]
+        decided = top2[:, 1] - top2[:, 0] > 2 * np.abs(pa - pb).max()
+        mismatch = int((pa[decided].argmax(-1) != pb[decided].argmax(-1)).sum())
+        score = float(np.abs(pa.max(-1) - pb.max(-1)).max())
+        out.append({"tie_free": tie_free, "gap": float(s[nq - 1] - s[nq]), "enc_err": err,
+                    "box_err_px": float(box) if tie_free else None,
+                    "score_err": score if tie_free else None,
+                    "class_mismatches": mismatch if tie_free else None})
+    return out
+
+
+def _rtdetr_rows_vs_f64(yolo, exact, frames, label: str) -> dict:
+    """The float32 serving path against the float64 copy on the same letterboxed frames,
+    over the frames tie-free in all three runs below, each query paired by its token (the
+    decoder is equivariant to the queries' order): end to end (float32 model against
+    float64 model); the decoder's own rounding (the float32 decoder on the float64 model's
+    decoder inputs); and the decoder's sensitivity to its inputs' rounding (the float64
+    decoder on the float32 model's decoder inputs). Returns their largest errors."""
+    import torch
+    p = yolo._get_predictor({"imgsz": RTDETR_IMGSZ, "conf": 0.0})
+    x, _, _ = p.preprocess(frames)
+    m32, m64 = yolo._fused_for_serving(), exact._fused
+    inputs = {}
+    for key, m, xx in (("f32", m32, x), ("f64", m64, x.double())):
+        hook = m.blocks[-1].register_forward_pre_hook(
+            lambda mod, a, key=key: inputs.__setitem__(key, [t.clone() for t in a[0]]))
+        with torch.no_grad():
+            m(xx)
+        hook.remove()
+    d32, d64 = m32.blocks[-1], m64.blocks[-1]
+    ref = _decoder_run(d64, inputs["f64"], RTDETR_IMGSZ)
+    runs = {"end_to_end": _decoder_vs(_decoder_run(d32, inputs["f32"], RTDETR_IMGSZ), ref),
+            "decoder_own": _decoder_vs(_decoder_run(
+                d32, [t.float() for t in inputs["f64"]], RTDETR_IMGSZ), ref),
+            "input_rounding": _decoder_vs(_decoder_run(
+                d64, [t.double() for t in inputs["f32"]], RTDETR_IMGSZ), ref)}
+    # the decoder's own rounding over the frames where it picks float64's top-k; end to end
+    # and the inputs' rounding over the frames where both do
+    own = [f for f in range(len(frames)) if runs["decoder_own"][f]["tie_free"]]
+    e2e = [f for f in own if runs["end_to_end"][f]["tie_free"] and
+           runs["input_rounding"][f]["tie_free"]]
+    out = {"decoder_own_frames": own, "end_to_end_frames": e2e,
+           "topk_gaps": [r["gap"] for r in runs["end_to_end"]],
+           "enc_score_err": [r["enc_err"] for r in runs["end_to_end"]],
+           "decoder_input_err": max((a.double() - b).abs().max().item()
+                                    for a, b in zip(inputs["f32"], inputs["f64"]))}
+    for key, per in runs.items():
+        for k in ("box_err_px", "score_err", "class_mismatches"):
+            out[f"{key}_{k}"] = max((per[f][k] for f in (own if key == "decoder_own" else e2e)),
+                                    default=None)
+    return out
+
+
+def phase_rtdetr_serve(name: str, batches, min_e2e: int, card: str, seed: int = 3) -> dict:
+    """An RT-DETR model served at 640 on phase 14's ragged 480x640 frames (see the module
+    docstring, phase 19)."""
+    import torch
+    yolo = _perturbed_yolo(name, seed, RTDETR_IMGSZ)
+    check(type(yolo._get_predictor({"imgsz": RTDETR_IMGSZ})).__name__ == "RTDETRPredictor",
+          f"{name}: not served by RTDETRPredictor")
+    # With perturbed random weights each decoder layer amplifies rounding ~7x (the features
+    # are white noise in space, so a box that moves moves every sampled value): 12 px after
+    # 6 layers at 640, in float32 against float64 on the same inputs. Damped box deltas
+    # refine the boxes contractively, as a trained decoder does.
+    dec = yolo.model.blocks[-1]
+    with torch.no_grad():
+        for i in range(dec.ndl):
+            last = getattr(dec, f"dec_bbox_head_{i}").l2
+            last.weight.mul_(RTDETR_BOX_GAIN)
+            last.bias.mul_(RTDETR_BOX_GAIN)
+    yolo._drop_caches()
+    frames = np.random.default_rng(seed).integers(
+        0, 256, (max(max(batches), RTDETR_AB_BATCH), *BENCH_HW, 3), np.uint8)
+    ab = frames[:RTDETR_AB_BATCH]
+    exact = _float64_copy(yolo)
+    cmp = _rtdetr_rows_vs_f64(yolo, exact, ab, name)
+    check(len(cmp["decoder_own_frames"]) >= len(ab) // 2 and
+          len(cmp["end_to_end_frames"]) >= min_e2e, f"{name}: too few of {len(ab)} frames "
+          f"tie-free at the top-k: {cmp}")
+    # the decoder's own float32 rounding: tight; end to end: as far as the decoder's own
+    # rounding and its inputs' rounding move the rows
+    check(cmp["decoder_own_box_err_px"] <= RTDETR_BOX_TOL * RTDETR_IMGSZ and
+          cmp["decoder_own_score_err"] <= RTDETR_SCORE_TOL and
+          cmp["decoder_own_class_mismatches"] == 0, f"{name} float32 vs float64: {cmp}")
+    if cmp["end_to_end_frames"]:
+        check(cmp["end_to_end_class_mismatches"] == 0, f"{name} end to end: {cmp}")
+        for k, floor in (("box_err_px", 1e-3), ("score_err", 1e-5)):
+            bound = 2 * (cmp[f"decoder_own_{k}"] + cmp[f"input_rounding_{k}"]) + floor
+            check(cmp[f"end_to_end_{k}"] <= bound, f"{name} float32 vs float64 end to end: {k} "
+                  f"{cmp[f'end_to_end_{k}']} > {bound}: {cmp}")
+    del exact
+    got = yolo.predict_batched(ab, imgsz=RTDETR_IMGSZ, conf=0.25)
+    half = _rtdetr_half_vs_f32(yolo, ab)
+    # bf16 keeps ~3 significant digits: its own rounding moves the decoder's boxes by a few
+    # percent (relative L2); end to end (the backbone in bf16 too) is printed, not bounded
+    check(half["rows_finite"] and min(half["decoder_own_topk_overlap"]) >= RTDETR_BF16_OVERLAP
+          and max(half["decoder_own_box_rel_l2"]) <= RTDETR_BF16_BOX_REL,
+          f"{name} half vs float32: {half}")
+    kw, hkw = dict(imgsz=RTDETR_IMGSZ, conf=0.25), dict(imgsz=RTDETR_IMGSZ, conf=0.25, half=True)
+    torch.cuda.empty_cache()
+    rates = {}
+    for b in batches:
+        rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=3 if b > 8 else 5),
+                    lambda: _img_per_s(yolo, frames[:b], hkw, n=3 if b > 8 else 5))
+        rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
+    big = max(batches)
+    memory = {}
+    for label, args in (("f32", kw), ("bf16", hkw)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        yolo.predict_batched(frames[:big], **args)
+        memory[f"max_memory_allocated_gib_b{big}_{label}"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"serve_rtdetr": name, "imgsz": RTDETR_IMGSZ, "nc": yolo.meta["nc"],
+           "queries": got.shape[1], "frames": f"{BENCH_HW[0]}x{BENCH_HW[1]}",
+           "box_delta_gain": RTDETR_BOX_GAIN, **cmp,
+           "kept_per_frame_conf_0.25": (got[..., 4] > 0).sum(1).tolist(),
+           **{f"half_{k}": v for k, v in half.items()}, **rates, **memory,
+           "card": card}
+    print(json.dumps(out))
+    del yolo
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rtdetr_step_parts(tr, batch, n: int = 5, warmup: int = 2) -> dict:
+    """Median host-clock ms of an RT-DETR train step and of its parts, each synchronized:
+    the batch to the card, the forward (with its denoising queries), the 7 x B matching
+    costs on the card, the matching (one copy of the costs to the host, scipy, the indices
+    back), the loss terms, the backward, the optimizer and EMA."""
+    import torch
+
+    from sar_yolo_tpu_torch.utils.detr_loss import detr_loss, matching_costs, solve_assignments
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    for _ in range(warmup):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = [sync_ms(lambda: tr.train_step(batch))[1] for _ in range(n)]
+    keys = ("to_device_ms", "forward_ms", "costs_ms", "matching_host_ms", "loss_ms",
+            "backward_ms", "optimizer_ema_ms")
+    parts = {k: [] for k in keys}
+    for _ in range(n):
+        b, t0 = sync_ms(lambda: tr.to_device(batch))
+        out, t1 = sync_ms(lambda: tr.forward(b))
+
+        def costs():
+            with torch.no_grad():
+                return matching_costs(torch.cat([out[0], out[2][None]]),
+                                      torch.cat([out[1], out[3][None]]), b["bboxes"].float(),
+                                      b["cls"], b["mask"].float())
+        c, t2 = sync_ms(costs)
+        assign, t3 = sync_ms(lambda: solve_assignments(c, b["mask"]))
+        loss, t4 = sync_ms(lambda: detr_loss(out, b, assign))
+        t5 = sync_ms(loss.total.backward)[1]
+        t6 = sync_ms(lambda: tr.update(tr.cb_counts))[1]
+        for k, t in zip(keys, (t0, t1, t2, t3, t4, t5, t6)):
+            parts[k].append(t)
+    return {"step_ms": statistics.median(step),
+            "img_per_s": 1e3 * len(batch["img"]) / statistics.median(step),
+            **{k: statistics.median(v) for k, v in parts.items()},
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_rtdetr_train(card: str, seed: int = 0) -> dict:
+    """The rtdetr-l train step @640, batch 16, on synthetic data, float32 and amp, then
+    `RTDETR.train(epochs=1)` with its validation and `YOLO(checkpoint)` served (see the
+    module docstring, phase 19)."""
+    import torch
+
+    from sar_yolo_tpu_torch import RTDETR, YOLO
+    from sar_yolo_tpu_torch.engine.trainer import RTDETRTrainer
+    steps = {}
+    for label, kw in (("f32", {"amp": False}), ("amp", {})):
+        tr = RTDETRTrainer(dict(model="rtdetr-l.yaml", data="synthetic", imgsz=RTDETR_IMGSZ,
+                                batch=RTDETR_TRAIN_BATCH, seed=seed, optimizer="SGD",
+                                nbs=RTDETR_TRAIN_BATCH, warmup_epochs=0.0, workers=8,
+                                project="runs", name="chip_smoke_rtdetr", exist_ok=True, **kw))
+        tr.setup()
+        check((tr.model.compute_dtype == torch.bfloat16) == (label == "amp"),
+              f"rtdetr {label}: compute dtype {tr.model.compute_dtype}")
+        batch = next(iter(tr.train_loader))
+        _, items = tr.train_step(batch)
+        items = items.cpu().numpy()
+        check(np.isfinite(items).all() and (items > 0).all(), f"rtdetr {label}: items {items}")
+        steps[label] = {"items": items.tolist(), "gt_per_image": float(batch["mask"].sum(1).mean()),
+                        **_rtdetr_step_parts(tr, batch)}
+        del tr, batch
+        torch.cuda.empty_cache()
+    print(json.dumps({"rtdetr_train_step": f"rtdetr-l@{RTDETR_IMGSZ} b{RTDETR_TRAIN_BATCH} "
+                      "synthetic nc 3, 6 decoder layers + encoder matched, dn queries on",
+                      "loss_names": "cls bbox giou", **steps, "card": card}))
+    yolo = RTDETR("rtdetr-l.yaml")
+    t0 = time.perf_counter()
+    metrics = yolo.train(data="synthetic", imgsz=RTDETR_IMGSZ, batch=RTDETR_TRAIN_BATCH,
+                         epochs=1, seed=seed, workers=8, project="runs",
+                         name="chip_smoke_rtdetr_train", exist_ok=True)
+    train_s = time.perf_counter() - t0
+    check({"train/cls", "train/bbox", "train/giou", "metrics/mAP50(B)"} <= set(metrics) and
+          all(np.isfinite(list(metrics.values()))), f"RTDETR.train rtdetr-l: {metrics}")
+    ckpt = YOLO(yolo.ckpt_dir)
+    frames = np.random.default_rng(seed).integers(0, 256, (2, *BENCH_HW, 3), np.uint8)
+    rows = ckpt.predict_batched(frames, imgsz=RTDETR_IMGSZ, conf=0.0)
+    check(type(ckpt._get_predictor({"imgsz": RTDETR_IMGSZ, "conf": 0.0})).__name__ ==
+          "RTDETRPredictor" and rows.shape == (2, 300, 6) and np.isfinite(rows).all(),
+          f"YOLO(checkpoint) rtdetr-l: rows {rows.shape}")
+    out = {"rtdetr_yolo_train": "rtdetr-l.yaml", "metrics": metrics, "seconds": train_s,
+           "checkpoint_rows": list(rows.shape), "card": card}
+    print(json.dumps(out))
+    del yolo, ckpt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _world_yolo(name: str, seed: int):
+    """YOLOWorld `name` with seeded, perturbed weights and the WORLD_NAMES vocabulary."""
+    from sar_yolo_tpu_torch import YOLOWorld
+    yolo = _perturbed_yolo(name, seed, RTDETR_IMGSZ, cls=YOLOWorld)
+    yolo.set_classes(WORLD_NAMES)
+    return yolo
+
+
+def phase_world_serve(name: str, batches, card: str, seed: int = 3) -> dict:
+    """A YOLO-World model served at 640 with a 4-name vocabulary (see the module docstring,
+    phase 19)."""
+    import torch
+    yolo = _world_yolo(name, seed)
+    meta = yolo.meta
+    check(meta["nc"] == len(WORLD_NAMES) and yolo.model.text_embeddings.shape[0] ==
+          len(WORLD_NAMES), f"{name}: nc {meta['nc']} after set_classes")
+    frames = np.random.default_rng(seed).integers(0, 256, (max(batches), *BENCH_HW, 3), np.uint8)
+    ab = frames[:2]
+    exact = _float64_copy(yolo)
+    predictor = yolo._get_predictor({"imgsz": RTDETR_IMGSZ})
+    confs, got, want = [], [], []
+    for i in range(len(ab)):
+        with torch.no_grad():
+            rows, _ = predictor.decode(predictor.model(predictor.preprocess(ab[i:i + 1])[0]))
+        conf = _nms_stable_conf(rows.double().cpu().numpy(), meta["nc"], 0.7,
+                                DETECT_CANDIDATES)[0]
+        confs.append(conf)
+        got.append(yolo.predict_batched(ab[i:i + 1], imgsz=RTDETR_IMGSZ, conf=conf))
+        want.append(exact.predict_batched(ab[i:i + 1], imgsz=RTDETR_IMGSZ, conf=conf))
+    got, want = np.concatenate(got), np.concatenate(want)
+    kept, errs = _compare_detections(got, want, 0, f"{name} float32 vs float64")
+    x, _, _ = predictor.preprocess(ab)
+    with torch.no_grad():
+        d = max((p.double() - q).abs().max().item() for p, q in
+                zip(yolo._fused_for_serving()(x), exact._fused(x.double())))
+    for key, tol in (("box_err_px", max(F64_BOX_TOL, 2 * 32 * d)), ("score_err", max(1e-3, d))):
+        check(errs[key] <= tol, f"{name} float32 vs float64: {key} {errs[key]} (maps {d} apart)")
+    del exact
+    half = yolo.predict_batched(ab, imgsz=RTDETR_IMGSZ, conf=0.25, half=True)
+    check(half.shape == (2, 300, 6) and np.isfinite(half).all() and
+          set(np.unique(half[..., 5])) <= set(range(len(WORLD_NAMES))), f"{name} half rows")
+    kw, hkw = dict(imgsz=RTDETR_IMGSZ, conf=0.25), dict(imgsz=RTDETR_IMGSZ, conf=0.25, half=True)
+    rates = {}
+    for b in batches:
+        rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
+                    lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+        rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
+    out = {"serve_world": name, "imgsz": RTDETR_IMGSZ, "vocabulary": WORLD_NAMES,
+           "ab_confs": confs, "kept_per_frame": kept, **{f"{k}_vs_f64": v for k, v in errs.items()
+                                                          if k != "embed_err"},
+           "maps_vs_f64": d, "kept_per_frame_bf16_conf_0.25": (half[..., 4] > 0).sum(1).tolist(),
+           **rates, "card": card}
+    print(json.dumps(out))
+    del yolo
+    torch.cuda.empty_cache()
+    return out
+
+
+def _write_grounding(root: Path, seed: int) -> Path:
+    """GROUNDING_FRAMES PNG frames and one COCO-style json with a caption a frame and 2-4
+    boxes a frame, each named by a span of its caption. Returns the json's path."""
+    n, (h, w) = GROUNDING_FRAMES
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    words = ["person", "boat", "life jacket", "backpack", "car"]
+    for i in range(n):
+        small = rng.integers(0, 256, (h // 16, w // 16, 3), np.uint8)
+        img = np.repeat(np.repeat(small, 16, 0), 16, 1)
+        (root / "images" / f"{i:03d}.png").write_bytes(_png_file(img))
+        picked = [words[j] for j in rng.choice(len(words), int(rng.integers(2, 5)), replace=False)]
+        caption = "a " + " and a ".join(picked)
+        images.append({"id": i, "file_name": f"{i:03d}.png", "height": h, "width": w,
+                       "caption": caption})
+        for word in picked:
+            t0 = caption.index(word)
+            bw, bh = rng.uniform(0.05, 0.4) * w, rng.uniform(0.05, 0.4) * h
+            anns.append({"id": len(anns), "image_id": i, "tokens_positive": [[t0, t0 + len(word)]],
+                         "bbox": [float(rng.uniform(0, w - bw)), float(rng.uniform(0, h - bh)),
+                                  float(bw), float(bh)]})
+    path = root / "grounding.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns}))
+    return path
+
+
+def phase_world_train(card: str, seed: int = 0) -> dict:
+    """The yolov8s-world train step @640, batch 16, float32 and amp, and the grounding
+    dataset through the loader into one forward (see the module docstring, phase 19)."""
+    import torch
+
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.data.dataset import GroundingDataset
+    from sar_yolo_tpu_torch.engine.trainer import DetectionTrainer
+    steps = {}
+    for label, kw in (("f32", {"amp": False}), ("amp", {})):
+        tr = DetectionTrainer(dict(model="yolov8s-world.yaml", data="synthetic",
+                                   imgsz=RTDETR_IMGSZ, batch=RTDETR_TRAIN_BATCH, seed=seed,
+                                   optimizer="SGD", nbs=RTDETR_TRAIN_BATCH, warmup_epochs=0.0,
+                                   workers=8, project="runs", name="chip_smoke_world",
+                                   exist_ok=True, **kw))
+        tr.setup()
+        check(tr.model.text_embeddings.shape[0] == 3, "world trainer: text rows")
+        batch = next(iter(tr.train_loader))
+        _, items = tr.train_step(batch)
+        items = items.cpu().numpy()
+        check(np.isfinite(items).all(), f"world {label}: items {items}")
+        steps[label] = {"items": items.tolist(), **_timed_steps(tr, batch, n=5, warmup=2)}
+        world_model = tr.model
+        del tr, batch
+        torch.cuda.empty_cache()
+    root = Path("runs") / "chip_smoke_grounding"
+    shutil.rmtree(root, ignore_errors=True)
+    path = _write_grounding(root, seed)
+    ds = GroundingDataset(str(root / "images"), str(path), imgsz=RTDETR_IMGSZ, max_labels=16)
+    texts = sorted({t[0] for lb in ds.labels for t in lb["texts"]})
+    t0 = time.perf_counter()
+    batches = list(DataLoader(ds, 4, workers=4, shuffle=False, drop_last=False))
+    load_s = time.perf_counter() - t0
+    n_boxes = sum(int(b["mask"].sum()) for b in batches)
+    check(len(ds) == GROUNDING_FRAMES[0] and n_boxes == sum(len(lb["cls"]) for lb in ds.labels)
+          and batches[0]["img"].shape == (4, RTDETR_IMGSZ, RTDETR_IMGSZ, 3),
+          f"grounding loader: {len(ds)} frames, {n_boxes} boxes")
+    with torch.no_grad():
+        x = torch.from_numpy(batches[0]["img"]).cuda().permute(0, 3, 1, 2).float() / 255
+        maps = world_model.eval()(x.to(world_model.compute_dtype))
+    check(all(torch.isfinite(m).all() for m in maps), "world forward on the grounding batch")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"world_train_step": f"yolov8s-world@{RTDETR_IMGSZ} b{RTDETR_TRAIN_BATCH} synthetic "
+           "nc 3", "loss_names": "box cls dfl", **steps,
+           "grounding": {"frames": len(ds), "boxes": n_boxes, "phrases": texts,
+                         "loader_s": load_s}, "card": card}
+    print(json.dumps(out))
+    return out
+
+
+def phase_rtdetr_world(card: str) -> dict:
+    """Phase 19: RT-DETR and YOLO-World served, trained and validated; no graph of theirs has
+    an A2C2f block. Returns the launches by path."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    laps = {}
+    t = time.perf_counter()
+    reset_launches()
+    for name, batches, min_e2e in RTDETR_SERVE:
+        phase_rtdetr_serve(name, batches, min_e2e, card)
+    laps["rtdetr_serve"], t = time.perf_counter() - t, time.perf_counter()
+    phase_rtdetr_train(card)
+    laps["rtdetr_train_val"], t = time.perf_counter() - t, time.perf_counter()
+    for name, batches in WORLD_SERVE:
+        phase_world_serve(name, batches, card)
+    laps["world_serve"], t = time.perf_counter() - t, time.perf_counter()
+    phase_world_train(card)
+    laps["world_train"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    by = dict(flash_area_attention.launches_by_dtype)
+    check(by == {"float32": 0, "bfloat16": 0}, f"phase 19: attention kernel launches {by}")
+    print(json.dumps({"phase_rtdetr_world_s": laps, "kernel_launches_by_dtype": by}))
+    return {f"serve rtdetr-l@{RTDETR_IMGSZ} b1/b8/b128, rtdetr-resnet50 and yolov8n-rtdetr b8, "
+            "f32 and bf16": 0,
+            f"rtdetr-l train step @{RTDETR_IMGSZ} b{RTDETR_TRAIN_BATCH}, f32 and amp": 0,
+            "RTDETR.train / val / YOLO(checkpoint) rtdetr-l": 0,
+            "serve yolov8s-world b1/b8, yolov8s-worldv2 b8, f32 and bf16": 0,
+            f"yolov8s-world train step @{RTDETR_IMGSZ} b{RTDETR_TRAIN_BATCH}, f32 and amp; "
+            "grounding loader": 0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3678,6 +4185,8 @@ def main() -> int:
     lap("pose_seg")
     obb_cls_launches = phase_obb_cls(card)
     lap("obb_cls")
+    rtdetr_world_launches = phase_rtdetr_world(card)
+    lap("rtdetr_world")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -3732,7 +4241,8 @@ def main() -> int:
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
                              **detect_launches["float32"], **cbam_launches["float32"],
-                             **family_launches, **pose_seg_launches, **obb_cls_launches}}]}))
+                             **family_launches, **pose_seg_launches, **obb_cls_launches,
+                             **rtdetr_world_launches}}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

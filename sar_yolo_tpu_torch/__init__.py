@@ -6,14 +6,21 @@ hand-written CUDA kernel), decodes, runs NMS and gathers the ReID embeddings of 
 kept detections; `predict("frames/")` streams image files (JPEG and PNG decoded as
 OpenCV decodes them), arrays or tensors through the same path, and `track(...)` adds
 ByteTrack or BoT-SORT identities. `train` and `val` run on synthetic data or on a
-YOLO-format JDE dataset on disk.
+YOLO-format JDE dataset on disk. `RTDETR("rtdetr-l.yaml")` serves, trains and validates
+RT-DETR (no NMS), `YOLOWorld("yolov8s-world.yaml").set_classes([...])` YOLO-World.
 """
 
-__all__ = ["YOLO"]
+__all__ = ["YOLO", "RTDETR", "YOLOWorld"]
 
 
 def __getattr__(name):
     if name == "YOLO":
         from sar_yolo_tpu_torch.engine.model import YOLO
         return YOLO
+    if name == "RTDETR":
+        from sar_yolo_tpu_torch.models.rtdetr import RTDETR
+        return RTDETR
+    if name == "YOLOWorld":
+        from sar_yolo_tpu_torch.models.yolo.world import YOLOWorld
+        return YOLOWorld
     raise AttributeError(name)

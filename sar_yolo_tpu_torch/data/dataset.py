@@ -1,11 +1,12 @@
 """Detection, JDE, pose and segment datasets: YOLO-format folders on disk, class folders
 and procedural data (port of `sar_yolo_tpu/data/dataset.py`: `check_det_dataset`,
 `YOLODataset` with its box, keypoint and polygon branches, `SyntheticDataset` with its OBB
-and classify branches, `ClassificationDataset`)."""
+and classify branches, `ClassificationDataset`, YOLO-World's `GroundingDataset`)."""
 
 from __future__ import annotations
 
 import hashlib
+import json
 from pathlib import Path
 
 import numpy as np
@@ -514,6 +515,75 @@ class YOLODataset:
                 cv.fill_poly(seg, np.round(poly / 4).astype(np.int32), float(j + 1))
             out["masks"] = seg
         return out
+
+
+class GroundingDataset(YOLODataset):
+    """Detection samples of a grounding annotation (port of the JAX package's
+    `GroundingDataset`): images under `img_path`, labels from ONE COCO-style json whose
+    per-image `caption` and each annotation's `tokens_positive` spans name its class.
+
+    Each image's phrases number its classes in order of first appearance ("object" where an
+    annotation has no span); the phrase list rides on the label as `texts`. Crowd
+    annotations, boxes without area and exact duplicate rows are dropped; images missing on
+    disk are skipped; shapes come from the json's height and width. Detect only.
+    """
+
+    def __init__(self, img_path, json_file, task: str = "detect", fraction: float = 1.0,
+                 **kwargs):
+        if task != "detect":
+            raise ValueError("GroundingDataset only supports task='detect'")
+        self.json_file = json_file
+        self._fraction = fraction
+        super().__init__(img_path, task=task, **kwargs)
+
+    def _scan_images(self, img_path) -> list[str]:
+        self._img_root = Path(img_path)
+        return []  # filled from the json by _load_or_build_cache
+
+    def _load_or_build_cache(self):
+        with open(self.json_file) as f:
+            ann_json = json.load(f)
+        images = {int(x["id"]): x for x in ann_json["images"]}
+        by_img: dict[int, list] = {}
+        for ann in ann_json["annotations"]:
+            by_img.setdefault(int(ann["image_id"]), []).append(ann)
+        self.im_files, self.label_files, self.labels, shapes = [], [], [], []
+        for img_id, anns in by_img.items():
+            img = images[img_id]
+            h, w = img["height"], img["width"]
+            im_file = self._img_root / img["file_name"]
+            if not im_file.exists():
+                continue
+            caption = img.get("caption", "")
+            cat2id, texts, rows = {}, [], []
+            for ann in anns:
+                if ann.get("iscrowd"):
+                    continue
+                x, y, bw, bh = (float(v) for v in ann["bbox"])  # xywh, top-left, pixels
+                box = np.array([(x + bw / 2) / w, (y + bh / 2) / h, bw / w, bh / h], np.float32)
+                if box[2] <= 0 or box[3] <= 0:
+                    continue
+                phrase = " ".join(caption[t0:t1] for t0, t1 in
+                                  ann.get("tokens_positive", [])) or "object"
+                if phrase not in cat2id:
+                    cat2id[phrase] = len(cat2id)
+                    texts.append([phrase])
+                row = [float(cat2id[phrase]), *box.tolist()]
+                if row not in rows:
+                    rows.append(row)
+            lb = np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
+            self.im_files.append(str(im_file))
+            self.label_files.append(str(self.json_file))
+            self.labels.append({"cls": lb[:, 0], "bboxes": lb[:, 1:5],
+                                "tags": np.zeros(len(lb), np.float32), "texts": texts})
+            shapes.append((h, w))
+        if not self.im_files:
+            raise FileNotFoundError(f"no images from {self.json_file} exist under {self._img_root}")
+        if self._fraction < 1.0:
+            k = max(1, int(len(self.im_files) * self._fraction))
+            self.im_files, self.label_files = self.im_files[:k], self.label_files[:k]
+            self.labels, shapes = self.labels[:k], shapes[:k]
+        self.shapes = np.array(shapes, np.int64)
 
 
 class ClassificationDataset:

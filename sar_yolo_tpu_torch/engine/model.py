@@ -2,9 +2,9 @@
 checkpoint directory too), train, validate, fuse, save, serve batches, predict and track
 sources, summarize and profile (port of `sar_yolo_tpu/engine/model.py` without export,
 `embed`, `benchmark` and `tune`), for the detect, JDE, pose, segment, OBB and classify
-tasks: each call takes the trainer (`TRAINERS`, whose `validator_cls` validates) or the
-predictor (`PREDICTORS`) of the model's task. `Ensemble` merges the detections of several
-models."""
+tasks: each call takes the trainer, validator or predictor of `task_map[task]` (`TRAINERS`,
+their `validator_cls`, `PREDICTORS`; an RT-DETR model: `RTDETRTrainer`, `RTDETRValidator`,
+`RTDETRPredictor`). `Ensemble` merges the detections of several models."""
 
 from __future__ import annotations
 
@@ -21,10 +21,12 @@ from torch.utils.flop_counter import FlopCounterMode
 from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, NOT_PORTED, get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.dataset import (ClassificationDataset, SyntheticDataset, YOLODataset,
                                              check_det_dataset)
-from sar_yolo_tpu_torch.engine.predictor import PREDICTORS
-from sar_yolo_tpu_torch.engine.trainer import TRAINERS
+from sar_yolo_tpu_torch.engine.predictor import PREDICTORS, RTDETRPredictor
+from sar_yolo_tpu_torch.engine.trainer import TRAINERS, RTDETRTrainer
+from sar_yolo_tpu_torch.engine.validator import RTDETRValidator
 from sar_yolo_tpu_torch.nn.fuse import fuse_model, half_model
 from sar_yolo_tpu_torch.nn.modules.block import AAttn
+from sar_yolo_tpu_torch.nn.modules.transformer import StandaloneBatchNorm
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.ops.slicing import merge_tile_detections
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
@@ -112,6 +114,24 @@ class YOLO:
                                       f"(ported: {sorted(TRAINERS)})")
         return self.task
 
+    @property
+    def task_map(self) -> dict:
+        """{task: {"trainer", "validator", "predictor"}}: the classes of each ported task; an
+        RT-DETR head (`RTDETRDecoder`) takes RT-DETR's for detect, as in the JAX package."""
+        if self.meta.get("head") == "RTDETRDecoder":
+            return {"detect": {"trainer": RTDETRTrainer, "validator": RTDETRValidator,
+                               "predictor": RTDETRPredictor}}
+        return {t: {"trainer": tr, "validator": tr.validator_cls, "predictor": PREDICTORS[t]}
+                for t, tr in TRAINERS.items()}
+
+    def _classes(self) -> dict:
+        """The task_map entry of the model's task, which must be one this port has."""
+        entry = self.task_map.get(self._ported_task())
+        if entry is None:
+            raise NotImplementedError(f"task '{self.task}' has no {type(self).__name__} "
+                                      f"classes (it has: {sorted(self.task_map)})")
+        return entry
+
     def _ensure_variables(self, seed: int = 0):
         """Seeded initialization (a CPU torch.Generator), once."""
         if not self._weights_ready:
@@ -130,7 +150,7 @@ class YOLO:
         losses and, with `val` (the default), its validation metrics. Afterwards the model
         holds the EMA parameters and the live BN statistics, and keeps the run's compute
         dtype (bf16 after an `amp` run on the card), as the JAX package's model does."""
-        self.trainer = TRAINERS[self._ported_task()](
+        self.trainer = self._classes()["trainer"](
             {**self.overrides, "model": self.cfg, **kwargs}, device=self.device)
         for event, fns in self._callbacks.items():
             for fn in fns:
@@ -151,7 +171,7 @@ class YOLO:
         SyntheticDataset(seed=0) with min(nc, 3) classes (a pose model's keypoint shape); a
         classify model also takes a class-folder tree (its `split`, else val, test, train,
         else the folder itself)."""
-        validator = TRAINERS[self._ported_task()].validator_cls
+        validator = self._classes()["validator"]
         args = get_cfg({**self.overrides, "model": self.cfg, **kwargs})
         args.save_dir = str(get_save_dir(args, self.task))
         nc = self.meta["nc"]
@@ -200,7 +220,7 @@ class YOLO:
         unknown = set(kwargs) - set(PREDICT_DEFAULTS)
         if unknown:
             raise TypeError(f"unsupported predict arguments {sorted(unknown)}")
-        predictor_cls = PREDICTORS[self._ported_task()]
+        predictor_cls = self._classes()["predictor"]
         overrides = {**{k: v for k, v in self.overrides.items() if k in PREDICT_DEFAULTS},
                      **kwargs}
         overrides.setdefault("conf", 0.25)
@@ -306,7 +326,8 @@ class YOLO:
         self._ensure_variables()
         if self.fused:
             state = self._unfused
-        elif not any(isinstance(m, torch.nn.BatchNorm2d) for m in self.model.modules()):
+        elif not any(isinstance(m, torch.nn.BatchNorm2d) and not isinstance(m, StandaloneBatchNorm)
+                     for m in self.model.modules()):
             raise ValueError("cannot save a fused model without its unfused weights (load a "
                              "checkpoint, or call save() before folding it)")
         else:

@@ -9,7 +9,10 @@ the frame in Results, the keypoints not). Segment rows are [box, conf, cls]; the
 (`process_mask` over the square (imgsz, imgsz) input), as the JAX package returns them.
 OBB rows are [cx, cy, w, h, r, conf, cls]: the centres un-letterboxed, w and h over the
 ratio, the angle as it is, nothing clipped. A classify model returns the softmax of its
-logits over the letterboxed frame, (B, nc) float32.
+logits over the letterboxed frame, (B, nc) float32. RT-DETR (`RTDETRPredictor`) takes the
+last decoder layer's nq queries as they come: sigmoid, best class, the boxes
+un-letterboxed, rows under conf zeroed, no NMS: (B, nq, 6). Like the JAX package it
+letterboxes with padding, where Ultralytics' RT-DETR predictor stretches the frame.
 
 Under `half` the letterboxed frame enters the model in bf16 and the head maps come out
 in bf16; decode and NMS then run in the dtypes the JAX predictor gives them (boxes in
@@ -242,6 +245,26 @@ class OBBPredictor(BasePredictor):
     def postprocess(self, dets, path, orig_img, speed=None) -> Results:
         d = np.asarray(dets[0])
         return Results(orig_img, path, self.names, obb=d[d[:, 5] > 0], speed=speed)
+
+
+class RTDETRPredictor(DetectionPredictor):
+    """RT-DETR: the last decoder layer's queries, their best class and its sigmoid score, the
+    boxes in original pixels; a score under conf becomes 0 (the row stays, as padding). No
+    NMS. Rows (B, nq, 6) [x1, y1, x2, y2, conf, cls] in query order."""
+
+    def serve(self, x, r: float, pad):
+        conf = self.args.conf if self.args.conf is not None else 0.25
+        dec_b, dec_s = self.model(x)[:2]
+        H, W = x.shape[2:]
+        boxes = dec_b[-1] * torch.tensor([W, H, W, H], dtype=dec_b.dtype, device=x.device)
+        scores = torch.sigmoid(dec_s[-1])
+        cls_conf, cls = scores.max(-1)
+        pad2 = torch.tensor(pad, dtype=x.dtype, device=x.device)
+        xy = (boxes[..., :2] - pad2) / r
+        wh = boxes[..., 2:4] / r
+        conf_m = torch.where(cls_conf >= conf, cls_conf, 0.0)
+        return torch.cat([xy - wh / 2, xy + wh / 2, conf_m[..., None].to(xy.dtype),
+                          cls[..., None].to(xy.dtype)], -1)
 
 
 class ClassificationPredictor(BasePredictor):

@@ -4,8 +4,10 @@
 `BaseTrainer` holds the loop; `DetectionTrainer` (the v8 loss: box, cls, dfl),
 `JDETrainer` (box, cls, dfl, the triplet embedding term and the class-balanced state
 term), `PoseTrainer` (box, pose, kobj, cls, dfl), `SegmentTrainer` (box, seg, cls,
-dfl), `OBBTrainer` (box, cls, dfl of the rotated loss) and `ClassificationTrainer`
-(cross-entropy) give it the task's loss and validator. Data: a YOLO-format dataset (a
+dfl), `OBBTrainer` (box, cls, dfl of the rotated loss), `ClassificationTrainer`
+(cross-entropy) and `RTDETRTrainer` (the Hungarian-matched DETR loss: cls, bbox, giou, with
+contrastive-denoising queries) give it the task's loss and validator. A YOLO-World model
+trains as a detect model (its text rows are a parameter). Data: a YOLO-format dataset (a
 dataset YAML file or dict; 5-column detect labels, 6-column JDE labels with the track id,
 keypoint or polygon rows), a class-folder tree (classify) or the synthetic set (OBB trains
 on it alone, as in the JAX package). A pose model takes its dataset's
@@ -64,13 +66,15 @@ from sar_yolo_tpu_torch.data.dataset import (ClassificationDataset, SyntheticDat
 from sar_yolo_tpu_torch.data.device_augment import AUG_KEYS, device_train_augment, draw_params
 from sar_yolo_tpu_torch.engine.validator import (ClassificationValidator, DetectionValidator,
                                                  JDEValidator, OBBValidator, PoseValidator,
-                                                 SegmentValidator)
+                                                 RTDETRValidator, SegmentValidator)
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype, set_generator
+from sar_yolo_tpu_torch.nn.modules.transformer import draw_cdn
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.checks import check_bf16
+from sar_yolo_tpu_torch.utils.detr_loss import detr_loss
 from sar_yolo_tpu_torch.utils.loss import (classification_loss, detection_loss, jde_loss, obb_loss,
                                            pose_loss, segmentation_loss)
 
@@ -448,11 +452,15 @@ class BaseTrainer(HasCallbacks):
         torch._foreach_add_(self.ema, params, alpha=1.0 - d)
         self.cb_counts = cb_counts
 
+    def forward(self, batch: dict):
+        """The train-mode forward of a device batch."""
+        return self.model(batch["img"])
+
     def train_step(self, batch: dict, i: int = 0):
         """One micro-step on numpy batch i of the epoch. Returns (total, items), both on the
         device."""
         b = self.to_device(batch, i)
-        total, items, cb = self.loss(self.model(b["img"]), b)
+        total, items, cb = self.loss(self.forward(b), b)
         total.backward()
         self.update(cb)
         return total.detach(), items
@@ -563,6 +571,8 @@ class BaseTrainer(HasCallbacks):
                  "cb_counts": self.cb_counts, "optimizer": self.optimizer.state_dict(),
                  "rng": self.generator.get_state(),
                  "ms_rng": self._ms_rng.bit_generator.state}
+        if getattr(self, "dn_generator", None) is not None:  # RT-DETR's denoising draws
+            state["dn_rng"] = self.dn_generator.get_state()
         metadata = {"epoch": self.epoch, "best_fitness": float(self.best_fitness),
                     "train_args": vars(self.args), "model_yaml": self.meta["cfg"],
                     "task": self.task, "nc": self.meta["nc"], "strides": self.meta["strides"],
@@ -595,6 +605,8 @@ class BaseTrainer(HasCallbacks):
             self.generator.set_state(state["rng"])
         if state.get("ms_rng") is not None:
             self._ms_rng.bit_generator.state = state["ms_rng"]
+        if state.get("dn_rng") is not None and getattr(self, "dn_generator", None) is not None:
+            self.dn_generator.set_state(state["dn_rng"])
         LOGGER.info(f"Resumed from {path} at epoch {self.epoch}")
 
     @torch.no_grad()
@@ -747,6 +759,41 @@ class ClassificationTrainer(BaseTrainer):
 
     def loss(self, logits, batch: dict):
         out = classification_loss(logits, batch)
+        return out.total, out.items, self.cb_counts
+
+
+class RTDETRTrainer(DetectionTrainer):
+    """Trains an RT-DETR model (a detect model with an RTDETRDecoder head): the DETR loss
+    (cls, bbox, giou; `utils/detr_loss.py`) with contrastive-denoising queries built from the
+    padded ground truth, the RT-DETR validator. The denoising draws of each step come from
+    the trainer's generator on the device (seed + 3; `cdn_draws`), kept in the checkpoints.
+
+    Examples:
+        >>> tr = RTDETRTrainer({"model": "tinyrtdetr.yaml", "data": "synthetic", "imgsz": 64,
+        ...                     "batch": 2, "epochs": 1}, device="cpu")
+        >>> metrics = tr.train()
+    """
+
+    loss_names = ("cls", "bbox", "giou")
+    validator_cls = RTDETRValidator
+
+    def setup(self, state_dict: dict | None = None):
+        self.dn_generator = torch.Generator(device=self.device).manual_seed(self.args.seed + 3)
+        super().setup(state_dict)
+        if self.meta.get("head") != "RTDETRDecoder":
+            raise ValueError(f"'{self.args.model}' has no RTDETRDecoder head")
+
+    def cdn_draws(self, batch: dict) -> dict:
+        """The denoising queries' draws for a device batch (`draw_cdn`)."""
+        B, M = batch["cls"].shape
+        return draw_cdn(B, M, self.meta["nc"], self.dn_generator, self.device)
+
+    def forward(self, batch: dict):
+        gt = {k: batch[k] for k in ("cls", "bboxes", "mask")}
+        return self.model(batch["img"], gt, self.cdn_draws(batch))
+
+    def loss(self, outputs, batch: dict):
+        out = detr_loss(outputs, batch)
         return out.total, out.items, self.cb_counts
 
 

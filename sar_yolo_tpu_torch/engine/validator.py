@@ -16,8 +16,12 @@ With `rect`, the dataset's images are batched by aspect ratio (`init_rect`). Wit
 image ids are the file stems, and an 80-class model validated on a COCO dataset
 writes the COCO 91-index category ids.
 
+`RTDETRValidator` scores RT-DETR's last decoder layer without NMS: the queries' best
+class, rows under conf (0.001) dropped, the rest in score order cut at max_det, on the
+host as the JAX validator does it (square batches, as the JAX validator loads them).
+
 Not ported yet, each refused where asked for: mesh sharding, test-time
-augmentation and plots (`cfg/default.py` NOT_PORTED), and the RT-DETR validator.
+augmentation and plots (`cfg/default.py` NOT_PORTED).
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ class BaseValidator:
         ...                          args=get_cfg({"batch": 16}), data={"names": names})
     """
 
+    rect_ok = True  # whether `rect` batches by aspect ratio
+
     def __call__(self, model, meta: dict, dataset, args, data: dict | None = None) -> dict:
         """Validate `model` (in eval mode, on its device) on `dataset`; args holds batch,
         workers, conf, iou, max_det, save_json, save_txt, save_conf, verbose, save_dir."""
@@ -69,7 +75,7 @@ class BaseValidator:
         self.conf = args.conf if args.conf is not None else 0.001
         device = next(model.parameters()).device
         bs = min(args.batch, len(dataset))
-        if args.rect and getattr(dataset, "shapes", None) is not None:
+        if args.rect and self.rect_ok and getattr(dataset, "shapes", None) is not None:
             dataset.init_rect(bs)
         loader = DataLoader(dataset, bs, workers=args.workers, shuffle=False, drop_last=False,
                             pad_last=True)
@@ -155,9 +161,11 @@ class BaseValidator:
     def init_metrics(self):
         self.det_metrics = DetMetrics(self.data.get("names"))
 
+    SCALE_DTYPE = np.float32  # of the gt boxes' pixel scale
+
     def update_metrics(self, dets, batch, hw):
         h, w = hw
-        scale = np.array([w, h, w, h], np.float32)
+        scale = np.array([w, h, w, h], self.SCALE_DTYPE)
         for bi in range(dets.shape[0]):
             d = dets[bi]
             d = d[d[:, 4] > 0]
@@ -265,6 +273,40 @@ class BaseValidator:
 
 class DetectionValidator(BaseValidator):
     pass
+
+
+class RTDETRValidator(BaseValidator):
+    """RT-DETR: the last decoder layer's queries scored without NMS (the JAX package's
+    `RTDETRValidator`). The boxes and sigmoided scores (B, nq, 4 + nc) come to the host in
+    one copy; per image, as the JAX validator does in numpy: the best class, rows under conf
+    dropped, boxes to the batch's pixels in float64, the rest in score order
+    (`np.argsort(-conf)`) cut at max_det, zero rows after them. `rect` is not used: the
+    JAX validator loads square batches."""
+
+    rect_ok = False
+    SCALE_DTYPE = np.int64  # the JAX validator scales boxes by an integer array (float64)
+
+    @torch.no_grad()
+    def predict(self, model, x: torch.Tensor):
+        dec_b, dec_s = model(x)[:2]
+        self._hw = tuple(x.shape[2:])
+        return torch.cat([dec_b[-1].float(), torch.sigmoid(dec_s[-1]).float()], -1)
+
+    def _to_host(self, out):
+        out = out.cpu().numpy()
+        h, w = self._hw
+        rows = np.zeros((len(out), self.args.max_det, 6))
+        for bi, o in enumerate(out):
+            s = o[:, 4:]
+            cls_conf = s.max(-1)
+            keep = cls_conf >= self.conf
+            b = o[keep, :4] * np.array([w, h, w, h])
+            d = np.concatenate([np.stack([b[:, 0] - b[:, 2] / 2, b[:, 1] - b[:, 3] / 2,
+                                          b[:, 0] + b[:, 2] / 2, b[:, 1] + b[:, 3] / 2], 1),
+                                cls_conf[keep, None], s[keep].argmax(-1)[:, None]], 1)
+            d = d[np.argsort(-d[:, 4])][:self.args.max_det]
+            rows[bi, :len(d)] = d
+        return rows, None
 
 
 class JDEValidator(BaseValidator):

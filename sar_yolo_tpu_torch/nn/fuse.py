@@ -8,8 +8,10 @@ parallel branches of the re-parameterizable blocks into one biased conv:
 (3x3 + 1x1 Convs) becomes one 3x3 `conv`; `RepVGGDW` (depthwise 7x7 + 3x3
 Convs) one depthwise 7x7 `conv`. That is the module structure of the JAX
 package's `fused=True` trace, so `utils/convert.py` maps a JAX `fuse_variables`
-tree onto it. A BatchNorm anywhere else is a structure this port does not know,
-and `fuse_model` raises rather than serve it unfused. `half_model` then takes a
+tree onto it. A `StandaloneBatchNorm` (RT-DETR's input projections, YOLO-World's
+contrastive heads) stays, as JAX's fold leaves it; a BatchNorm anywhere else is a
+structure this port does not know, and `fuse_model` raises rather than serve it
+unfused. `half_model` then takes a
 folded model to bf16 for `half` serving.
 """
 
@@ -22,6 +24,7 @@ from torch.nn import functional as F
 from sar_yolo_tpu_torch.nn.modules.block import RepVGGDW
 from sar_yolo_tpu_torch.nn.modules.conv import (Conv, Conv2, Conv2d, DSConv, RepConv,
                                                 set_compute_dtype)
+from sar_yolo_tpu_torch.nn.modules.transformer import StandaloneBatchNorm
 
 
 def _scale_shift(bn: nn.BatchNorm2d):
@@ -81,7 +84,8 @@ def fuse_model(model: nn.Module) -> nn.Module:
         elif isinstance(mod, DSConv) and mod.bn is not None:
             _fold(mod.pw, mod.bn)
             mod.bn = None
-    left = [name for name, mod in model.named_modules() if isinstance(mod, nn.BatchNorm2d)]
+    left = [name for name, mod in model.named_modules()
+            if isinstance(mod, nn.BatchNorm2d) and not isinstance(mod, StandaloneBatchNorm)]
     if left:
         raise ValueError(f"fuse_model: BatchNorm outside Conv/DSConv at {left[:5]}")
     return model

@@ -21,6 +21,7 @@ from torch.nn import functional as F
 from sar_yolo_tpu_torch.ops.cuda.flash_attention import area_attention_plain, flash_area_attention
 
 from .conv import CBAM, Conv, Conv2d, Dropout, DSConv, DWConv, GhostConv, LightConv, Linear, RepConv
+from .transformer import LayerNorm, _sqrt_in
 
 
 def _tokens(x):
@@ -922,3 +923,87 @@ class ResNetLayer(nn.Module):
         for j in range(self.n):
             x = getattr(self, f"layer_{j}")(x)
         return x
+
+
+class MaxSigmoidAttnBlock(nn.Module):
+    """Text-guided max-sigmoid attention (YOLO-World): per head, the image embedding's
+    similarity to each guide (text) row, the max over rows over sqrt(head width), plus a
+    per-head bias, sigmoided, gates proj_conv(x) head by head."""
+
+    def __init__(self, c1: int, c2: int, nh: int = 1, ec: int = 128, gc: int = 512,
+                 scale: bool = False):
+        super().__init__()
+        self.nh, self.ec_dim = nh, ec
+        self.gl = Linear(gc, ec)
+        self.ec = Conv(c1, ec, 1, act=False) if c1 != ec else None
+        self.bias = nn.Parameter(torch.zeros(nh))
+        self.scale = nn.Parameter(torch.ones(1, nh, 1, 1)) if scale else None
+        self.proj_conv = Conv(c1, c2, 3, act=False)
+
+    def forward(self, x, guide):
+        B, _, H, W = x.shape
+        hc = self.ec_dim // self.nh
+        g = self.gl(guide).reshape(B, -1, self.nh, hc)
+        embed = self.ec(x) if self.ec is not None else x
+        e = embed.reshape(B, self.nh, hc, H, W)
+        aw = torch.einsum("bmchw,bnmc->bmhwn", e, g).amax(-1)
+        aw = aw / _sqrt_in(hc, aw.dtype).to(aw.device)
+        aw = torch.sigmoid(aw + self.bias[None, :, None, None].to(aw.dtype))
+        if self.scale is not None:
+            aw = aw * self.scale.to(aw.dtype)
+        y = self.proj_conv(x)
+        return (y.reshape(B, self.nh, -1, H, W) * aw[:, :, None]).reshape(B, -1, H, W)
+
+
+class C2fAttn(_CSP2f):
+    """C2f with a MaxSigmoidAttnBlock (`attn`) on the last inner map, its output the (3 + n)th
+    map into cv2; forward(x, guide)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, ec: int = 128, nh: int = 1,
+                 gc: int = 512, shortcut: bool = False, g: int = 1, e: float = 0.5):
+        c = int(c2 * e)
+        super().__init__(c1, c2, c, [Bottleneck(c, c, shortcut, g, (3, 3), 1.0)
+                                     for _ in range(n)])
+        self.cv2 = Conv((3 + n) * c, c2, 1)
+        self.attn = MaxSigmoidAttnBlock(c, c, nh, ec, gc)
+
+    def forward(self, x, guide):
+        ys = list(self.cv1(x).split(self.c, 1))
+        for i in range(self.n):
+            ys.append(getattr(self, f"m{i}")(ys[-1]))
+        ys.append(self.attn(ys[-1], guide))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class ImagePoolingAttn(nn.Module):
+    """YOLO-World's image-conditioned text update: each level's 1x1 projection (with bias)
+    max-pooled to k x k cells (AdaptiveMaxPool2d's bounds), the text rows attending over
+    those cells (LayerNorm then Linear for q, k, v; float32 softmax), projected to ct, plus
+    the text. forward(xs, text) returns the new text (B, n, ct)."""
+
+    def __init__(self, ec: int = 256, ch: tuple = (), ct: int = 512, nh: int = 8, k: int = 3,
+                 scale: bool = False):
+        super().__init__()
+        self.ec, self.nh, self.k = ec, nh, k
+        for i, c in enumerate(ch):
+            self.add_module(f"projections_{i}", Conv2d(c, ec, 1, bias=True))
+        self.nf = len(ch)
+        self.query_ln, self.key_ln, self.value_ln = LayerNorm(ct), LayerNorm(ec), LayerNorm(ec)
+        self.query_fc, self.key_fc, self.value_fc = Linear(ct, ec), Linear(ec, ec), Linear(ec, ec)
+        self.proj = Linear(ec, ct)
+        self.scale = nn.Parameter(torch.zeros(1)) if scale else None
+
+    def forward(self, xs, text):
+        B = xs[0].shape[0]
+        hc = self.ec // self.nh
+        img = torch.cat([F.adaptive_max_pool2d(getattr(self, f"projections_{i}")(x), self.k)
+                         .flatten(2).transpose(1, 2) for i, x in enumerate(xs)], 1)
+        q = self.query_fc(self.query_ln(text)).reshape(B, -1, self.nh, hc)
+        kk = self.key_fc(self.key_ln(img)).reshape(B, -1, self.nh, hc)
+        v = self.value_fc(self.value_ln(img)).reshape(B, -1, self.nh, hc)
+        aw = torch.einsum("bnmc,bkmc->bmnk", q, kk) / _sqrt_in(hc, q.dtype).to(q.device)
+        aw = aw.float().softmax(-1).to(v.dtype)
+        o = self.proj(torch.einsum("bmnk,bkmc->bnmc", aw, v).reshape(B, -1, self.ec))
+        if self.scale is not None:
+            o = o * self.scale.to(o.dtype)
+        return o + text

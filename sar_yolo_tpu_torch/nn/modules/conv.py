@@ -94,10 +94,12 @@ class Linear(nn.Linear):
 
 def set_compute_dtype(model: nn.Module, dtype):
     """Run every Conv2d, ConvTranspose and Linear of `model` in `dtype` (its parameters keep
-    theirs). float32 means the parameters' own dtype, so a `.double()` copy computes in
-    float64."""
+    theirs), and give every module that marks itself `follows_compute_dtype` (LayerNorm,
+    Embed, a standalone BatchNorm) that output dtype. float32 means the parameters' own
+    dtype, so a `.double()` copy computes in float64."""
     for m in model.modules():
-        if isinstance(m, (Conv2d, ConvTranspose, Linear)):
+        if isinstance(m, (Conv2d, ConvTranspose, Linear)) or \
+                getattr(m, "follows_compute_dtype", False):
             m.compute_dtype = None if dtype == torch.float32 else dtype
     model.compute_dtype = dtype
 

@@ -1,4 +1,4 @@
-"""Detect, v10Detect, JDE, Pose, Segment, OBB and Classify heads in NCHW (port of
+"""Detect, v10Detect, JDE, Pose, Segment, OBB, Classify and WorldDetect heads in NCHW (port of
 `sar_yolo_tpu/nn/modules/head.py`).
 
 Heads return raw per-level maps (B, no, H, W) in the compute dtype, as the JAX
@@ -10,11 +10,14 @@ logits); decoding lives in
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from .conv import Conv, Conv2d, ConvTranspose2d, Dropout, DWConv, Linear
+from .transformer import StandaloneBatchNorm
 
 
 class Detect(nn.Module):
@@ -224,3 +227,52 @@ class Classify(nn.Module):
         if isinstance(x, (list, tuple)):
             x = torch.cat(x, 1)
         return self.linear(self.dropout(self.conv(x).mean((2, 3))))
+
+
+class WorldDetect(Detect):
+    """YOLO-World's open-vocabulary head: Detect's box branch, a cls branch of two 3x3 Convs
+    (whatever `legacy` says) ending in an `embed_dim` projection, and per level a contrastive
+    head that scores the embedding against the text rows `txt` (n, E) or (B, n, E), in
+    float32: both sides l2-normalized (eps 1e-6), times exp(`cv4_{i}_logit_scale`), plus
+    `cv4_{i}_bias`; with `with_bn` a BatchNorm (`cv4_{i}_norm`, momentum 0.9, eps 1e-5)
+    replaces the image side's normalization. Per-level maps (B, 4 reg_max + n, H, W); the
+    class channels follow the text row count, the convolutions keep `nc`."""
+
+    def __init__(self, nc: int = 80, embed_dim: int = 512, with_bn: bool = False,
+                 ch: tuple = (), reg_max: int = 16, legacy: bool = False):
+        nn.Module.__init__(self)
+        self.nc, self.ch, self.reg_max, self.legacy = nc, tuple(ch), reg_max, True
+        self.nl, self.embed_dim, self.with_bn = len(ch), embed_dim, with_bn
+        c2 = max(16, ch[0] // 4, reg_max * 4)
+        c3 = max(ch[0], min(nc, 100))
+        for i, c in enumerate(ch):
+            self.add_module(f"cv2_{i}_0", Conv(c, c2, 3))
+            self.add_module(f"cv2_{i}_1", Conv(c2, c2, 3))
+            self.add_module(f"cv2_{i}_pred", Conv2d(c2, 4 * reg_max, 1))
+            self.add_module(f"cv3_{i}_0", Conv(c, c3, 3))
+            self.add_module(f"cv3_{i}_1", Conv(c3, c3, 3))
+            self.add_module(f"cv3_{i}_pred", Conv2d(c3, embed_dim, 1))
+            setattr(self, f"cv4_{i}_bias", nn.Parameter(torch.tensor(-10.0)))
+            setattr(self, f"cv4_{i}_logit_scale", nn.Parameter(
+                torch.tensor(-1.0 if with_bn else math.log(1 / 0.07))))
+            if with_bn:
+                norm = StandaloneBatchNorm(embed_dim, eps=1e-5, momentum=0.1)
+                norm.follows_compute_dtype = False  # a float32 BatchNorm in JAX
+                self.add_module(f"cv4_{i}_norm", norm)
+
+    def forward(self, xs, txt):
+        t = txt.float()
+        t = t / (t.norm(dim=-1, keepdim=True) + 1e-6)
+        tq = t if t.ndim == 2 else t[0]
+        outs = []
+        for i, x in enumerate(xs):
+            box = self._box(x, i)
+            e = self._cls(x, i).float()
+            if self.with_bn:
+                e = self._sub(f"cv4_{i}_norm")(e)
+            else:
+                e = e / (e.norm(dim=1, keepdim=True) + 1e-6)
+            scale, bias = getattr(self, f"cv4_{i}_logit_scale"), getattr(self, f"cv4_{i}_bias")
+            logits = torch.einsum("behw,ce->bchw", e, tq) * torch.exp(scale) + bias
+            outs.append(torch.cat([box, logits.to(box.dtype)], 1))
+        return outs

@@ -3,12 +3,18 @@
 `parse_model` does the JAX package's channel, depth and width arithmetic and
 returns the same LayerSpec records, for the modules of the yolov3-v13 detect
 graphs (v10's NMS-free head included), the JDE graphs and the fork's CBAM
-variants, the pose, segment, OBB and classify graphs, and the PPHGNetV2 / ResNet backbone
-blocks; a module the port does not
+variants, the pose, segment, OBB and classify graphs, the PPHGNetV2 / ResNet backbone
+blocks, RT-DETR (AIFI, RTDETRDecoder) and YOLO-World (C2fAttn, ImagePoolingAttn,
+WorldDetect); a module the port does not
 have yet raises NotImplementedError naming it. `GraphModel` walks the specs with
 the same save-dict (a CBLinear's tuple of chunks included); its layers live in
 `blocks` (Flax scope `blocks_<i>`), and a plain module repeated n times is a
 `Repeat` whose copies take Flax's automatic names (`Conv_0`, `Conv_1`, ...).
+
+A World graph owns one `text_embeddings` parameter (n, E): each C2fAttn reads the
+running text copy, which an ImagePoolingAttn replaces (the image passes through it), and
+WorldDetect always reads the original rows. An RT-DETR graph hands `batch_gt` and the CDN
+draws to its decoder in train mode.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from sar_yolo_tpu_torch.cfg.models import model_config
 from sar_yolo_tpu_torch.nn.modules import block as B
 from sar_yolo_tpu_torch.nn.modules import conv as C
 from sar_yolo_tpu_torch.nn.modules import head as H
+from sar_yolo_tpu_torch.nn.modules import transformer as T
 from sar_yolo_tpu_torch.utils import LOGGER
 
 
@@ -51,16 +58,18 @@ _CH_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "SPPF", "C2", "C2f", "C3
               "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM", "RepC3", "PSA", "C2PSA",
               "SCDown", "C2fCIB", "GhostConv", "Conv2", "ConvTranspose2d", "SPP",
               "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "GhostBottleneck",
-              "C3Ghost", "RepConv", "Classify"}
+              "C3Ghost", "RepConv", "Classify", "C2fAttn"}
 # subset that takes an inserted repeat count n
 _REPEAT_ARG = {"C2", "C2f", "C3", "C3k", "C3k2", "C3k2_CBAM", "A2C2f", "DSC3k2", "DSC3k2_CBAM",
-               "RepC3", "C2PSA", "C2fCIB", "C3Ghost"}
+               "RepC3", "C2PSA", "C2fCIB", "C3Ghost", "C2fAttn"}
 _C3K2_FAMILY = {"C3k2", "DSC3k2", "C3k2_CBAM", "DSC3k2_CBAM"}
 # torch-layer yaml aliases -> module names
 _NN_ALIAS = {"nn.ConvTranspose2d": "ConvTranspose2d", "nn.MaxPool2d": "MaxPool2d",
              "nn.ZeroPad2d": "ZeroPad2d", "nn.Identity": "Identity"}
 TASK_BY_HEAD = {"Detect": "detect", "JDE": "jde", "v10Detect": "detect", "Pose": "pose",
-                "Segment": "segment", "OBB": "obb", "Classify": "classify"}
+                "Segment": "segment", "OBB": "obb", "Classify": "classify",
+                "RTDETRDecoder": "detect", "WorldDetect": "detect"}
+_WORLD = {"C2fAttn", "ImagePoolingAttn", "WorldDetect"}  # the modules that read the text rows
 _HEADS = set(TASK_BY_HEAD) - {"Classify"}  # the multi-level heads; Classify is width-scaled
 # modules whose output has the input's channels
 _PASS_THROUGH = {"CBAM", "MaxPool2d", "Identity"}
@@ -126,6 +135,10 @@ def parse_model(d: dict, ch: int = 3):
                         args[2] = True
                     else:
                         args.append(True)
+            if m == "C2fAttn":  # the embed channels and head count scale too
+                args[2] = make_divisible(min(args[2], max_channels // 2) * width, 8)
+                args[3] = int(max(round(min(args[3], max_channels // 2 // 32)) * width, 1)
+                              if args[3] > 1 else args[3])
             if m == "A2C2f":
                 legacy = False
                 if scale in "lx":  # residual=True, mlp_ratio=1.5
@@ -139,6 +152,8 @@ def parse_model(d: dict, ch: int = 3):
         elif m == "Concat":
             c2 = sum(chs[x] for x in f)
             args = []
+        elif m == "AIFI":
+            c2 = chs[f]  # args: [cm, num_heads]
         elif m in _HEADS:
             ch_list = tuple(chs[x] for x in f)
             kwargs["ch"] = ch_list
@@ -173,6 +188,9 @@ def parse_model(d: dict, ch: int = 3):
         elif m == "FullPAD_Tunnel":
             c2 = chs[f[0]]
             args = []
+        elif m == "ImagePoolingAttn":  # updates the text rows; the first input passes through
+            kwargs["ch"] = tuple(chs[x] for x in f)
+            c2 = chs[f[0]]
         elif m == "HGStem":
             c2 = args[1]  # [cm, c2]
         elif m == "HGBlock":
@@ -228,7 +246,7 @@ _C_IN_FIRST = {"Conv": C.Conv, "DWConv": C.DWConv, "DSConv": C.DSConv, "CBAM": C
                B.GhostBottleneck, "C3Ghost": B.C3Ghost, "RepNCSPELAN4": B.RepNCSPELAN4,
                "ELAN1": B.ELAN1, "AConv": B.AConv, "ADown": B.ADown, "SPPELAN": B.SPPELAN,
                "CBLinear": B.CBLinear, "HGStem": B.HGStem, "HGBlock": B.HGBlock,
-               "RepC3": B.RepC3}
+               "RepC3": B.RepC3, "C2fAttn": B.C2fAttn}
 # modules built from the spec's args alone
 _ARGS_ONLY = {"Upsample": C.Upsample, "Concat": C.Concat, "DownsampleConv": B.DownsampleConv,
               "FullPAD_Tunnel": B.FullPAD_Tunnel, "Index": C.Index, "MaxPool2d": C.MaxPool2d,
@@ -277,6 +295,17 @@ def _build_module(spec: LayerSpec, c_in, dropout: float = 0.0) -> nn.Module:
         return H.OBB(nc=a[0], ne=a[1] if len(a) > 1 else 1, ch=kw["ch"], legacy=kw["legacy"])
     if name == "Classify":  # a list input is concatenated on channels
         return H.Classify(sum(c_in) if isinstance(c_in, tuple) else c_in, a[0], dropout=dropout)
+    if name == "AIFI":
+        return T.AIFI(c_in, *a)
+    if name == "RTDETRDecoder":  # tinyrtdetr-style trimmed args: [nc, hd, nq, ndl]
+        extra = dict(zip(("hd", "nq", "ndl"), a[1:4]))
+        return T.RTDETRDecoder(nc=a[0], ch=kw["ch"], **extra)
+    if name == "ImagePoolingAttn":
+        return B.ImagePoolingAttn(ec=a[0] if a else 256, ch=kw["ch"])
+    if name == "WorldDetect":
+        return H.WorldDetect(nc=a[0], embed_dim=a[1] if len(a) > 1 else 512,
+                             with_bn=bool(a[2]) if len(a) > 2 else False,
+                             ch=kw["ch"], legacy=kw["legacy"])
     raise NotImplementedError(f"module '{name}' is not part of this port yet")
 
 
@@ -309,10 +338,20 @@ class GraphModel(nn.Module):
                 blocks.append(_build_module(s, c_in, dropout))
                 outs.append(s.c2)
         self.blocks = nn.ModuleList(blocks)
+        if any(s.name in _WORLD for s in specs):  # the text rows, (nc, E) until set_classes
+            heads = [s for s in specs if s.name == "WorldDetect"]
+            embed = heads[0].args[1] if heads and len(heads[0].args) > 1 else 512
+            self.text_embeddings = nn.Parameter(torch.zeros(specs[-1].args[0], embed))
 
-    def forward(self, x):
+    def forward(self, x, batch_gt: dict | None = None, cdn_draws: dict | None = None):
+        """The head's output; an RT-DETR head in train mode takes `batch_gt` and `cdn_draws`
+        (`nn/modules/transformer.py::draw_cdn`) for its denoising queries."""
         saved = {}
         out = x
+        last = self.specs[-1]
+        txt = txt0 = getattr(self, "text_embeddings", None)
+        if txt0 is not None:  # a copy: a view of the parameter would look like a leaf
+            txt = txt0[None].repeat(x.shape[0], 1, 1)
         for spec, blk in zip(self.specs, self.blocks):
             f = spec.f
             if f == -1:
@@ -321,14 +360,24 @@ class GraphModel(nn.Module):
                 inp = saved[f]
             else:
                 inp = [out if j == -1 else saved[j] for j in f]
-            remat = self.remat and self.training and spec is not self.specs[-1]
-            out = _checkpointed(blk, inp) if remat else blk(inp)
+            remat = self.remat and self.training and spec is not last
+            run = (lambda *a: _checkpointed(blk, *a)) if remat else blk
+            if spec is last and spec.name == "RTDETRDecoder" and batch_gt is not None:
+                out = blk(inp, batch_gt, cdn_draws)
+            elif spec.name == "C2fAttn":
+                out = run(inp, txt)
+            elif spec.name == "ImagePoolingAttn":
+                txt, out = run(inp, txt), inp
+            elif spec.name == "WorldDetect":
+                out = blk(inp, txt0)
+            else:
+                out = run(inp)
             if spec.i in self.save:
                 saved[spec.i] = out
         return out
 
 
-def _checkpointed(blk: nn.Module, inp):
+def _checkpointed(blk: nn.Module, *inp):
     """blk(inp) under activation checkpointing. The dropout generators of blk are
     rewound to their state at this call for the recomputation and put back after it,
     and the recomputation leaves the BN running statistics as they are."""
@@ -348,7 +397,7 @@ def _checkpointed(blk: nn.Module, inp):
             for g, st in zip(gens, now):
                 g.set_state(st)
 
-    return checkpoint(blk, inp, use_reentrant=False, preserve_rng_state=False,
+    return checkpoint(blk, *inp, use_reentrant=False, preserve_rng_state=False,
                       context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
@@ -383,7 +432,12 @@ def build_model(name: str | dict, nc: int | None = None, dtype=torch.float32,
         meta["nm"] = head.args[1] if len(head.args) > 1 else 32
     model = GraphModel(specs, save, act=meta.get("act", "silu"), dropout=dropout).eval()
     C.set_compute_dtype(model, dtype)
-    meta["strides"] = [] if head.name == "Classify" else infer_strides(model)
+    if head.name == "Classify":
+        meta["strides"] = []
+    elif head.name == "RTDETRDecoder":  # nominal: the decoder regresses normalized boxes
+        meta["strides"] = [8, 16, 32]
+    else:
+        meta["strides"] = infer_strides(model)
     return model, meta
 
 
@@ -403,7 +457,9 @@ def init_weights(model: GraphModel, meta: dict, generator: torch.Generator):
 
     Conv kernels: uniform(+-1/sqrt(fan_in)); Linear: normal(0, 1/sqrt(fan_in)); biases 0;
     BN: identity statistics; FullPAD gate 0; A2C2f gamma 0.01;
-    prototype_base: xavier uniform. Draws on the CPU from `generator`.
+    prototype_base: xavier uniform; LayerNorm: ones and zeros; Embed: normal(0,
+    1/sqrt(rows)); World text rows: normal(0, 0.02); RT-DETR: score-head biases -4.6 and the
+    deformable offsets' ring pattern. Draws on the CPU from `generator`.
     """
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -427,14 +483,36 @@ def init_weights(model: GraphModel, meta: dict, generator: torch.Generator):
             bound = (6.0 / (e + d)) ** 0.5
             mod.prototype_base.copy_(
                 torch.rand((e, d), generator=generator) * 2 * bound - bound)
+        elif isinstance(mod, T.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, T.Embed):
+            n = mod.embedding.shape[0]
+            mod.embedding.copy_(torch.randn(mod.embedding.shape, generator=generator) * n ** -0.5)
+        elif isinstance(mod, B.MaxSigmoidAttnBlock):
+            mod.bias.zero_()
+    for mod in model.modules():  # after the Linear init above
+        if isinstance(mod, T.RTDETRDecoder):
+            mod.reset_heads()
+        elif isinstance(mod, H.WorldDetect):
+            for i in range(mod.nl):
+                getattr(mod, f"cv4_{i}_bias").fill_(-10.0)
+                getattr(mod, f"cv4_{i}_logit_scale").fill_(-1.0 if mod.with_bn else
+                                                           math.log(1 / 0.07))
+    if getattr(model, "text_embeddings", None) is not None:
+        t = model.text_embeddings
+        t.copy_(torch.randn(t.shape, generator=generator) * 0.02)
     bias_init_head(model, meta)
 
 
 @torch.no_grad()
 def bias_init_head(model: GraphModel, meta: dict):
     """Box pred bias -> 1.0; cls pred bias -> log(5 / nc / (640 / stride)^2), in both branch
-    copies of a v10Detect (a Classify head has no strides and keeps its init)."""
+    copies of a v10Detect. As in the JAX package, a Classify, RT-DETR or World head keeps its
+    init."""
     head = model.blocks[meta["head_index"]]
+    if isinstance(head, (H.Classify, H.WorldDetect, T.RTDETRDecoder)):
+        return
     prefixes = ("", "o2o_") if isinstance(head, H.v10Detect) else ("",)
     for i, s in enumerate(meta["strides"]):
         for pre in prefixes:

@@ -6,6 +6,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype
+from sar_yolo_tpu_torch.nn.modules.transformer import RTDETRDecoder
 from sar_yolo_tpu_torch.utils import LOGGER
 
 
@@ -18,16 +19,26 @@ def check_bf16(model: torch.nn.Module, imgsz: int = 64) -> bool:
     The JAX check feeds a bf16 image to a model whose compute is already bf16; this
     one runs the same weights with float32 compute against bf16 compute. The model
     leaves with bf16 compute and its train/eval mode as it came.
+
+    An RT-DETR model's first output lists its queries in the order of their encoder
+    scores, which bf16 rounding reshuffles; it is compared with each box coordinate
+    sorted over the queries (the JAX check compares it query by query, and so finds
+    every RT-DETR model divergent).
     """
     device = next(model.parameters()).device
     x = torch.rand(1, 3, imgsz, imgsz, generator=torch.Generator().manual_seed(0)).to(device)
     training = model.training
     model.eval()
     try:
+        ordered = isinstance(model.blocks[-1], RTDETRDecoder)
+
+        def first(out):
+            leaf = tree_leaves(out)[0].float()
+            return leaf.sort(-2)[0] if ordered else leaf
         set_compute_dtype(model, torch.float32)
-        out32 = tree_leaves(model(x))[0].float()
+        out32 = first(model(x))
         set_compute_dtype(model, torch.bfloat16)
-        outbf = tree_leaves(model(x))[0].float()
+        outbf = first(model(x))
         rel = ((out32 - outbf).abs().mean() / (out32.abs().mean() + 1e-6)).item()
         return rel < 0.1
     except Exception as e:  # noqa: BLE001 — a failed check means f32 training

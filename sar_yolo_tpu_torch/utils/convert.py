@@ -7,8 +7,10 @@ The port names its submodules after the Flax scopes, so the map is mechanical:
     params/.../state_fc1/kernel               (in, out)       -> ....state_fc1.weight (out, in)
     params/blocks_9/linear/kernel (Classify)  (in, out)       -> blocks.9.linear.weight (out, in)
     params/.../bn/{scale, bias}                               -> ....bn.{weight, bias}
-    batch_stats/.../bn/{mean, var}                            -> ....bn.{running_mean, running_var}
-    params/.../{gate, gamma, prototype_base}                  -> unchanged
+    params/.../{norm1, enc_norm, query_ln, input_proj_bn_0, cv4_0_norm}/scale -> ....weight
+    batch_stats/.../<BatchNorm>/{mean, var}                   -> ....{running_mean, running_var}
+    params/.../{gate, gamma, prototype_base, embedding}       -> unchanged
+    params/text_embeddings, params/blocks_22/cv4_0_{bias, logit_scale} -> unchanged
 
 A transposed conv's kernel (Flax `ConvTranspose(transpose_kernel=True)`: the kernel of the
 conv it is the gradient of) takes the same transpose, with no spatial flip. A v10 head's
@@ -25,7 +27,9 @@ import re
 import numpy as np
 import torch
 
-_SCALARS = {"gate", "gamma", "prototype_base"}
+_SCALARS = {"gate", "gamma", "prototype_base", "embedding", "text_embeddings", "scale"}
+_NORM_SCOPE = re.compile(r"(^bn$|norm\d*$|_ln$|_bn_\d+$)")  # BatchNorm / LayerNorm scopes
+_HEAD_SCALAR = re.compile(r"^cv4_\d+_(bias|logit_scale)$")    # WorldDetect's contrastive heads
 
 
 def _flatten(tree, prefix=()):
@@ -56,16 +60,16 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
             name, arr = "weight", arr.T
         elif leaf == "bias":
             name = "bias"
-        elif leaf == "scale" and scope and scope[-1] == "bn":
+        elif leaf == "scale" and scope and _NORM_SCOPE.search(scope[-1]):
             name = "weight"
-        elif leaf in _SCALARS:
+        elif leaf in _SCALARS or _HEAD_SCALAR.match(leaf):
             name = leaf
         else:
             raise KeyError(f"from_jax_variables: no rule for params/{'/'.join(path)}")
         out[f"{mod}.{name}" if mod else name] = torch.tensor(arr)
     for path, val in _flatten(variables.get("batch_stats", {})):
         *scope, leaf = path
-        if leaf not in ("mean", "var") or not scope or scope[-1] != "bn":
+        if leaf not in ("mean", "var") or not scope or not _NORM_SCOPE.search(scope[-1]):
             raise KeyError(f"from_jax_variables: no rule for batch_stats/{'/'.join(path)}")
         mod = _module_path(tuple(scope))
         out[f"{mod}.running_{leaf}"] = torch.tensor(np.asarray(val, dtype=np.float32))

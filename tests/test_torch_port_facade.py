@@ -4,9 +4,8 @@ inference of the PyTorch port against the JAX package.
 (a) each of the 67 model YAML files under `sar_yolo_tpu_torch/cfg/models/` is a copy of
 the JAX package's and loads equal to JAX's `yaml_model_load` of the original, from an
 absolute path, a relative path and by name; a path whose stem carries a scale letter
-builds as in JAX; the fork's configs that load by name build with JAX's parameter
-count; a config with a module the port does not have raises NotImplementedError
-naming it;
+builds as in JAX; the fork's configs, RT-DETR's and YOLO-World's that load by name
+build with JAX's parameter count (an RT-DETR graph counted through its denoising path);
 (b) `YOLO.train` runs each of the ten trainer events as often and at the same epochs as
 JAX's trainer does (tinyjde, 2 epochs, synthetic data);
 (c) `YOLO(model, task=...)`, `save` / `load` / `reset_weights` / `fuse` round trips,
@@ -88,26 +87,24 @@ def test_yaml_path_with_a_scale_letter_builds_as_jax(tmp_path):
 @pytest.mark.parametrize("name", ["yolov13n-JDE_CBAM.yaml", "yolov13n-P24_CBAM_JDE.yaml",
                                   "yolo11n-JDE_CBAM.yaml", "yolo11n-P24_CBAM_JDE.yaml",
                                   "yolo11n-P24_JDE.yaml", "yolov13n.yaml", "yolov8n-p2.yaml",
-                                  "yolo_nas.yaml"])
+                                  "yolo_nas.yaml", "rtdetr-resnet50.yaml", "rtdetr-x.yaml",
+                                  "tinyworld.yaml", "yolov8s-world.yaml", "rtdetr-l.yaml",
+                                  "yolov8n-rtdetr.yaml"])
 def test_named_config_builds_with_jax_parameter_count(name):
     model, meta = build_model(name)
     jmodel, jmeta = jax_build_model(name)
-    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(_jax_variables(jmodel)["params"]))
+    if jmeta.get("head") == "RTDETRDecoder":  # denoising_class_embed exists on that path only
+        gt = {"cls": jnp.zeros((1, 4), jnp.int32), "bboxes": jnp.full((1, 4, 4), 0.5),
+              "mask": jnp.zeros((1, 4))}
+        key = jax.random.PRNGKey(0)
+        params = jax.eval_shape(lambda: jmodel.init({"params": key, "dropout": key, "dn": key},
+                                                    jnp.zeros((1, 64, 64, 3)), train=True,
+                                                    batch_gt=gt))["params"]
+    else:
+        params = _jax_variables(jmodel)["params"]
+    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(params))
     assert sum(p.numel() for p in model.parameters()) == n_jax
     assert (meta["task"], meta["scale"], meta["nl"]) == (jmeta["task"], jmeta["scale"], jmeta["nl"])
-
-
-@pytest.mark.parametrize("name, module", [("rtdetr-resnet50.yaml", "AIFI"),
-                                          ("rtdetr-x.yaml", "AIFI"),
-                                          ("tinyworld.yaml", "C2fAttn"),
-                                          ("yolov8s-world.yaml", "C2fAttn"),
-                                          ("rtdetr-l.yaml", "AIFI"),
-                                          ("yolov8n-rtdetr.yaml", "RTDETRDecoder")])
-def test_unported_module_raises_not_implemented(name, module):
-    with pytest.raises(NotImplementedError, match=f"'{module}'"):
-        build_model(name)
-    with pytest.raises(NotImplementedError, match="not part of this port"):
-        YOLO(name, device="cpu")
 
 
 # ---- (b) the trainer's callback bus ----------------------------------------------------------
