@@ -221,8 +221,38 @@ Phases, in order; any failure exits non-zero:
      heads) at batch 8; the yolov8s-world train step @640 b16, float32 and amp; a grounding
      dataset (8 PNG frames, one COCO-style json of captions and spans) through
      `GroundingDataset` and the loader into one World forward.
- 20. a JSON line of the kernels (launches by dtype; the bf16 numbers of the amp train
-     step's forward; phases 16-19's paths at 0), the card line, and the result line.
+ 20. int8 serving, data parallelism and sharded serving. The int8 convolution
+     (`csrc/int8_conv.cu`) is built and ptxas's registers and spills printed (a spill
+     fails); at every quantized convolution of one int8 forward of yolov13n-JDE and of
+     yolov13l-JDE at 640, batch 8, its int32 sums must equal the plain version's (a float64
+     convolution of the int8 values) and its float32 epilogue lie within 1e-6 relative of
+     the plain one (bf16 within its rounding); times by CUDA-graph replay of 20 launches:
+     the kernel, the plain version, `torch._int_mm` on the unfolded matrices without and
+     with the unfold, cuDNN's bf16 convolution of the same shape, and the bound (bytes over
+     3.35 TB/s or 2 M N K over 1979 TOP/s). yolov13n-JDE served with `int8=True` at batch 1
+     and 8 and yolov13l-JDE with `int8='auto'` at 8 (seeded, perturbed weights): one int8
+     launch a quantized conv and one area-attention launch an AAttn a forward, the head maps
+     and rows equal to the plain int8 path's, each path's distance from the float32 fused
+     model, img/s int8 and float32 in turns. The yolov13n-JDE train step @640, global batch
+     16 (float32, cuDNN deterministic): on one NCCL rank under DDP, equal to the plain step
+     tensor for tensor (loss items, gradients, BN statistics, the state and EMA after the
+     update), 8 area-attention launches counted in that step; on two gloo ranks on cuda:0
+     (8 images each, spawned), the two replicas equal to each other, 8 area-attention
+     launches a rank. The same two-rank step in float64, loss included, against the plain
+     step in float64: each gradient and each tensor after the update within 1e-6 of its own
+     largest magnitude (or 1e-15 of the model's largest, for the gradients that a later
+     train-mode BN makes zero): the algorithm. In float32, `_train_ab`'s limits over the
+     spread of the plain path's own noise samples (its rerun, its attention rounded from
+     float64, its distance from float64, the batch in other orders, each half against
+     float64): the step's loss items and its gradient's L2 distance, and, on a probe loss
+     with no discrete decision in it (`probe_functional`: a seeded linear functional of the
+     global head outputs), the L2 distance and each gradient; step ms, the bytes a rank
+     gathers for the loss and the forward collectives' share. `predict_batched(mesh_shape=
+     [1])` equal to the unsharded call; a mesh of more devices than the card has raises
+     ValueError.
+ 21. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+     the amp train step's forward, phases 16-19's paths at 0; the int8 convolution: one
+     int8 forward of yolov13n-JDE at 640, batch 8), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -4125,6 +4155,498 @@ def phase_rtdetr_world(card: str) -> dict:
             "grounding loader": 0}
 
 
+# ---- phase 20: int8 serving, data parallelism, sharded serving -------------------------------
+
+INT8_IMGSZ = 640
+INT8_SERVE = (("yolov13n-JDE.yaml", True, (1, 8)), ("yolov13l-JDE.yaml", "auto", (8,)))
+INT8_BATCH = 8            # the batch of the kernel's shapes and of the kernels line
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
+MAPS_INT8_TOL = 1e-6      # the kernel path's head maps against the plain int8 path, of their max
+FLOAT64_DDP_TOL = 1e-6    # the float64 2-rank step against the float64 plain step, of each
+                          # tensor's largest magnitude (a wrong gradient: O(1))
+PROBE_SEED = 7            # the probe loss's normal weights (`probe_functional`)
+FLOAT64_ZERO = 1e-9       # a float64 gradient under this much of the model's largest is a zero
+                          # that rounding left
+
+
+def phase_int8_build():
+    """Build the int8 convolution; print ptxas's registers and spills (a spill fails)."""
+    import re
+
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
+    t0 = time.perf_counter()
+    path, log = ic.build()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in log.splitlines():
+        if m := re.search(r"int8_conv_kernelI(\w+?)Lb(\d)E", line):
+            entry = f"{ {'i': 'int32 sums', 'f': 'float32', '13__nv_bfloat16': 'bfloat16'}.get(m.group(1), m.group(1))}"
+        if "registers" in line or "spill" in line:
+            print(f"  int8_conv {entry}: {line.strip().removeprefix('ptxas info    : ')}")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    check(spills and max(spills) == 0, f"register spills in the int8 build: {spills}")
+
+
+@contextlib.contextmanager
+def _int8_calls(calls: list):
+    """While active, each int8_conv call appends its (xq, wq, sx, sw, bias, stride, padding,
+    dilation, dtype) to `calls` and runs."""
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
+    launch = ic.int8_conv
+
+    def record(*args):
+        calls.append(args)
+        return launch(*args)
+    ic.int8_conv = record
+    try:
+        yield calls
+    finally:
+        ic.int8_conv = launch
+
+
+@contextlib.contextmanager
+def _plain_int8():
+    """While active, int8_conv runs its plain version on CUDA tensors too (the comparison's
+    launches, not counted)."""
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
+    launch = ic.int8_conv
+    ic.int8_conv = ic.int8_conv_plain
+    try:
+        yield
+    finally:
+        ic.int8_conv = launch
+
+
+def _unfold_int8(xq, kh: int, stride: int, pad: int, dil: int, k_pad: int):
+    """The im2col matrix (M, K) of NHWC int8 xq, K zero-padded to k_pad (torch._int_mm's
+    operand)."""
+    import torch
+    from torch.nn import functional as F
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    B, H, W, C = xp.shape
+    ho, wo = (H - dil * (kh - 1) - 1) // stride + 1, (W - dil * (kh - 1) - 1) // stride + 1
+    sb, sh, sw, sc = xp.stride()
+    cols = xp.as_strided((B, ho, wo, kh, kh, C), (sb, stride * sh, stride * sw, dil * sh,
+                                                  dil * sw, sc)).reshape(B * ho * wo, -1)
+    return F.pad(cols, (0, k_pad - cols.shape[1])) if k_pad > cols.shape[1] else cols
+
+
+def _int8_shape_rows(calls: list, label: str) -> list:
+    """Every call of one forward at its shape: the kernel's int32 sums against the plain
+    version's (equal), its float32 and bf16 epilogue against the plain version's, and times
+    (CUDA-graph replay of 20 launches, each distinct shape once): the kernel, the plain
+    version, torch._int_mm on the unfolded matrices without and with the unfold, cuDNN's
+    bf16 convolution of the same shape; the bound."""
+    import torch
+    from torch.nn import functional as F
+
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
+    rows, seen = [], {}
+    for xq, wq, sx, sw, bias, stride, pad, dil, dtype in calls:
+        key = (tuple(xq.shape), tuple(wq.shape), stride, pad, dil)
+        if key in seen:
+            rows.append(seen[key])
+            continue
+        sums = ic.int8_conv_sums(xq, wq, stride, pad, dil)
+        ref = ic.conv_sums_plain(xq, wq, stride, pad, dil)
+        check(torch.equal(sums.double(), ref), f"{label} {key}: int32 sums differ from the plain "
+              f"version's by {(sums.double() - ref).abs().max().item()}")
+        errs, abs_err = {}, 0.0
+        for dt in (torch.float32, torch.bfloat16):
+            y = ic.int8_conv(xq, wq, sx, sw, bias, stride, pad, dil, dt).float()
+            want = ic.rescale(ref, sx, sw, bias, dt).float()
+            errs[str(dt).removeprefix("torch.")] = ((y - want).abs().max() /
+                                                     want.abs().max()).item()
+            abs_err = max(abs_err, (y - want).abs().max().item())
+        check(errs["float32"] <= 1e-6 and errs["bfloat16"] <= 2 ** -8,
+              f"{label} {key}: epilogue off the plain version's by {errs}")
+        B, H, W, C = xq.shape
+        N, kh, kw, _ = wq.shape
+        ho, wo = sums.shape[2:]
+        M, K = B * ho * wo, kh * kw * C
+        k8, n8 = -(-K // 16) * 16, -(-N // 8) * 8
+        wmat = F.pad(wq.reshape(N, K), (0, k8 - K, 0, n8 - N)).t()  # (K, N) column-major
+        cols = _unfold_int8(xq, kh, stride, pad, dil, k8)
+        xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+        times = {
+            "kernel_ms": device_ms(lambda: ic.int8_conv(xq, wq, sx, sw, bias, stride, pad, dil,
+                                                        dtype), reps=3),
+            "plain_ms": device_ms(lambda: ic.int8_conv_plain(xq, wq, sx, sw, bias, stride, pad,
+                                                             dil, dtype), reps=3),
+            "int_mm_ms": device_ms(lambda: torch._int_mm(cols, wmat), reps=3),
+            "int_mm_with_unfold_ms": device_ms(lambda: torch._int_mm(
+                _unfold_int8(xq, kh, stride, pad, dil, k8), wmat), reps=3),
+            "cudnn_bf16_ms": device_ms(lambda: F.conv2d(xb, wb, None, stride, pad, dil), reps=3)}
+        nbytes = xq.numel() + wq.numel() + M * N * torch.empty((), dtype=dtype).element_size() \
+            + 4 * (B + 2 * N)
+        t_ops, t_bytes = 2 * M * N * K / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"x": list(key[0]), "w": list(key[1]), "stride": stride, "pad": pad,
+               "dil": dil, "M": M, "N": N, "K": K, "epilogue_rel_err": errs,
+               "epilogue_abs_err": abs_err, **times,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        seen[key] = row
+        rows.append(row)
+        print(json.dumps({"int8_conv_shape": label, **row}))
+    return rows
+
+
+def _maps_distance(a, b) -> float:
+    """max |a - b| over the head maps, over max |b|."""
+    from torch.utils._pytree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return max((x.double() - y.double()).abs().max().item() for x, y in zip(la, lb)) / \
+        max(y.double().abs().max().item() for y in lb)
+
+
+def phase_int8_serve(name: str, req, batches, card: str, seed: int = 0) -> dict:
+    """int8 serving through `predict_batched`: the launches a forward (one a quantized conv,
+    8 of the area-attention kernel), the kernel path against the plain int8 path (head maps;
+    rows at phase 4's `_ab_conf` threshold, equal), each path's distance from the float32
+    fused model, img/s int8 and float32 in turns; the kernel's shapes at the largest batch."""
+    import torch
+
+    from sar_yolo_tpu_torch.nn.modules.block import AAttn
+    from sar_yolo_tpu_torch.nn.modules.conv import Int8Conv2d
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    torch.backends.cudnn.deterministic = True
+    yolo = _perturbed_yolo(name, seed, INT8_IMGSZ)
+    frames = np.random.default_rng(seed).integers(0, 256, (max(batches), 720, 1280, 3), np.uint8)
+    kw = dict(imgsz=INT8_IMGSZ, int8=req)
+    pred = yolo._get_predictor(dict(kw))
+    check(pred.args.int8 is True and pred.model.quant == "int8",
+          f"{name}: int8={req!r} did not quantize (scale {yolo.meta['scale']})")
+    n_q = sum(isinstance(m, Int8Conv2d) for m in pred.model.modules())
+    # one area-attention launch an AAttn a forward (8 at scale n, 16 at l)
+    n_attn = sum(isinstance(m, AAttn) for m in pred.model.modules()) if LAUNCHES_PER_FORWARD else 0
+    x, _, _ = pred.preprocess(frames)
+    with torch.no_grad():
+        maps_k = pred.model(x)
+        with _plain_int8():
+            maps_p = pred.model(x)
+        maps_f = yolo._fused_for_serving()(x)
+        preds, _ = pred.decode(maps_k)
+    nc = yolo.meta["nc"]
+    conf = _ab_conf(preds[..., 4:4 + nc].amax(-1).double().cpu().numpy(), 300)[0]
+    out = {"int8_serve": name, "int8": req, "scale": yolo.meta["scale"], "imgsz": INT8_IMGSZ,
+           "quantized_convs": n_q, "conf": conf,
+           "maps_kernel_vs_plain_int8": _maps_distance(maps_k, maps_p),
+           "maps_kernel_vs_f32": _maps_distance(maps_k, maps_f),
+           "maps_plain_int8_vs_f32": _maps_distance(maps_p, maps_f)}
+    check(out["maps_kernel_vs_plain_int8"] <= MAPS_INT8_TOL,
+          f"{name}: int8 kernel path's maps {out['maps_kernel_vs_plain_int8']} off the plain's")
+    launches = {}
+    for b in batches:
+        yolo.predict_batched(frames[:b], conf=conf, **kw)  # warm
+        ic.reset_launches()
+        flash_area_attention.launches = 0
+        got = yolo.predict_batched(frames[:b], conf=conf, **kw)
+        launches[b] = (ic.int8_conv.launches, flash_area_attention.launches)
+        want_launches = (n_q if x.is_cuda else 0, n_attn)  # the CPU: the plain versions
+        check(launches[b] == want_launches, f"{name} b{b}: (int8, attention) launches "
+              f"{launches[b]}, expected {want_launches}")
+        with _plain_int8():
+            want = yolo.predict_batched(frames[:b], conf=conf, **kw)
+        check(np.array_equal(got, want), f"{name} b{b}: the int8 kernel path's rows differ from "
+              f"the plain int8 path's by {np.abs(got - want).max()}")
+        out[f"kept_per_frame_b{b}"] = (got[..., 4] > 0).sum(1).tolist()
+        rates = _rates(lambda: _img_per_s(yolo, frames[:b], dict(imgsz=INT8_IMGSZ, conf=conf)),
+                       lambda: _img_per_s(yolo, frames[:b], dict(conf=conf, **kw)))
+        out[f"img_per_s_b{b}"] = {"float32": rates["f32"], "int8": rates["bf16"],
+                                  "float32_runs": rates["f32_runs"], "int8_runs": rates["bf16_runs"]}
+    out["launches_int8_attention"] = {f"b{b}": v for b, v in launches.items()}
+    calls = []
+    with _int8_calls(calls), torch.no_grad():
+        pred.model(pred.preprocess(frames[:INT8_BATCH])[0])
+    check(len(calls) == n_q, f"{name}: {len(calls)} int8 calls in a forward, expected {n_q}")
+    shape_rows = _int8_shape_rows(calls, f"{name}@{INT8_IMGSZ} b{INT8_BATCH}")
+    print(json.dumps(out))
+    return {"rows": shape_rows, "launches": launches}
+
+
+def _ddp_step(tr, batch) -> tuple:
+    """One step through the trainer's data-parallel path: (loss items, gradients, state after
+    the update incl. the EMA)."""
+    b = tr.to_device(batch)
+    total, items, cb = tr.loss(*tr.gather_global(tr.forward(b), b))
+    total.backward()
+    grads = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+    tr.update(cb)
+    state = {**{k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+             **{f"ema.{n}": e.clone() for (n, _), e in zip(tr.model.named_parameters(), tr.ema)},
+             "cb_counts": tr.cb_counts.clone()}
+    return items.detach(), grads, state
+
+
+def phase_ddp(card: str, seed: int = 0, device: str = "cuda:0") -> dict:
+    """The yolov13n-JDE @640 train step with global batch 16 under data parallelism: one NCCL
+    rank against the plain step (tensor for tensor, its launches counted), two gloo ranks
+    on cuda:0 (8 images each) against the plain step: in float64 tensor by tensor, in
+    float32 within `_train_ab`'s limits over the plain path's own noise (the step's items
+    and gradient L2, the probe loss's gradients tensor by tensor); step times, the bytes
+    gathered for the loss and the share of the model's forward collectives."""
+    import torch
+
+    from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer, probe_functional, train_steps
+    from sar_yolo_tpu_torch.nn.modules.conv import Dropout
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    from sar_yolo_tpu_torch.parallel import mesh
+    torch.backends.cudnn.deterministic = True
+    ab = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
+              seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0, amp=False,
+              val=False, save=False, project="runs/chip_smoke_ddp")
+    mesh.init_distributed(device, None, f"tcp://127.0.0.1:{mesh.free_port()}", 0, 1)
+    # the plain step's own float32 noise, none of it from the tested path: the step on the
+    # batch's images in other orders (the same sums in another order, as two ranks take
+    # them; rounding near a tie of the assigner or the miner decides another way), and the
+    # step on each half of the batch (a rank's shapes) in float32 against float64
+    B = TRAIN_BATCH
+    orders = {"reversed": lambda v: v[::-1].copy(),
+              **{f"rolled_{k}": (lambda v, k=k: np.roll(v, k, 0)) for k in (B // 4, B // 2)}}
+    halves = {"share_a": lambda v: v[:B // 2], "share_b": lambda v: v[B // 2:]}
+    half = {"batch": B // 2, "nbs": B // 2}
+    trainers = {}
+    for label, extra in (("plain", {}), ("rerun", {}), ("rounded", {}), ("f64", {}),
+                         *((k, {}) for k in orders),
+                         *((k + s, half) for k in halves for s in ("", "64")),
+                         ("ddp", {"mesh_shape": [1]})):
+        tr = trainers[label] = JDETrainer({**ab, **extra}, device=device)
+        tr.setup()
+        for m in tr.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    # _train_ab's plain C (the attention rounded from float64) and the plain step in float64:
+    # each float32 result's distance from it is float32's floor
+    _set_flash(trainers["rounded"], False)
+    for k in ("f64", *(h + "64" for h in halves)):
+        _set_flash(trainers[k], False)
+        trainers[k].model.double()
+        trainers[k].ema = [e.double() for e in trainers[k].ema]
+    check(trainers["ddp"].ddp is not None and trainers["plain"].ddp is None,
+          "the mesh_shape=[1] trainer is not wrapped in DDP")
+    start = {k: v.detach().cpu().clone() for k, v in trainers["plain"].model.state_dict().items()}
+    trainers["plain"].train_loader.set_epoch(0)
+    batch = next(iter(trainers["plain"].train_loader))
+
+    def rows(pick):
+        return {k: pick(v) if isinstance(v, np.ndarray) and len(v) == B else v
+                for k, v in batch.items()}
+    inputs = {**{k: rows(f) for k, f in orders.items()},
+              **{k + s: rows(f) for k, f in halves.items() for s in ("", "64")}}
+    res = {}
+    for k, tr in trainers.items():
+        flash_area_attention.launches = 0
+        with _RoundedAttention() if k == "rounded" else contextlib.nullcontext():
+            res[k] = _ddp_step(tr, inputs.get(k, batch))
+        if k == "ddp":
+            ddp1_launches = flash_area_attention.launches
+    check(ddp1_launches == LAUNCHES_PER_FORWARD,
+          f"the 1-rank NCCL DDP step made {ddp1_launches} area-attention launches, expected "
+          f"{LAUNCHES_PER_FORWARD}")
+    (ia, ga, sa), (ib, gb, sb), (idd, gd, sd) = res["plain"], res["rerun"], res["ddp"]
+    (ic, gc, sc), (i64, g64, s64) = res["rounded"], res["f64"]
+    # each noise sample: (items or None, gradients and state against the plain step's)
+    noise = {"rerun": (ib, gb, sb, ga, sa), "rounded_attention": (ic, gc, sc, ga, sa),
+             "float64": (i64, g64, s64, ga, sa),
+             **{k: (*res[k], ga, sa) for k in orders},
+             **{k: (None, res[k][1], res[k][2], res[k + "64"][1], res[k + "64"][2])
+                for k in halves}}
+
+    def worst(x, y):
+        return max((x[k].double() - y[k].double()).abs().max().item() for k in y)
+
+    one = {"items_equal": bool(torch.equal(idd, ia)), "grads_max_diff": worst(gd, ga),
+           "state_max_diff": worst(sd, sa), "rerun_grads_max_diff": worst(gb, ga),
+           "rerun_state_max_diff": worst(sb, sa)}
+    check(torch.equal(ib, ia) or one["rerun_grads_max_diff"] > 0, "plain rerun inconsistent")
+    check(torch.equal(idd, ia) and one["grads_max_diff"] <= one["rerun_grads_max_diff"]
+          and one["state_max_diff"] <= one["rerun_state_max_diff"],
+          f"the 1-rank NCCL DDP step differs from the plain step: {one}")
+    t_plain = _timed_steps(trainers["plain"], batch, n=3, warmup=1)["step_ms"]
+    t_ddp1 = _timed_steps(trainers["ddp"], batch, n=3, warmup=1)["step_ms"]
+    # the probe's gradients at the start weights: the plain step, its rerun, its attention
+    # rounded from float64, float64, and the batch in other orders (r in the same order)
+    probe = {}
+    for k in ("plain", "rerun", "rounded", "f64", *orders):
+        tr = trainers[k]
+        tr.model.load_state_dict(start)
+        tr.model.zero_grad(set_to_none=True)
+        b = tr.to_device(inputs.get(k, batch))
+        idx = torch.from_numpy(orders[k](np.arange(B))).to(device) if k in orders else None
+        with _RoundedAttention() if k == "rounded" else contextlib.nullcontext():
+            probe_functional(tr.forward(b), PROBE_SEED, idx).backward()
+        probe[k] = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+    del trainers
+    mesh.destroy()
+    torch.cuda.empty_cache()
+    two = mesh.spawn(train_steps, (JDETrainer, {**ab, "mesh_shape": [2]}, [batch], start, 3),
+                     devices=[device, device], backend="gloo")
+    two_probe = mesh.spawn(train_steps, (JDETrainer, {**ab, "mesh_shape": [2]}, [batch], start,
+                                         0, False, PROBE_SEED), devices=[device, device],
+                           backend="gloo")["grads"][0]
+    check(two["rank_spread"] == 0.0, f"the two ranks' replicas differ by {two['rank_spread']}")
+    # the algorithm without float32's rounding: two ranks in float64 (the loss too) against
+    # the plain step in float64, each gradient and each tensor after the update within
+    # FLOAT64_DDP_TOL of its own largest magnitude, or of FLOAT64_ZERO of the model's largest
+    # gradient or update (a gradient that is zero but for rounding: BN biases whose shift a
+    # later train-mode BN removes)
+    two64 = mesh.spawn(train_steps, (JDETrainer, {**ab, "mesh_shape": [2]}, [batch], start, 0,
+                                     True), devices=[device, device], backend="gloo")
+
+    def dist(x, y):
+        return (x.double().cpu() - y.double().cpu()).abs().max().item()
+    g64_max = max(g.abs().max().item() for g in g64.values())
+    step64_max = max(dist(s64[n], start[n]) for n in g64)
+    exact = [(f"grad {n}", dist(two64["grads"][0][n], g), g.abs().max().item(), g64_max)
+             for n, g in g64.items()]
+    exact += [(k, dist(two64["state"][k], v), v.abs().max().item(), step64_max)
+              for k, v in s64.items() if k in two64["state"] and v.is_floating_point()]
+    exact_rows = sorted((d / max(own, FLOAT64_ZERO * top) / FLOAT64_DDP_TOL, k, d, own / top)
+                        for k, d, own, top in exact)
+    check(two["launches_by_rank"] == [[LAUNCHES_PER_FORWARD]] * 2,
+          f"area-attention launches a step by rank {two['launches_by_rank']}")
+    # float32, the train step: in this model at its start the float32 rounding of any path
+    # moves near-ties of the assigner and the miner, and the gradient with them (the plain
+    # step lies ~1% from its float64 step, relative L2), so the step is held by its loss
+    # items and its gradient's L2 distance, against the spread of the plain step's own noise
+    # samples (its rerun, its attention rounded from float64, its distance from the float64
+    # step, the other orders, each half against float64), or 1e-5 of the items; each
+    # gradient is held on the probe below, which has no such decision
+    a_items = ia.cpu().numpy()
+    spread = np.max([np.abs(t.double().cpu().numpy() - a_items)
+                     for t, *_ in noise.values() if t is not None], 0)
+    scale = np.abs(a_items)
+    scale[3] = max(scale[3], DEFAULT_CFG["clr"])  # the triplet item: its gain's scale
+    item_ratio = (np.abs(two["items"][0].numpy() - a_items) /
+                  np.maximum(2 * spread, 1e-5 * scale)).max()
+
+    def flat(g):
+        return torch.cat([g[n].double().cpu().flatten() for n in ga])
+
+    def rel_l2(g, ref):
+        return (flat(g) - flat(ref)).norm().item() / flat(ref).norm().item()
+    g2, g2_64 = two["grads"][0], two64["grads"][0]
+    l2 = {k: rel_l2(g, ref) for k, (_, g, _, ref, _) in noise.items()}
+    l2_ratio = rel_l2(g2, ga) / max(2 * max(l2.values()), 1e-30)
+    l2["two_ranks"] = rel_l2(g2, ga)
+    l2["two_ranks_vs_its_float64"] = rel_l2(g2, g2_64)  # reported, in no limit
+    # the train step's gradients, tensor by tensor, against the same samples (reported only)
+    g_max = max(g.abs().max().item() for g in ga.values())
+    step_terms = {n: {k: dist(g[n], ref[n]) for k, (_, g, _, ref, _) in noise.items()}
+                  for n in ga}
+    step_rows = sorted((dist(g2[n], g) / max(4 * max(step_terms[n].values()),
+                                             1e-4 * g.abs().max().item(), 1e-6 * g_max), n)
+                       for n, g in ga.items())
+    # float32, the probe: each gradient within _train_ab's limits over the spread of the
+    # plain probe's rerun, its attention rounded from float64, its distance from float64 and
+    # the other orders, or 1e-4 of its largest magnitude, 1e-6 of the model's largest
+    pa = probe["plain"]
+    p_max = max(g.abs().max().item() for g in pa.values())
+    probe_terms = {n: {k: dist(probe[k][n], pa[n]) for k in probe if k != "plain"} for n in pa}
+    grad_rows = sorted((dist(two_probe[n], g) / max(4 * max(probe_terms[n].values()),
+                                                    1e-4 * g.abs().max().item(), 1e-6 * p_max),
+                        n) for n, g in pa.items())
+    probe_l2 = {k: rel_l2(probe[k], pa) for k in probe if k != "plain"}
+    probe_l2_ratio = rel_l2(two_probe, pa) / max(2 * max(probe_l2.values()), 1e-30)
+    probe_l2["two_ranks"] = rel_l2(two_probe, pa)
+    out = {"ddp_1rank_nccl": one, "plain_step_ms": t_plain, "ddp_1rank_step_ms": t_ddp1,
+           "ddp_2rank_gloo": {"items": two["items"][0].tolist(), "items_plain": ia.tolist(),
+                              "items_rounding_spread": spread.tolist(),
+                              "items_err_over_limit": float(item_ratio),
+                              "float64_two_ranks_vs_plain_worst": [
+                                  {"name": k, "err_over_limit": r, "max_abs_diff": d,
+                                   "own_max_over_model_max": o}
+                                  for r, k, d, o in exact_rows[-5:]],
+                              "float64_under_zero_floor": sum(o < FLOAT64_ZERO
+                                                              for _, _, _, o in exact_rows),
+                              "grad_rel_l2": l2, "grad_l2_over_limit": l2_ratio,
+                              "step_grad_worst_reported": [
+                                  {"param": n, "err_over_4x_spread": r,
+                                   "err": dist(g2[n], ga[n]), **step_terms[n],
+                                   "two_ranks_vs_its_float64": dist(g2[n], g2_64[n])}
+                                  for r, n in step_rows[-3:]],
+                              "probe_grad_rel_l2": probe_l2,
+                              "probe_grad_l2_over_limit": probe_l2_ratio,
+                              "probe_grad_worst": [{"param": n, "err_over_limit": r,
+                                                    "err": dist(two_probe[n], pa[n]),
+                                                    **probe_terms[n]}
+                                                   for r, n in grad_rows[-3:]],
+                              "launches_by_rank": two["launches_by_rank"],
+                              "step_ms": two["step_ms"],
+                              "collective_forward_ms": two["collective_ms"],
+                              "collective_forward_share": statistics.median(two["collective_ms"]) /
+                              statistics.median(two["step_ms"]),
+                              "gathered_bytes_per_rank": two["gathered_bytes"]}}
+    print(json.dumps(out))
+    check(exact_rows[-1][0] <= 1, f"the float64 2-rank step's {exact_rows[-1][1]} off the "
+          f"float64 plain step's by {exact_rows[-1][0]:.3g}x the limit")
+    check(item_ratio <= 1, f"2-rank step's loss items off by {item_ratio:.3g}x the limit")
+    check(l2_ratio <= 1, f"2-rank step's gradient {l2['two_ranks']:.3g} from the plain one's "
+          f"(L2, relative), over twice the spread {l2}")
+    check(probe_l2_ratio <= 1, f"2-rank probe gradient {probe_l2['two_ranks']:.3g} from the "
+          f"plain one's (L2, relative), over twice the spread {probe_l2}")
+    check(grad_rows[-1][0] <= 1, f"2-rank probe's gradient of {grad_rows[-1][1]} off by "
+          f"{grad_rows[-1][0]:.3g}x the limit")
+    return {f"DDP train step yolov13n-JDE@{TRAIN_IMGSZ} b{TRAIN_BATCH}, 1 NCCL rank":
+            ddp1_launches, f"DDP train step, 2 gloo ranks on cuda:0 (each rank)":
+            two["launches_by_rank"][0][0]}
+
+
+def phase_sharded_serve(seed: int = 0):
+    """`predict_batched(mesh_shape=[1])` equals the unsharded call; a mesh of more devices
+    than the machine has raises ValueError."""
+    import torch
+    yolo = _perturbed_yolo("yolov13n-JDE.yaml", seed, INT8_IMGSZ)
+    frames = np.random.default_rng(seed).integers(0, 256, (INT8_BATCH, 720, 1280, 3), np.uint8)
+    kw = dict(imgsz=INT8_IMGSZ, conf=0.01)
+    one = yolo.predict_batched(frames, **kw)
+    check(np.array_equal(yolo.predict_batched(frames, mesh_shape=[1], **kw), one),
+          "predict_batched(mesh_shape=[1]) differs from the unsharded call")
+    n = torch.cuda.device_count()
+    raised = False
+    try:
+        yolo.predict_batched(frames, mesh_shape=[n + 1], **kw)
+    except ValueError:
+        raised = True
+    check(raised, f"mesh_shape=[{n + 1}] on {n} device(s) did not raise ValueError")
+    print(json.dumps({"sharded_serve": "yolov13n-JDE", "mesh_1_equal": True,
+                      f"mesh_{n + 1}_raises": True}))
+
+
+def phase_int8_ddp(card: str) -> tuple:
+    """Phase 20: the int8 kernel's build, its shapes and int8 serving; data-parallel training;
+    sharded serving. Returns (the int8 kernel's per-forward numbers, the launches by path)."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import reset_launches
+    laps, t = {}, time.perf_counter()
+    phase_int8_build()
+    serve = {name: phase_int8_serve(name, req, batches, card) for name, req, batches in INT8_SERVE}
+    laps["int8"], t = time.perf_counter() - t, time.perf_counter()
+    reset_launches()
+    paths = phase_ddp(card)
+    laps["ddp"], t = time.perf_counter() - t, time.perf_counter()
+    phase_sharded_serve()
+    laps["sharded_serve"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    rows = serve["yolov13n-JDE.yaml"]["rows"]
+    per_forward = {k: sum(r[k] for r in rows) for k in
+                   ("kernel_ms", "plain_ms", "int_mm_ms", "int_mm_with_unfold_ms",
+                    "cudnn_bf16_ms", "bound_ms")}
+    per_forward["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    per_forward["max_rel_err"] = max(r["epilogue_rel_err"]["float32"] for r in rows)
+    per_forward["max_abs_err"] = max(r["epilogue_abs_err"] for r in rows)
+    print(json.dumps({"phase_int8_ddp_s": laps, "int8_per_forward": per_forward}))
+    for name, req, batches in INT8_SERVE:
+        for b, (n_int8, n_attn) in serve[name]["launches"].items():
+            paths[f"serve int8={req} {name.removesuffix('.yaml')}@{INT8_IMGSZ} b{b} "
+                  "(area attention)"] = n_attn
+    n_launches = serve["yolov13n-JDE.yaml"]["launches"][INT8_BATCH][0]
+    return per_forward, n_launches, paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4187,6 +4709,8 @@ def main() -> int:
     lap("obb_cls")
     rtdetr_world_launches = phase_rtdetr_world(card)
     lap("rtdetr_world")
+    int8_row, int8_launches, int8_ddp_launches = phase_int8_ddp(card)
+    lap("int8_ddp")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -4242,7 +4766,20 @@ def main() -> int:
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
                              **detect_launches["float32"], **cbam_launches["float32"],
                              **family_launches, **pose_seg_launches, **obb_cls_launches,
-                             **rtdetr_world_launches}}]}))
+                             **rtdetr_world_launches, **int8_ddp_launches}}, {
+        "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
+        "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",
+        "launches": int8_launches, "max_abs_err": int8_row["max_abs_err"],
+        "max_rel_err_float32_epilogue": int8_row["max_rel_err"],
+        "ms": int8_row["kernel_ms"], "plain_ms": int8_row["plain_ms"],
+        "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
+        "library_ms": int8_row["int_mm_ms"],
+        "library": "torch._int_mm on the unfolded matrices (int32 sums, unfold excluded)",
+        "int_mm_with_unfold_ms": int8_row["int_mm_with_unfold_ms"],
+        "cudnn_bf16_ms": int8_row["cudnn_bf16_ms"],
+        "per": f"one int8 forward of yolov13n-JDE at {INT8_IMGSZ}, batch {INT8_BATCH} "
+               "(int8=True); the int32 sums equal the plain version's at every call"}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -81,6 +81,9 @@ DEFAULT_CFG = {
     "device_augment": "auto", # augment on the device where the hyperparameters allow it
     "amp": True,              # train in bf16 compute (f32 parameters) on the card
     "half": False,            # serve the BN-folded model in bf16 on the card
+    "int8": False,            # serve dense fused convs int8 (True, or 'auto': scale m and up)
+    "mesh_shape": None,       # [N]: train on N devices, one process each (global batch);
+                              # val shards each batch over N devices
     "remat": False,           # train with per-block activation checkpointing
     "multi_scale": False,     # train at a random stride multiple in [0.5, 1.5] x imgsz
     "profile": False,         # 'trace': a torch.profiler trace of steps 1-3 of epoch 0
@@ -94,8 +97,6 @@ DEFAULT_CFG = {
 NOT_PORTED = {
     "plots": "plots",
     "augment": "test-time augmentation",
-    "mesh_shape": "mesh sharding",
-    "int8": "int8 serving (it needs an int8 convolution kernel, which this port has not)",
 }
 
 

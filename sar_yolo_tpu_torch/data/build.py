@@ -5,7 +5,9 @@ shuffle and the last partial batch is dropped. Evaluation (`shuffle=False,
 drop_last=False, pad_last=True`): samples in order, the tail batch padded with
 copies of its last sample and every batch carrying `_pad`, the count of those
 copies, for the metrics to skip. Images stay uint8: they are normalized on the
-device by the consumer.
+device by the consumer. With `rank` and `world` (data parallelism, `parallel/`) each rank
+builds only its contiguous `batch_size / world` rows of every global batch: the batch order
+and each sample's draws (keyed by seed, epoch and index) stay the single process's.
 """
 
 from __future__ import annotations
@@ -25,13 +27,17 @@ PREFETCH = 2  # batches in flight beyond the one being consumed
 
 
 class DataLoader:
-    """Epoch iterator over a dataset in batches; `workers` threads build samples."""
+    """Epoch iterator over a dataset in batches; `workers` threads build samples (this
+    rank's rows of each batch)."""
 
     def __init__(self, dataset, batch_size=16, workers=4, seed=0, shuffle=True, drop_last=True,
-                 pad_last=False):
+                 pad_last=False, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch {batch_size} does not split over {world} ranks")
         self.dataset, self.batch_size = dataset, batch_size
         self.workers, self.seed = max(1, workers), seed
         self.shuffle, self.drop_last, self.pad_last = shuffle, drop_last, pad_last
+        self.rank, self.world = rank, world
         self.epoch = 0
 
     def __len__(self):
@@ -61,6 +67,8 @@ class DataLoader:
                     b = todo.popleft()
                     npad = self.batch_size - len(b) if self.pad_last else 0
                     b = np.concatenate([b, np.repeat(b[-1:], npad)])
+                    per = len(b) // self.world
+                    b = b[self.rank * per:(self.rank + 1) * per]
                     pending.append(([pool.submit(self.dataset.__getitem__, int(j)) for j in b],
                                     npad))
                 futures, npad = pending.popleft()

@@ -9,12 +9,14 @@ their `validator_cls`, `PREDICTORS`; an RT-DETR model: `RTDETRTrainer`, `RTDETRV
 from __future__ import annotations
 
 import copy
+import os
 import time
 from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -22,21 +24,43 @@ from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, NOT_PORTED, get_cfg, get
 from sar_yolo_tpu_torch.data.dataset import (ClassificationDataset, SyntheticDataset, YOLODataset,
                                              check_det_dataset)
 from sar_yolo_tpu_torch.engine.predictor import PREDICTORS, RTDETRPredictor
-from sar_yolo_tpu_torch.engine.trainer import TRAINERS, RTDETRTrainer
+from sar_yolo_tpu_torch.engine.trainer import TRAINERS, RTDETRTrainer, train_rank
 from sar_yolo_tpu_torch.engine.validator import RTDETRValidator
 from sar_yolo_tpu_torch.nn.fuse import fuse_model, half_model
 from sar_yolo_tpu_torch.nn.modules.block import AAttn
+from sar_yolo_tpu_torch.nn.modules.conv import quantize_int8, set_compute_dtype
 from sar_yolo_tpu_torch.nn.modules.transformer import StandaloneBatchNorm
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
 from sar_yolo_tpu_torch.ops.slicing import merge_tile_detections
+from sar_yolo_tpu_torch.parallel.mesh import mesh_devices_count, model_mesh, spawn
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint, save_checkpoint
 from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
 # the arguments the predictor reads, with the JAX package's defaults for predict
 PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
-                    "agnostic_nms": False, "half": False, "save": False, "save_txt": False,
+                    "agnostic_nms": False, "half": False, "int8": False, "save": False,
+                    "save_txt": False,
                     "save_dir": None, "project": None, "name": None, "exist_ok": False}
+
+
+def resolve_int8_policy(int8_req, scale) -> tuple[bool, str | None]:
+    """The JAX package's scale rule for int8 serving (`sar_yolo_tpu/engine/model.py::
+    resolve_int8_policy`), copied for parity: `int8='auto'` applies int8 at scale m and
+    above (an unknown scale included) and declines at n, t and s; `int8=True` always
+    applies, with a warning below m. Returns (apply int8, note to log). The rule comes from
+    the JAX package's own measurements, not from this card."""
+    s = (scale or "").lower()
+    small = s in ("n", "t", "s")
+    if str(int8_req).lower() == "auto":
+        if small:
+            return False, (f"int8='auto': scale '{s}' is below m, so serving without int8 "
+                           "(the JAX package's scale rule)")
+        return True, None
+    if small:
+        return True, (f"int8=True on scale '{s}': the JAX package's scale rule declines int8 "
+                      "below scale m; use int8='auto' to let the rule decide")
+    return True, None
 
 
 class YOLO:
@@ -52,6 +76,8 @@ class YOLO:
         >>> rows = YOLO("yolov8n-obb.yaml").predict_batched(tiles, imgsz=1024)  # (B, 300, 7) xywhr
         >>> probs = YOLO("yolov8n-cls.yaml").predict_batched(frames_u8, imgsz=224)  # (B, 1000)
         >>> dets = m.predict_batched(frames_u8, half=True)  # bf16 on the card
+        >>> dets = m.predict_batched(frames_u8, int8=True)  # dense convs int8 (or 'auto')
+        >>> dets = m.predict_batched(frames_u8, mesh_shape=[2])  # the batch over 2 devices
         >>> m = YOLO("tinyjde.yaml", device="cpu")
         >>> m.train(data="path/to/SARD.yaml", imgsz=64, batch=2, epochs=1)  # val every epoch
         >>> metrics = m.val(data="path/to/SARD.yaml", rect=True)  # EMA weights, BN folded
@@ -67,6 +93,7 @@ class YOLO:
         self.overrides: dict = {}  # a checkpoint's non-default train args, under each call's
         self.ckpt_dir = None
         self._half = None  # the bf16 copy of the folded model (half serving)
+        self._int8 = {}    # {half: the int8 copy of the folded (bf16) model}
         self._callbacks: dict = {}
         self._predictor_cache = None
         self._unfused = None  # after fuse(): the unfused state dict, for save()
@@ -149,17 +176,39 @@ class YOLO:
         """Train on this model's device (keys of `cfg/default.py`); returns the last epoch's
         losses and, with `val` (the default), its validation metrics. Afterwards the model
         holds the EMA parameters and the live BN statistics, and keeps the run's compute
-        dtype (bf16 after an `amp` run on the card), as the JAX package's model does."""
-        self.trainer = self._classes()["trainer"](
-            {**self.overrides, "model": self.cfg, **kwargs}, device=self.device)
-        for event, fns in self._callbacks.items():
-            for fn in fns:
-                self.trainer.add_callback(event, fn)
-        metrics = self.trainer.train()
-        self.model = self.trainer.ema_model()
-        self.meta = self.trainer.meta
-        self.meta["names"] = self.trainer.data["names"]
-        self.ckpt_dir = str(self.trainer.wdir / "best")
+        dtype (bf16 after an `amp` run on the card), as the JAX package's model does.
+        `mesh_shape=[N]` trains on N devices (the visible CUDA devices; a CPU model: N CPU
+        processes over gloo), one process each, with `batch` the global batch: spawned here
+        (callbacks must then be picklable, module-level functions; they run in rank 0), or,
+        under torchrun or an existing process group, this process is one rank."""
+        trainer_cls = self._classes()["trainer"]
+        overrides = {**self.overrides, "model": self.cfg, **kwargs}
+        mesh = overrides.get("mesh_shape")
+        if mesh and mesh_devices_count(mesh) > 1 and not dist.is_initialized() and \
+                "WORLD_SIZE" not in os.environ:
+            # one process per mesh device; rank 0 sends back the trained model
+            n, batch = mesh_devices_count(mesh), get_cfg(overrides).batch
+            if batch % n:
+                raise ValueError(f"batch {batch} does not split over the {n} ranks of "
+                                 f"mesh_shape {list(mesh)}")
+            self.trainer = None
+            out = spawn(train_rank, (trainer_cls, overrides, self._callbacks),
+                        devices=model_mesh(mesh, self.device))
+            model, _ = build_model(out["meta"]["cfg"], nc=out["meta"]["nc"])
+            set_compute_dtype(model, out["compute_dtype"])
+            model.load_state_dict(out["state"])
+            metrics, self.model, self.meta = out["metrics"], model.to(self.device).eval(), out["meta"]
+            self.meta["names"], wdir = out["names"], Path(out["wdir"])
+        else:
+            self.trainer = trainer_cls(overrides, device=self.device)
+            for event, fns in self._callbacks.items():
+                for fn in fns:
+                    self.trainer.add_callback(event, fn)
+            metrics = self.trainer.train()
+            self.model = self.trainer.ema_model()
+            self.meta = self.trainer.meta
+            self.meta["names"], wdir = self.trainer.data["names"], self.trainer.wdir
+        self.ckpt_dir = str(wdir / "best")
         self._weights_ready = True
         self._fused, self._unfused = None, None
         return metrics
@@ -196,19 +245,39 @@ class YOLO:
                                    dataset=dataset, args=args, data=data)
         return self.metrics
 
-    def _fused_for_serving(self, half: bool = False):
+    def _fused_for_serving(self, half: bool = False, int8: bool = False):
         """BN-folded copy of the model for serving, made once per set of weights. `half`
         on a CUDA device: a bf16 copy of it (folded in float32 first); on the CPU, as the
-        JAX package off its accelerator, the float32 one."""
+        JAX package off its accelerator, the float32 one. `int8`: a copy of that whose
+        dense fused convs run int8 (`quantize_int8`; quantized in float32 from the served
+        weights, output in the served dtype)."""
         self._ensure_variables()
         if self._fused is None:
             self._fused = fuse_model(copy.deepcopy(self.model)).eval()
-            self._half = None
-        if not (half and self.device.type == "cuda"):
-            return self._fused
-        if self._half is None:
+            self._half, self._int8 = None, {}
+        half = bool(half and self.device.type == "cuda")
+        if half and self._half is None:
             self._half = half_model(copy.deepcopy(self._fused))
-        return self._half
+        model = self._half if half else self._fused
+        if not int8:
+            return model
+        if half not in self._int8:
+            self._int8[half] = copy.deepcopy(model)
+            self._int8[half].quant = "int8" if quantize_int8(self._int8[half]) else ""
+        return self._int8[half]
+
+    def _int8_applies(self, int8_req) -> bool:
+        """`resolve_int8_policy` of the request on this model's scale, its note logged."""
+        if not int8_req or str(int8_req).lower() in ("false", "0"):
+            return False
+        apply, note = resolve_int8_policy(int8_req, self.meta.get("scale"))
+        if apply and not getattr(self._fused_for_serving(), "fused", False):
+            LOGGER.warning(f"int8={int8_req!r} requested but the model could not be fused; "
+                           "serving full precision instead")
+            return False
+        if note:
+            (LOGGER.warning if apply else LOGGER.info)(note)
+        return apply
 
     def _get_predictor(self, kwargs: dict):
         """The predictor of {checkpoint args, kwargs} (each key one the predictor reads;
@@ -230,20 +299,26 @@ class YOLO:
         key = tuple(sorted((k, str(v)) for k, v in overrides.items()))
         if self._predictor_cache is None or self._predictor_cache[0] != key:
             args = SimpleNamespace(**{**PREDICT_DEFAULTS, **overrides})
-            self._predictor_cache = (key, predictor_cls(self._fused_for_serving(args.half),
-                                                        self.meta, args, self.names))
+            args.int8 = self._int8_applies(args.int8)
+            self._predictor_cache = (key, predictor_cls(
+                self._fused_for_serving(args.half, args.int8), self.meta, args, self.names))
         predictor = self._predictor_cache[1]
-        predictor.model = self._fused_for_serving(predictor.args.half)  # new weights after train()
+        # new weights after train()
+        predictor.model = self._fused_for_serving(predictor.args.half, predictor.args.int8)
         for event, fns in self._callbacks.items():
             for fn in fns:
                 if fn not in predictor.callbacks.get(event, []):
                     predictor.add_callback(event, fn)
         return predictor
 
-    def predict_batched(self, frames, **kwargs):
-        """Serve a uniform-geometry (B, H, W, 3) uint8 BGR batch on the model's device.
+    def predict_batched(self, frames, mesh_shape=None, **kwargs):
+        """Serve a uniform-geometry (B, H, W, 3) uint8 BGR batch on the model's device;
+        `mesh_shape=[N]` splits it over N devices (`parallel.model_mesh`: the visible CUDA
+        devices, or the CPU N times for a CPU model; too few raise ValueError), each share
+        on a replica of the served model, the outputs in order.
 
-        kwargs: imgsz, conf, iou, max_det, agnostic_nms, half (bf16 on the card).
+        kwargs: imgsz, conf, iou, max_det, agnostic_nms, half (bf16 on the card), int8
+        (True or 'auto': the dense fused convs int8, `resolve_int8_policy`).
         Returns (B, max_det, 6 + E) numpy detections in original-image pixels: [x1, y1,
         x2, y2, conf, cls, *embedding, *states] (E = 0 for a detect model; pose: the K x D
         keypoints, xy in original pixels); rows with conf == 0 are padding. A segment
@@ -251,7 +326,8 @@ class YOLO:
         in the letterboxed input's frame); an OBB model (B, max_det, 7) rows [cx, cy, w, h,
         r, conf, cls]; a classify model (B, nc) probabilities.
         """
-        return self._get_predictor(kwargs).predict_batch(frames)
+        devices = model_mesh(mesh_shape, self.device) if mesh_shape else None
+        return self._get_predictor(kwargs).predict_batch(frames, devices)
 
     def predict(self, source, stream: bool = False, **kwargs):
         """Results of each image of `source`: an image file, a folder, a glob, a list of
@@ -310,6 +386,7 @@ class YOLO:
 
     def _drop_caches(self):
         self._fused, self._half, self._predictor_cache = None, None, None
+        self._int8 = {}
 
     def _unfused_model(self):
         """self.model as built from its config (unfused; used where fuse() folded it)."""

@@ -19,12 +19,14 @@ in bf16; decode and NMS then run in the dtypes the JAX predictor gives them (box
 float32, class scores sigmoided in bf16, the rows promoted to float32).
 
 Two routes share that tail (`_dets_in_orig_coords`): `predict_batch` serves a uniform
-(B, H, W, 3) batch, and `__call__` / `stream_inference` stream a source (files, folders,
+(B, H, W, 3) batch (split over a mesh of devices, each share on a replica of the model,
+with `devices`), and `__call__` / `stream_inference` stream a source (files, folders,
 globs, arrays, tensors) frame by frame with the callback bus that the trackers use.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from pathlib import Path
 
@@ -105,11 +107,43 @@ class BasePredictor(HasCallbacks):
         return (x.permute(0, 3, 1, 2).contiguous() / 255.0).to(dtype), r, pad
 
     @torch.no_grad()
-    def predict_batch(self, frames_u8):
+    def predict_batch(self, frames_u8, devices=None):
         """Serve a (B, H, W, 3) uint8 BGR batch; returns (B, max_det, 6 + E) detections
         in original-image pixels (rows with conf == 0 are padding); pose: (B, max_det,
-        6 + K D); segment: (rows (B, max_det, 6), masks (B, max_det, mh, mw) bool)."""
-        return _numpy(self.serve(*self.preprocess(frames_u8)))
+        6 + K D); segment: (rows (B, max_det, 6), masks (B, max_det, mh, mw) bool).
+        `devices` (a mesh, `parallel.model_mesh`): the batch split into one share a device,
+        each served by a replica of the model there, the outputs concatenated in order. Every
+        share is launched before any result is copied to the host, so the devices' shares
+        run at the same time."""
+        if not devices:
+            return _numpy(self.serve(*self.preprocess(frames_u8)))
+        frames = np.asarray(frames_u8)
+        if len(frames) % len(devices):
+            raise ValueError(f"a batch of {len(frames)} does not split over {len(devices)} "
+                             "devices")
+        on_device = [self._serve_on(d, share)
+                     for d, share in zip(devices, np.split(frames, len(devices)))]
+        outs = [_numpy(out) for out in on_device]
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate(parts) for parts in zip(*outs))
+        return np.concatenate(outs)
+
+    def _serve_on(self, device, frames):
+        """`serve` of frames by the model's replica on `device` (made once per model), its
+        outputs left on that device."""
+        device = torch.device(device)
+        if getattr(self, "_replicas", (None,))[0] is not self.model:
+            self._replicas = (self.model, {})
+        replicas = self._replicas[1]
+        if device not in replicas:
+            replicas[device] = self.model if device == self.device else \
+                copy.deepcopy(self.model).to(device)
+        model, home = self.model, self.device
+        self.model, self.device = replicas[device], device
+        try:
+            return self.serve(*self.preprocess(frames))
+        finally:
+            self.model, self.device = model, home
 
     @staticmethod
     def _kept(dets, orig_img) -> np.ndarray:

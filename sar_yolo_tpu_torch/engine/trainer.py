@@ -46,17 +46,31 @@ every block but the head; `multi_scale` resizes each batch to a random stride
 multiple in [0.5, 1.5] x imgsz on the host before the step (either route);
 `profile='trace'` writes a torch.profiler trace of steps 1-3 of epoch 0 to
 `save_dir/trace`.
+
+`mesh_shape=[W]` trains on W devices, one process each (`parallel/`): under torchrun (its
+RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT), in a process group made already, or
+through `YOLO.train`, which spawns the W ranks (`train_rank`). `batch` stays the global
+batch (a batch that does not split over W raises). Each rank loads its `batch / W` rows of
+every global batch; the model is wrapped in DistributedDataParallel; train-mode BN takes the
+global batch's statistics; the head outputs and the labels are gathered with autograd and
+every rank computes the loss of the global batch, so the step is the single process's
+step (the triplet miner, the assigner's normalization and the class-balanced counts
+included); the device augmentation's and dropout's draws are the global batch's, sliced.
+Rank 0 alone validates, writes checkpoints, results.csv and runs the callbacks; the stop
+decision (patience, `time`) is all-reduced. A `tp` axis (`[dp, tp]`, tp > 1) raises.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sar_yolo_tpu_torch.cfg.default import get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.build import DataLoader
@@ -70,6 +84,7 @@ from sar_yolo_tpu_torch.engine.validator import (ClassificationValidator, Detect
 from sar_yolo_tpu_torch.nn.modules.conv import set_compute_dtype, set_generator
 from sar_yolo_tpu_torch.nn.modules.transformer import draw_cdn
 from sar_yolo_tpu_torch.nn.tasks import build_model, init_weights
+from sar_yolo_tpu_torch.parallel import mesh as parallel
 from sar_yolo_tpu_torch.utils import LOGGER, select_device
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 from sar_yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -262,7 +277,14 @@ class BaseTrainer(HasCallbacks):
         self.args = get_cfg(overrides)
         self.args.task = self.task  # recorded in the checkpoints' train args
         self.device = select_device(device)
+        self.rank, self.world, self.ddp = 0, 1, None
+        if self.args.mesh_shape:
+            self._join_mesh(parallel.mesh_devices_count(self.args.mesh_shape))
         self.save_dir = get_save_dir(self.args, self.task)
+        if self.world > 1:  # rank 0's run directory on every rank
+            obj = [str(self.save_dir)]
+            dist.broadcast_object_list(obj, 0)
+            self.save_dir = Path(obj[0])
         self.args.save_dir = str(self.save_dir)  # the validator writes there too
         self.wdir = self.save_dir / "weights"
         self.csv = self.save_dir / "results.csv"
@@ -272,6 +294,39 @@ class BaseTrainer(HasCallbacks):
         self.epoch = 0
         self.tloss = None  # the current epoch's mean loss items, from on_train_epoch_end
         self.init_callbacks()
+
+    def _join_mesh(self, n: int):
+        """Join the process group of a `mesh_shape=[n]` run (torchrun's environment, or the
+        group made already) and take this rank's device (cuda:LOCAL_RANK for a bare 'cuda')."""
+        if n > 1 and not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+            raise ValueError(f"mesh_shape {list(self.args.mesh_shape)}: train through "
+                             "YOLO.train, which starts the ranks, or under torchrun "
+                             f"--nproc_per_node {n}")
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.rank, self.world = parallel.init_distributed(self.device)
+        if self.world != n:
+            raise ValueError(f"mesh_shape {list(self.args.mesh_shape)} in a process group of "
+                             f"{self.world} ranks")
+        if self.args.batch % n:
+            raise ValueError(f"batch {self.args.batch} does not split over the {n} ranks of "
+                             f"mesh_shape {list(self.args.mesh_shape)}")
+
+    def wrap_ddp(self):
+        """Wrap the model in DistributedDataParallel (again after its parameters change
+        dtype: DDP's gradient buckets take the dtype they find)."""
+        # the train graph is the same every step (static shapes, no branch on the data or the
+        # step), so DDP learns in the first step which parameters get no gradient (YOLO-World
+        # v1's ImagePoolingAttn) instead of walking the autograd graph in every step
+        self.ddp = torch.nn.parallel.DistributedDataParallel(
+            self.model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+            broadcast_buffers=False, static_graph=True)
+
+    def run_callbacks(self, event: str):
+        if self.rank == 0:  # rank 0 alone runs them under data parallelism
+            super().run_callbacks(event)
 
     def loss(self, feats, batch: dict):
         """(total, items, new cb_counts) of the head maps on a device batch."""
@@ -338,8 +393,10 @@ class BaseTrainer(HasCallbacks):
             init_weights(model, self.meta, torch.Generator().manual_seed(args.seed))
         else:
             model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).train()
-        if dtype == torch.bfloat16 and not check_bf16(self.model, imgsz=min(args.imgsz, 64)):
+        self.model = parallel.replicate(model.to(self.device).train())
+        # every rank takes the same precision: any rank's divergence decides for all
+        if dtype == torch.bfloat16 and \
+                parallel.sync_flag(not check_bf16(self.model, imgsz=min(args.imgsz, 64))):
             LOGGER.warning("bf16 forward diverges from f32 on this model; falling back to f32 "
                            "compute (AMP disabled)")
             set_compute_dtype(self.model, torch.float32)
@@ -351,7 +408,10 @@ class BaseTrainer(HasCallbacks):
         self.generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)  # dropout
         set_generator(self.model, self.generator)
         self.train_loader = DataLoader(self.train_set, args.batch, workers=args.workers,
-                                       seed=args.seed)
+                                       seed=args.seed, rank=self.rank, world=self.world)
+        if dist.is_initialized() and args.mesh_shape:
+            self.wrap_ddp()
+        self.gathered_bytes = 0  # bytes each rank receives for the loss, the last step
         self.nb = max(len(self.train_loader), 1)
         self.optimizer = Optimizer(args, self.nb, nc, self.model)
         self.accumulate = self.optimizer.accumulate
@@ -376,11 +436,17 @@ class BaseTrainer(HasCallbacks):
 
     def aug_params(self, batch: dict, i: int):
         """The device augmentation's draws for batch i of this epoch, from a generator keyed
-        by (seed, epoch, i): a resumed run draws what the uninterrupted run drew."""
-        B, S = batch["img"].shape[:2]
-        return draw_params(np.random.default_rng((self.args.seed, self.epoch, i)), B, S,
-                           self.aug_hyp, self._mosaic_on, partner_span=B,
-                           M=batch["bboxes"].shape[1])
+        by (seed, epoch, i): a resumed run draws what the uninterrupted run drew. Under data
+        parallelism, the global batch's draws with mosaic partners within each rank's rows
+        (the JAX package's `partner_span = B // dp`), this rank's rows of them, the partner
+        indices counted from its first row."""
+        b, S = batch["img"].shape[:2]
+        B = b * self.world
+        p = draw_params(np.random.default_rng((self.args.seed, self.epoch, i)), B, S,
+                        self.aug_hyp, self._mosaic_on, partner_span=b,
+                        M=batch["bboxes"].shape[1])
+        rows = parallel.local_rows(B)
+        return type(p)(*(t[rows] for t in p))._replace(sel=p.sel[rows] - rows.start)
 
     def to_device(self, batch: dict, i: int = 0) -> dict:
         """Numpy batch i of the epoch -> device tensors, its uint8 NHWC images -> NCHW in
@@ -452,15 +518,40 @@ class BaseTrainer(HasCallbacks):
         torch._foreach_add_(self.ema, params, alpha=1.0 - d)
         self.cb_counts = cb_counts
 
+    @property
+    def net(self):
+        """The module the train forward runs: the DDP wrapper under data parallelism."""
+        return self.ddp or self.model
+
     def forward(self, batch: dict):
         """The train-mode forward of a device batch."""
-        return self.model(batch["img"])
+        return self.net(batch["img"])
+
+    def feats_batch_dim(self, t: torch.Tensor):
+        """The batch dim of a leaf of the head's train outputs (None: none)."""
+        return 0
+
+    def gather_global(self, feats, batch: dict):
+        """Under data parallelism, the global batch's head outputs (with autograd) and label
+        leaves (every tensor of the batch but the images); their bytes, one rank's receipt, in
+        `gathered_bytes`."""
+        if self.world == 1:
+            return feats, batch
+        b = batch["img"].shape[0]
+        labels = {k: v for k, v in batch.items()
+                  if k != "img" and torch.is_tensor(v) and v.dim() and len(v) == b}
+        feats = parallel.gather_tree(feats, self.feats_batch_dim)
+        labels = parallel.gather_tree(labels)
+        self.gathered_bytes = sum(t.numel() * t.element_size() * (self.world - 1) // self.world
+                                  for t in torch.utils._pytree.tree_leaves((feats, labels))
+                                  if torch.is_tensor(t))
+        return feats, {**batch, **labels}
 
     def train_step(self, batch: dict, i: int = 0):
-        """One micro-step on numpy batch i of the epoch. Returns (total, items), both on the
-        device."""
+        """One micro-step on numpy batch i of the epoch (this rank's rows of it). Returns
+        (total, items), both on the device: the global batch's."""
         b = self.to_device(batch, i)
-        total, items, cb = self.loss(self.forward(b), b)
+        total, items, cb = self.loss(*self.gather_global(self.forward(b), b))
         total.backward()
         self.update(cb)
         return total.detach(), items
@@ -516,22 +607,23 @@ class BaseTrainer(HasCallbacks):
             self.run_callbacks("on_train_epoch_end")
             self.metrics = dict(losses)
             self.fitness = -float(mloss.sum())
-            if args.val:
+            if args.val and self.rank == 0:
                 vmetrics = self.validate()
                 self.metrics.update(vmetrics)
                 self.fitness = vmetrics.get("fitness", self.fitness)
-            self._save_csv_row(epoch, losses, self.lr["lr/pg0"])
             improved = self.fitness > self.best_fitness
             if improved:
                 self.best_fitness, last_improve = self.fitness, epoch
-            if args.save:
-                self.save_model(improved)
+            if self.rank == 0:
+                self._save_csv_row(epoch, losses, self.lr["lr/pg0"])
+                if args.save:
+                    self.save_model(improved)
             self.run_callbacks("on_fit_epoch_end")
-            if not improved and epoch - last_improve >= patience:
-                LOGGER.info(f"EarlyStopping: no improvement in {patience} epochs")
-                break
-            if args.time and (time.time() - t_start) / 3600 > args.time:
-                LOGGER.info(f"Stopping: over the time limit of {args.time} hours")
+            early = self.rank == 0 and not improved and epoch - last_improve >= patience
+            late = bool(args.time) and (time.time() - t_start) / 3600 > args.time
+            if parallel.sync_flag(early or late):
+                LOGGER.info(f"EarlyStopping: no improvement in {patience} epochs" if early else
+                            f"Stopping: over the time limit of {args.time} hours")
                 break
         self.run_callbacks("on_train_end")
         LOGGER.info(f"Training complete in {(time.time() - t_start) / 3600:.3f} hours")
@@ -784,13 +876,21 @@ class RTDETRTrainer(DetectionTrainer):
             raise ValueError(f"'{self.args.model}' has no RTDETRDecoder head")
 
     def cdn_draws(self, batch: dict) -> dict:
-        """The denoising queries' draws for a device batch (`draw_cdn`)."""
+        """The denoising queries' draws for a device batch (`draw_cdn`): under data
+        parallelism, this rank's rows of the global batch's draws."""
         B, M = batch["cls"].shape
-        return draw_cdn(B, M, self.meta["nc"], self.dn_generator, self.device)
+        rows = parallel.local_rows(B * self.world)
+        return {k: v[rows] for k, v in draw_cdn(B * self.world, M, self.meta["nc"],
+                                                self.dn_generator, self.device).items()}
+
+    def feats_batch_dim(self, t: torch.Tensor):
+        """The decoder layers' outputs (L, B, ...) batch at dim 1, the encoder's at 0;
+        `pos_flag` (DN,) has none."""
+        return 1 if t.dim() == 4 else None if t.dim() == 1 else 0
 
     def forward(self, batch: dict):
         gt = {k: batch[k] for k in ("cls", "bboxes", "mask")}
-        return self.model(batch["img"], gt, self.cdn_draws(batch))
+        return self.net(batch["img"], gt, self.cdn_draws(batch))
 
     def loss(self, outputs, batch: dict):
         out = detr_loss(outputs, batch)
@@ -799,3 +899,111 @@ class RTDETRTrainer(DetectionTrainer):
 
 TRAINERS = {"detect": DetectionTrainer, "jde": JDETrainer, "pose": PoseTrainer,
             "segment": SegmentTrainer, "obb": OBBTrainer, "classify": ClassificationTrainer}
+
+
+def train_rank(rank: int, device, trainer_cls, overrides: dict, callbacks: dict) -> dict | None:
+    """One rank of `YOLO.train(mesh_shape=[N])` under `parallel.spawn`: the trainer's whole
+    run on `device` (rank 0 with `callbacks`, {event: [functions]}). Rank 0 returns the
+    metrics, the model with the EMA parameters (its state dict on the CPU and compute dtype),
+    the meta, the class names and the weights directory."""
+    tr = trainer_cls(overrides, device=device)
+    for event, fns in callbacks.items():
+        for fn in fns:
+            tr.add_callback(event, fn)
+    metrics = tr.train()
+    if rank:
+        return None
+    model = tr.ema_model()
+    return {"metrics": metrics, "state": {k: v.cpu() for k, v in model.state_dict().items()},
+            "compute_dtype": model.compute_dtype, "meta": tr.meta, "names": tr.data["names"],
+            "wdir": str(tr.wdir)}
+
+
+def probe_functional(feats, seed: int, rows=None) -> torch.Tensor:
+    """sum(t * r) over the floating leaves of head outputs, r standard normal from `seed`
+    (the same on every rank for the same shapes): a loss whose gradient holds no discrete
+    decision (no assignment, no mining), so that float32 rounding alone separates two
+    data-parallel paths. `rows`: the batch's order, r[rows] along dim 0."""
+    leaves = [t for t in torch.utils._pytree.tree_leaves(feats)
+              if torch.is_tensor(t) and t.is_floating_point()]
+    total = 0.0
+    for i, t in enumerate(leaves):
+        r = torch.randn(t.shape, generator=torch.Generator(t.device).manual_seed(seed + i),
+                        device=t.device)
+        total = total + (t * (r if rows is None else r[rows]).to(t.dtype)).sum()
+    return total
+
+
+def train_steps(rank: int, device, trainer_cls, overrides: dict, batches: list,
+                state_dict: dict | None = None, timed: int = 0, float64: bool = False,
+                probe_seed: int | None = None) -> dict:
+    """Train steps of a data-parallel trainer on given global numpy batches (each rank takes
+    its rows), dropout off. Rank 0 returns every step's loss items, cb_counts and gradient
+    (DDP's average, before the update), each rank's
+    area-attention launches a step, the model's state dict and EMA after the last, the
+    largest difference of any parameter, BN statistic or EMA value between the ranks (0.0:
+    the replicas are equal) and the bytes a rank receives for the loss a step; with `timed`,
+    also the host ms of that many more steps on the first batch (synchronized) and the ms of
+    the model's forward collectives in each (`parallel.timed_collectives`). `float64`: the
+    model, its EMA and its compute in float64, the attention on its plain path (the step
+    without float32's rounding, to hold the algorithm itself against the one-process step).
+    `probe_seed`: the loss is `probe_functional` of the global batch's head outputs."""
+    from sar_yolo_tpu_torch.nn.modules.block import AAttn
+    from sar_yolo_tpu_torch.nn.modules.conv import Dropout
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    tr = trainer_cls(overrides, device=device)
+    tr.setup(state_dict=state_dict)
+    for m in tr.model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+        if float64 and isinstance(m, AAttn):
+            m.use_flash = False
+    if float64:
+        tr.model.double()
+        tr.ema = [e.double() for e in tr.ema]
+        if tr.ddp is not None:
+            tr.wrap_ddp()
+    if probe_seed is not None:
+        def probe(feats, batch):
+            total = probe_functional(feats, probe_seed)
+            return total, total.detach().reshape(1), tr.cb_counts
+        tr.loss = probe
+    items, cb_counts, launches, grads = [], [], [], []
+    update = tr.optimizer.step
+
+    def step():
+        grads.append({n: p.grad.detach().cpu().clone() for n, p in tr.model.named_parameters()
+                      if p.grad is not None})
+        return update()
+    tr.optimizer.step = step
+    for i, batch in enumerate(batches):
+        n0 = flash_area_attention.launches
+        _, it = tr.train_step(parallel.shard_batch(batch), i)
+        launches.append(flash_area_attention.launches - n0)
+        items.append(it.detach().cpu())
+        cb_counts.append(tr.cb_counts.detach().cpu().clone())
+    flat = torch.cat([t.detach().float().flatten() for t in
+                      [*tr.model.state_dict().values(), *tr.ema]])
+    parts, by_rank = [flat], [launches]
+    if tr.world > 1:
+        parts = [torch.empty_like(flat) for _ in range(tr.world)]
+        dist.all_gather(parts, flat)
+        by_rank = [None] * tr.world
+        dist.all_gather_object(by_rank, launches)
+    tr.optimizer.step = update
+    out = {"items": items, "cb_counts": cb_counts, "grads": grads, "launches_by_rank": by_rank,
+           "rank_spread": max((p - parts[0]).abs().max().item() for p in parts),
+           "gathered_bytes": tr.gathered_bytes,
+           "state": {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()},
+           "ema": {n: e.cpu().clone() for (n, _), e in zip(tr.model.named_parameters(), tr.ema)}}
+    sync = torch.cuda.synchronize if tr.device.type == "cuda" else (lambda: None)
+    out["step_ms"], out["collective_ms"] = [], []
+    for _ in range(timed):
+        sync()
+        t0 = time.perf_counter()
+        with parallel.timed_collectives() as seconds:
+            tr.train_step(parallel.shard_batch(batches[0]))
+        sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["collective_ms"].append(sum(seconds) * 1e3)
+    return out

@@ -20,12 +20,18 @@ writes the COCO 91-index category ids.
 class, rows under conf (0.001) dropped, the rest in score order cut at max_det, on the
 host as the JAX validator does it (square batches, as the JAX validator loads them).
 
-Not ported yet, each refused where asked for: mesh sharding, test-time
-augmentation and plots (`cfg/default.py` NOT_PORTED).
+With `mesh_shape=[N]` each batch is split over N devices (the visible CUDA devices; a
+CPU model runs its N shares on the CPU), each share through a replica of the model on its
+device, the rows put back together in order; with fewer devices than N, or a batch that
+does not split, it warns and runs on one device, as the JAX validator does.
+
+Not ported yet, each refused where asked for: test-time augmentation and plots
+(`cfg/default.py` NOT_PORTED).
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import time
@@ -42,6 +48,7 @@ from sar_yolo_tpu_torch.ops.decode import decode_detect, decode_obb
 from sar_yolo_tpu_torch.ops.masks import process_mask
 from sar_yolo_tpu_torch.ops.nms import (non_max_suppression, non_max_suppression_rotated,
                                         postprocess_end2end)
+from sar_yolo_tpu_torch.parallel.mesh import mesh_devices_count, model_mesh
 from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.loss import OKS_SIGMA
 from sar_yolo_tpu_torch.utils.metrics import (IOU_THRESHOLDS, DetMetrics, box_iou_np,
@@ -50,6 +57,30 @@ from sar_yolo_tpu_torch.utils.metrics import (IOU_THRESHOLDS, DetMetrics, box_io
 
 # COCO's 91-index category id of each of the 80 contiguous classes
 COCO80_TO_91 = [i for i in range(1, 91) if i not in {12, 26, 29, 30, 45, 66, 68, 69, 71, 83}]
+
+
+def mesh_replicas(model, args, bs: int, device) -> list | None:
+    """[(device, the model's replica there)] of `args.mesh_shape` for batches of bs, or
+    None (one device): the JAX validator's rule, which needs more than one mesh device, at
+    least that many devices (any number for a CPU model) and a batch they split, and warns
+    where the mesh asks for more than one device and one of the others fails."""
+    dp = mesh_devices_count(args.mesh_shape) if getattr(args, "mesh_shape", None) else 1
+    have = dp if device.type == "cpu" else torch.cuda.device_count()
+    if dp > 1 and have >= dp and bs % dp == 0:
+        return [(d, model if d == device else copy.deepcopy(model).to(d))
+                for d in model_mesh(args.mesh_shape, device)]
+    if dp > 1:
+        LOGGER.warning(f"val: mesh_shape={args.mesh_shape} needs {dp} devices and batch "
+                       f"divisible by {dp} (batch={bs}); running single-device")
+    return None
+
+
+def mesh_shares(mesh: list | None, model, device, img: np.ndarray) -> list:
+    """(model, device, images) of each mesh device's share of a batch (the whole batch on
+    `device` without a mesh)."""
+    if mesh is None:
+        return [(model, device, img)]
+    return [(m, d, c) for (d, m), c in zip(mesh, np.split(img, len(mesh)))]
 
 
 def _trim_batch(batch: dict, n: int) -> dict:
@@ -75,6 +106,7 @@ class BaseValidator:
         self.conf = args.conf if args.conf is not None else 0.001
         device = next(model.parameters()).device
         bs = min(args.batch, len(dataset))
+        mesh = mesh_replicas(model, args, bs, device)
         if args.rect and self.rect_ok and getattr(dataset, "shapes", None) is not None:
             dataset.init_rect(bs)
         loader = DataLoader(dataset, bs, workers=args.workers, shuffle=False, drop_last=False,
@@ -87,8 +119,12 @@ class BaseValidator:
         t0 = time.perf_counter()
         for batch in loader:
             npad = int(batch.pop("_pad", 0))
-            dets, self._protos = self._to_host(self.predict(model, self.preprocess(batch["img"],
-                                                                                   device)))
+            # every share launched before any is copied to the host
+            on_device = [self.predict(m, self.preprocess(img, d))
+                         for m, d, img in mesh_shares(mesh, model, device, batch["img"])]
+            parts = [self._to_host(out) for out in on_device]
+            dets = np.concatenate([p[0] for p in parts])
+            self._protos = None if parts[0][1] is None else np.concatenate([p[1] for p in parts])
             n_eff = len(dets) - npad  # trailing pad rows are duplicate samples
             self._save_txt_batch(batch, dets, n_eff, n_img)
             if args.save_json:
@@ -611,14 +647,18 @@ class ClassificationValidator(BaseValidator):
         self.args, self.meta, self.data = args, meta, data or {}
         self.det_metrics = None
         device = next(model.parameters()).device
-        loader = DataLoader(dataset, min(args.batch, len(dataset)), workers=args.workers,
-                            shuffle=False, drop_last=False, pad_last=True)
+        bs = min(args.batch, len(dataset))
+        mesh = mesh_replicas(model, args, bs, device)
+        loader = DataLoader(dataset, bs, workers=args.workers, shuffle=False, drop_last=False,
+                            pad_last=True)
         top1 = top5 = n = 0
         t0 = time.perf_counter()
         for batch in loader:
             npad = int(batch.pop("_pad", 0))
             with torch.no_grad():
-                logits = model(self.preprocess(batch["img"], device)).float().cpu().numpy()
+                outs = [m(self.preprocess(img, d)).float()
+                        for m, d, img in mesh_shares(mesh, model, device, batch["img"])]
+            logits = np.concatenate([o.cpu().numpy() for o in outs])
             labels = batch["cls"].astype(int).reshape(-1)
             if npad:
                 logits, labels = logits[:-npad], labels[:-npad]

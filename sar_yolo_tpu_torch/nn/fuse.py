@@ -11,8 +11,10 @@ package's `fused=True` trace, so `utils/convert.py` maps a JAX `fuse_variables`
 tree onto it. A `StandaloneBatchNorm` (RT-DETR's input projections, YOLO-World's
 contrastive heads) stays, as JAX's fold leaves it; a BatchNorm anywhere else is a
 structure this port does not know, and `fuse_model` raises rather than serve it
-unfused. `half_model` then takes a
-folded model to bf16 for `half` serving.
+unfused; the model is marked `fused`. `half_model` then takes a
+folded model to bf16 for `half` serving, and `nn/modules/conv.py::quantize_int8` a folded
+model to int8 serving (its `quant` then reads "int8"): with `half`, quantized in float32
+from the bf16 weights, output in bf16, as the JAX package's `quant` on its bf16 trace.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ def fuse_model(model: nn.Module) -> nn.Module:
             if isinstance(mod, nn.BatchNorm2d) and not isinstance(mod, StandaloneBatchNorm)]
     if left:
         raise ValueError(f"fuse_model: BatchNorm outside Conv/DSConv at {left[:5]}")
+    model.fused = True
     return model
 
 

@@ -21,6 +21,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from sar_yolo_tpu_torch.parallel import mesh as parallel
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # Flax momentum 0.97: running = 0.97 * running + 0.03 * batch
 
@@ -70,6 +72,52 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class Int8Conv2d(Conv2d):
+    """A fused Conv's biased convolution on the int8 path (the JAX package's `Int8Conv2D`):
+    the same `weight` and `bias`, quantized symmetric in float32 whatever the serving
+    dtype: the weights per output channel, the input per sample (abs-max / 127, divide,
+    round half to even, clip to +-127); the int8 x int8 -> int32 convolution
+    (`ops/cuda/int8_conv.py`: the kernel on the card); float32(sums) * (sx * sw) + bias,
+    output in the compute dtype. The quantized weights are kept until the weights change."""
+
+    @classmethod
+    def of(cls, conv: Conv2d) -> "Int8Conv2d":
+        """An Int8Conv2d sharing `conv`'s parameters, stride, padding and dilation."""
+        if conv.groups != 1 or conv.bias is None or len(set(conv.padding)) != 1 or \
+                len(set(conv.stride)) != 1 or len(set(conv.dilation)) != 1:
+            raise ValueError(f"Int8Conv2d: {conv} is not a biased dense square convolution")
+        q = cls(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
+                conv.dilation, bias=True, device="meta")
+        q.weight, q.bias, q.compute_dtype = conv.weight, conv.bias, conv.compute_dtype
+        q.training = conv.training
+        q._wq = None
+        return q
+
+    def quantized_weight(self):
+        """(wq (C_out, kh, kw, C_in) int8, sw (C_out,) float32), cached per weight version."""
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.dtype)
+        if self._wq is None or self._wq[0] != key:
+            wf = w.detach().float()
+            sw = torch.clamp(wf.abs().amax((1, 2, 3)), min=1e-12) / 127.0
+            wq = torch.clamp(torch.round(wf / sw.view(-1, 1, 1, 1)), -127, 127)
+            self._wq = (key, wq.to(torch.int8).permute(0, 2, 3, 1).contiguous(), sw)
+        return self._wq[1:]
+
+    def forward(self, x):
+        from sar_yolo_tpu_torch.ops.cuda.int8_conv import int8_conv
+        dt = self.compute_dtype or self.weight.dtype
+        wq, sw = self.quantized_weight()
+        xf = x.float()
+        sx = torch.clamp(xf.abs().amax((1, 2, 3)), min=1e-12) / 127.0
+        q = torch.clamp(torch.round(xf / sx.view(-1, 1, 1, 1)), -127, 127)
+        xq = torch.empty((x.shape[0], *x.shape[2:], x.shape[1]), dtype=torch.int8,
+                         device=x.device)
+        xq.copy_(q.permute(0, 2, 3, 1))
+        return int8_conv(xq, wq, sx, sw, self.bias.float(), self.stride[0], self.padding[0],
+                         self.dilation[0], dt)
+
+
 class ConvTranspose(nn.ConvTranspose2d):
     """nn.ConvTranspose2d computing in `compute_dtype` (None: the weight's dtype)."""
 
@@ -90,6 +138,20 @@ class Linear(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype or self.weight.dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def quantize_int8(model: nn.Module) -> int:
+    """int8 serving of a fused model, in place: the conv of every BN-folded `Conv` (a
+    `DWConv` too) with groups == 1 becomes an `Int8Conv2d`, as the JAX package's `Conv`
+    takes `Int8Conv2D` in fused mode under `quant_mode("int8")`; `DSConv` and the heads'
+    plain convolutions stay. Returns the count of quantized convolutions."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, Conv) and m.bn is None and m.conv.groups == 1 and \
+                not isinstance(m.conv, Int8Conv2d):
+            m.conv = Int8Conv2d.of(m.conv)
+            n += 1
+    return n
 
 
 def set_compute_dtype(model: nn.Module, dtype):
@@ -124,7 +186,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     Train mode normalizes with the biased batch variance max(E[x^2] - E[x]^2, 0)
     (Flax's `use_fast_variance`) and moves the running mean and variance toward
     the batch mean and that same variance at momentum 0.97. Gradients flow
-    through the batch statistics. Eval mode is torch's where the input has the
+    through the batch statistics. Under a process group of more than one rank
+    (`parallel/`), E[x] and E[x^2] are the global batch's: sum(x), sum(x^2) and the
+    count are all-reduced with autograd, as the JAX package's BN reduces over the
+    sharded batch; every rank issues the same collectives in the same order (remat's
+    recomputation and `frozen_bn_stats` included). Eval mode is torch's where the input has the
     parameters' dtype. Statistics and normalization run in at least float32 and the
     output takes the input's dtype, as Flax's BatchNorm with `dtype` does.
     """
@@ -135,14 +201,19 @@ class BatchNorm2d(nn.BatchNorm2d):
             if x.dtype == self.weight.dtype:
                 return super().forward(x)
             mean, var = self.running_mean, self.running_var
+        elif parallel.rank_and_world()[1] > 1:  # the global batch's statistics
+            n = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
+            sums = parallel.all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), n]))
+            mean, ex2 = sums[:-1].view(2, -1) / sums[-1]
+            var = (ex2 - mean * mean).clamp(min=0.0)
         else:
             mean = xf.mean((0, 2, 3))
             var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
-            if not _FROZEN_STATS[-1]:
-                with torch.no_grad():
-                    keep = 1.0 - self.momentum
-                    self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
-                    self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
+        if self.training and not _FROZEN_STATS[-1]:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
@@ -157,7 +228,8 @@ class Dropout(nn.Module):
 
     Active in train mode with p > 0, where a missing generator raises: the
     trainer hands every Dropout its seeded generator (`set_generator`), so no
-    mask comes from torch's global RNG.
+    mask comes from torch's global RNG. Under a process group each rank draws the
+    global batch's masks and keeps its rows.
     """
 
     def __init__(self, p: float):
@@ -170,7 +242,11 @@ class Dropout(nn.Module):
             return x
         if self.generator is None:
             raise RuntimeError("Dropout in train mode needs a generator (see set_generator)")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        rank, world = parallel.rank_and_world()
+        # under a process group, the masks of the global batch, this rank's rows of them
+        draw = torch.rand((x.shape[0] * world, *x.shape[1:]), generator=self.generator,
+                          device=x.device)
+        keep = draw[parallel.local_rows(len(draw))] >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 

@@ -324,6 +324,8 @@ class GraphModel(nn.Module):
         self.specs, self.save = specs, frozenset(save)
         self.remat = False
         self.compute_dtype = torch.float32
+        self.fused = False  # set by nn/fuse.py::fuse_model
+        self.quant = ""     # "int8": the fused Convs run int8 (nn/modules/conv.py::quantize_int8)
         outs: list[int] = []
         blocks = []
         with C.default_act(act):

@@ -79,14 +79,20 @@ def dist2bbox(distance, anchor_points, xywh: bool = True, dim: int = -1):
     return torch.cat([x1y1, x2y2], dim)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or as it is where it is float64 (a model computing in float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def dfl_decode(pred_dist, reg_max: int = 16, dim: int = -1):
-    """DFL decode: softmax over reg_max bins (in f32) -> expected distance.
+    """DFL decode: softmax over reg_max bins (in f32, f64 for f64) -> expected distance.
 
     pred_dist has 4 * reg_max channels along `dim` (side-major); returns 4 there.
     """
     dim = dim % pred_dist.dim()
     shape = pred_dist.shape
-    p = pred_dist.reshape(*shape[:dim], 4, reg_max, *shape[dim + 1:]).float().softmax(dim + 1)
+    p = at_least_f32(pred_dist.reshape(*shape[:dim], 4, reg_max, *shape[dim + 1:]))
+    p = p.softmax(dim + 1)
     proj = torch.arange(reg_max, dtype=torch.float32, device=pred_dist.device)
     proj = proj.view(reg_max, *([1] * (len(shape) - dim - 1)))
     return (p * proj).sum(dim + 1).to(pred_dist.dtype)

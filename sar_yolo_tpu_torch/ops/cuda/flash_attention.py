@@ -22,26 +22,19 @@ sources and the nvcc command line.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from sar_yolo_tpu_torch.ops.cuda import nvcc
 
 HEAD_DIM = 32
 # the kernel's tiling (csrc/flash_area_attention.cu): query rows per warp, warps
 # per block, row pitch of the staged K/V tiles, stages
 _TQ, _WARPS, _PITCH, _STAGES = 16, 8, 136, 2
 _SMS = 132  # H100 SXM
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "flash_area_attention.cu"
-BUILD_DIR = _PKG / "build"
+SOURCE = nvcc.CSRC / "flash_area_attention.cu"
 _MAX_GRID_Z = 65535
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def area_attention_plain(q, k, v, num_heads: int, area: int):
@@ -57,49 +50,11 @@ def area_attention_plain(q, k, v, num_heads: int, area: int):
     return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, N, C)
 
 
-def included_sources(path: Path = SOURCE) -> list[Path]:
-    """`path` and every file it includes with `#include "..."`, recursively."""
-    found, todo = [], [path.resolve()]
-    while todo:
-        src = todo.pop()
-        if src in found:
-            continue
-        found.append(src)
-        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M):
-            dep = (src.parent / name).resolve()
-            if dep.is_file():
-                todo.append(dep)
-    return found
-
-
-def _nvcc() -> str:
-    return shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
 def build() -> tuple[Path, str]:
-    """Compile the kernel for sm_90a if its library is not built yet.
-
-    The library is cached under a hash of the nvcc flags and of every source
-    file the kernel includes. Returns (library path, compiler output, which
-    holds ptxas's registers, shared memory and spills of each kernel).
-    """
-    key = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in included_sources():
-        key.update(src.name.encode() + b"\0" + src.read_bytes())
-    lib = BUILD_DIR / f"libflash_area_attention_{key.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return lib, log.read_text()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {SOURCE}:\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, log.read_text()
+    """Compile the kernel for sm_90a if its library is not built yet (`nvcc.build`).
+    Returns (library path, compiler output, which holds ptxas's registers, shared
+    memory and spills of each kernel)."""
+    return nvcc.build(SOURCE)
 
 
 class _Library:

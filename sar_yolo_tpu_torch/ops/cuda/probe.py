@@ -27,6 +27,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from sar_yolo_tpu_torch.ops.cuda import nvcc
+
 _REPO = Path(__file__).resolve().parents[3]
 
 SHAPES = ("640 P5 b1", "640 P4 b4", "640 P4 b8", "1280 P4 b1")
@@ -56,16 +58,16 @@ def _edits(name: str) -> list[tuple[str, str]]:
     return table[name]
 
 
-def _build(fa, name: str, source: str) -> tuple[Path, str]:
+def _build(name: str, source: str) -> tuple[Path, str]:
     for old, new in _edits(name):
         if old not in source:
             raise RuntimeError(f"probe variant {name}: the kernel source no longer holds {old!r}")
         source = source.replace(old, new)
-    out = fa.BUILD_DIR / "probe"
+    out = nvcc.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
     cu, lib = out / f"{name}.cu", out / f"lib{name}.so"
     cu.write_text(source)
-    proc = subprocess.run([fa._nvcc(), *fa._NVCC_FLAGS, "-o", str(lib), str(cu)],
+    proc = subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for probe variant {name}:\n{proc.stderr}")
@@ -98,7 +100,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     for name in names:
-        lib, regs = _build(fa, name, source)
+        lib, regs = _build(name, source)
         fa._Library.load(lib)
         times = {}
         for key, q, k, v, heads, area in cases:

@@ -3,9 +3,10 @@
 (+ prototype mask BCE), v8 OBB (probiou + DFL on the hull) and classification
 (cross-entropy), port of `sar_yolo_tpu/utils/loss.py`.
 
-Everything is float32 and of static shape: masked sums instead of boolean
-indexing, so no loss term synchronises the host. The class-balanced state
-counts are explicit state that the caller threads through the steps.
+Everything is float32 (float64 where the model computes in float64) and of static
+shape: masked sums instead of boolean indexing, so no loss term synchronises the host.
+The class-balanced state counts are explicit state that the caller threads through the
+steps.
 `batch` holds device tensors: 'cls' (B, M), 'bboxes' (B, M, 4) normalized
 xywh, 'mask' (B, M) and, for JDE, 'tags' (B, M); for pose 'keypoints' (B, M, K, D)
 (normalized xy, visibility), for segment 'masks' (B, h, w) (0 background, i + 1 the
@@ -21,8 +22,8 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from sar_yolo_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dfl_decode, dist2bbox, dist2rbox,
-                                          make_anchors, probiou, xywh2xyxy)
+from sar_yolo_tpu_torch.ops.boxes import (at_least_f32, bbox2dist, bbox_iou, dfl_decode,
+                                          dist2bbox, dist2rbox, make_anchors, probiou, xywh2xyxy)
 from sar_yolo_tpu_torch.nn.modules.block import resize_nearest
 from sar_yolo_tpu_torch.ops.decode import flatten_feats, kpts_decode
 from sar_yolo_tpu_torch.ops.masks import crop_mask
@@ -45,7 +46,7 @@ def _df_loss(pred_dist, target, reg_max: int):
     tr = tl + 1
     wl = tr.to(target.dtype) - target
     wr = 1.0 - wl
-    logp = F.log_softmax(pred_dist.float(), -1)
+    logp = F.log_softmax(at_least_f32(pred_dist), -1)
     pl = logp.gather(-1, tl[..., None]).squeeze(-1)
     pr = logp.gather(-1, tr.clamp(max=reg_max - 1)[..., None]).squeeze(-1)
     return -(pl * wl + pr * wr).mean(-1)
@@ -54,8 +55,8 @@ def _df_loss(pred_dist, target, reg_max: int):
 def _box_terms(x, hw, batch, *, nc: int, reg_max: int, strides, tal_topk: int, tags: bool):
     """Assignment and the box, cls and DFL terms of flattened head output x (B, N, C)."""
     B, N, _ = x.shape
-    pred_distri = x[..., :4 * reg_max].float()
-    pred_scores = x[..., 4 * reg_max:4 * reg_max + nc].float()
+    pred_distri = at_least_f32(x[..., :4 * reg_max])
+    pred_scores = at_least_f32(x[..., 4 * reg_max:4 * reg_max + nc])
     anchor_points, stride_t = make_anchors(hw, strides, device=x.device)
     imgsz_h, imgsz_w = hw[0][0] * strides[0], hw[0][1] * strides[0]
     scale = torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=torch.float32,
@@ -151,8 +152,8 @@ def jde_loss_components(feats, batch, hyp, *, nc: int, reg_max: int, strides, em
     x, hw = flatten_feats(feats)
     B, N, _ = x.shape
     c0 = 4 * reg_max + nc
-    pred_embeds = x[..., c0:c0 + embed_dim].float()
-    pred_states = x[..., c0 + embed_dim:].float()
+    pred_embeds = at_least_f32(x[..., c0:c0 + embed_dim])
+    pred_states = at_least_f32(x[..., c0 + embed_dim:])
     loss_box, loss_cls, loss_dfl, assign, pred_scores = _box_terms(
         x, hw, batch, nc=nc, reg_max=reg_max, strides=strides, tal_topk=tal_topk, tags=True)
     fg = assign.fg_mask.float()
@@ -234,7 +235,8 @@ def pose_loss(feats, batch, hyp, *, nc: int, reg_max: int, strides, kpt_shape=(1
         x, hw, batch, nc=nc, reg_max=reg_max, strides=strides, tal_topk=tal_topk, tags=False)
     anchor_points, stride_t, imgsz_w, imgsz_h = _grid(hw, strides, x.device)
     fg = assign.fg_mask.float()
-    pred_kpts = kpts_decode(anchor_points, x[..., 4 * reg_max + nc:].float().reshape(B, N, K, kdim))
+    pred_kpts = kpts_decode(anchor_points,
+                            at_least_f32(x[..., 4 * reg_max + nc:]).reshape(B, N, K, kdim))
 
     gt = batch["keypoints"].float()  # (B, M, K, D) normalized
     gt = torch.cat([gt[..., :1] * imgsz_w, gt[..., 1:2] * imgsz_h, gt[..., 2:]], -1)
@@ -285,7 +287,7 @@ def segmentation_loss(feats_and_proto, batch, hyp, *, nc: int, reg_max: int, str
     sel_w, sel_idx = weight.sort(dim=1, descending=True, stable=True)
     sel_w, sel_idx = sel_w[:, :k], sel_idx[:, :k]
     sel_valid = (sel_w > 0).float()
-    coeffs = x[..., 4 * reg_max + nc:].float().gather(1, sel_idx[..., None].expand(B, k, nm))
+    coeffs = at_least_f32(x[..., 4 * reg_max + nc:]).gather(1, sel_idx[..., None].expand(B, k, nm))
     gt_idx = assign.target_gt_idx.gather(1, sel_idx)
     tb = assign.target_bboxes.gather(1, sel_idx[..., None].expand(B, k, 4))  # input pixels
 
@@ -293,7 +295,7 @@ def segmentation_loss(feats_and_proto, batch, hyp, *, nc: int, reg_max: int, str
     if gt_masks.shape[1:] != (mh, mw):
         gt_masks = resize_nearest(gt_masks[:, None], mh, mw)[:, 0]
     inst = (gt_masks[:, None] == (gt_idx[..., None, None] + 1.0)).float()
-    pred_m = torch.einsum("bkc,bchw->bkhw", coeffs, protos.float())
+    pred_m = torch.einsum("bkc,bchw->bkhw", coeffs, at_least_f32(protos))
     norm = torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=torch.float32,
                         device=x.device)
     tb_n = tb / norm
@@ -319,9 +321,9 @@ def obb_loss(feats, batch, hyp, *, nc: int, reg_max: int, strides, tal_topk: int
     The angle is (sigmoid - 0.25) pi of the first angle channel."""
     x, hw = flatten_feats(feats)
     B, N, _ = x.shape
-    pred_distri = x[..., :4 * reg_max].float()
-    pred_scores = x[..., 4 * reg_max:4 * reg_max + nc].float()
-    pred_angle = (x[..., 4 * reg_max + nc:].float().sigmoid() - 0.25) * math.pi
+    pred_distri = at_least_f32(x[..., :4 * reg_max])
+    pred_scores = at_least_f32(x[..., 4 * reg_max:4 * reg_max + nc])
+    pred_angle = (at_least_f32(x[..., 4 * reg_max + nc:]).sigmoid() - 0.25) * math.pi
     anchor_points, stride_t, imgsz_w, imgsz_h = _grid(hw, strides, x.device)
     scale = torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=torch.float32,
                          device=x.device)
@@ -361,5 +363,5 @@ class ClsLossOut(NamedTuple):
 
 def classification_loss(logits, batch):
     """The mean softmax cross-entropy of (B, nc) logits in float32 against batch['cls']."""
-    ce = F.cross_entropy(logits.float(), batch["cls"].long().reshape(-1))
+    ce = F.cross_entropy(at_least_f32(logits), batch["cls"].long().reshape(-1))
     return ClsLossOut(ce, ce.detach()[None])

@@ -43,8 +43,9 @@ def test_precision_and_option_keys():
         (True, False, False, False, False, 0.0)
     get_cfg({"amp": False, "half": True, "remat": True, "multi_scale": True, "profile": "trace",
              "dropout": 0.1})
-    with pytest.raises(NotImplementedError, match="int8 convolution kernel"):
-        get_cfg({"int8": True})
+    assert get_cfg({"int8": "auto", "mesh_shape": [2]}).int8 == "auto"  # ported since
+    with pytest.raises(NotImplementedError, match="plots"):
+        get_cfg({"plots": True})
 
 
 def _dtypes(model):
