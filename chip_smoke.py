@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off
      for convolutions and matmuls so the float32 comparisons mean something; the
      C compiler that builds the PNG row filters and the JPEG decoder.
-  2. build: nvcc builds the area-attention kernel from the checkout; ptxas's
-     registers and spills are printed (a spill fails), and cuobjdump must find
-     tensor-core (HMMA) instructions in the library.
+  2. build: nvcc builds every kernel source of the checkout side by side (the
+     area attention, and phase 20's int8 convolution and quantization); the area
+     attention's ptxas registers and spills are printed (a spill fails), and
+     cuobjdump must find tensor-core (HMMA) instructions in its library.
   3. kernel vs plain: every on-path shape of the kernel, float32 and bfloat16,
      against the plain PyTorch version computed in float32 on the same inputs (max abs
      error <= 1e-4 f32, <= 2e-2 bf16; the plain version's own bf16 error is printed),
@@ -221,38 +222,46 @@ Phases, in order; any failure exits non-zero:
      heads) at batch 8; the yolov8s-world train step @640 b16, float32 and amp; a grounding
      dataset (8 PNG frames, one COCO-style json of captions and spans) through
      `GroundingDataset` and the loader into one World forward.
- 20. int8 serving, data parallelism and sharded serving. The int8 convolution
-     (`csrc/int8_conv.cu`) is built and ptxas's registers and spills printed (a spill
-     fails); at every quantized convolution of one int8 forward of yolov13n-JDE and of
-     yolov13l-JDE at 640, batch 8, its int32 sums must equal the plain version's (a float64
-     convolution of the int8 values) and its float32 epilogue lie within 1e-6 relative of
-     the plain one (bf16 within its rounding); times by CUDA-graph replay of 20 launches:
-     the kernel, the plain version, `torch._int_mm` on the unfolded matrices without and
-     with the unfold, cuDNN's bf16 convolution of the same shape, and the bound (bytes over
-     3.35 TB/s or 2 M N K over 1979 TOP/s). yolov13n-JDE served with `int8=True` at batch 1
-     and 8 and yolov13l-JDE with `int8='auto'` at 8 (seeded, perturbed weights): one int8
-     launch a quantized conv and one area-attention launch an AAttn a forward, the head maps
-     and rows equal to the plain int8 path's, each path's distance from the float32 fused
-     model, img/s int8 and float32 in turns. The yolov13n-JDE train step @640, global batch
-     16 (float32, cuDNN deterministic): on one NCCL rank under DDP, equal to the plain step
-     tensor for tensor (loss items, gradients, BN statistics, the state and EMA after the
-     update), 8 area-attention launches counted in that step; on two gloo ranks on cuda:0
-     (8 images each, spawned), the two replicas equal to each other, 8 area-attention
-     launches a rank. The same two-rank step in float64, loss included, against the plain
-     step in float64: each gradient and each tensor after the update within 1e-6 of its own
-     largest magnitude (or 1e-15 of the model's largest, for the gradients that a later
-     train-mode BN makes zero): the algorithm. In float32, `_train_ab`'s limits over the
-     spread of the plain path's own noise samples (its rerun, its attention rounded from
-     float64, its distance from float64, the batch in other orders, each half against
-     float64): the step's loss items and its gradient's L2 distance, and, on a probe loss
-     with no discrete decision in it (`probe_functional`: a seeded linear functional of the
-     global head outputs), the L2 distance and each gradient; step ms, the bytes a rank
-     gathers for the loss and the forward collectives' share. `predict_batched(mesh_shape=
-     [1])` equal to the unsharded call; a mesh of more devices than the card has raises
-     ValueError.
+ 20. int8 serving, data parallelism and sharded serving. The int8 path's two kernels
+     (`csrc/int8_quant.cu`: abs-max and quantize-pack in one cooperative launch;
+     `csrc/int8_conv.cu`: the implicit-GEMM convolution on the int8 tensor cores) print
+     ptxas's registers and spills per instantiation (a spill fails); the conv's SASS must
+     hold IMMA (or IGMMA) instructions and no IDP4A. At every quantized convolution of one
+     int8 forward of yolov13n-JDE and of yolov13l-JDE at 640, batch 8, the quantize
+     kernel's xq and sx must equal `int8_quantize_plain`'s byte for byte and the conv's
+     int32 sums the plain version's (a float64 convolution of the int8 values); at each
+     distinct shape its float32 epilogue lies within 1e-6 relative of the plain one (bf16
+     within its rounding); times by CUDA-graph replay of 20 launches: the quantize kernel
+     and its plain version, the conv's tile, the conv, its plain version, `torch._int_mm`
+     on the unfolded matrices without and with the unfold, cuDNN's bf16 convolution of the
+     same shape, and the bounds (bytes over 3.35 TB/s or 2 M N K over 1979 TOP/s; the
+     quantize's bytes). torch.profiler counts the device launches of one int8 forward of
+     yolov13n-JDE at b8 and of its quantized convs, each on its own input (at most 3 a
+     conv; it must see every launch of both kernels). yolov13n-JDE served with `int8=True`
+     at batch 1 and 8 and yolov13l-JDE with `int8='auto'` at 8 (seeded, perturbed weights):
+     one int8_quantize and one int8_conv call a quantized conv and one area-attention
+     launch an AAttn a forward, the head maps and rows equal to the plain int8 path's, each
+     path's distance from the float32 fused model, img/s int8 and float32 in turns. The
+     yolov13n-JDE train step @640, global batch 16 (float32, cuDNN deterministic): on one
+     NCCL rank under DDP, equal to the plain step tensor for tensor (loss items, gradients,
+     BN statistics, the state and EMA after the update), 8 area-attention launches counted
+     in that step; on two gloo ranks on cuda:0 (8 images each, spawned), the two replicas
+     equal to each other, 8 area-attention launches a rank. The same two-rank step in
+     float64, loss included, against the plain step in float64: each gradient and each
+     tensor after the update within 1e-6 of its own largest magnitude (or 1e-15 of the
+     model's largest, for the gradients that a later train-mode BN makes zero): the
+     algorithm. In float32, `_train_ab`'s limits over the spread of the plain path's own
+     noise samples (its rerun, its attention rounded from float64, its distance from
+     float64, the batch in other orders, each half against float64): the step's loss items
+     and its gradient's L2 distance, and, on a probe loss with no discrete decision in it
+     (`probe_functional`: a seeded linear functional of the global head outputs), the L2
+     distance and each gradient; step ms, the bytes a rank gathers for the loss and the
+     forward collectives' share. `predict_batched(mesh_shape=[1])` equal to the unsharded
+     call; a mesh of more devices than the card has raises ValueError.
  21. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
-     the amp train step's forward, phases 16-19's paths at 0; the int8 convolution: one
-     int8 forward of yolov13n-JDE at 640, batch 8), the card line, and the result line.
+     the amp train step's forward, phases 16-19's paths at 0; the int8 convolution and the
+     int8 quantization: one int8 forward of yolov13n-JDE at 640, batch 8), the card line,
+     and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -267,6 +276,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -417,9 +427,16 @@ def phase_build():
     import torch
 
     from sar_yolo_tpu_torch.ops.cuda import flash_attention as fa
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
     t0 = time.perf_counter()
-    path, log = fa.build()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    # every kernel source at once, one nvcc each (phase 20 reads the int8 builds' logs)
+    with ThreadPoolExecutor(2) as pool:
+        int8_build = pool.submit(ic.build)
+        path, log = fa.build()
+        print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+        int8_libs = int8_build.result()
+    print(f"build: {', '.join(p.name for p, _ in int8_libs)} in "
+          f"{time.perf_counter() - t0:.2f} s (side by side)")
     entry = None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '.*flash_area_attention_kernelI(\w+?)Li(\d+)E",
@@ -4170,50 +4187,77 @@ FLOAT64_ZERO = 1e-9       # a float64 gradient under this much of the model's la
 
 
 def phase_int8_build():
-    """Build the int8 convolution; print ptxas's registers and spills (a spill fails)."""
+    """The int8 path's two kernels (built in phase 2, side by side with the attention kernel):
+    ptxas's registers and spills of each instantiation (a spill fails); the conv's SASS must
+    hold int8 tensor-core instructions (IMMA or IGMMA) and no IDP4A."""
+    import os
     import re
+    import shutil
 
     from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
     t0 = time.perf_counter()
-    path, log = ic.build()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if m := re.search(r"int8_conv_kernelI(\w+?)Lb(\d)E", line):
-            entry = f"{ {'i': 'int32 sums', 'f': 'float32', '13__nv_bfloat16': 'bfloat16'}.get(m.group(1), m.group(1))}"
-        if "registers" in line or "spill" in line:
-            print(f"  int8_conv {entry}: {line.strip().removeprefix('ptxas info    : ')}")
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    (conv_path, conv_log), (quant_path, quant_log) = ic.build()
+    print(f"build: {conv_path.name}, {quant_path.name} in {time.perf_counter() - t0:.2f} s "
+          "(cached from phase 2)")
+    spills = []
+    for log in (conv_log, quant_log):
+        entry = None
+        for line in log.splitlines():
+            if m := re.search(r"Compiling entry function '.*int8_conv_kernel"
+                              r"ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", line):
+                wf, wp, mf, np_, cb = map(int, m.groups())
+                entry = f"int8_conv tile {wf * mf * 16}x{wp * np_ * 8} {cb}-byte copies"
+            elif m := re.search(r"Compiling entry function '.*(int8_\w+?_kernel)I(\w+?)E", line):
+                entry = f"{m.group(1)} " + {"f": "float32", "13__nv_bfloat16": "bfloat16"}.get(
+                    m.group(2), m.group(2))
+            if entry and ("registers" in line or "spill" in line):
+                print(f"  {entry}: {line.strip().removeprefix('ptxas info    : ')}")
+        spills += [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
     check(spills and max(spills) == 0, f"register spills in the int8 build: {spills}")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(conv_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {op: len(re.findall(pattern, sass)) for op, pattern in (
+        ("IMMA", r"\bIMMA[.\s]"), ("IGMMA", r"\bIGMMA[.\s]"), ("IDP4A", r"\bIDP\.?4A"))}
+    print(f"  int8_conv SASS: {counts}")
+    check(counts["IMMA"] + counts["IGMMA"] > 0 and counts["IDP4A"] == 0,
+          f"int8_conv SASS: {counts}; expected tensor-core instructions and no IDP4A")
 
 
 @contextlib.contextmanager
 def _int8_calls(calls: list):
-    """While active, each int8_conv call appends its (xq, wq, sx, sw, bias, stride, padding,
-    dilation, dtype) to `calls` and runs."""
+    """While active, each Int8Conv2d forward appends (x, pad_to, (xq, wq, sx, sw, bias, stride,
+    padding, dilation, dtype)) to `calls`: its int8_quantize input and its int8_conv call."""
     from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
-    launch = ic.int8_conv
+    quantize, launch = ic.int8_quantize, ic.int8_conv
+    pending = []
+
+    def record_quantize(x, pad_to):
+        pending.append((x, pad_to))
+        return quantize(x, pad_to)
 
     def record(*args):
-        calls.append(args)
+        calls.append((*pending.pop(), args))
         return launch(*args)
-    ic.int8_conv = record
+    ic.int8_quantize, ic.int8_conv = record_quantize, record
     try:
         yield calls
     finally:
-        ic.int8_conv = launch
+        ic.int8_quantize, ic.int8_conv = quantize, launch
 
 
 @contextlib.contextmanager
 def _plain_int8():
-    """While active, int8_conv runs its plain version on CUDA tensors too (the comparison's
-    launches, not counted)."""
+    """While active, int8_quantize and int8_conv run their plain versions on CUDA tensors too
+    (the comparison's launches, not counted)."""
     from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
-    launch = ic.int8_conv
-    ic.int8_conv = ic.int8_conv_plain
+    quantize, launch = ic.int8_quantize, ic.int8_conv
+    ic.int8_quantize, ic.int8_conv = ic.int8_quantize_plain, ic.int8_conv_plain
     try:
         yield
     finally:
-        ic.int8_conv = launch
+        ic.int8_quantize, ic.int8_conv = quantize, launch
 
 
 def _unfold_int8(xq, kh: int, stride: int, pad: int, dil: int, k_pad: int):
@@ -4231,25 +4275,39 @@ def _unfold_int8(xq, kh: int, stride: int, pad: int, dil: int, k_pad: int):
 
 
 def _int8_shape_rows(calls: list, label: str) -> list:
-    """Every call of one forward at its shape: the kernel's int32 sums against the plain
-    version's (equal), its float32 and bf16 epilogue against the plain version's, and times
-    (CUDA-graph replay of 20 launches, each distinct shape once): the kernel, the plain
-    version, torch._int_mm on the unfolded matrices without and with the unfold, cuDNN's
-    bf16 convolution of the same shape; the bound."""
+    """Every call of one forward: the quantize kernel's xq and sx against the plain version's
+    (equal, byte for byte; each shape's row keeps the largest differences of its calls) and
+    the conv kernel's int32 sums against the plain version's (equal); at each distinct shape
+    the float32 and bf16 epilogues against the plain
+    version's, the conv's tile and times (CUDA-graph replay of 20 launches): the quantize
+    kernel and its plain version, the conv kernel, its plain version, torch._int_mm on the
+    unfolded matrices without and with the unfold, cuDNN's bf16 convolution of the same
+    shape; the bounds (conv: bytes or operations; quantize: bytes)."""
     import torch
     from torch.nn import functional as F
 
     from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
     rows, seen = [], {}
-    for xq, wq, sx, sw, bias, stride, pad, dil, dtype in calls:
-        key = (tuple(xq.shape), tuple(wq.shape), stride, pad, dil)
-        if key in seen:
-            rows.append(seen[key])
-            continue
+    for i, (x, pad_to, (xq, wq, sx, sw, bias, stride, pad, dil, dtype)) in enumerate(calls):
+        kq, ksx = ic.int8_quantize(x, pad_to)
+        pq, psx = ic.int8_quantize_plain(x, pad_to)
+        xq_err = (kq.int() - pq.int()).abs().max().item()
+        sx_err = (ksx - psx).abs().max().item()
+        check(torch.equal(kq, pq) and torch.equal(ksx.view(torch.int32), psx.view(torch.int32)),
+              f"{label} call {i} {tuple(x.shape)} {x.dtype}: the quantize kernel's xq differs "
+              f"from the plain version's in {(kq != pq).sum().item()} values (by up to "
+              f"{xq_err}), sx by {sx_err}")
         sums = ic.int8_conv_sums(xq, wq, stride, pad, dil)
         ref = ic.conv_sums_plain(xq, wq, stride, pad, dil)
-        check(torch.equal(sums.double(), ref), f"{label} {key}: int32 sums differ from the plain "
-              f"version's by {(sums.double() - ref).abs().max().item()}")
+        check(torch.equal(sums.double(), ref), f"{label} call {i}: int32 sums differ from the "
+              f"plain version's by {(sums.double() - ref).abs().max().item()}")
+        key = (tuple(x.shape), x.dtype, tuple(wq.shape), stride, pad, dil)
+        if key in seen:  # the shape's row keeps the largest quantize errors of its calls
+            row = seen[key]
+            row["quantize_xq_abs_err"] = max(row["quantize_xq_abs_err"], xq_err)
+            row["quantize_sx_abs_err"] = max(row["quantize_sx_abs_err"], sx_err)
+            rows.append(row)
+            continue
         errs, abs_err = {}, 0.0
         for dt in (torch.float32, torch.bfloat16):
             y = ic.int8_conv(xq, wq, sx, sw, bias, stride, pad, dil, dt).float()
@@ -4266,9 +4324,12 @@ def _int8_shape_rows(calls: list, label: str) -> list:
         k8, n8 = -(-K // 16) * 16, -(-N // 8) * 8
         wmat = F.pad(wq.reshape(N, K), (0, k8 - K, 0, n8 - N)).t()  # (K, N) column-major
         cols = _unfold_int8(xq, kh, stride, pad, dil, k8)
-        xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
-        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+        c_in = x.shape[1]
+        xb = xq[..., :c_in].permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = wq[..., :c_in].permute(0, 3, 1, 2).to(torch.bfloat16)
         times = {
+            "quantize_ms": device_ms(lambda: ic.int8_quantize(x, pad_to), reps=3),
+            "quantize_plain_ms": device_ms(lambda: ic.int8_quantize_plain(x, pad_to), reps=3),
             "kernel_ms": device_ms(lambda: ic.int8_conv(xq, wq, sx, sw, bias, stride, pad, dil,
                                                         dtype), reps=3),
             "plain_ms": device_ms(lambda: ic.int8_conv_plain(xq, wq, sx, sw, bias, stride, pad,
@@ -4277,18 +4338,58 @@ def _int8_shape_rows(calls: list, label: str) -> list:
             "int_mm_with_unfold_ms": device_ms(lambda: torch._int_mm(
                 _unfold_int8(xq, kh, stride, pad, dil, k8), wmat), reps=3),
             "cudnn_bf16_ms": device_ms(lambda: F.conv2d(xb, wb, None, stride, pad, dil), reps=3)}
-        nbytes = xq.numel() + wq.numel() + M * N * torch.empty((), dtype=dtype).element_size() \
-            + 4 * (B + 2 * N)
+        nbytes = B * H * W * c_in + N * kh * kw * c_in + \
+            M * N * torch.empty((), dtype=dtype).element_size() + 4 * (B + 2 * N)
         t_ops, t_bytes = 2 * M * N * K / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        row = {"x": list(key[0]), "w": list(key[1]), "stride": stride, "pad": pad,
-               "dil": dil, "M": M, "N": N, "K": K, "epilogue_rel_err": errs,
-               "epilogue_abs_err": abs_err, **times,
+        q_bytes = x.numel() * x.element_size() + xq.numel() + 4 * B
+        row = {"x": list(x.shape), "x_dtype": str(x.dtype).removeprefix("torch."),
+               "w": list(wq.shape), "stride": stride, "pad": pad, "dil": dil, "M": M, "N": N,
+               "K": K, "tile": "x".join(map(str, ic.plan(xq, wq, stride, pad, dil)["tile"])),
+               "epilogue_rel_err": errs, "epilogue_abs_err": abs_err,
+               "quantize_xq_abs_err": xq_err, "quantize_sx_abs_err": sx_err, **times,
                "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "quantize_bound_ms": q_bytes / PEAK_BYTES * 1e3}
         seen[key] = row
         rows.append(row)
         print(json.dumps({"int8_conv_shape": label, **row}))
     return rows
+
+
+def _int8_device_launches(model, x) -> dict:
+    """Device launches (torch.profiler's CUDA events: kernels, copies, memsets) of one forward
+    of `model` on x, and of its quantized convolutions alone, each run on the input it
+    receives in that forward; the latter by kernel name and per quantized convolution."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sar_yolo_tpu_torch.nn.modules.conv import Int8Conv2d
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: seen.append((m, a[0])))
+             for m in model.modules() if isinstance(m, Int8Conv2d)]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+
+    def device_events(fn) -> collections.Counter:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+        return collections.Counter({ev.key: ev.count for ev in prof.key_averages()
+                                    if ev.device_type == DeviceType.CUDA})
+    forward = device_events(lambda: model(x))
+    convs = device_events(lambda: [m(xi) for m, xi in seen])
+    check(sum(convs.values()) > 0, "the profiler saw no device event in the quantized convs")
+    return {"forward": sum(forward.values()), "quantized_convs": len(seen),
+            "in_quantized_convs": sum(convs.values()),
+            "per_quantized_conv": sum(convs.values()) / len(seen),
+            "by_kernel": {k[:60]: v for k, v in convs.most_common()}}
 
 
 def _maps_distance(a, b) -> float:
@@ -4300,10 +4401,12 @@ def _maps_distance(a, b) -> float:
 
 
 def phase_int8_serve(name: str, req, batches, card: str, seed: int = 0) -> dict:
-    """int8 serving through `predict_batched`: the launches a forward (one a quantized conv,
-    8 of the area-attention kernel), the kernel path against the plain int8 path (head maps;
-    rows at phase 4's `_ab_conf` threshold, equal), each path's distance from the float32
-    fused model, img/s int8 and float32 in turns; the kernel's shapes at the largest batch."""
+    """int8 serving through `predict_batched`: the launches a forward (one int8_quantize and
+    one int8_conv call a quantized conv, one area-attention launch an AAttn), the kernel
+    path against the plain int8 path (head maps; rows at phase 4's `_ab_conf` threshold,
+    equal), each path's distance from the float32 fused model, img/s int8 and float32 in
+    turns; the kernels at every call of one forward at the largest batch, and the profiler's
+    device launches a quantized conv there."""
     import torch
 
     from sar_yolo_tpu_torch.nn.modules.block import AAttn
@@ -4342,10 +4445,11 @@ def phase_int8_serve(name: str, req, batches, card: str, seed: int = 0) -> dict:
         ic.reset_launches()
         flash_area_attention.launches = 0
         got = yolo.predict_batched(frames[:b], conf=conf, **kw)
-        launches[b] = (ic.int8_conv.launches, flash_area_attention.launches)
-        want_launches = (n_q if x.is_cuda else 0, n_attn)  # the CPU: the plain versions
-        check(launches[b] == want_launches, f"{name} b{b}: (int8, attention) launches "
-              f"{launches[b]}, expected {want_launches}")
+        launches[b] = (ic.int8_conv.launches, ic.int8_quantize.launches,
+                       flash_area_attention.launches)
+        n_k = n_q if x.is_cuda else 0  # the CPU: the plain versions
+        check(launches[b] == (n_k, n_k, n_attn), f"{name} b{b}: (int8_conv, int8_quantize, "
+              f"attention) launches {launches[b]}, expected {(n_k, n_k, n_attn)}")
         with _plain_int8():
             want = yolo.predict_batched(frames[:b], conf=conf, **kw)
         check(np.array_equal(got, want), f"{name} b{b}: the int8 kernel path's rows differ from "
@@ -4355,10 +4459,20 @@ def phase_int8_serve(name: str, req, batches, card: str, seed: int = 0) -> dict:
                        lambda: _img_per_s(yolo, frames[:b], dict(conf=conf, **kw)))
         out[f"img_per_s_b{b}"] = {"float32": rates["f32"], "int8": rates["bf16"],
                                   "float32_runs": rates["f32_runs"], "int8_runs": rates["bf16_runs"]}
-    out["launches_int8_attention"] = {f"b{b}": v for b, v in launches.items()}
+    out["launches_int8_conv_quantize_attention"] = {f"b{b}": v for b, v in launches.items()}
+    xb = pred.preprocess(frames[:INT8_BATCH])[0]
+    if x.is_cuda and name == INT8_SERVE[0][0]:
+        out["device_launches"] = launched = _int8_device_launches(pred.model, xb)
+        print(json.dumps({"int8_device_launches": name, **launched}))
+        named = {k: v for k, v in launched["by_kernel"].items() if "int8_" in k}
+        check(sum(v for k, v in named.items() if "int8_quantize" in k) == n_q and
+              sum(v for k, v in named.items() if "int8_conv" in k) == n_q,
+              f"{name}: the profiler saw {named}, not {n_q} launches of each kernel")
+        check(launched["per_quantized_conv"] <= 3, f"{name}: "
+              f"{launched['per_quantized_conv']} device launches a quantized conv")
     calls = []
     with _int8_calls(calls), torch.no_grad():
-        pred.model(pred.preprocess(frames[:INT8_BATCH])[0])
+        pred.model(xb)
     check(len(calls) == n_q, f"{name}: {len(calls)} int8 calls in a forward, expected {n_q}")
     shape_rows = _int8_shape_rows(calls, f"{name}@{INT8_IMGSZ} b{INT8_BATCH}")
     print(json.dumps(out))
@@ -4631,20 +4745,24 @@ def phase_int8_ddp(card: str) -> tuple:
     phase_sharded_serve()
     laps["sharded_serve"] = time.perf_counter() - t
     torch.cuda.empty_cache()
-    rows = serve["yolov13n-JDE.yaml"]["rows"]
-    per_forward = {k: sum(r[k] for r in rows) for k in
-                   ("kernel_ms", "plain_ms", "int_mm_ms", "int_mm_with_unfold_ms",
-                    "cudnn_bf16_ms", "bound_ms")}
-    per_forward["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
-    per_forward["max_rel_err"] = max(r["epilogue_rel_err"]["float32"] for r in rows)
-    per_forward["max_abs_err"] = max(r["epilogue_abs_err"] for r in rows)
+    per_forward = {}
+    for name, _, _ in INT8_SERVE:
+        rows = serve[name]["rows"]
+        pf = per_forward[name.removesuffix(".yaml")] = {k: sum(r[k] for r in rows) for k in (
+            "kernel_ms", "plain_ms", "int_mm_ms", "int_mm_with_unfold_ms", "cudnn_bf16_ms",
+            "bound_ms", "quantize_ms", "quantize_plain_ms", "quantize_bound_ms")}
+        pf["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+        pf["max_rel_err"] = max(r["epilogue_rel_err"]["float32"] for r in rows)
+        pf["max_abs_err"] = max(r["epilogue_abs_err"] for r in rows)
+        pf["quantize_xq_abs_err"] = max(r["quantize_xq_abs_err"] for r in rows)
+        pf["quantize_sx_abs_err"] = max(r["quantize_sx_abs_err"] for r in rows)
     print(json.dumps({"phase_int8_ddp_s": laps, "int8_per_forward": per_forward}))
     for name, req, batches in INT8_SERVE:
-        for b, (n_int8, n_attn) in serve[name]["launches"].items():
+        for b, (_, _, n_attn) in serve[name]["launches"].items():
             paths[f"serve int8={req} {name.removesuffix('.yaml')}@{INT8_IMGSZ} b{b} "
                   "(area attention)"] = n_attn
-    n_launches = serve["yolov13n-JDE.yaml"]["launches"][INT8_BATCH][0]
-    return per_forward, n_launches, paths
+    conv_launches, quantize_launches, _ = serve["yolov13n-JDE.yaml"]["launches"][INT8_BATCH]
+    return per_forward["yolov13n-JDE"], (conv_launches, quantize_launches), paths
 
 
 def main() -> int:
@@ -4770,7 +4888,7 @@ def main() -> int:
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",
-        "launches": int8_launches, "max_abs_err": int8_row["max_abs_err"],
+        "launches": int8_launches[0], "max_abs_err": int8_row["max_abs_err"],
         "max_rel_err_float32_epilogue": int8_row["max_rel_err"],
         "ms": int8_row["kernel_ms"], "plain_ms": int8_row["plain_ms"],
         "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
@@ -4779,7 +4897,21 @@ def main() -> int:
         "int_mm_with_unfold_ms": int8_row["int_mm_with_unfold_ms"],
         "cudnn_bf16_ms": int8_row["cudnn_bf16_ms"],
         "per": f"one int8 forward of yolov13n-JDE at {INT8_IMGSZ}, batch {INT8_BATCH} "
-               "(int8=True); the int32 sums equal the plain version's at every call"}]}))
+               "(int8=True); the int32 sums equal the plain version's at every call"}, {
+        "name": "int8_quantize", "route": "cuda",
+        "source": "sar_yolo_tpu_torch/csrc/int8_quant.cu",
+        "replaces": "sar_yolo_tpu/nn/modules/conv.py:119",
+        "replaces_note": "not a TPU kernel: XLA's abs-max, divide, round and clip of the "
+                         "activations in Int8Conv2D (lines 119-120)",
+        "launches": int8_launches[1],
+        "max_abs_err": max(int8_row["quantize_xq_abs_err"], int8_row["quantize_sx_abs_err"]),
+        "xq_max_abs_err": int8_row["quantize_xq_abs_err"],
+        "sx_max_abs_err": int8_row["quantize_sx_abs_err"],
+        "ms": int8_row["quantize_ms"], "plain_ms": int8_row["quantize_plain_ms"],
+        "bound_ms": int8_row["quantize_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "per": f"one int8 forward of yolov13n-JDE at {INT8_IMGSZ}, batch {INT8_BATCH} "
+               "(int8=True; one cooperative launch a call); xq and sx equal the plain "
+               "version's at every call"}]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -76,9 +76,11 @@ class Int8Conv2d(Conv2d):
     """A fused Conv's biased convolution on the int8 path (the JAX package's `Int8Conv2D`):
     the same `weight` and `bias`, quantized symmetric in float32 whatever the serving
     dtype: the weights per output channel, the input per sample (abs-max / 127, divide,
-    round half to even, clip to +-127); the int8 x int8 -> int32 convolution
-    (`ops/cuda/int8_conv.py`: the kernel on the card); float32(sums) * (sx * sw) + bias,
-    output in the compute dtype. The quantized weights are kept until the weights change."""
+    round half to even, clip to +-127); the int8 x int8 -> int32 convolution;
+    float32(sums) * (sx * sw) + bias, output in the compute dtype. On the card the input's
+    quantization is one kernel call and the convolution another (`ops/cuda/int8_conv.py`).
+    The quantized weights, padded to the channels the kernels read, are kept until the
+    weights change."""
 
     @classmethod
     def of(cls, conv: Conv2d) -> "Int8Conv2d":
@@ -94,28 +96,24 @@ class Int8Conv2d(Conv2d):
         return q
 
     def quantized_weight(self):
-        """(wq (C_out, kh, kw, C_in) int8, sw (C_out,) float32), cached per weight version."""
-        w = self.weight
-        key = (w._version, w.data_ptr(), w.dtype)
+        """(wq (C_out, kh, kw, Cp) int8, sw (C_out,) float32, bias (C_out,) float32), cached
+        per weight and bias version; Cp is C_in zero-padded to `channel_multiple` on the
+        weights' device (C_in itself on the CPU)."""
+        from sar_yolo_tpu_torch.ops.cuda.int8_conv import channel_multiple, quantize_weight
+        w, b = self.weight, self.bias
+        key = (w._version, w.data_ptr(), w.dtype, b._version, b.data_ptr(), b.dtype)
         if self._wq is None or self._wq[0] != key:
-            wf = w.detach().float()
-            sw = torch.clamp(wf.abs().amax((1, 2, 3)), min=1e-12) / 127.0
-            wq = torch.clamp(torch.round(wf / sw.view(-1, 1, 1, 1)), -127, 127)
-            self._wq = (key, wq.to(torch.int8).permute(0, 2, 3, 1).contiguous(), sw)
+            wq, sw = quantize_weight(w, channel_multiple(w.shape[1], w.device))
+            self._wq = (key, wq, sw, b.detach().float())
         return self._wq[1:]
 
     def forward(self, x):
-        from sar_yolo_tpu_torch.ops.cuda.int8_conv import int8_conv
+        from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
         dt = self.compute_dtype or self.weight.dtype
-        wq, sw = self.quantized_weight()
-        xf = x.float()
-        sx = torch.clamp(xf.abs().amax((1, 2, 3)), min=1e-12) / 127.0
-        q = torch.clamp(torch.round(xf / sx.view(-1, 1, 1, 1)), -127, 127)
-        xq = torch.empty((x.shape[0], *x.shape[2:], x.shape[1]), dtype=torch.int8,
-                         device=x.device)
-        xq.copy_(q.permute(0, 2, 3, 1))
-        return int8_conv(xq, wq, sx, sw, self.bias.float(), self.stride[0], self.padding[0],
-                         self.dilation[0], dt)
+        wq, sw, bias = self.quantized_weight()
+        xq, sx = ic.int8_quantize(x, ic.channel_multiple(x.shape[1], x.device))
+        return ic.int8_conv(xq, wq, sx, sw, bias, self.stride[0], self.padding[0],
+                            self.dilation[0], dt)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
