@@ -258,10 +258,34 @@ Phases, in order; any failure exits non-zero:
      distance and each gradient; step ms, the bytes a rank gathers for the loss and the
      forward collectives' share. `predict_batched(mesh_shape=[1])` equal to the unsharded
      call; a mesh of more devices than the card has raises ValueError.
- 21. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
-     the amp train step's forward, phases 16-19's paths at 0; the int8 convolution and the
-     int8 quantization: one int8 forward of yolov13n-JDE at 640, batch 8), the card line,
-     and the result line.
+ 21. export and artifact serving. yolov13n-JDE @640 (seeded, perturbed weights, its class
+     biases shifted so that under 200 anchors a frame pass the artifacts' fixed threshold
+     0.25) exported with `YOLO.export(format="pt2")` with embedded NMS and `dynamic=True`, and
+     raw; the seconds and bytes of each; each loaded with `YOLO(path)` on the card. The
+     program holds 8 `sar_yolo_tpu_torch::flash_area_attention` nodes; on 8 ragged 720x1280
+     frames letterboxed on the host (uint8 RGB, the artifacts' input), the NMS artifact's rows
+     at batch 1 and 8 (one dynamic program) equal the eager served model's (`decode_nms` on
+     the same tensor; phase 4's gates: scores and embeddings within 1e-3, boxes within 1e-3
+     px) and the raw (static) artifact's at batch 1 within 1e-3 of the eager ones, each forward
+     with 8 kernel launches; torch.profiler over artifact forwards: 8 launches of the kernel
+     and of the op a forward, and no aten::einsum beyond the program's own (none of them
+     attention), the kernel's device ms a forward in the artifact and in the eager forward;
+     img/s at batch 1 and 8 in turns: the artifact, the eager model on the same letterboxed
+     batch, eager `predict_batched` of the raw frames. `YOLO(raw artifact).predict` (host
+     letterbox) against `YOLO.predict` (letterbox on the card) at a threshold in a gap of the
+     scores, on the 12 JPEG frames resized on the host to their letterbox size (both
+     letterboxes then only pad): the same count a frame, boxes within 1.5 px, conf within
+     5e-3, equal classes (the JAX export tests' round trip); on the JPEG files themselves the
+     same comparison is printed, not held (the host letterbox rounds to uint8, the card's
+     keeps float32, and random weights turn that into pixels). The raw ONNX artifact at
+     640, one frame through the port's numpy runtime on the host against the eager
+     predictions on the card (atol 2e-3, rtol 1e-3), its seconds. yolov8n @640 on bench.py's
+     480x640 frames: the two pt2 artifacts with the same gates at batch 1 and 8 (no kernel
+     launch), img/s in turns.
+ 22. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+     the amp train step's forward, phases 16-19's paths at 0, its launches and device ms in
+     phase 21's .pt2 program; the int8 convolution and the int8 quantization: one int8
+     forward of yolov13n-JDE at 640, batch 8), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -1934,7 +1958,7 @@ def phase_half(name: str, imgsz: int, conf: float, batch: int, seed: int, throug
     yolo.predict_batched(frames[:1], **hkw)  # warm-up: fold, cast, cuDNN's plans
     reset_launches()
     got = yolo.predict_batched(frames[:batch], **hkw)
-    _check_bf16_launches(LAUNCHES_PER_FORWARD, f"{name} half")
+    launched = _check_bf16_launches(LAUNCHES_PER_FORWARD, f"{name} half")["bfloat16"]
     served = yolo._fused_for_serving(True)
     check({p.dtype for p in served.parameters()} == {torch.bfloat16}
           and served.compute_dtype == torch.bfloat16, f"{name} half: the served model is not bf16")
@@ -1954,12 +1978,12 @@ def phase_half(name: str, imgsz: int, conf: float, batch: int, seed: int, throug
     kept = {"kept_per_frame_bf16_kernel": (got[..., 4] > 0).sum(1).tolist(),
             "kept_per_frame_bf16_plain": (want[..., 4] > 0).sum(1).tolist()}
     print(json.dumps({"serve_half": name, "imgsz": imgsz, "batch": batch, "conf": conf,
-                      "bf16_kernel_launches": LAUNCHES_PER_FORWARD, **kept, **maps, **rates,
+                      "bf16_kernel_launches": launched, **kept, **maps, **rates,
                       "card": card}))
     check(maps["maps_bf16_kernel_vs_f32"] <= 2 * maps["maps_bf16_plain_vs_f32"],
           f"{name} half: kernel path {maps['maps_bf16_kernel_vs_f32']} from float32, plain path "
           f"{maps['maps_bf16_plain_vs_f32']}")
-    return LAUNCHES_PER_FORWARD
+    return launched
 
 
 def phase_half_jpeg(card: str, seed: int = 2) -> int:
@@ -1989,7 +2013,7 @@ def phase_half_jpeg(card: str, seed: int = 2) -> int:
     yolo.predict(str(frames_dir), **hkw)  # warm-up
     reset_launches()
     walls = {"f32": [], "bf16": []}
-    results = {}
+    results, launched = {}, 0
     for _ in range(3):
         for key, args in (("f32", kw), ("bf16", hkw)):
             n0 = dict(flash_area_attention.launches_by_dtype)
@@ -2001,6 +2025,7 @@ def phase_half_jpeg(card: str, seed: int = 2) -> int:
             check(by == ({"float32": want, "bfloat16": 0} if key == "f32"
                          else {"float32": 0, "bfloat16": want}),
                   f"YOLO.predict {key} on JPEG frames: kernel launches by dtype {by}")
+            launched += by["bfloat16"]
     got = results["bf16"]
     check(len(got) == JPEG_FRAMES and all(np.isfinite(r.boxes.data).all()
                                          and np.isfinite(r.embeds).all() for r in got),
@@ -2015,7 +2040,7 @@ def phase_half_jpeg(card: str, seed: int = 2) -> int:
                         plain._fused_for_serving(), x, x32)
     out = {"yolo_predict_jpeg_half": f"yolov13n-JDE @{TRAIN_IMGSZ}, {JPEG_FRAMES} frames of "
                                      "720x1280", "conf": conf,
-           "bf16_kernel_launches": 3 * JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+           "bf16_kernel_launches": launched,
            **{f"frames_per_s_{k}": JPEG_FRAMES / statistics.median(v) for k, v in walls.items()},
            **{f"frames_per_s_{k}_runs": [JPEG_FRAMES / w for w in v] for k, v in walls.items()},
            "inference_ms_median_bf16": statistics.median(r.speed["inference"] for r in got),
@@ -2026,14 +2051,15 @@ def phase_half_jpeg(card: str, seed: int = 2) -> int:
     check(maps["maps_bf16_kernel_vs_f32"] <= 2 * maps["maps_bf16_plain_vs_f32"],
           f"YOLO.predict half: kernel path {maps['maps_bf16_kernel_vs_f32']} from float32, plain "
           f"path {maps['maps_bf16_plain_vs_f32']}")
-    return 3 * JPEG_FRAMES * LAUNCHES_PER_FORWARD
+    return launched
 
 
 def _amp_ab(base: dict, seed: int, remat: bool, card: str):
     """One amp train step from one state on one batch on the bf16 kernel path, the bf16
     plain path, the float32 plain path and, with `remat`, `remat=True` (cuDNN
     deterministic; see the module docstring, phase 13), with its checks. Returns the
-    trainers and the batch."""
+    trainers, the batch and the kernel's launches in the bf16 step's forward and (with
+    `remat`) in the remat step's forward and recomputation."""
     import torch
 
     from sar_yolo_tpu_torch.data.build import DataLoader
@@ -2114,7 +2140,10 @@ def _amp_ab(base: dict, seed: int, remat: bool, card: str):
           f"plain path {ab['grad_rel_l2_bf16_plain_vs_f32']}")
     # (the 5 loss items are printed, not gated: two bf16 runs part from float32 by rounding
     # noise that 5 numbers do not average, while the gradient's 2.5M entries do)
-    return trainers, batch
+    launches = {"step_forward": lk[0]}
+    if remat:
+        launches["remat"] = sum(out["bf16_remat"][2])
+    return trainers, batch, launches
 
 
 def phase_amp_train(card: str, seed: int = 0):
@@ -2127,7 +2156,7 @@ def phase_amp_train(card: str, seed: int = 0):
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
     base = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
                 seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0)
-    trainers, batch = _amp_ab(base, seed, True, card)
+    trainers, batch, step_launches = _amp_ab(base, seed, True, card)
 
     # times and peak memory, cuDNN's fastest choices; the f32 step on its kernel path
     torch.backends.cudnn.deterministic = False
@@ -2167,17 +2196,17 @@ def phase_amp_train(card: str, seed: int = 0):
     reset_launches()
     frames = np.random.default_rng(seed).integers(0, 256, (2, 720, 1280, 3), np.uint8)
     dets = yolo.predict_batched(frames, imgsz=TRAIN_IMGSZ, conf=1e-4)
-    _check_bf16_launches(LAUNCHES_PER_FORWARD, "predict_batched after amp training")
+    served = _check_bf16_launches(LAUNCHES_PER_FORWARD, "predict_batched after amp training")
     check(np.isfinite(dets).all(), "predict_batched after amp training: not finite")
     print(json.dumps({"yolo_train_amp": metrics, "seconds": train_s, "steps": steps,
                       "kernel_launches_by_dtype": train_by, "val_s": val[0][0],
                       "card": card}))
-    return {f"amp train step forward @{TRAIN_IMGSZ} b{TRAIN_BATCH}": LAUNCHES_PER_FORWARD,
+    return {f"amp train step forward @{TRAIN_IMGSZ} b{TRAIN_BATCH}": step_launches["step_forward"],
             f"remat train step (forward + recomputation) @{TRAIN_IMGSZ} b{TRAIN_BATCH}":
-                2 * LAUNCHES_PER_FORWARD,
+                step_launches["remat"],
             f"YOLO.train amp, 1 epoch ({steps} steps + validation + check_bf16)":
                 train_by["bfloat16"],
-            "predict_batched after amp training": LAUNCHES_PER_FORWARD}, timing
+            "predict_batched after amp training": served["bfloat16"]}, timing
 
 
 # phase 14: the detect task on bench.py's geometry (ragged 480x640 frames, batch 128)
@@ -2539,7 +2568,7 @@ def phase_cbam(card: str, seed: int = 0) -> dict:
     timing = {"f32": _timed_steps(tr, batch)}
     del tr
     torch.cuda.empty_cache()
-    trainers, amp_batch = _amp_ab(base, seed, False, card)
+    trainers, amp_batch, amp_launches = _amp_ab(base, seed, False, card)
     torch.backends.cudnn.deterministic = False
     timing["bf16"] = _timed_steps(trainers["bf16"], amp_batch)
     del trainers
@@ -2549,7 +2578,7 @@ def phase_cbam(card: str, seed: int = 0) -> dict:
     out["float32"][f"train step forward yolov13n-JDE_CBAM@{TRAIN_IMGSZ} b{TRAIN_BATCH}"] = \
         step_launches[0]
     out["bfloat16"][f"amp train step forward yolov13n-JDE_CBAM@{TRAIN_IMGSZ} b{TRAIN_BATCH}"] = \
-        LAUNCHES_PER_FORWARD
+        amp_launches["step_forward"]
     t_train = time.perf_counter()
 
     # the facade: YOLO.train's callbacks, save and YOLO(checkpoint), fuse, info, profile
@@ -2572,7 +2601,8 @@ def phase_cbam(card: str, seed: int = 0) -> dict:
     kw = dict(imgsz=TRAIN_IMGSZ, conf=0.001)
     reset_launches()
     before = yolo.predict_batched(frames, **kw)
-    check(flash_area_attention.launches == LAUNCHES_PER_FORWARD and np.isfinite(before).all()
+    served_launches = flash_area_attention.launches
+    check(served_launches == LAUNCHES_PER_FORWARD and np.isfinite(before).all()
           and (before[..., 4] > 0).any(), f"predict_batched after training: "
           f"{flash_area_attention.launches} kernel launches")
     ckpt = yolo.save(Path("runs") / "chip_smoke_cbam_saved")
@@ -2606,7 +2636,7 @@ def phase_cbam(card: str, seed: int = 0) -> dict:
                       "card": card}))
     out["float32"].update({
         f"YOLO.train yolov13n-JDE_CBAM, 1 epoch ({steps} steps + validation)": train_launches,
-        "predict_batched after YOLO.train of yolov13n-JDE_CBAM": LAUNCHES_PER_FORWARD,
+        "predict_batched after YOLO.train of yolov13n-JDE_CBAM": served_launches,
         f"Ensemble of 2 checkpoints, {JPEG_FRAMES} JPEG frames": ens_launches})
     print(json.dumps({"phase_cbam_s": {"serve": t_serve - t0, "train_step": t_train - t_serve,
                                        "facade": time.perf_counter() - t_train}}))
@@ -4765,6 +4795,328 @@ def phase_int8_ddp(card: str) -> tuple:
     return per_forward["yolov13n-JDE"], (conv_launches, quantize_launches), paths
 
 
+EXPORT_IMGSZ = 640        # the served artifacts' input side
+EXPORT_BATCH = 8          # letterboxed frames of the artifact gates and of the dynamic batch
+EXPORT_CANDIDATES = 200   # the class biases are shifted so that no frame has this many
+                          # anchors over the artifacts' threshold (0.25)
+EXPORT_MARGIN = 5e-3      # the round trip's conf tolerance (the JAX tests' `_roundtrip`)
+ONNX_IMGSZ = 640          # the ONNX artifact's side (the numpy runtime takes ~40 s a frame)
+
+
+def _letterboxed(frames, imgsz: int) -> np.ndarray:
+    """BGR frames -> (B, imgsz, imgsz, 3) uint8 RGB, the host letterbox of `BackendPredictor`."""
+    from sar_yolo_tpu_torch.data.augment import letterbox
+    return np.stack([np.ascontiguousarray(letterbox(f, imgsz, scaleup=False)[0][..., ::-1])
+                     for f in frames])
+
+
+def _eager_program(yolo, u8, with_nms: bool):
+    """The eager served model on a letterboxed uint8 RGB batch: the BN-folded forward, then
+    `decode_nms` of the predictor at the artifacts' threshold (0.25), or the raw decoded
+    predictions with the embeddings inline (the JAX exporter's raw graph)."""
+    import torch
+
+    from sar_yolo_tpu_torch.engine.exporter import EXPORT_CONF
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    predictor = yolo._get_predictor({"imgsz": u8.shape[1], "conf": EXPORT_CONF})
+    x = torch.from_numpy(u8).to(yolo.device).permute(0, 3, 1, 2).contiguous().float() / 255.0
+    with torch.no_grad():
+        feats = predictor.model(x)
+        if with_nms:
+            return predictor.decode_nms(feats)
+        meta = yolo.meta
+        return decode_detect(feats, meta["strides"], meta["nc"], meta["reg_max"],
+                             extra_sigmoid=meta.get("state_classes") or 0)
+
+
+def _shift_class_bias(yolo, u8, conf: float, n: int, margin: float = 1e-3) -> float:
+    """Shift the head's class-logit biases by one constant so that on the batch u8 no frame
+    has n anchors whose best score passes `conf` and no best logit lies within `margin` of
+    the threshold (`_ab_conf` on the logits). The artifacts' NMS threshold is fixed at 0.25;
+    this puts a few hundred candidates a frame over it. Returns the shift."""
+    import torch
+    preds = _eager_program(yolo, u8, False)
+    nc = yolo.meta["nc"]
+    best = preds[..., 4:4 + nc].amax(-1).double().clamp(1e-12, 1 - 1e-12)
+    level, _ = _ab_conf(torch.logit(best).cpu().numpy(), n, margin)
+    shift = float(np.log(conf / (1 - conf)) - level)
+    head = yolo.model.blocks[yolo.meta["head_index"]]
+    with torch.no_grad():
+        for name, p in head.named_parameters():
+            if name.startswith("cv3_") and name.endswith("_pred.bias"):
+                p.add_(shift)
+    yolo._fused = yolo._half = yolo._predictor_cache = None
+    return shift
+
+
+def _program_ops(backend) -> dict:
+    """Nodes of the artifact's program: the area-attention op's and einsum's."""
+    import torch
+    targets = [n.target for n in backend.module.graph.nodes if n.op == "call_function"]
+    return {"flash_area_attention": targets.count(
+        torch.ops.sar_yolo_tpu_torch.flash_area_attention.default),
+            "einsum": targets.count(torch.ops.aten.einsum.default)}
+
+
+def _profiled(fn, n: int = 5) -> dict:
+    """torch.profiler over n calls of fn: the area-attention kernel's launches and device ms,
+    and the count of each CPU op, a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernel = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+              and "flash_area_attention_kernel" in ev.key]
+    cpu = {ev.key: ev.count / n for ev in prof.key_averages() if ev.device_type == DeviceType.CPU}
+    return {"kernel_launches": sum(ev.count for ev in kernel) / n,
+            "kernel_ms": sum(getattr(ev, "device_time_total", 0.0) for ev in kernel) / n / 1e3,
+            "einsum": cpu.get("aten::einsum", 0.0),
+            "flash_area_attention_op": cpu.get("sar_yolo_tpu_torch::flash_area_attention", 0.0)}
+
+
+def _rates_in_turns(fns: dict, rounds: int = 2, n: int = 10) -> dict:
+    """img/s of each fn (one call serves `batch` images; host clock, synchronized), taken in
+    turns, a, b, ..., b, a per round; the median of each fn's runs."""
+    import torch
+    runs = {k: [] for k in fns}
+    for r in range(rounds):
+        for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            fn, batch = fns[key]
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            runs[key].append(n * batch / (time.perf_counter() - t0))
+    return {k: {"img_per_s": statistics.median(v), "runs": v} for k, v in runs.items()}
+
+
+def _roundtrip_errors(got: list, want: list, label: str, hold: bool = True) -> dict:
+    """`YOLO(artifact).predict` against `YOLO.predict`, frame by frame, as the JAX package's
+    export tests hold a round trip: the same count, and sorted by conf, boxes within 1.5 px,
+    conf within 5e-3 and the classes equal (`hold=False`: measured, not held). Returns the
+    kept counts of both and the largest errors over the frames whose counts agree."""
+    kept, kept_artifact, box, score, classes = [], [], 0.0, 0.0, True
+    for g, w in zip(got, want):
+        a, b = (np.asarray(r.boxes.data)[:, :6] for r in (w, g))
+        kept.append(len(a))
+        kept_artifact.append(len(b))
+        if len(a) != len(b) or not len(a):
+            continue
+        a, b = a[np.argsort(-a[:, 4], kind="stable")], b[np.argsort(-b[:, 4], kind="stable")]
+        box = max(box, float(np.abs(a[:, :4] - b[:, :4]).max()))
+        score = max(score, float(np.abs(a[:, 4] - b[:, 4]).max()))
+        classes &= bool(np.array_equal(a[:, 5], b[:, 5]))
+    out = {"kept_per_frame": kept, "kept_per_frame_artifact": kept_artifact,
+           "box_err_px": box, "score_err": score, "classes_equal": classes}
+    if hold:
+        check(len(got) == len(want) and kept == kept_artifact and box <= 1.5 and
+              score <= EXPORT_MARGIN and classes, f"{label}: {out}")
+    return out
+
+
+def _fit(img: np.ndarray, imgsz: int) -> np.ndarray:
+    """img resized on the host to the size its letterbox gives it (the host letterbox's own
+    resize), so that any letterbox of the result only pads."""
+    from sar_yolo_tpu_torch.data import cv
+    h, w = img.shape[:2]
+    r = min(imgsz / h, imgsz / w, 1.0)
+    return cv.resize(img, (round(w * r), round(h * r)))
+
+
+def _export_pair(yolo, root: Path, label: str, card: str) -> tuple:
+    """yolo exported as pt2 with embedded NMS (dynamic batch) and raw, each loaded with
+    `YOLO(path)` on the card. Returns (the NMS artifact, the raw artifact, their numbers)."""
+    from sar_yolo_tpu_torch import YOLO
+    out, loaded = {}, []
+    for kind, kw in (("nms", dict(nms=True, dynamic=True)), ("raw", dict(nms=False))):
+        t0 = time.perf_counter()
+        path = yolo.export(format="pt2", imgsz=EXPORT_IMGSZ, project=str(root / kind), **kw)
+        t1 = time.perf_counter()
+        artifact = YOLO(path)
+        out[kind] = {"export_s": t1 - t0, "load_s": time.perf_counter() - t1,
+                     "bytes": Path(path).stat().st_size, "path": path}
+        check(artifact.backend.device.type == yolo.device.type, f"{label} {kind}: served on "
+              f"{artifact.backend.device}, the model is on {yolo.device}")
+        loaded.append(artifact)
+    print(json.dumps({"export": label, "imgsz": EXPORT_IMGSZ, **out, "card": card}))
+    return loaded[0], loaded[1], out
+
+
+def _artifact_gates(yolo, nms, raw, u8, label: str, launches: int) -> dict:
+    """The artifacts against the eager served model on the letterboxed batch u8: the NMS
+    artifact's rows at batch 1 and len(u8) (phase 4's gates: the same rows, scores and
+    embeddings within 1e-3, boxes within 1e-3 px), the raw artifact's predictions (batch 1)
+    within 1e-3, and `launches` area-attention launches a forward of each. `launches` of the
+    result: the counter read after each of those forwards, set to 0 just before it."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    n_emb = yolo.meta.get("embed_dim") or 0
+    out, counts = {}, {}
+    for b in (1, len(u8)):
+        want = _eager_program(yolo, u8[:b], True).cpu().numpy()
+        flash_area_attention.launches = 0
+        got = nms.backend(u8[:b]).cpu().numpy()
+        counts[f"nms_b{b}"] = flash_area_attention.launches
+        check(counts[f"nms_b{b}"] == launches, f"{label} nms b{b}: "
+              f"{counts[f'nms_b{b}']} kernel launches a forward, expected {launches}")
+        kept, errs = _compare_detections(got, want, n_emb, f"{label} nms b{b}")
+        check(errs["box_err_px"] <= 1e-3 and errs["score_err"] <= 1e-3 and
+              errs["embed_err"] <= 1e-3, f"{label} nms b{b}: {errs}")
+        out[f"nms_b{b}"] = {"kept_per_frame": kept, **errs}
+    want = _eager_program(yolo, u8[:1], False)
+    flash_area_attention.launches = 0
+    got = raw.backend(u8[:1])  # a static program: batch 1
+    counts["raw_b1"] = flash_area_attention.launches
+    check(counts["raw_b1"] == launches, f"{label} raw: "
+          f"{counts['raw_b1']} kernel launches a forward, expected {launches}")
+    out["raw_preds_max_abs_err"] = (got - want).abs().max().item()
+    check(got.shape == want.shape and out["raw_preds_max_abs_err"] <= 1e-3,
+          f"{label} raw: {tuple(got.shape)} vs {tuple(want.shape)}, "
+          f"{out['raw_preds_max_abs_err']} off the eager predictions")
+    out["launches"] = counts
+    return out
+
+
+def _artifact_rates(yolo, nms, frames, u8) -> dict:
+    """img/s at batch 1 and len(u8) in turns: the NMS artifact on the letterboxed uint8
+    batch (host to card, forward, NMS, rows to the host), the eager served model on the same
+    batch (`_eager_program`), and eager `predict_batched` of the raw frames (its letterbox on
+    the card)."""
+    from sar_yolo_tpu_torch.engine.exporter import EXPORT_CONF
+    out = {}
+    for b in (1, len(u8)):
+        rates = _rates_in_turns({
+            "artifact": (lambda: nms.backend(u8[:b]).cpu(), b),
+            "eager_same_input": (lambda: _eager_program(yolo, u8[:b], True).cpu(), b),
+            "eager_predict_batched": (lambda: yolo.predict_batched(
+                frames[:b], imgsz=EXPORT_IMGSZ, conf=EXPORT_CONF), b)})
+        out[f"b{b}"] = rates
+    return out
+
+
+def phase_export(card: str, seed: int = 0) -> dict:
+    """Phase 21: export and artifact serving (see the module docstring). Returns the area
+    attention's launches by path and its device ms a forward inside the program."""
+    import torch
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.data.imageio import imread
+    from sar_yolo_tpu_torch.export.onnx_runtime import OnnxReferenceRuntime
+    from sar_yolo_tpu_torch.nn.modules.block import AAttn
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    root = Path("runs/chip_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    laps, t = {}, time.perf_counter()
+    paths, result = {}, {}
+
+    # yolov13n-JDE @640 (8 ragged 720x1280 frames, host letterbox)
+    yolo = _perturbed_yolo("yolov13n-JDE.yaml", seed, EXPORT_IMGSZ)
+    frames = np.random.default_rng(seed).integers(0, 256, (EXPORT_BATCH, 720, 1280, 3), np.uint8)
+    u8 = _letterboxed(frames, EXPORT_IMGSZ)
+    shift = _shift_class_bias(yolo, u8, 0.25, EXPORT_CANDIDATES)
+    nms, raw, made = _export_pair(yolo, root / "v13", "yolov13n-JDE", card)
+    laps["v13_export"], t = time.perf_counter() - t, time.perf_counter()
+    ops = _program_ops(nms.backend)
+    n_attn = sum(isinstance(m, AAttn) for m in yolo.model.modules())
+    check(ops["flash_area_attention"] == n_attn == 8,
+          f"the exported program holds {ops['flash_area_attention']} area-attention nodes, the "
+          f"model {n_attn} AAttn")
+    gates = _artifact_gates(yolo, nms, raw, u8, "yolov13n-JDE", LAUNCHES_PER_FORWARD)
+    prof = _profiled(lambda: nms.backend(u8))
+    eager_prof = _profiled(lambda: _eager_program(yolo, u8, True))
+    check(prof["kernel_launches"] == LAUNCHES_PER_FORWARD and
+          prof["flash_area_attention_op"] == n_attn and
+          prof["einsum"] == ops["einsum"],
+          f"profiler over the artifact's forward: {prof}; its program's einsum nodes "
+          f"{ops['einsum']} (none of them attention)")
+    rates = _artifact_rates(yolo, nms, frames, u8)
+    result["v13"] = {"export": "yolov13n-JDE", "class_bias_shift": shift, "program_ops": ops,
+                     **gates, f"profiler_artifact_b{EXPORT_BATCH}": prof,
+                     f"profiler_eager_b{EXPORT_BATCH}": eager_prof,
+                     "rates": rates, "card": card}
+    print(json.dumps(result["v13"]))
+    paths[f"pt2 artifact yolov13n-JDE@{EXPORT_IMGSZ} (nms b1 + b{EXPORT_BATCH}, raw b1: one "
+          "forward each)"] = sum(gates["launches"].values())
+    laps["v13_gates"], t = time.perf_counter() - t, time.perf_counter()
+
+    # YOLO(path).predict of the JPEG frames against YOLO.predict. As files, the artifact's
+    # host letterbox rounds the resized frames to uint8 where the card's keeps float32:
+    # measured, not held (a random-weight model moves scores by ~1e-2 and boxes by pixels
+    # under that half-grey-level difference). Held: the frames resized on the host first, so
+    # that both letterboxes only pad and the two paths see the same input.
+    jpegs = [imread(f) for f in sorted((JPEG_DIR / "frames").glob("*.jpg"))]
+    fitted = [_fit(f, EXPORT_IMGSZ) for f in jpegs]
+    predictor = yolo._get_predictor({"imgsz": EXPORT_IMGSZ})
+    with torch.no_grad():
+        scores = torch.cat([predictor.decode(predictor.model(predictor.preprocess(f[None])[0]))[0]
+                            [..., 4:4 + yolo.meta["nc"]].flatten(1) for f in fitted])
+    conf, gap = _ab_conf(scores.double().cpu().numpy(), 300, margin=EXPORT_MARGIN)
+    flash_area_attention.launches = 0
+    got = raw.predict(str(JPEG_DIR / "frames"), conf=conf)
+    check(flash_area_attention.launches == JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+          f"YOLO(artifact).predict: {flash_area_attention.launches} launches")
+    paths[f"YOLO(pt2 artifact).predict {JPEG_FRAMES} JPEG frames"] = flash_area_attention.launches
+    files = _roundtrip_errors(got, yolo.predict(str(JPEG_DIR / "frames"), imgsz=EXPORT_IMGSZ,
+                                                conf=conf), "files", hold=False)
+    held = _roundtrip_errors(raw.predict(fitted, conf=conf),
+                             yolo.predict(fitted, imgsz=EXPORT_IMGSZ, conf=conf),
+                             "YOLO(artifact).predict of the fitted JPEG frames")
+    result["predict"] = {"yolo_artifact_predict_jpeg": f"{JPEG_FRAMES} frames", "conf": conf,
+                         "conf_half_gap": gap, "jpeg_files_not_held": files,
+                         "jpeg_fitted_held": held,
+                         "speed_ms_median": {k: statistics.median(r.speed[k] for r in got)
+                                             for k in ("preprocess", "inference", "postprocess")},
+                         "card": card}
+    print(json.dumps(result["predict"]))
+    laps["predict"], t = time.perf_counter() - t, time.perf_counter()
+
+    # ONNX: raw, one frame through the port's numpy runtime on the host
+    t0 = time.perf_counter()
+    onnx_path = yolo.export(format="onnx", imgsz=ONNX_IMGSZ, project=str(root / "onnx"))
+    t1 = time.perf_counter()
+    one = u8[:1] if ONNX_IMGSZ == EXPORT_IMGSZ else _letterboxed(frames[:1], ONNX_IMGSZ)
+    host = OnnxReferenceRuntime(onnx_path)(one)[0]
+    t2 = time.perf_counter()
+    ref = _eager_program(yolo, one, False).cpu().numpy()
+    err = np.abs(host - ref) - 1e-3 * np.abs(ref)
+    result["onnx"] = {"onnx": "yolov13n-JDE raw", "imgsz": ONNX_IMGSZ, "export_s": t1 - t0,
+                      "bytes": Path(onnx_path).stat().st_size, "numpy_runtime_s": t2 - t1,
+                      "max_abs_err": float(np.abs(host - ref).max()),
+                      "max_err_over_rtol": float(err.max()), "card": card}
+    print(json.dumps(result["onnx"]))
+    check(host.shape == ref.shape and err.max() <= 2e-3,
+          f"ONNX numpy runtime vs the eager predictions: {result['onnx']}")
+    laps["onnx"], t = time.perf_counter() - t, time.perf_counter()
+
+    # yolov8n (bench.py's config): no area attention
+    v8 = _perturbed_yolo("yolov8n.yaml", seed + 1, EXPORT_IMGSZ)
+    frames8 = np.random.default_rng(seed + 1).integers(0, 256, (EXPORT_BATCH, *BENCH_HW, 3),
+                                                       np.uint8)
+    u8_8 = _letterboxed(frames8, EXPORT_IMGSZ)
+    shift8 = _shift_class_bias(v8, u8_8, 0.25, EXPORT_CANDIDATES)
+    nms8, raw8, _ = _export_pair(v8, root / "v8", "yolov8n", card)
+    result["v8"] = {"export": "yolov8n", "class_bias_shift": shift8,
+                    **_artifact_gates(v8, nms8, raw8, u8_8, "yolov8n", 0),
+                    "rates": _artifact_rates(v8, nms8, frames8, u8_8), "card": card}
+    print(json.dumps(result["v8"]))
+    laps["v8"] = time.perf_counter() - t
+    print(json.dumps({"phase_export_s": laps}))
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"paths": paths, "kernel_ms_per_forward": prof["kernel_ms"],
+            "eager_kernel_ms_per_forward": eager_prof["kernel_ms"],
+            "launches_per_forward": gates["launches"][f"nms_b{EXPORT_BATCH}"],
+            "profiler_launches_per_forward": prof["kernel_launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4829,6 +5181,8 @@ def main() -> int:
     lap("rtdetr_world")
     int8_row, int8_launches, int8_ddp_launches = phase_int8_ddp(card)
     lap("int8_ddp")
+    export = phase_export(card)
+    lap("export")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -4846,6 +5200,7 @@ def main() -> int:
     # the main path's: one train step's forward (640, batch 16), in float32 (amp=False) and
     # in bf16 (amp, the default)
     total, total_bf16 = per_forward("float32", TRAIN_BATCH), per_forward("bfloat16", TRAIN_BATCH)
+    total_b8 = per_forward("float32", EXPORT_BATCH)
     print(json.dumps({"kernels": [{
         "name": "flash_area_attention", "route": "cuda",
         "source": "sar_yolo_tpu_torch/csrc/flash_area_attention.cu",
@@ -4869,6 +5224,21 @@ def main() -> int:
                      "bound_ms": total_bf16["bound_ms"], "bound_by": total_bf16["bound_by"],
                      "library_ms": total_bf16["library_ms"],
                      "plain_backward_ms": total_bf16["backward_ms"]},
+        "pt2_program": {
+            "launches_per_forward": export["launches_per_forward"],
+            "profiler_launches_per_forward": export["profiler_launches_per_forward"],
+            "ms": export["kernel_ms_per_forward"],
+            "eager_ms": export["eager_kernel_ms_per_forward"],
+            "graph_replay_ms": total_b8["kernel_ms"], "plain_ms": total_b8["plain_ms"],
+            "bound_ms": total_b8["bound_ms"], "bound_by": total_b8["bound_by"],
+            "library_ms": total_b8["library_ms"],
+            "per": f"one forward of the .pt2 artifact of yolov13n-JDE at {EXPORT_IMGSZ}, batch "
+                   f"{EXPORT_BATCH}, float32: launches_per_forward is the launch count of its "
+                   "b8 gate forward, profiler_launches_per_forward torch.profiler's kernel "
+                   "count a forward; ms and eager_ms are torch.profiler's device time "
+                   "of the kernel's 8 launches in the artifact's and in the eager served "
+                   "forward; graph_replay_ms, plain_ms, bound_ms and library_ms phase 3's at "
+                   "the same shapes"},
         "launches_by_path_bfloat16": {**half_launches, **amp_launches,
                                       **detect_launches["bfloat16"], **cbam_launches["bfloat16"]},
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
@@ -4884,7 +5254,8 @@ def main() -> int:
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
                              **detect_launches["float32"], **cbam_launches["float32"],
                              **family_launches, **pose_seg_launches, **obb_cls_launches,
-                             **rtdetr_world_launches, **int8_ddp_launches}}, {
+                             **rtdetr_world_launches, **int8_ddp_launches,
+                             **export["paths"]}}, {
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",

@@ -10,6 +10,10 @@ YOLO-format JDE dataset on disk. `RTDETR("rtdetr-l.yaml")` serves, trains and va
 RT-DETR (no NMS), `YOLOWorld("yolov8s-world.yaml").set_classes([...])` YOLO-World.
 """
 
+# registers the area attention as `torch.ops.sar_yolo_tpu_torch.flash_area_attention`, which
+# `torch.export.load` needs before it reads a .pt2 program of a model with A2C2f blocks
+from sar_yolo_tpu_torch.ops.cuda import flash_attention as _flash_attention  # noqa: F401,E402
+
 __all__ = ["YOLO", "RTDETR", "YOLOWorld"]
 
 

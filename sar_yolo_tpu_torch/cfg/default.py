@@ -91,22 +91,43 @@ DEFAULT_CFG = {
     "overlap_mask": True,     # segment: accepted and unread, as in the JAX package (its masks
     "mask_ratio": 4,          # are always one overlap map at imgsz // 4)
     "retina_masks": False,    # segment: accepted and unread, as in the JAX package
+    "format": "stablehlo",    # export: the JAX YAML's; `YOLO.export` defaults to 'pt2' (the
+                              # port writes no StableHLO: 'stablehlo' raises naming 'pt2')
+    "keras": False,           # export: TF keras (jax2tf; not ported unless False)
+    "optimize": False,        # export: TFLite mobile optimize (not ported unless False)
+    "dynamic": False,         # export: pt2 for any batch size
+    "simplify": True,         # export: graph simplification (not ported unless True)
+    "opset": None,            # export: ONNX opset (None: 17; clamped to 13..17)
+    "workspace": "None",      # export: TensorRT's workspace (the JAX YAML's string; not
+                              # ported unless unset)
+    "nms": False,             # export: NMS inside the pt2 program
 }
 
-# keys of the JAX package whose feature this port does not have yet
+# keys of the JAX package whose feature this port does not have yet; those with a default
+# raise only when set to another value
 NOT_PORTED = {
     "plots": "plots",
     "augment": "test-time augmentation",
+    "keras": "TF keras export (jax2tf)",
+    "optimize": "TFLite's mobile optimize (jax2tf)",
+    "simplify": "export graph simplification",
+    "workspace": "TensorRT's workspace",
 }
+
+
+def check_ported(overrides: dict) -> None:
+    """Raise NotImplementedError for a key of `NOT_PORTED` that asks for its feature: any
+    value of a key without a default, any but the default of one with it."""
+    for k, v in overrides.items():
+        if k in NOT_PORTED and (k not in DEFAULT_CFG or v != DEFAULT_CFG[k]):
+            raise NotImplementedError(f"'{k}': {NOT_PORTED[k]} is not part of this port yet")
 
 
 def get_cfg(overrides: dict | None = None) -> SimpleNamespace:
     """Defaults with `overrides` on top; an unknown key raises KeyError, a key of a
     feature not ported yet NotImplementedError."""
     overrides = dict(overrides or {})
-    for k in overrides:
-        if k in NOT_PORTED:
-            raise NotImplementedError(f"'{k}': {NOT_PORTED[k]} is not part of this port yet")
+    check_ported(overrides)
     unknown = [k for k in overrides if k not in DEFAULT_CFG]
     if unknown:
         hints = {k: difflib.get_close_matches(k, DEFAULT_CFG) for k in unknown}

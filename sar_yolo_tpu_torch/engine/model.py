@@ -1,7 +1,8 @@
 """YOLO facade of the port: build from a config name or YAML path, seed or load weights (a
 checkpoint directory too), train, validate, fuse, save, serve batches, predict and track
-sources, summarize and profile (port of `sar_yolo_tpu/engine/model.py` without export,
-`embed`, `benchmark` and `tune`), for the detect, JDE, pose, segment, OBB and classify
+sources, summarize and profile, export (`engine/exporter.py`) and serve an exported artifact
+(`nn/autobackend.py`) (port of `sar_yolo_tpu/engine/model.py` without `embed`, `benchmark`
+and `tune`), for the detect, JDE, pose, segment, OBB and classify
 tasks: each call takes the trainer, validator or predictor of `task_map[task]` (`TRAINERS`,
 their `validator_cls`, `PREDICTORS`; an RT-DETR model: `RTDETRTrainer`, `RTDETRValidator`,
 `RTDETRPredictor`). `Ensemble` merges the detections of several models."""
@@ -20,12 +21,14 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
-from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, NOT_PORTED, get_cfg, get_save_dir
+from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, check_ported, get_cfg, get_save_dir
 from sar_yolo_tpu_torch.data.dataset import (ClassificationDataset, SyntheticDataset, YOLODataset,
                                              check_det_dataset)
+from sar_yolo_tpu_torch.engine.exporter import Exporter
 from sar_yolo_tpu_torch.engine.predictor import PREDICTORS, RTDETRPredictor
 from sar_yolo_tpu_torch.engine.trainer import TRAINERS, RTDETRTrainer, train_rank
 from sar_yolo_tpu_torch.engine.validator import RTDETRValidator
+from sar_yolo_tpu_torch.nn.autobackend import AutoBackend, BackendPredictor
 from sar_yolo_tpu_torch.nn.fuse import fuse_model, half_model
 from sar_yolo_tpu_torch.nn.modules.block import AAttn
 from sar_yolo_tpu_torch.nn.modules.conv import quantize_int8, set_compute_dtype
@@ -86,6 +89,8 @@ class YOLO:
         >>> results = m.track("frames/", tracker="bytetrack.yaml")  # boxes.id: track ids
         >>> m = YOLO("path/to/yolov13n-JDE_CBAM.yaml", device="cpu")  # a YAML file path
         >>> m.save("ckpt"); m.fuse(); print(m.info(detailed=True)); m.profile(imgsz=64)
+        >>> path = YOLO("yolov13n-JDE.yaml").export(format="pt2", nms=True, dynamic=True)
+        >>> results = YOLO(path).predict("frames/")  # the artifact, on the device it was traced on
     """
 
     def __init__(self, model: str = "yolov13n-JDE.yaml", task: str | None = None, device=None):
@@ -97,11 +102,31 @@ class YOLO:
         self._callbacks: dict = {}
         self._predictor_cache = None
         self._unfused = None  # after fuse(): the unfused state dict, for save()
-        if is_checkpoint(model):
+        self.backend = None   # the AutoBackend of an exported artifact
+        if AutoBackend.is_exported_artifact(model):
+            self._load_backend(model, task)
+        elif is_checkpoint(model):
             self._load(model, task)
         else:
             self._new(model, task)
         self.overrides["task"] = self.task
+
+    def _load_backend(self, artifact, task: str | None = None):
+        """An exported artifact (`.pt2`, `.onnx`): served through `AutoBackend` on this
+        object's device (a `.pt2` only on the device it was traced on) by `predict`; it has
+        no model to train, validate, export or serve batches with."""
+        self.backend = AutoBackend(artifact, self.device)
+        self.task = task or self.backend.meta.get("task") or "detect"
+        names = self.backend.meta.get("names")
+        self.meta = {"nc": int(self.backend.meta.get("nc", 80)),
+                     "names": {int(k): v for k, v in names.items()} if names else None}
+        self.model, self.cfg, self.ckpt_dir = None, str(artifact), str(artifact)
+
+    def _needs_model(self, what: str):
+        if self.backend is not None:
+            raise NotImplementedError(f"{what} of an exported artifact ({self.cfg}): load the "
+                                      "model's config or checkpoint for it; an artifact serves "
+                                      "`predict` only")
 
     def _new(self, cfg: str, task: str | None = None):
         self.cfg = cfg
@@ -161,6 +186,7 @@ class YOLO:
 
     def _ensure_variables(self, seed: int = 0):
         """Seeded initialization (a CPU torch.Generator), once."""
+        self._needs_model("the weights")
         if not self._weights_ready:
             init_weights(self.model, self.meta, torch.Generator().manual_seed(seed))
             self._weights_ready = True
@@ -181,6 +207,7 @@ class YOLO:
         processes over gloo), one process each, with `batch` the global batch: spawned here
         (callbacks must then be picklable, module-level functions; they run in rank 0), or,
         under torchrun or an existing process group, this process is one rank."""
+        self._needs_model("train")
         trainer_cls = self._classes()["trainer"]
         overrides = {**self.overrides, "model": self.cfg, **kwargs}
         mesh = overrides.get("mesh_shape")
@@ -220,6 +247,7 @@ class YOLO:
         SyntheticDataset(seed=0) with min(nc, 3) classes (a pose model's keypoint shape); a
         classify model also takes a class-folder tree (its `split`, else val, test, train,
         else the folder itself)."""
+        self._needs_model("val")
         validator = self._classes()["validator"]
         args = get_cfg({**self.overrides, "model": self.cfg, **kwargs})
         args.save_dir = str(get_save_dir(args, self.task))
@@ -283,16 +311,16 @@ class YOLO:
         """The predictor of {checkpoint args, kwargs} (each key one the predictor reads;
         conf 0.25 where neither gives it), reused while the arguments stay the same; it
         always serves the current weights and every callback added so far."""
-        for k in kwargs:
-            if k in NOT_PORTED:
-                raise NotImplementedError(f"'{k}': {NOT_PORTED[k]} is not part of this port yet")
+        check_ported(kwargs)
         unknown = set(kwargs) - set(PREDICT_DEFAULTS)
         if unknown:
             raise TypeError(f"unsupported predict arguments {sorted(unknown)}")
-        predictor_cls = self._classes()["predictor"]
         overrides = {**{k: v for k, v in self.overrides.items() if k in PREDICT_DEFAULTS},
                      **kwargs}
         overrides.setdefault("conf", 0.25)
+        if self.backend is not None:
+            return self._backend_predictor(overrides)
+        predictor_cls = self._classes()["predictor"]
         if overrides.get("save"):
             raise NotImplementedError("save=True (annotated images) is not part of this port "
                                       "yet: it needs OpenCV's drawing and a JPEG encoder")
@@ -311,6 +339,24 @@ class YOLO:
                     predictor.add_callback(event, fn)
         return predictor
 
+    def _backend_predictor(self, overrides: dict) -> BackendPredictor:
+        """The artifact's predictor; what the artifact fixed (its size, its precision) and
+        what it cannot do (save_txt) raise when asked otherwise."""
+        if any(event.startswith("on_predict") for event in self._callbacks):
+            raise NotImplementedError("predict callbacks with an exported artifact")
+        imgsz = self.backend.meta.get("imgsz")
+        for key, ok in (("imgsz", overrides.get("imgsz", imgsz) == imgsz),
+                        ("half", not overrides.get("half")), ("int8", not overrides.get("int8")),
+                        ("save_txt", not overrides.get("save_txt"))):
+            if not ok:
+                raise NotImplementedError(f"{key}={overrides[key]!r} with an exported artifact "
+                                          f"(its imgsz {imgsz}, float32, rows in memory only)")
+        key = tuple(sorted((k, str(v)) for k, v in overrides.items()))
+        if self._predictor_cache is None or self._predictor_cache[0] != key:
+            args = SimpleNamespace(**{**PREDICT_DEFAULTS, **overrides})
+            self._predictor_cache = (key, BackendPredictor(self.backend, args, self.names))
+        return self._predictor_cache[1]
+
     def predict_batched(self, frames, mesh_shape=None, **kwargs):
         """Serve a uniform-geometry (B, H, W, 3) uint8 BGR batch on the model's device;
         `mesh_shape=[N]` splits it over N devices (`parallel.model_mesh`: the visible CUDA
@@ -326,8 +372,19 @@ class YOLO:
         in the letterboxed input's frame); an OBB model (B, max_det, 7) rows [cx, cy, w, h,
         r, conf, cls]; a classify model (B, nc) probabilities.
         """
+        self._needs_model("predict_batched")
         devices = model_mesh(mesh_shape, self.device) if mesh_shape else None
         return self._get_predictor(kwargs).predict_batch(frames, devices)
+
+    def export(self, **kwargs) -> str:
+        """Write a deployable artifact of the BN-folded float32 model (`engine/exporter.py`)
+        and return its path; `YOLO(path)` serves it. kwargs: format ('pt2', the default, or
+        'onnx'), imgsz, nms (embed NMS in a pt2 program), dynamic (a pt2 program for any
+        batch), iou, max_det, opset (ONNX) and project (the folder, default `exports/`).
+        The program is traced on this model's device and serves there only."""
+        self._needs_model("export")
+        args = get_cfg({"format": "pt2", **self.overrides, "model": self.cfg, **kwargs})
+        return Exporter(args)(self._fused_for_serving(), self.meta, self._ported_task())
 
     def predict(self, source, stream: bool = False, **kwargs):
         """Results of each image of `source`: an image file, a folder, a glob, a list of
@@ -349,6 +406,7 @@ class YOLO:
         with `gmc_method: none` (the shipped botsort.yaml asks for camera-motion
         compensation, which is not ported, and raises)."""
         from sar_yolo_tpu_torch.trackers import make_tracker, register_tracker
+        self._needs_model("track")
         make_tracker(tracker)  # a config this port cannot run raises before any frame
         kwargs.setdefault("conf", 0.1)
         predictor = self._get_predictor(kwargs)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from sar_yolo_tpu_torch.ops.boxes import as_dtype
 from sar_yolo_tpu_torch.ops.cuda.flash_attention import area_attention_plain, flash_area_attention
 
 from .conv import CBAM, Conv, Conv2d, Dropout, DSConv, DWConv, GhostConv, LightConv, Linear, RepConv
@@ -368,14 +369,14 @@ class AdaHyperedgeGen(nn.Module):
         else:
             ctx = torch.cat([X.mean(1), X.amax(1)], -1)
         offsets = self.context_net(ctx).view(B, self.E, D)
-        prototypes = self.prototype_base.to(offsets.dtype)[None] + offsets
+        prototypes = as_dtype(self.prototype_base, offsets.dtype)[None] + offsets
         Xh = self.pre_head_proj(X).view(B, N, self.h, hd)
         Ph = prototypes.view(B, self.E, self.h, hd)
         # the JAX module divides by sqrt(hd) rounded to the data's dtype
-        scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(Xh.dtype)
+        scale = as_dtype(torch.tensor(math.sqrt(hd), dtype=torch.float32), Xh.dtype)
         logits = torch.einsum("bnhd,behd->bhne", Xh, Ph) / scale
         logits = self.dropout(logits.mean(1))  # (B, N, E): mean over heads
-        return logits.float().softmax(1).to(X.dtype)
+        return as_dtype(as_dtype(logits, torch.float32).softmax(1), X.dtype)
 
 
 class AdaHGConv(nn.Module):
@@ -506,7 +507,7 @@ class FullPAD_Tunnel(nn.Module):
         self.gate = nn.Parameter(torch.zeros(()))
 
     def forward(self, xs):
-        return xs[0] + self.gate.to(xs[0].dtype) * xs[1]
+        return xs[0] + as_dtype(self.gate, xs[0].dtype) * xs[1]
 
 
 def _pool(x, k: int, s: int = 1):

@@ -8,7 +8,8 @@ BatchNorm uses the JAX package's epsilon 1e-3 and momentum 0.97 (torch's
 Precision follows Flax's `dtype=..., param_dtype=float32`: parameters stay
 float32, and `Conv2d`, `ConvTranspose` and `Linear` cast their input and parameters to their
 `compute_dtype` (set by `set_compute_dtype`; None: the parameters' dtype) and
-output in it. BatchNorm takes its statistics and normalizes in float32, then
+output in it. A tensor that has that dtype already is not cast, so that a traced program
+holds no identity casts. BatchNorm takes its statistics and normalizes in float32, then
 returns the input's dtype.
 """
 
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from sar_yolo_tpu_torch.ops.boxes import as_dtype
 from sar_yolo_tpu_torch.parallel import mesh as parallel
 
 BN_EPS = 1e-3
@@ -68,8 +70,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype or self.weight.dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        bias = None if self.bias is None else as_dtype(self.bias, dt)
+        return self._conv_forward(as_dtype(x, dt), as_dtype(self.weight, dt), bias)
 
 
 class Int8Conv2d(Conv2d):
@@ -123,8 +125,8 @@ class ConvTranspose(nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype or self.weight.dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+        bias = None if self.bias is None else as_dtype(self.bias, dt)
+        return F.conv_transpose2d(as_dtype(x, dt), as_dtype(self.weight, dt), bias, self.stride,
                                   self.padding, self.output_padding, self.groups, self.dilation)
 
 
@@ -135,7 +137,7 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype or self.weight.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(as_dtype(x, dt), as_dtype(self.weight, dt), as_dtype(self.bias, dt))
 
 
 def quantize_int8(model: nn.Module) -> int:

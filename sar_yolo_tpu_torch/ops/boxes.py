@@ -79,9 +79,15 @@ def dist2bbox(distance, anchor_points, xywh: bool = True, dim: int = -1):
     return torch.cat([x1y1, x2y2], dim)
 
 
+def as_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in `dtype`: x itself where it has it, so that a traced program holds no identity
+    casts."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """x in float32, or as it is where it is float64 (a model computing in float64)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+    return as_dtype(x, torch.promote_types(x.dtype, torch.float32))
 
 
 def dfl_decode(pred_dist, reg_max: int = 16, dim: int = -1):
@@ -95,7 +101,7 @@ def dfl_decode(pred_dist, reg_max: int = 16, dim: int = -1):
     p = p.softmax(dim + 1)
     proj = torch.arange(reg_max, dtype=torch.float32, device=pred_dist.device)
     proj = proj.view(reg_max, *([1] * (len(shape) - dim - 1)))
-    return (p * proj).sum(dim + 1).to(pred_dist.dtype)
+    return as_dtype((p * proj).sum(dim + 1), pred_dist.dtype)
 
 
 def _obb_covariance(boxes):

@@ -5,10 +5,16 @@ package's `sar_yolo_tpu/ops/pallas/flash_attention.py::flash_area_attention`:
 q, k, v are (B, N, C) with C = num_heads * 32; the N tokens split into `area`
 contiguous chunks and attention runs inside each chunk, per head.
 
+The function is the registered operator `torch.ops.sar_yolo_tpu_torch.flash_area_attention`
+(`torch.library.custom_op`), so that `torch.export` keeps one node of it per call and an
+exported program runs the kernel on the card:
+
 * A CPU tensor goes through `area_attention_plain`.
 * A CUDA tensor launches the kernel of `csrc/flash_area_attention.cu`, or
   raises. There is no fallback. Its products run on the tensor cores: split
   TF32 (three TF32 products per float32 product) for float32, bf16 for bfloat16.
+* Under fake tensors (tracing, the `meta` device) the output is an empty tensor
+  in the layout the kernel's launch gives: token-contiguous for views of NCHW maps.
 * The backward recomputes through the plain version in the inputs' dtype (as
   the JAX package's custom VJP does); there is no backward kernel.
 * `flash_area_attention.launches` counts kernel launches, and
@@ -167,11 +173,7 @@ def _launch(q, k, v, num_heads: int, area: int):
     if max(B * area, num_heads) > _MAX_GRID_Z:
         raise ValueError(f"flash_area_attention: B*area={B * area} or heads={num_heads} "
                          f"exceeds the grid limit {_MAX_GRID_Z}")
-    # the output takes q's layout: token-contiguous for views of NCHW maps
-    if q.stride(1) == 1 and q.stride(2) != 1:
-        out = torch.empty((B, C, N), dtype=q.dtype, device=q.device).transpose(1, 2)
-    else:
-        out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
+    out = _empty_output(q)
     strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride(), *out.stride())
     lib = _Library.get()
     fn = lib.flash_area_attention_f32 if q.dtype == torch.float32 else \
@@ -187,34 +189,45 @@ def _launch(q, k, v, num_heads: int, area: int):
     return out
 
 
-def _forward(q, k, v, num_heads: int, area: int):
-    if q.device.type == "cpu":
-        return area_attention_plain(q, k, v, num_heads, area)
-    return _launch(q, k, v, num_heads, area)
+def _empty_output(q):
+    """The kernel's output for q: q's layout, token-contiguous for views of NCHW maps."""
+    B, N, C = q.shape
+    if q.stride(1) == 1 and q.stride(2) != 1:
+        return q.new_empty((B, C, N)).transpose(1, 2)
+    return q.new_empty((B, N, C))
 
 
-class _FlashAreaAttention(torch.autograd.Function):
-    """Kernel forward; backward recomputes through the plain version."""
+@torch.library.custom_op("sar_yolo_tpu_torch::flash_area_attention", mutates_args=(),
+                         device_types="cpu")
+def _area_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                       area: int) -> torch.Tensor:
+    return _empty_output(q).copy_(area_attention_plain(q, k, v, num_heads, area))
 
-    @staticmethod
-    def forward(ctx, q, k, v, num_heads, area):
-        ctx.save_for_backward(q, k, v)
-        ctx.num_heads, ctx.area = num_heads, area
-        return _forward(q, k, v, num_heads, area)
 
-    @staticmethod
-    def backward(ctx, grad):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = area_attention_plain(q, k, v, ctx.num_heads, ctx.area)
-        gq, gk, gv = torch.autograd.grad(out, (q, k, v), grad)
-        return gq, gk, gv, None, None
+_area_attention_op.register_kernel("cuda")(_launch)
+_area_attention_op.register_fake(lambda q, k, v, num_heads, area: _empty_output(q))
+
+
+def _save_inputs(ctx, inputs, output):
+    q, k, v, ctx.num_heads, ctx.area = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, grad):
+    q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+    with torch.enable_grad():
+        out = area_attention_plain(q, k, v, ctx.num_heads, ctx.area)
+    gq, gk, gv = torch.autograd.grad(out, (q, k, v), grad)
+    return gq, gk, gv, None, None
+
+
+_area_attention_op.register_autograd(_backward, setup_context=_save_inputs)
 
 
 def flash_area_attention(q, k, v, num_heads: int, area: int = 1):
     """Area attention on (B, N, C) tensors: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors. Returns (B, N, C)."""
-    return _FlashAreaAttention.apply(q, k, v, num_heads, area)
+    return _area_attention_op(q, k, v, num_heads, area)
 
 
 def reset_launches():

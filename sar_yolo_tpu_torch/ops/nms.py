@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .boxes import probiou, xywh2xyxy
+from .boxes import as_dtype, probiou, xywh2xyxy
 
 
 def _nms_batched(boxes, scores, classes, extras, iou_thres: float, max_det: int,
@@ -52,17 +52,21 @@ def _suppress(overlap, valid, rows, max_det: int):
     overlap (B, K, K): higher-ranked j overlaps i beyond the threshold; valid (B, K); rows
     (B, K, C) in score order. alive[i] = valid[i] and no alive j with overlap[i, j]: iterated
     from alive = valid until it stops changing (one host sync an iteration; an image
-    already at its fixed point stays there, so the batch iterates together). Returns
-    (B, max_det, C), the alive rows first in score order; unused rows are zero.
+    already at its fixed point stays there, so the batch iterates together). Under
+    `torch.export` the same iteration is a `while_loop` on the device (`_fixed_point_traced`).
+    Returns (B, max_det, C), the alive rows first in score order; unused rows are zero.
     """
-    alive, n = valid, 0
-    while True:
-        n += 1
-        new_alive = ~(overlap & alive[:, None, :]).any(2) & valid
-        if torch.equal(new_alive, alive):
-            break
-        alive = new_alive
-    last_iterations[0] = n
+    if torch.compiler.is_exporting():
+        alive = _fixed_point_traced(overlap, valid)
+    else:
+        alive, n = valid, 0
+        while True:
+            n += 1
+            new_alive = ~(overlap & alive[:, None, :]).any(2) & valid
+            if torch.equal(new_alive, alive):
+                break
+            alive = new_alive
+        last_iterations[0] = n
 
     # compact alive rows (stable, score order) into max_det slots; slot max_det is a sink
     Bn = rows.shape[0]
@@ -73,6 +77,24 @@ def _suppress(overlap, valid, rows, max_det: int):
     src = torch.where(keep[..., None], rows, torch.zeros_like(rows))
     out.scatter_(1, slot[..., None].expand(-1, -1, rows.shape[-1]), src)
     return out[:, :max_det]
+
+
+def _fixed_point_traced(overlap, valid):
+    """`_suppress`'s fixed point as a `while_loop` that `torch.export` can trace: the same
+    iterations from alive = valid, stopping once an iteration changes nothing. The body
+    returns fresh tensors and the condition a copy of the carried flag, as the higher-order
+    op requires."""
+    from torch._higher_order_ops import while_loop
+
+    def cond(alive, changed):
+        return changed.clone()
+
+    def body(alive, changed):
+        new_alive = ~(overlap & alive[:, None, :]).any(2) & valid
+        return new_alive.clone(), (new_alive != alive).any()
+
+    alive, _ = while_loop(cond, body, (valid.clone(), valid.new_ones(())))
+    return alive
 
 
 def non_max_suppression(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
@@ -118,14 +140,15 @@ def non_max_suppression(preds, conf_thres: float = 0.25, iou_thres: float = 0.7,
     if extras_bank is not None:
         # the source anchor index rides through suppression as one f32 column
         # (exact below 2^24 anchors)
-        top_extras = torch.cat([top_extras.float(), top_idx.float()[..., None]], -1)
+        top_extras = torch.cat([as_dtype(top_extras, torch.float32),
+                                top_idx.float()[..., None]], -1)
     out = _nms_batched(top_boxes, top_conf, top_cls, top_extras, iou_thres, max_det, agnostic)
     if extras_bank is None:
         return out
     kept_idx = out[..., -1].long()
     kept = torch.gather(extras_bank, 1, kept_idx[..., None].expand(-1, -1, extras_bank.shape[-1]))
-    kept = torch.where(out[..., 4:5] > 0, kept.to(out.dtype), torch.zeros((), dtype=out.dtype,
-                                                                           device=out.device))
+    kept = torch.where(out[..., 4:5] > 0, as_dtype(kept, out.dtype),
+                       torch.zeros((), dtype=out.dtype, device=out.device))
     return torch.cat([out[..., :6], kept, out[..., 6:-1]], -1)
 
 
