@@ -246,7 +246,8 @@ Phases, in order; any failure exits non-zero:
      NCCL rank under DDP, equal to the plain step tensor for tensor (loss items, gradients,
      BN statistics, the state and EMA after the update), 8 area-attention launches counted
      in that step; on two gloo ranks on cuda:0 (8 images each, spawned), the two replicas
-     equal to each other, 8 area-attention launches a rank. The same two-rank step in
+     equal to each other, 8 area-attention launches a rank (the three two-rank steps, float32,
+     the probe and float64, run in turn in one spawned pair of ranks). The same two-rank step in
      float64, loss included, against the plain step in float64: each gradient and each
      tensor after the update within 1e-6 of its own largest magnitude (or 1e-15 of the
      model's largest, for the gradients that a later train-mode BN makes zero): the
@@ -282,9 +283,28 @@ Phases, in order; any failure exits non-zero:
      predictions on the card (atol 2e-3, rtol 1e-3), its seconds. yolov8n @640 on bench.py's
      480x640 frames: the two pt2 artifacts with the same gates at batch 1 and 8 (no kernel
      launch), img/s in turns.
- 22. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
-     the amp train step's forward, phases 16-19's paths at 0, its launches and device ms in
-     phase 21's .pt2 program; the int8 convolution and the int8 quantization: one int8
+ 22. SAM, MobileSAM, FastSAM and NAS, none with an A2C2f block: 0 area-attention launches in
+     the whole phase, read from the counter. `SAM("sam_b")` (ViT-B: embed 768, depth 12, 12
+     heads, global attention at blocks 2, 5, 8, 11, 14 x 14 windows, rel-pos) and
+     `SAM("mobile_sam")` (TinyViT) at 1024 px, seeded weights, the hypernetworks' last layers
+     scaled so that the mask logits reach +-20; each against the same model cast to float64
+     on the card, on frame 0 of tests/data/jpeg/frames/ (720x1280 -> 576x1024): the image
+     embedding within 1e-4 (max abs; LayerNorm'd values up to ~4.3; 10x float32's measured
+     distance), then box prompts for the frame's 6 persons, two points with one negative
+     label, and a multimask call for 3 persons: IoU predictions of every slot within 1e-4,
+     the masks at the frame's size equal wherever the float64 logit is over 3e-4 from 0 (10x
+     the measured logit distance); `generate` with 32 x 32 points, 64 a
+     batch: the grid's IoU predictions within 1e-4, thresholds in gaps of the float64 scores
+     that at least 20 candidates pass (printed), the same survivors of the filters and greedy
+     NMS unless a near-tie decides. The encoder's device ms at batch 1 (CUDA events), its peak
+     memory and a global block's logits, one decode of 6 box queries, `generate` ms split into
+     device scoring, host NMS and the second decode, its peak memory, `SAM.__call__`'s speed
+     split. FastSAM-s @640 with a box prompt on the 12 JPEG frames: the plain YOLO segment
+     path's Results filtered by the same prompt, exactly; yolo_nas @640 at batch 1: the plain
+     detect path's rows exactly; `NAS.train` raises.
+ 23. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+     the amp train step's forward, phases 16-19's and 22's paths at 0, its launches and device
+     ms in phase 21's .pt2 program; the int8 convolution and the int8 quantization: one int8
      forward of yolov13n-JDE at 640, batch 8), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
@@ -4523,6 +4543,13 @@ def _ddp_step(tr, batch) -> tuple:
     return items.detach(), grads, state
 
 
+def _train_steps_runs(rank: int, device, runs: list) -> list:
+    """`train_steps(rank, device, *args)` for each args of `runs`, in turn, in one set of
+    spawned ranks (one process start-up and one process group for all of them)."""
+    from sar_yolo_tpu_torch.engine.trainer import train_steps
+    return [train_steps(rank, device, *args) for args in runs]
+
+
 def phase_ddp(card: str, seed: int = 0, device: str = "cuda:0") -> dict:
     """The yolov13n-JDE @640 train step with global batch 16 under data parallelism: one NCCL
     rank against the plain step (tensor for tensor, its launches counted), two gloo ranks
@@ -4533,11 +4560,12 @@ def phase_ddp(card: str, seed: int = 0, device: str = "cuda:0") -> dict:
     import torch
 
     from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG
-    from sar_yolo_tpu_torch.engine.trainer import JDETrainer, probe_functional, train_steps
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer, probe_functional
     from sar_yolo_tpu_torch.nn.modules.conv import Dropout
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
     from sar_yolo_tpu_torch.parallel import mesh
     torch.backends.cudnn.deterministic = True
+    laps, t = {}, time.perf_counter()
     ab = dict(model="yolov13n-JDE.yaml", data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
               seed=seed, optimizer="SGD", nbs=TRAIN_BATCH, warmup_epochs=0.0, amp=False,
               val=False, save=False, project="runs/chip_smoke_ddp")
@@ -4625,19 +4653,21 @@ def phase_ddp(card: str, seed: int = 0, device: str = "cuda:0") -> dict:
     del trainers
     mesh.destroy()
     torch.cuda.empty_cache()
-    two = mesh.spawn(train_steps, (JDETrainer, {**ab, "mesh_shape": [2]}, [batch], start, 3),
-                     devices=[device, device], backend="gloo")
-    two_probe = mesh.spawn(train_steps, (JDETrainer, {**ab, "mesh_shape": [2]}, [batch], start,
-                                         0, False, PROBE_SEED), devices=[device, device],
-                           backend="gloo")["grads"][0]
+    laps["one_process"], t = time.perf_counter() - t, time.perf_counter()
+    # one pair of gloo ranks on cuda:0 runs the three two-rank steps in turn: the float32
+    # task-loss step (then 3 timed), the float32 probe step, and the float64 step, which holds
+    # the algorithm without float32's rounding against the plain step in float64: each
+    # gradient and each tensor after the update within FLOAT64_DDP_TOL of its own largest
+    # magnitude, or of FLOAT64_ZERO of the model's largest gradient or update (a gradient that
+    # is zero but for rounding: BN biases whose shift a later train-mode BN removes)
+    cfg2 = {**ab, "mesh_shape": [2]}
+    two, two_probe, two64 = mesh.spawn(_train_steps_runs, ([
+        (JDETrainer, cfg2, [batch], start, 3), (JDETrainer, cfg2, [batch], start, 0, False,
+                                                PROBE_SEED),
+        (JDETrainer, cfg2, [batch], start, 0, True)],), devices=[device, device], backend="gloo")
+    two_probe = two_probe["grads"][0]
+    laps["two_ranks"] = time.perf_counter() - t
     check(two["rank_spread"] == 0.0, f"the two ranks' replicas differ by {two['rank_spread']}")
-    # the algorithm without float32's rounding: two ranks in float64 (the loss too) against
-    # the plain step in float64, each gradient and each tensor after the update within
-    # FLOAT64_DDP_TOL of its own largest magnitude, or of FLOAT64_ZERO of the model's largest
-    # gradient or update (a gradient that is zero but for rounding: BN biases whose shift a
-    # later train-mode BN removes)
-    two64 = mesh.spawn(train_steps, (JDETrainer, {**ab, "mesh_shape": [2]}, [batch], start, 0,
-                                     True), devices=[device, device], backend="gloo")
 
     def dist(x, y):
         return (x.double().cpu() - y.double().cpu()).abs().max().item()
@@ -4695,7 +4725,8 @@ def phase_ddp(card: str, seed: int = 0, device: str = "cuda:0") -> dict:
     probe_l2 = {k: rel_l2(probe[k], pa) for k in probe if k != "plain"}
     probe_l2_ratio = rel_l2(two_probe, pa) / max(2 * max(probe_l2.values()), 1e-30)
     probe_l2["two_ranks"] = rel_l2(two_probe, pa)
-    out = {"ddp_1rank_nccl": one, "plain_step_ms": t_plain, "ddp_1rank_step_ms": t_ddp1,
+    out = {"ddp_s": laps, "ddp_1rank_nccl": one, "plain_step_ms": t_plain,
+           "ddp_1rank_step_ms": t_ddp1,
            "ddp_2rank_gloo": {"items": two["items"][0].tolist(), "items_plain": ia.tolist(),
                               "items_rounding_spread": spread.tolist(),
                               "items_err_over_limit": float(item_ratio),
@@ -5117,6 +5148,261 @@ def phase_export(card: str, seed: int = 0) -> dict:
             "profiler_launches_per_forward": prof["kernel_launches"]}
 
 
+SAM_SERVE = (("sam_b", 1024), ("mobile_sam", 1024))  # full width, Meta's serving size
+SAM_GRID = (32, 64)       # generate's points_per_side and points_per_batch (Meta's AMG default)
+SAM_MIN_CANDIDATES = 20   # candidates generate's thresholds must pass
+SAM_MASK_LOGIT = 20.0     # the hypernetworks' last layers scaled to this largest |mask logit|
+SAM_IOU_TOL = 1e-4        # IoU predictions against float64
+# image embeddings against float64 (max abs over LayerNorm'd values up to ~4.3): 10x the
+# largest float32 distance measured (1.07e-5 for sam_b, 1.00e-5 for mobile_sam, NVIDIA H100,
+# PERF.md section 6); mask pixels whose float64 logit (of +-20) is within 10x the largest
+# measured logit distance (2.96e-5) of 0 are left out of the mask comparison
+SAM_EMB_TOL = 1e-4
+SAM_LOGIT_TOL = 3e-4
+FASTSAM_IMGSZ = 640       # FastSAM-s and yolo_nas serving size
+
+
+def _sam_vs_f64(p32, p64, prompts: dict, slots, label: str) -> dict:
+    """One prompt batch decoded by the float32 and the float64 predictor: IoU predictions of
+    all four slots within SAM_IOU_TOL, and the masks of `slots` at the original size equal
+    wherever the float64 logit is farther than SAM_LOGIT_TOL from 0."""
+    arrays = p32._prompt_arrays(**prompts)
+    low32, iou32 = p32.decode(*arrays)
+    low64, iou64 = p64.decode(*arrays)
+    iou_err = (iou32.double() - iou64).abs().max().item()
+    logit_err, excluded, differ = 0.0, 0, 0
+    for s in slots:
+        l32, l64 = p32.to_original(low32[:, s]), p64.to_original(low64[:, s])
+        logit_err = max(logit_err, (l32.double() - l64).abs().max().item())
+        decided = l64.abs() > SAM_LOGIT_TOL
+        excluded += int((~decided).sum())
+        differ += int(((l32 > 0) != (l64 > 0))[decided].sum())
+    out = {"queries": int(iou32.shape[0]), "iou_max_abs_err": iou_err,
+           "logit_max_abs_err": logit_err, "pixels_within_logit_tol": excluded,
+           "pixels": int(iou32.shape[0]) * len(slots) * int(np.prod(p32._im_meta[:2]))}
+    check(iou_err <= SAM_IOU_TOL, f"{label}: IoU predictions {iou_err:.3g} from float64")
+    check(differ == 0, f"{label}: {differ} mask pixels differ from float64 where its logit "
+          f"is over {SAM_LOGIT_TOL} from 0")
+    return out
+
+
+def _sam_generate_vs_f64(p32, p64, label: str) -> dict:
+    """Segment-everything's device scoring in float32 and float64, thresholds in gaps of the
+    float64 scores that at least SAM_MIN_CANDIDATES candidates pass, and the survivors of the
+    filters and greedy NMS: the same set unless a near-tie decides (a candidate's IoU within
+    SAM_IOU_TOL of the threshold or of another's, or its stability or box moved by a
+    low-resolution logit that float32 rounds across +-1 or 0)."""
+    pps, ppb = SAM_GRID
+    _, iou32, stab32, box32 = p32.score_grid(pps, ppb)
+    _, iou64, stab64, box64 = p64.score_grid(pps, ppb)
+    iou_err = float(np.abs(iou32.astype(np.float64) - iou64).max())
+    check(iou_err <= SAM_IOU_TOL, f"{label}: grid IoU predictions {iou_err:.3g} from float64")
+    valid = (box64[:, 2] > box64[:, 0]) & (box64[:, 3] > box64[:, 1])
+    check(valid.sum() >= SAM_MIN_CANDIDATES, f"{label}: {valid.sum()} non-empty candidates")
+    # about 8x, then 3x SAM_MIN_CANDIDATES pass the stability, then the IoU threshold
+    stab_thr = _gap_threshold(stab64[valid], max(0.5, 1 - 8 * SAM_MIN_CANDIDATES / valid.sum()),
+                              1e-4)
+    stable = valid & (stab64 > stab_thr)
+    conf = _gap_threshold(iou64[stable], max(0.25, 1 - 3 * SAM_MIN_CANDIDATES / stable.sum()),
+                          SAM_IOU_TOL)
+    passing = valid & (stab64 > stab_thr) & (iou64 > conf)
+    check(passing.sum() >= SAM_MIN_CANDIDATES,
+          f"{label}: {passing.sum()} candidates pass conf {conf} and stability {stab_thr}")
+    sel32 = p32.select(iou32, stab32, box32, conf, stab_thr, 300)
+    sel64 = p64.select(iou64, stab64, box64, conf, stab_thr, 300)
+    moved = (stab32 != stab64) | (box32 != box64).any(1)
+    out = {"candidates": int(len(iou32)), "non_empty": int(valid.sum()), "conf": conf,
+           "stability_thresh": stab_thr, "passing": int(passing.sum()),
+           "survivors": int(len(sel64)), "same_survivors": set(sel32) == set(sel64),
+           "iou_max_abs_err": iou_err, "stability_moved": int((stab32 != stab64).sum()),
+           "boxes_moved": int((box32 != box64).any(1).sum())}
+    if not out["same_survivors"]:
+        either = np.union1d(np.flatnonzero(passing | moved), np.concatenate([sel32, sel64]))
+        near = np.abs(iou64[either] - conf) <= SAM_IOU_TOL
+        s = np.sort(iou64[passing])
+        ties = bool((np.diff(s) <= SAM_IOU_TOL).any())
+        out["near_ties"] = int(near.sum() + moved[either].sum()) + int(ties)
+        check(out["near_ties"] > 0, f"{label}: survivors differ from float64 without a near-tie "
+              f"({sorted(set(sel32) ^ set(sel64))[:8]})")
+    return out
+
+
+def _sam_serve(name: str, imgsz: int, frame: np.ndarray, persons: list, card: str) -> dict:
+    """One full-width SAM model on the card: build, the float64 copy, set_image, box / point /
+    multimask prompts and generate, each held against float64; times and peak memory."""
+    import torch
+
+    from sar_yolo_tpu_torch import SAM
+    from sar_yolo_tpu_torch.models.sam.amg import build_point_grid
+    from sar_yolo_tpu_torch.models.sam.predict import SAMPredictor
+    t0 = time.perf_counter()
+    sam = SAM(name, imgsz=imgsz)
+    check(sam.device.type == "cuda", f"{name} built on {sam.device}")
+    p32 = sam.predictor
+    torch.cuda.synchronize()
+    out = {"model": name, "imgsz": imgsz, "build_s": time.perf_counter() - t0,
+           "params": sam.info()["params"], "card": card}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    p32.set_image(frame)
+    torch.cuda.synchronize()
+    out["encode_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    enc = sam.model.image_encoder
+    if hasattr(enc, "depth"):  # the ViT: a global block's float32 logits, (1, heads, N, N)
+        n_tok = (imgsz // 16) ** 2
+        out["global_logits_mib"] = enc.block_0.attn.num_heads * n_tok ** 2 * 4 / 2 ** 20
+    # random weights give mask logits of ~0.1: the hypernetworks' last layers are scaled so
+    # that the first grid chunk's largest |logit| is SAM_MASK_LOGIT (a trained SAM's scale),
+    # so the masks, their stability and their boxes have structure
+    h, w, nh, nw = p32._im_meta
+    pts = build_point_grid(SAM_GRID[0])[:SAM_GRID[1], None] * np.float32([nw, nh])
+    low, _ = p32.decode(pts, np.ones((len(pts), 1), np.float32))
+    gain = SAM_MASK_LOGIT / low.abs().max().item()
+    with torch.no_grad():
+        for i in range(sam.model.mask_decoder.n_tokens):
+            layer = getattr(sam.model.mask_decoder, f"hyper_mlp_{i}").l2
+            layer.weight.mul_(gain)
+            layer.bias.mul_(gain)
+    out["mask_gain"] = gain
+    m64 = copy.deepcopy(sam.model).double()
+    p64 = SAMPredictor(m64, imgsz=imgsz)
+    p64.set_image(frame)
+    emb_err = (p32._features.double() - p64._features).abs().max().item()
+    out["embedding_max_abs_err"] = emb_err
+    out["embedding_max_abs"] = p64._features.abs().max().item()
+    check(emb_err <= SAM_EMB_TOL, f"{name}: embedding {emb_err:.3g} from float64")
+    x = torch.from_numpy(np.zeros((1, imgsz, imgsz, 3), np.uint8)).cuda()
+    with torch.no_grad():
+        out["encode_ms"] = event_ms(lambda: sam.model.encode(x), iters=5, reps=3)
+    boxes = [p[1:5] for p in persons]
+    cx, cy = [(b[0] + b[2]) / 2 for b in boxes], [(b[1] + b[3]) / 2 for b in boxes]
+    prompts = {
+        "boxes": (dict(bboxes=boxes, points=None, labels=None), (0,)),
+        "points_one_negative": (dict(bboxes=None, points=[[[cx[0], cy[0]], [cx[1], cy[1]]]],
+                                     labels=[[1, 0]]), (0,)),
+        "multimask": (dict(bboxes=None, points=[[x, y] for x, y in zip(cx[:3], cy[:3])],
+                           labels=None), (1, 2, 3))}
+    out["prompts"] = {k: _sam_vs_f64(p32, p64, kw, slots, f"{name} {k}")
+                      for k, (kw, slots) in prompts.items()}
+    masks, scores = p32.prompt_inference(bboxes=boxes)
+    check(masks.shape == (len(boxes), *frame.shape[:2]) and np.isfinite(scores).all(),
+          f"{name}: prompt_inference gave {masks.shape}")
+    masks, scores = p32.prompt_inference(points=prompts["multimask"][0]["points"],
+                                         multimask_output=True)
+    check(masks.shape == (3, *frame.shape[:2]), f"{name}: multimask gave {masks.shape}")
+    arrays = p32._prompt_arrays(boxes, None, None)
+    out["decode_ms"] = event_ms(lambda: p32.decode(*arrays), iters=10, reps=3)
+    out["decode_queries"] = len(boxes)
+    out["generate"] = _sam_generate_vs_f64(p32, p64, name)
+    del m64, p64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(points_per_side=SAM_GRID[0], points_per_batch=SAM_GRID[1],
+              conf=out["generate"]["conf"], stability_thresh=out["generate"]["stability_thresh"])
+    p32.generate(**kw)  # warm
+    t = time.perf_counter()
+    masks, scores, gboxes = p32.generate(**kw)
+    out["generate_ms"] = (time.perf_counter() - t) * 1e3
+    out["generate_split_ms"] = dict(p32.generate_ms)
+    out["generate_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    check(len(masks) == out["generate"]["survivors"] or not out["generate"]["same_survivors"],
+          f"{name}: generate kept {len(masks)}, select {out['generate']['survivors']}")
+    check(masks.shape[1:] == frame.shape[:2] and np.isfinite(gboxes).all(),
+          f"{name}: generate gave {masks.shape}")
+    res = sam(frame, bboxes=boxes[:2])[0]
+    check(res.masks.data.shape == (2, *frame.shape[:2]) and res.boxes.data.shape == (2, 6),
+          f"{name}: SAM.__call__ gave {res.masks.data.shape}")
+    out["call_speed_ms"] = res.speed
+    print(json.dumps(out))
+    del sam
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fastsam_nas(frames: list, persons: list) -> dict:
+    """FastSAM-s @640 with a box prompt and yolo_nas @640 at batch 1 over the JPEG frames
+    (seeded, perturbed weights), against the plain YOLO segment and detect path on the same
+    weights: FastSAM's Results equal the plain Results filtered by `FastSAM._prompt`; NAS's
+    rows equal the plain ones."""
+    import torch
+
+    from sar_yolo_tpu_torch import NAS, YOLO, FastSAM
+    out = {}
+    kw = dict(imgsz=FASTSAM_IMGSZ, conf=0.05)
+    fast = _perturbed_yolo("FastSAM-s.yaml", 3, FASTSAM_IMGSZ, cls=FastSAM)
+    plain = YOLO("FastSAM-s.yaml")
+    plain.model.load_state_dict(fast.model.state_dict())
+    plain._weights_ready = True
+    check(fast.task == "segment" and fast.meta["nc"] == 1, "FastSAM-s is not a 1-class segmenter")
+    t = time.perf_counter()
+    kept, rows = [], 0
+    for frame, ps in zip(frames, persons):
+        box = [ps[0][1:5]]
+        got = fast.predict(frame, bboxes=box, **kw)[0]
+        want = plain.predict(frame, **kw)[0]
+        rows += len(want.boxes)
+        want = FastSAM._prompt(want, box, None, None, None, None)
+        check(np.array_equal(got.boxes.data, want.boxes.data) and
+              np.array_equal(got.masks.data, want.masks.data),
+              "FastSAM's box-prompted Results differ from the plain segment path's")
+        kept.append(len(got.boxes))
+    out["fastsam"] = {"frames": len(frames), "kept_by_prompt": kept, "rows_before_prompt": rows,
+                      "s": time.perf_counter() - t}
+    check(sum(kept) >= 1, "FastSAM's box prompt kept no mask on any frame")
+    nas = _perturbed_yolo("yolo_nas.yaml", 4, FASTSAM_IMGSZ, cls=NAS)
+    plain = YOLO("yolo_nas.yaml")
+    plain.model.load_state_dict(nas.model.state_dict())
+    plain._weights_ready = True
+    t = time.perf_counter()
+    got = nas.predict(frames, **kw)
+    want = plain.predict(frames, **kw)
+    check(all(np.array_equal(g.boxes.data, w.boxes.data) for g, w in zip(got, want)),
+          "NAS rows differ from the plain detect path's")
+    out["nas"] = {"frames": len(frames), "rows": [len(g.boxes) for g in got],
+                  "s": time.perf_counter() - t}
+    raised = False
+    try:
+        nas.train(data="synthetic")
+    except NotImplementedError:
+        raised = True
+    check(raised, "NAS.train did not raise")
+    print(json.dumps(out))
+    del fast, plain, nas
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sam(card: str) -> dict:
+    """Phase 22: SAM and MobileSAM at full width on one 720x1280 JPEG frame, FastSAM and NAS
+    (see the module docstring). Returns the area attention's launches by path (0: no model of
+    this phase has an A2C2f block)."""
+    from sar_yolo_tpu_torch.data.imageio import imread
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    digests = json.loads((JPEG_DIR / "digests.json").read_text())["frames"]
+    names = sorted(digests)
+    frames = [imread(JPEG_DIR / "frames" / n) for n in names]
+    persons = [digests[n]["persons"] for n in names]
+    laps, t = {}, time.perf_counter()
+    paths = {}
+    for name, imgsz in SAM_SERVE:
+        flash_area_attention.launches = 0
+        _sam_serve(name, imgsz, frames[0], persons[0], card)
+        paths[f"SAM {name}@{imgsz}: set_image, prompts, generate (float32)"] = \
+            flash_area_attention.launches
+        laps[name], t = time.perf_counter() - t, time.perf_counter()
+    flash_area_attention.launches = 0
+    ic.reset_launches()
+    _fastsam_nas(frames, persons)
+    laps["fastsam_nas"] = time.perf_counter() - t
+    paths[f"FastSAM-s@{FASTSAM_IMGSZ} and yolo_nas@{FASTSAM_IMGSZ} b1, {len(frames)} JPEG "
+          "frames"] = flash_area_attention.launches
+    print(json.dumps({"phase_sam_s": laps, "area_attention_launches": paths,
+                      "int8_launches": [ic.int8_conv.launches, ic.int8_quantize.launches]}))
+    check(not any(paths.values()), f"area-attention launches in phase 22: {paths}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5183,6 +5469,8 @@ def main() -> int:
     lap("int8_ddp")
     export = phase_export(card)
     lap("export")
+    sam_launches = phase_sam(card)
+    lap("sam")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -5255,7 +5543,7 @@ def main() -> int:
                              **detect_launches["float32"], **cbam_launches["float32"],
                              **family_launches, **pose_seg_launches, **obb_cls_launches,
                              **rtdetr_world_launches, **int8_ddp_launches,
-                             **export["paths"]}}, {
+                             **export["paths"], **sam_launches}}, {
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",

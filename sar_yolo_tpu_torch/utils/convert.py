@@ -11,6 +11,8 @@ The port names its submodules after the Flax scopes, so the map is mechanical:
     batch_stats/.../<BatchNorm>/{mean, var}                   -> ....{running_mean, running_var}
     params/.../{gate, gamma, prototype_base, embedding}       -> unchanged
     params/text_embeddings, params/blocks_22/cv4_0_{bias, logit_scale} -> unchanged
+    SAM's tables, embeddings and tokens (rel_pos_h, pos_embed (1, g, g, C), gaussian_matrix,
+    point_embeddings, iou_token, TinyViT's attention_biases, ...) -> unchanged
 
 A transposed conv's kernel (Flax `ConvTranspose(transpose_kernel=True)`: the kernel of the
 conv it is the gradient of) takes the same transpose, with no spatial flip. A v10 head's
@@ -27,8 +29,12 @@ import re
 import numpy as np
 import torch
 
-_SCALARS = {"gate", "gamma", "prototype_base", "embedding", "text_embeddings", "scale"}
-_NORM_SCOPE = re.compile(r"(^bn$|norm\d*$|_ln$|_bn_\d+$)")  # BatchNorm / LayerNorm scopes
+_SCALARS = {"gate", "gamma", "prototype_base", "embedding", "text_embeddings", "scale",
+            # SAM (models/sam/): kept in their JAX layout by the port's modules
+            "rel_pos_h", "rel_pos_w", "pos_embed", "gaussian_matrix", "point_embeddings",
+            "not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens", "attention_biases"}
+# BatchNorm / LayerNorm scopes (SAM's: neck_ln1, mask_ln2, upscale_ln, norm_final_attn)
+_NORM_SCOPE = re.compile(r"(^bn$|norm\d*$|_ln\d*$|_bn_\d+$|^norm_final_attn$)")
 _HEAD_SCALAR = re.compile(r"^cv4_\d+_(bias|logit_scale)$")    # WorldDetect's contrastive heads
 
 
