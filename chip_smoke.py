@@ -302,8 +302,27 @@ Phases, in order; any failure exits non-zero:
      split. FastSAM-s @640 with a box prompt on the 12 JPEG frames: the plain YOLO segment
      path's Results filtered by the same prompt, exactly; yolo_nas @640 at batch 1: the plain
      detect path's rows exactly; `NAS.train` raises.
- 23. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
-     the amp train step's forward, phases 16-19's and 22's paths at 0, its launches and device
+ 23. SAM2, no A2C2f block: 0 area-attention launches in the whole phase. `SAM("sam2_b")`
+     (Hiera-B+: embed 112, stages 2, 3, 16, 3, 2 heads, global blocks 12, 16, 20, windows 8, 4,
+     14, 7; d_model 256, mem_dim 64, 7 memory slots) at 1024 px, seeded weights, the
+     hypernetworks' last layers scaled as in phase 22, against the same model cast to float64
+     on the card. Image path on frame 0 (720x1280 -> 576x1024): the embedding and both
+     high-resolution maps within 7.1e-5, box prompts for the 6 persons, two points with one
+     negative, a multimask call and `generate` at 32 x 32 points under phase 22's rules, the
+     logit margin 1.5e-4. Video path over the 12 JPEG frames with the 6 persons' boxes on
+     frame 0: at each track step the float32 step against the float64 model's step on the
+     same bank (cast): the conditioned embedding within 8.6e-5, the masks at the frame's size
+     equal wherever the float64 logit is over 1.5e-4 from 0, scores within 1e-4, object logits
+     within 8.8e-7, the new memory within 1.4e-4 (the prompted frame's too); the ring's slot
+     and tpos against the rule (slot 1 + i % 6; a slot written at step j is min(max(i - j +
+     1, 1), 6) back, an empty one 6, slot 0 is 0 back); the 12-frame trajectory's agreement
+     with an all-float64 run is printed, not held. `SAM.track`: one Results a frame with
+     masks, boxes, the id column and `frame`. Printed: the encoder's device ms at batch 1 and
+     its peak memory, a track step's ms split into encode, memory conditioning, decode and
+     memory encode at Q = 6 on a full bank, the step's peak memory, `SAM.track`'s frames/s.
+     sam2_t, sam2_s and sam2_l build at 1024 and serve one box prompt.
+ 24. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+     the amp train step's forward, phases 16-19's, 22's and 23's paths at 0, its launches and device
      ms in phase 21's .pt2 program; the int8 convolution and the int8 quantization: one int8
      forward of yolov13n-JDE at 640, batch 8), the card line, and the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
@@ -5162,10 +5181,11 @@ SAM_LOGIT_TOL = 3e-4
 FASTSAM_IMGSZ = 640       # FastSAM-s and yolo_nas serving size
 
 
-def _sam_vs_f64(p32, p64, prompts: dict, slots, label: str) -> dict:
+def _sam_vs_f64(p32, p64, prompts: dict, slots, label: str, logit_tol: float = SAM_LOGIT_TOL
+                ) -> dict:
     """One prompt batch decoded by the float32 and the float64 predictor: IoU predictions of
     all four slots within SAM_IOU_TOL, and the masks of `slots` at the original size equal
-    wherever the float64 logit is farther than SAM_LOGIT_TOL from 0."""
+    wherever the float64 logit is farther than `logit_tol` from 0."""
     arrays = p32._prompt_arrays(**prompts)
     low32, iou32 = p32.decode(*arrays)
     low64, iou64 = p64.decode(*arrays)
@@ -5174,7 +5194,7 @@ def _sam_vs_f64(p32, p64, prompts: dict, slots, label: str) -> dict:
     for s in slots:
         l32, l64 = p32.to_original(low32[:, s]), p64.to_original(low64[:, s])
         logit_err = max(logit_err, (l32.double() - l64).abs().max().item())
-        decided = l64.abs() > SAM_LOGIT_TOL
+        decided = l64.abs() > logit_tol
         excluded += int((~decided).sum())
         differ += int(((l32 > 0) != (l64 > 0))[decided].sum())
     out = {"queries": int(iou32.shape[0]), "iou_max_abs_err": iou_err,
@@ -5182,7 +5202,7 @@ def _sam_vs_f64(p32, p64, prompts: dict, slots, label: str) -> dict:
            "pixels": int(iou32.shape[0]) * len(slots) * int(np.prod(p32._im_meta[:2]))}
     check(iou_err <= SAM_IOU_TOL, f"{label}: IoU predictions {iou_err:.3g} from float64")
     check(differ == 0, f"{label}: {differ} mask pixels differ from float64 where its logit "
-          f"is over {SAM_LOGIT_TOL} from 0")
+          f"is over {logit_tol} from 0")
     return out
 
 
@@ -5403,6 +5423,290 @@ def phase_sam(card: str) -> dict:
     return paths
 
 
+SAM2_SERVE = ("sam2_b", 1024)   # Hiera-B+ at full width, Meta's serving size
+SAM2_SIZES = ("sam2_t", "sam2_s", "sam2_l")  # built at 1024, one box prompt each
+SAM2_TRACK_FRAMES = 12    # the JPEG frames SAM.track carries the 6 persons through
+# against the float64 copy (max abs), 10x the largest float32 distance of the first run
+# (NVIDIA H100, PERF.md section 6): the stride-16 embeddings and high-resolution maps
+# (7.06e-6); the track step's conditioned embedding (8.57e-6), object logits (8.72e-8) and
+# new memory entry (1.32e-5; the prompted frame's 8.77e-6); mask pixels whose float64 logit
+# is within 10x the largest logit distance (1.50e-5) of 0 are left out of the mask comparisons
+SAM2_EMB_TOL = 7.1e-5
+SAM2_LOGIT_TOL = 1.5e-4
+SAM2_COND_TOL = 8.6e-5
+SAM2_OBJ_TOL = 8.8e-7
+SAM2_MEM_TOL = 1.4e-4
+
+
+def _max_err(a, b) -> float:
+    return (a.double() - b).abs().max().item()
+
+
+def _ring_expected(k: int, T: int) -> tuple:
+    """(tpos, slot) of track step k: slot 0 holds the prompted frame (0 back); step j wrote
+    slot 1 + j % (T - 1); a slot last written at step j is min(max(k - j + 1, 1), T - 1)
+    back, an empty one T - 1."""
+    written = {}
+    for j in range(k):
+        written[1 + j % (T - 1)] = j
+    tpos = [0] + [min(max(k - written[s] + 1, 1), T - 1) if s in written else T - 1
+                  for s in range(1, T)]
+    return np.asarray(tpos), 1 + k % (T - 1)
+
+
+def _sam2_image(sam, m64, frame: np.ndarray, persons: list) -> dict:
+    """SAM2's image path on one frame against the float64 copy: the embeddings, box / point /
+    multimask prompts and generate (phase 22's rules); times and peak memory."""
+    import torch
+
+    from sar_yolo_tpu_torch.models.sam.predict import SAMPredictor
+    p32, imgsz = sam.predictor, sam.info_dict["img_size"]
+    p64 = SAMPredictor(m64, imgsz=imgsz)
+    out = {}
+    p64.set_image(frame)
+    f32, f64 = p32._features, p64._features
+    errs = {"image_embed": _max_err(f32["image_embed"], f64["image_embed"]),
+            "high_res_s4": _max_err(f32["high_res_feats"][0], f64["high_res_feats"][0]),
+            "high_res_s8": _max_err(f32["high_res_feats"][1], f64["high_res_feats"][1])}
+    out["embedding_max_abs_err"] = errs
+    out["embedding_max_abs"] = {"image_embed": f64["image_embed"].abs().max().item(),
+                                "high_res_s4": f64["high_res_feats"][0].abs().max().item(),
+                                "high_res_s8": f64["high_res_feats"][1].abs().max().item()}
+    for key, err in errs.items():
+        check(err <= SAM2_EMB_TOL, f"{sam.info_dict['name']}: {key} {err:.3g} from float64")
+    boxes = [p[1:5] for p in persons]
+    cx, cy = [(b[0] + b[2]) / 2 for b in boxes], [(b[1] + b[3]) / 2 for b in boxes]
+    prompts = {
+        "boxes": (dict(bboxes=boxes, points=None, labels=None), (0,)),
+        "points_one_negative": (dict(bboxes=None, points=[[[cx[0], cy[0]], [cx[1], cy[1]]]],
+                                     labels=[[1, 0]]), (0,)),
+        "multimask": (dict(bboxes=None, points=[[x, y] for x, y in zip(cx[:3], cy[:3])],
+                           labels=None), (1, 2, 3))}
+    name = sam.info_dict["name"]
+    out["prompts"] = {k: _sam_vs_f64(p32, p64, kw, slots, f"{name} {k}", SAM2_LOGIT_TOL)
+                      for k, (kw, slots) in prompts.items()}
+    masks, scores = p32.prompt_inference(bboxes=boxes)
+    check(masks.shape == (len(boxes), *frame.shape[:2]) and np.isfinite(scores).all(),
+          f"{name}: prompt_inference gave {masks.shape}")
+    masks, scores = p32.prompt_inference(points=prompts["multimask"][0]["points"],
+                                         multimask_output=True)
+    check(masks.shape == (3, *frame.shape[:2]), f"{name}: multimask gave {masks.shape}")
+    arrays = p32._prompt_arrays(boxes, None, None)
+    out["decode_ms"] = event_ms(lambda: p32.decode(*arrays), iters=10, reps=3)
+    out["generate"] = _sam_generate_vs_f64(p32, p64, name)
+    del p64
+    torch.cuda.empty_cache()
+    kw = dict(points_per_side=SAM_GRID[0], points_per_batch=SAM_GRID[1],
+              conf=out["generate"]["conf"], stability_thresh=out["generate"]["stability_thresh"])
+    t = time.perf_counter()
+    masks, scores, gboxes = p32.generate(**kw)
+    out["generate_ms"] = (time.perf_counter() - t) * 1e3
+    out["generate_split_ms"] = dict(p32.generate_ms)
+    check(len(masks) == out["generate"]["survivors"] or not out["generate"]["same_survivors"],
+          f"{name}: generate kept {len(masks)}, select {out['generate']['survivors']}")
+    check(masks.shape[1:] == frame.shape[:2] and np.isfinite(gboxes).all(),
+          f"{name}: generate gave {masks.shape}")
+    return out
+
+
+def _sam2_video(sam, m64, frames: list, boxes: list) -> dict:
+    """The video predictor over the frames with the persons' boxes on the first: each float32
+    step against the float64 model's step on the same bank (cast), the ring's slot and tpos
+    against the rule; the float32 trajectory's masks against an all-float64 run (printed,
+    not held); the step split and peak memory at the last step's full bank."""
+    import torch
+
+    from sar_yolo_tpu_torch.models.sam.predict import SAM2VideoPredictor
+    imgsz, T, Q = sam.info_dict["img_size"], sam.model.num_maskmem, len(boxes)
+    v32 = SAM2VideoPredictor(sam.model, imgsz=imgsz)
+    v64 = SAM2VideoPredictor(m64, imgsz=imgsz)
+    step64 = v64._build_step(Q)
+    v32.init_video(frames[0], bboxes=boxes)
+    v64.init_video(frames[0], bboxes=boxes)
+    out = {"objects": Q, "frames": len(frames),
+           "init_memory_max_abs_err": _max_err(v32._bank[:, 0], v64._bank[:, 0])}
+    check(out["init_memory_max_abs_err"] <= SAM2_MEM_TOL,
+          f"the prompted frame's memory {out['init_memory_max_abs_err']:.3g} from float64")
+    worst = {"cond": 0.0, "logit": 0.0, "score": 0.0, "obj": 0.0, "new_mem": 0.0}
+    excluded, pixels, traj32 = 0, 0, []
+    for k, frame in enumerate(frames[1:]):
+        tpos, slot = _ring_expected(k, T)
+        masks32, _, _ = v32.track_step(frame)
+        traj32.append(masks32)
+        st = v32.last_step
+        check(st["slot"] == slot and np.array_equal(st["tpos"], tpos),
+              f"step {k}: slot {st['slot']} tpos {st['tpos']}, the rule gives {slot} {tpos}")
+        m64_, s64, o64, mem64, cond64 = step64(st["canvas"], st["bank"].double(),
+                                               st["valid"].double(),
+                                               torch.as_tensor(tpos, device=st["canvas"].device))
+        l32, l64 = v32.to_original(st["low_res"]), v64.to_original(m64_)
+        decided = l64.abs() > SAM2_LOGIT_TOL
+        differ = int(((l32 > 0) != (l64 > 0))[decided].sum())
+        excluded += int((~decided).sum())
+        pixels += decided.numel()
+        errs = {"cond": _max_err(st["cond"], cond64), "logit": _max_err(l32, l64),
+                "score": _max_err(st["score"], s64), "obj": _max_err(st["obj"], o64),
+                "new_mem": _max_err(st["new_mem"], mem64)}
+        worst = {key: max(worst[key], errs[key]) for key in worst}
+        check(differ == 0, f"track step {k}: {differ} mask pixels differ from float64 where its "
+              f"logit is over {SAM2_LOGIT_TOL} from 0")
+        for key, tol in (("cond", SAM2_COND_TOL), ("score", SAM_IOU_TOL), ("obj", SAM2_OBJ_TOL),
+                         ("new_mem", SAM2_MEM_TOL)):
+            check(errs[key] <= tol, f"track step {k}: {key} {errs[key]:.3g} from float64")
+    out["step_max_abs_err"] = worst
+    out["pixels_within_logit_tol"], out["pixels"] = excluded, pixels
+    out["ring"] = {"slot_frame": v32._slot_frame.tolist(), "next": v32.ring_state()[1]}
+    # the step's split and peak memory on the last step's full bank
+    st = v32.last_step
+    model, bank, valid = sam.model, v32._bank, v32._valid
+    tpos_t = torch.as_tensor(v32.ring_state()[0], device=bank.device)
+    with torch.no_grad():
+        feats = model.encode(st["canvas"])
+        cond = model.condition_on_memory(feats["raw_embed"], bank, valid, tpos_t)
+        f = {"image_embed": cond, "high_res_feats": feats["high_res_feats"]}
+        pts = torch.zeros(Q, 1, 2, device=bank.device)
+        lbl = -torch.ones(Q, 1, device=bank.device)
+        m0 = model.decode(f, points=pts, labels=lbl)[0][:, 0]
+        out["step_split_ms"] = {
+            "encode": event_ms(lambda: model.encode(st["canvas"]), iters=3, reps=3),
+            "condition_on_memory": event_ms(lambda: model.condition_on_memory(
+                feats["raw_embed"], bank, valid, tpos_t), iters=3, reps=3),
+            "decode": event_ms(lambda: model.decode(f, points=pts, labels=lbl), iters=3, reps=3),
+            "encode_memory": event_ms(lambda: model.encode_memory(feats["raw_embed"],
+                                                                  m0[:, None]), iters=3, reps=3)}
+        del feats, cond, f, m0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        v32._step(st["canvas"], bank, valid, tpos_t)
+        torch.cuda.synchronize()
+    out["step_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    out["cross_attention_logits_mib_per_object_layer"] = (
+        (imgsz // 16) ** 4 * T * st["cond"].element_size() / 2 ** 20)
+    out["step_ms"] = event_ms(lambda: v32._step(st["canvas"], bank, valid, tpos_t), iters=3,
+                              reps=3)
+    # the all-float64 trajectory (reported, not held: float32 and float64 part where a logit
+    # sits near 0 and the masks then feed the bank)
+    v64.init_video(frames[0], bboxes=boxes)
+    agree = []
+    for frame, masks32 in zip(frames[1:], traj32):
+        masks64, _, _ = v64.track_step(frame)
+        inter = (masks32 & masks64).sum((1, 2))
+        union = np.maximum((masks32 | masks64).sum((1, 2)), 1)
+        agree.append({"pixels_equal": float((masks32 == masks64).mean()),
+                      "min_iou": float((inter / union).min())})
+    out["trajectory_vs_float64"] = agree
+    return out
+
+
+def _sam2_track_call(sam, frames: list, boxes: list) -> dict:
+    """`SAM.track` over the frames: one Results a frame with masks, boxes, the id column and
+    `frame`; frames/s and the step's peak memory."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = sam.track(frames, bboxes=boxes)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    n, H, W = len(boxes), *frames[0].shape[:2]
+    check(len(res) == len(frames), f"SAM.track gave {len(res)} Results for {len(frames)} frames")
+    for i, r in enumerate(res):
+        check(r.frame == i and r.masks.data.shape == (n, H, W) and r.boxes.data.shape == (n, 7)
+              and r.boxes.data[:, 6].tolist() == list(range(n))
+              and np.isfinite(r.boxes.data).all(), f"SAM.track frame {i}: {r.boxes.data[:2]}")
+    return {"frames": len(frames), "s": s, "frames_per_s": len(frames) / s,
+            "mask_pixels_per_frame": [int(r.masks.data.sum()) for r in res],
+            "speed_ms": [r.speed["inference"] for r in res]}
+
+
+def phase_sam2(card: str) -> dict:
+    """Phase 23: SAM2 (see the module docstring). Returns the area attention's launches by
+    path (0: SAM2 has no A2C2f block)."""
+    import torch
+
+    from sar_yolo_tpu_torch import SAM
+    from sar_yolo_tpu_torch.data.imageio import imread
+    from sar_yolo_tpu_torch.models.sam.amg import build_point_grid
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    digests = json.loads((JPEG_DIR / "digests.json").read_text())["frames"]
+    names = sorted(digests)[:SAM2_TRACK_FRAMES]
+    frames = [imread(JPEG_DIR / "frames" / n) for n in names]
+    boxes = [p[1:5] for p in digests[names[0]]["persons"]]
+    laps, t = {}, time.perf_counter()
+    paths = {}
+    name, imgsz = SAM2_SERVE
+    flash_area_attention.launches = 0
+    sam = SAM(name, imgsz=imgsz)
+    check(sam.device.type == "cuda", f"{name} built on {sam.device}")
+    torch.cuda.synchronize()
+    out = {"model": name, "imgsz": imgsz, "card": card, "build_s": time.perf_counter() - t,
+           "params": sam.info()["params"]}
+    p32 = sam.predictor
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    p32.set_image(frames[0])
+    torch.cuda.synchronize()
+    out["encode_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    trunk = sam.model.trunk
+    g = next(i for i in range(trunk.depth) if getattr(trunk, f"block_{i}").window_size == 0)
+    out["global_logits_mib"] = (getattr(trunk, f"block_{g}").attn.num_heads
+                                * (imgsz // 16) ** 4 * 4 / 2 ** 20)
+    x = torch.zeros((1, imgsz, imgsz, 3), dtype=torch.uint8, device=sam.device)
+    with torch.no_grad():
+        out["encode_ms"] = event_ms(lambda: sam.model.encode(x), iters=5, reps=3)
+    # random weights give mask logits of ~0.1: the hypernetworks' last layers are scaled so
+    # that the first grid chunk's largest |logit| is SAM_MASK_LOGIT, as in phase 22
+    h, w, nh, nw = p32._im_meta
+    pts = build_point_grid(SAM_GRID[0])[:SAM_GRID[1], None] * np.float32([nw, nh])
+    low, _ = p32.decode(pts, np.ones((len(pts), 1), np.float32))
+    gain = SAM_MASK_LOGIT / low.abs().max().item()
+    dec = sam.model.sam_mask_decoder
+    with torch.no_grad():
+        for i in range(dec.n_tokens):
+            getattr(dec, f"hyper_mlp_{i}").l2.weight.mul_(gain)
+            getattr(dec, f"hyper_mlp_{i}").l2.bias.mul_(gain)
+    out["mask_gain"] = gain
+    m64 = copy.deepcopy(sam.model).double()
+    out["image"] = _sam2_image(sam, m64, frames[0], digests[names[0]]["persons"])
+    laps["image"], t = time.perf_counter() - t, time.perf_counter()
+    paths[f"SAM2 {name}@{imgsz}: set_image, prompts, generate (float32)"] = \
+        flash_area_attention.launches
+    flash_area_attention.launches = 0
+    out["video"] = _sam2_video(sam, m64, frames, boxes)
+    del m64
+    torch.cuda.empty_cache()
+    laps["video_vs_float64"], t = time.perf_counter() - t, time.perf_counter()
+    flash_area_attention.launches = 0
+    sam.track(frames[:2], bboxes=boxes)  # warm
+    out["track"] = _sam2_track_call(sam, frames, boxes)
+    paths[f"SAM2 {name}@{imgsz}: SAM.track, {len(frames)} JPEG frames, {len(boxes)} objects"] = \
+        flash_area_attention.launches
+    laps["track"], t = time.perf_counter() - t, time.perf_counter()
+    print(json.dumps(out))
+    del sam, p32
+    torch.cuda.empty_cache()
+    sizes = {}
+    flash_area_attention.launches = 0
+    for size in SAM2_SIZES:
+        t0 = time.perf_counter()
+        sam = SAM(size, imgsz=imgsz)
+        sam.predictor.set_image(frames[0])
+        masks, scores = sam.predictor.prompt_inference(bboxes=boxes[:1])
+        check(masks.shape == (1, *frames[0].shape[:2]) and np.isfinite(scores).all(),
+              f"{size}: a box prompt gave {masks.shape}")
+        sizes[size] = {"params": sam.info()["params"], "s": time.perf_counter() - t0}
+        del sam
+        torch.cuda.empty_cache()
+    paths[f"SAM2 {', '.join(SAM2_SIZES)}@{imgsz}: build, one box prompt"] = \
+        flash_area_attention.launches
+    laps["sizes"] = time.perf_counter() - t
+    print(json.dumps({"sam2_sizes": sizes, "phase_sam2_s": laps,
+                      "area_attention_launches": paths}))
+    check(not any(paths.values()), f"area-attention launches in phase 23: {paths}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5471,6 +5775,8 @@ def main() -> int:
     lap("export")
     sam_launches = phase_sam(card)
     lap("sam")
+    sam2_launches = phase_sam2(card)
+    lap("sam2")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -5543,7 +5849,7 @@ def main() -> int:
                              **detect_launches["float32"], **cbam_launches["float32"],
                              **family_launches, **pose_seg_launches, **obb_cls_launches,
                              **rtdetr_world_launches, **int8_ddp_launches,
-                             **export["paths"], **sam_launches}}, {
+                             **export["paths"], **sam_launches, **sam2_launches}}, {
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",

@@ -1,5 +1,5 @@
-"""Meta / Ultralytics SAM and MobileSAM state dicts -> this package's SAM modules (port of the
-SAM and TinyViT half of `sar_yolo_tpu/models/sam/convert.py`).
+"""Meta / Ultralytics SAM, MobileSAM and SAM2 state dicts -> this package's SAM modules (port
+of `sar_yolo_tpu/models/sam/convert.py`).
 
 Both sides are PyTorch, so tensors keep their layout; the keys are renamed to the Flax scope
 names the port's modules carry, and four tensors change shape:
@@ -12,6 +12,11 @@ names the port's modules carry, and four tensors change shape:
 `pixel_mean` / `pixel_std` are constants of `SAMModel.preprocess`, and TinyViT's
 classification head (`head`, `norm_head`) is unused by SAM: both are dropped by design. Any
 other key that no rule maps is returned in `skipped`.
+
+SAM2 (`translate_sam2_state_dict`): Hiera's two position tables go from (1, C, h, w) to the
+port's (1, h, w, C); the decoder's `conv_s0` / `conv_s1` are the model's `hr_proj0` /
+`hr_proj1`; the keys of SAM2_UNMAPPED_OK (object pointers and the mask-as-output shortcut,
+which the JAX package does not carry) are dropped by design.
 """
 
 from __future__ import annotations
@@ -139,4 +144,104 @@ def translate_sam_state_dict(state_dict, verbose: bool = False):
             [point_rows[i] for i in sorted(point_rows)])
     if verbose and skipped:
         print(f"translate_sam_state_dict: {len(skipped)} unmapped keys: {skipped[:8]}")
+    return out, skipped
+
+
+# object-pointer tokens (sam.py obj_ptr_proj / obj_ptr_tpos_proj ...) and the mask-input-as-
+# output shortcut (mask_downsample): the JAX package's video memory does not carry them
+SAM2_UNMAPPED_OK = ("obj_ptr_proj", "obj_ptr_tpos_proj", "no_obj_ptr",
+                    "no_obj_embed_spatial", "mask_downsample", "no_mem_pos_enc")
+_WB = r"(weight|bias)"
+
+
+def _sam2_trunk_key(rest: str) -> str | None:
+    """A Hiera key (after 'image_encoder.trunk.') -> the port's name (after 'trunk.')."""
+    if rest in ("pos_embed", "pos_embed_window"):
+        return rest
+    if m := re.fullmatch(rf"patch_embed\.proj\.{_WB}", rest):
+        return f"patch_embed.{m[1]}"
+    if m := re.fullmatch(rf"blocks\.(\d+)\.(norm[12]|attn\.qkv|attn\.proj|proj)\.{_WB}", rest):
+        return f"block_{m[1]}.{m[2]}.{m[3]}"
+    if m := re.fullmatch(rf"blocks\.(\d+)\.mlp\.layers\.([01])\.{_WB}", rest):
+        return f"block_{m[1]}.mlp_lin{int(m[2]) + 1}.{m[3]}"
+    return None
+
+
+def _sam2_key(key: str) -> str | None:
+    """A SAM2 key outside the prompt encoder -> the port's name."""
+    if key in ("no_mem_embed", "maskmem_tpos_enc"):
+        return key
+    if key.startswith("image_encoder.trunk."):
+        new = _sam2_trunk_key(key[len("image_encoder.trunk."):])
+        return new and f"trunk.{new}"
+    if m := re.fullmatch(rf"image_encoder\.neck\.convs\.(\d+)\.conv\.{_WB}", key):
+        return f"neck.conv_{m[1]}.{m[2]}"
+    if key.startswith("sam_mask_decoder."):
+        rest = key[len("sam_mask_decoder."):]
+        if m := re.fullmatch(rf"conv_s([01])\.{_WB}", rest):
+            return f"hr_proj{m[1]}.{m[2]}"
+        if m := re.fullmatch(r"(obj_score_token)\.weight", rest):
+            return f"sam_mask_decoder.{m[1]}"
+        if m := re.fullmatch(rf"pred_obj_score_head\.layers\.(\d+)\.{_WB}", rest):
+            return f"sam_mask_decoder.obj_score_head.l{m[1]}.{m[2]}"
+        new = _decoder_key(rest)
+        return new and f"sam_mask_decoder.{new}"
+    if m := re.fullmatch(rf"memory_attention\.layers\.(\d+)\.((?:self_attn|cross_attn_image)\."
+                         rf"(?:q|k|v|out)_proj|linear[12]|norm[1-3])\.{_WB}", key):
+        return f"memory_attention.layer_{m[1]}.{m[2]}.{m[3]}"
+    if re.fullmatch(rf"memory_attention\.norm\.{_WB}", key):
+        return key
+    if m := re.fullmatch(rf"memory_encoder\.mask_downsampler\.encoder\.(\d+)\.{_WB}", key):
+        i = int(m[1])
+        name = "proj" if i == 12 else f"conv_{i // 3}" if i % 3 == 0 else f"ln_{i // 3}"
+        return f"memory_encoder.mask_downsampler.{name}.{m[2]}"
+    if re.fullmatch(rf"memory_encoder\.(pix_feat_proj|out_proj)\.{_WB}", key):
+        return key
+    if m := re.fullmatch(rf"memory_encoder\.fuser\.layers\.(\d+)\.(gamma|(?:dwconv|norm|"
+                         rf"pwconv[12])\.{_WB})", key):
+        return f"memory_encoder.fuser_{m[1]}.{m[2]}"
+    return None
+
+
+def translate_sam2_state_dict(state_dict, verbose: bool = False):
+    """(the port's state dict, skipped keys) of a Meta SAM2 / SAM2.1 state dict (flat, or
+    wrapped as {'model': module_or_state_dict}); SAM2_UNMAPPED_OK keys and the pixel
+    constants are dropped without a mention."""
+    if isinstance(state_dict, dict) and "model" in state_dict and not any(
+            "." in k for k in state_dict if isinstance(k, str)):
+        inner = state_dict["model"]
+        state_dict = inner.state_dict() if hasattr(inner, "state_dict") else inner
+    out: dict[str, torch.Tensor] = {}
+    skipped: list[str] = []
+    point_rows: dict[int, torch.Tensor] = {}
+    for key, t in state_dict.items():
+        t = torch.as_tensor(t).detach().cpu()
+        top, _, rest = key.partition(".")
+        if top.startswith(SAM2_UNMAPPED_OK) or top in ("pixel_mean", "pixel_std"):
+            continue
+        new = None
+        if top == "sam_prompt_encoder":
+            if m := re.fullmatch(r"point_embeddings\.(\d+)\.weight", rest):
+                point_rows[int(m[1])] = t.reshape(-1)
+                continue
+            if m := re.fullmatch(r"(not_a_point_embed|no_mask_embed)\.weight", rest):
+                new, t = m[1], t.reshape(-1)
+            elif rest == "pe_layer.positional_encoding_gaussian_matrix":
+                new = "pe_layer.gaussian_matrix"
+            elif m := re.fullmatch(rf"mask_downscaling\.([01346])\.{_WB}", rest):
+                new = f"{_MASK_DOWN[m[1]]}.{m[2]}"
+            new = new and f"{top}.{new}"
+        else:
+            new = _sam2_key(key)
+            if new in ("trunk.pos_embed", "trunk.pos_embed_window"):
+                t = t.permute(0, 2, 3, 1).contiguous()
+        if new is None:
+            skipped.append(key)
+        else:
+            out[new] = t
+    if point_rows:
+        out["sam_prompt_encoder.point_embeddings"] = torch.stack(
+            [point_rows[i] for i in sorted(point_rows)])
+    if verbose and skipped:
+        print(f"translate_sam2_state_dict: {len(skipped)} unmapped keys: {skipped[:8]}")
     return out, skipped

@@ -5,26 +5,25 @@
     res = sam("img.jpg", bboxes=[[100, 100, 400, 400]])
     res = sam("img.jpg")                        # segment everything
     sam = SAM("mobile_sam", device="cpu")       # MobileSAM's TinyViT encoder, on the CPU
+    res = SAM("sam2_b").track(frames, bboxes=[[100, 100, 400, 400]])  # one Results a frame
 """
 
 from __future__ import annotations
-
-from pathlib import Path
 
 from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 
 
 class SAM:
-    """Promptable segmentation model (SAM or MobileSAM, by name)."""
+    """Promptable segmentation model (SAM, MobileSAM or SAM2, by name)."""
 
     def __init__(self, model="sam_b.pt", weights=None, imgsz: int | None = None,
                  verbose: bool = False, device=None):
         from sar_yolo_tpu_torch.models.sam.build import build_sam
         self.model_name = str(model)
-        self.is_sam2 = "sam2" in Path(str(model)).stem.lower()
         self.model, self.info_dict = build_sam(model, weights=weights, imgsz=imgsz,
                                                device=device)
+        self.is_sam2 = self.info_dict["is_sam2"]
         self.device = next(self.model.parameters()).device
         self.task = "segment"
         self.verbose = verbose
@@ -55,10 +54,15 @@ class SAM:
         return self.predict(source, stream, bboxes, points, labels, **kwargs)
 
     def track(self, source, bboxes=None, points=None, labels=None, **kwargs):
-        """Video object segmentation needs a SAM2 model, which this port does not have yet."""
+        """Video object segmentation: the objects prompted on the first frame of `source` (a
+        list of frames or a folder of images) are carried through the others by SAM2's memory
+        bank; one Results a frame, the object's index in box column 6 and `frame` set.
+        Raises ValueError for a model that is not SAM2."""
         if not self.is_sam2:
             raise ValueError("video tracking requires a SAM2 model (sam2_*)")
-        raise NotImplementedError("SAM2 video tracking is not part of this port yet")
+        from sar_yolo_tpu_torch.models.sam.predict import SAM2VideoPredictor
+        vp = SAM2VideoPredictor(self.model, imgsz=self.info_dict["img_size"])
+        return vp(source, bboxes=bboxes, points=points, labels=labels, **kwargs)
 
     def info(self):
         """Log and return the parameter count and configuration."""

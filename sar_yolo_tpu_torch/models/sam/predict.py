@@ -1,4 +1,4 @@
-"""SAM's promptable-segmentation predictor (port of `SAMPredictor` in
+"""SAM's promptable-segmentation predictor and SAM2's video predictor (port of
 `sar_yolo_tpu/models/sam/predict.py`).
 
 The image tower runs once per image (`set_image`); each prompt batch then costs the prompt
@@ -9,7 +9,8 @@ through one dense product per axis: JAX's two bilinear resizes (to imgsz x imgsz
 crop to the resized image, then to the frame's size; antialiased where that second one
 shrinks) folded into one matrix each (`ops/masks.py::resize_weights`). JAX pads the query
 batches to powers of two for its compile cache; the port decodes the queries as given, since
-each query's outputs depend on it alone.
+each query's outputs depend on it alone. A SAM2 model's decode gives (masks, iou, mask tokens,
+object score): the predictor keeps the first two, as JAX's `_decode_fn` does.
 """
 
 from __future__ import annotations
@@ -77,18 +78,24 @@ class SAMPredictor:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ image
-    def set_image(self, image: np.ndarray):
-        """image: (H, W, 3) BGR uint8. Resizes the longest side to imgsz (OpenCV's
-        INTER_LINEAR), pads bottom-right and caches the embeddings (1, 256, imgsz/16, imgsz/16)."""
+    def _canvas(self, image: np.ndarray) -> np.ndarray:
+        """(imgsz, imgsz, 3) RGB uint8 of a BGR frame: the longest side resized to imgsz
+        (OpenCV's INTER_LINEAR), padded bottom-right; sets the frame's `_im_meta`."""
         h, w = image.shape[:2]
         r = self.imgsz / max(h, w)
         nh, nw = round(h * r), round(w * r)
         canvas = np.zeros((self.imgsz, self.imgsz, 3), np.uint8)
         canvas[:nh, :nw] = resize(np.ascontiguousarray(image[..., ::-1]), (nw, nh))
-        with torch.no_grad():
-            self._features = self.model.encode(torch.from_numpy(canvas[None]).to(self.device))
         if self._im_meta != (h, w, nh, nw):
             self._im_meta, self._to_orig = (h, w, nh, nw), None
+        return canvas
+
+    def set_image(self, image: np.ndarray):
+        """image: (H, W, 3) BGR uint8. Caches the embeddings of its canvas: SAM's (1, 256,
+        imgsz/16, imgsz/16), SAM2's dict of maps (`SAM2Model.encode`)."""
+        canvas = self._canvas(image)
+        with torch.no_grad():
+            self._features = self.model.encode(torch.from_numpy(canvas[None]).to(self.device))
         return self._features
 
     def reset_image(self):
@@ -113,7 +120,7 @@ class SAMPredictor:
         model input pixels (numpy), on the device."""
         with torch.no_grad():
             return self.model.decode(self._features, points=self._tensor(points),
-                                     labels=self._tensor(labels), boxes=self._tensor(boxes))
+                                     labels=self._tensor(labels), boxes=self._tensor(boxes))[:2]
 
     def _prompt_arrays(self, bboxes, points, labels):
         """The JAX package's prompt handling: (points (Q, P, 2), labels (Q, P), boxes (Q, 4)) in
@@ -182,9 +189,8 @@ class SAMPredictor:
         iou, stab, boxes = [], [], []
         with torch.no_grad():
             for i in range(0, len(grid), points_per_batch):
-                pts = torch.as_tensor(grid[i:i + points_per_batch, None], device=self.device)
-                masks, q = self.model.decode(self._features, points=pts,
-                                             labels=torch.ones(pts.shape[:2], device=self.device))
+                pts = grid[i:i + points_per_batch, None]
+                masks, q = self.decode(pts, np.ones(pts.shape[:2], np.float32))
                 m3 = masks[:, 1:]
                 iou.append(q[:, 1:])
                 stab.append(stability_score(m3))
@@ -263,4 +269,135 @@ class SAMPredictor:
             out.append(Results(img, path, self.names, boxes=det, masks=masks, speed=speed))
         if not out:
             LOGGER.warning("SAM: no images found in source")
+        return out
+
+
+class SAM2VideoPredictor(SAMPredictor):
+    """Video object segmentation with SAM2's fixed-slot memory bank.
+
+    The bank is a (Q, T, h, w, mem_dim) tensor and its (Q, T) validity on the device: slot 0
+    holds the prompted frame forever, slots 1..T-1 are a ring over the recent frames (frame i
+    of the track writes slot 1 + i % (T - 1)). Each step encodes the frame, conditions its
+    stride-16 features on each object's bank, decodes each object with one not-a-point token
+    (label -1) on its conditioned embedding (no `no_mem_embed`), keeps the single-mask slot 0
+    and encodes it into the new memory. The Q objects go through each stage as one batch
+    (JAX vmaps over them); the memory attention chunks them where its logits would outgrow
+    `modules2.LOGITS_BUDGET`. `last_step` keeps the last step's device tensors and its ring
+    bookkeeping.
+    """
+
+    def __init__(self, model, imgsz: int = 1024, **kw):
+        super().__init__(model, imgsz=imgsz, **kw)
+        self.last_step: dict = {}
+
+    def _build_step(self, Q: int):
+        """The step of Q objects: (canvas (1, S, S, 3) uint8, bank, valid, tpos (T,)) ->
+        (mask logits (Q, 4h, 4w), scores (Q,), object logits (Q,), new memory (Q, h, w,
+        mem_dim), conditioned embedding (Q, d, h, w))."""
+        model = self.model
+
+        def step(canvas, bank, valid, tpos):
+            with torch.no_grad():
+                feats = model.encode(canvas)
+                cond = model.condition_on_memory(feats["raw_embed"], bank, valid, tpos)
+                pts = torch.zeros(Q, 1, 2, dtype=cond.dtype, device=cond.device)
+                lbl = -torch.ones(Q, 1, dtype=cond.dtype, device=cond.device)
+                masks, iou, _tok, obj = model.decode(
+                    {"image_embed": cond, "high_res_feats": feats["high_res_feats"]},
+                    points=pts, labels=lbl)
+                m0 = masks[:, 0]
+                new_mem = model.encode_memory(feats["raw_embed"], m0[:, None])
+            return m0, iou[:, 0], obj[:, 0], new_mem, cond
+
+        return step
+
+    def init_video(self, first_frame, bboxes=None, points=None, labels=None):
+        """Prompt the objects on the first frame and start the bank: (mask logits (Q, 4h,
+        4w), scores (Q,)) on the device."""
+        self.set_image(first_frame)
+        pts, lbl, box = self._prompt_arrays(bboxes, points, labels)
+        Q = len(pts) if pts is not None else len(box) if box is not None else 0
+        if Q == 0:
+            raise ValueError("SAM2 video tracking needs first-frame prompts")
+        feats = self._features
+        with torch.no_grad():
+            masks, iou, _tok, _obj = self.model.decode(
+                feats, points=self._tensor(pts), labels=self._tensor(lbl),
+                boxes=self._tensor(box))
+            m0 = masks[:, 0]
+            mem0 = self.model.encode_memory(feats["raw_embed"], m0[:, None])
+        T = self.model.num_maskmem
+        self._bank = mem0.new_zeros((Q, T, *mem0.shape[1:]))
+        self._bank[:, 0] = mem0
+        self._valid = mem0.new_zeros((Q, T))
+        self._valid[:, 0] = 1.0
+        self._frame_i = 0
+        self._Q = Q
+        self._slot_frame = np.full(T, -1, np.int64)  # the track step that wrote each slot
+        self._step = self._build_step(Q)
+        return m0, iou[:, 0]
+
+    def ring_state(self):
+        """(tpos (T,) frames back of each slot for the next step, the slot it writes): slot 0
+        is 0 back; a written slot min(max(i - frame + 1, 1), T - 1); an empty one T - 1 (it is
+        masked out)."""
+        T = self.model.num_maskmem
+        tpos = np.where(self._slot_frame >= 0,
+                        np.clip(self._frame_i - self._slot_frame + 1, 1, T - 1), T - 1)
+        tpos[0] = 0
+        return tpos, 1 + self._frame_i % max(T - 1, 1)
+
+    def _track(self, frame):
+        """Carry every object one frame: (mask logits (Q, 4h, 4w), scores (Q,), object logits
+        (Q,)) on the device; the step's new memory goes into the ring."""
+        canvas = torch.from_numpy(self._canvas(frame)[None]).to(self.device)
+        tpos, slot = self.ring_state()
+        bank_in, valid_in = self._bank, self._valid
+        m0, score, obj, new_mem, cond = self._step(
+            canvas, bank_in, valid_in, torch.as_tensor(tpos, device=self.device))
+        self.last_step = {"canvas": canvas, "bank": bank_in, "valid": valid_in, "tpos": tpos,
+                          "slot": slot, "low_res": m0, "score": score, "obj": obj,
+                          "new_mem": new_mem, "cond": cond}
+        self._bank = bank_in.clone()
+        self._bank[:, slot] = new_mem
+        self._valid = valid_in.clone()
+        self._valid[:, slot] = 1.0
+        self._slot_frame[slot] = self._frame_i
+        self._frame_i += 1
+        return m0, score, obj
+
+    def track_step(self, frame):
+        """Carry every object one frame: (masks (Q, H, W) bool, scores (Q,), object logits
+        (Q,)) as numpy arrays."""
+        m0, score, obj = self._track(frame)
+        return ((self.to_original(m0) > 0).cpu().numpy(), score.float().cpu().numpy(),
+                obj.float().cpu().numpy())
+
+    def __call__(self, source, bboxes=None, points=None, labels=None, **kwargs):
+        """One Results a frame of `source` (a list of frames or a folder of images), the
+        objects prompted on its first frame: masks, their boxes, the score, class 0 and the
+        object's index in column 6; `frame` set."""
+        from sar_yolo_tpu_torch.data.loaders import load_inference_source
+        loader, _ = load_inference_source(source)
+        out = []
+        for i, (path, img, _meta) in enumerate(loader):
+            t0 = time.perf_counter()
+            if i == 0:
+                m0, score = self.init_video(img, bboxes=bboxes, points=points, labels=labels)
+            else:
+                m0, score, _obj = self._track(img)
+            on = self.to_original(m0) > 0
+            masks, score = on.cpu().numpy(), score.float().cpu().numpy()
+            t1 = time.perf_counter()
+            boxes = batched_mask_to_box(on).cpu().numpy()  # on the device, as SAMPredictor's
+            n = masks.shape[0]
+            det = np.concatenate([boxes, score.reshape(n, 1).astype(np.float32),
+                                  np.zeros((n, 1), np.float32),
+                                  np.arange(n, dtype=np.float32).reshape(n, 1)], 1)
+            res = Results(img, path, self.names, boxes=det, masks=masks,
+                          speed={"inference": (t1 - t0) * 1e3})
+            res.frame = i
+            out.append(res)
+        if not out:
+            LOGGER.warning("SAM2: no frames found in source")
         return out

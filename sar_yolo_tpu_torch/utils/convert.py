@@ -12,7 +12,8 @@ The port names its submodules after the Flax scopes, so the map is mechanical:
     params/.../{gate, gamma, prototype_base, embedding}       -> unchanged
     params/text_embeddings, params/blocks_22/cv4_0_{bias, logit_scale} -> unchanged
     SAM's tables, embeddings and tokens (rel_pos_h, pos_embed (1, g, g, C), gaussian_matrix,
-    point_embeddings, iou_token, TinyViT's attention_biases, ...) -> unchanged
+    point_embeddings, iou_token, TinyViT's attention_biases, SAM2's pos_embed_window,
+    obj_score_token, no_mem_embed, maskmem_tpos_enc, ...) -> unchanged
 
 A transposed conv's kernel (Flax `ConvTranspose(transpose_kernel=True)`: the kernel of the
 conv it is the gradient of) takes the same transpose, with no spatial flip. A v10 head's
@@ -32,9 +33,12 @@ import torch
 _SCALARS = {"gate", "gamma", "prototype_base", "embedding", "text_embeddings", "scale",
             # SAM (models/sam/): kept in their JAX layout by the port's modules
             "rel_pos_h", "rel_pos_w", "pos_embed", "gaussian_matrix", "point_embeddings",
-            "not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens", "attention_biases"}
-# BatchNorm / LayerNorm scopes (SAM's: neck_ln1, mask_ln2, upscale_ln, norm_final_attn)
-_NORM_SCOPE = re.compile(r"(^bn$|norm\d*$|_ln\d*$|_bn_\d+$|^norm_final_attn$)")
+            "not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens", "attention_biases",
+            # SAM2's: Hiera's window table, the object-score token, the memory's tables
+            "pos_embed_window", "obj_score_token", "no_mem_embed", "maskmem_tpos_enc"}
+# BatchNorm / LayerNorm scopes (SAM's: neck_ln1, mask_ln2, upscale_ln, norm_final_attn; SAM2's
+# mask downsampler: ln_0..ln_3)
+_NORM_SCOPE = re.compile(r"(^bn$|norm\d*$|_ln\d*$|^ln_\d+$|_bn_\d+$|^norm_final_attn$)")
 _HEAD_SCALAR = re.compile(r"^cv4_\d+_(bias|logit_scale)$")    # WorldDetect's contrastive heads
 
 

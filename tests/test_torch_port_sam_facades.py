@@ -11,9 +11,10 @@ head included): the port's translation and JAX's (bridged) equal, no key skipped
 (c) FastSAM's box and point filters against JAX's `_prompt` on the same rows; text prompts
 raise; FastSAM-s.yaml serves through the segment task with a box prompt (the plain YOLO
 path's Results, filtered); NAS is a detect model whose `train` raises;
-(d) the refusals: sam2 names raise NotImplementedError, unknown names ValueError,
-`SAM.track` ValueError, and SAM, FastSAM and NAS raise without CUDA unless given
-device="cpu"; the new packages import neither JAX, the JAX package, cv2, PIL nor yaml.
+(d) the names and refusals: sam2_t and sam2.1_b.pt build SAM2 models on the CPU, unknown
+SAM and SAM2 names raise ValueError, `SAM.track` of a SAM model ValueError, and SAM, FastSAM
+and NAS raise without CUDA unless given device="cpu"; the packages (SAM2's modules included)
+import neither JAX, the JAX package, cv2, PIL nor yaml.
 """
 
 import ast
@@ -188,10 +189,12 @@ def test_fastsam_serves_segment_and_nas_detect():
 # ---- (d) refusals and imports ----------------------------------------------------------
 
 def test_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="SAM2"):
-        SAM("sam2_t", device="cpu")
-    with pytest.raises(NotImplementedError, match="SAM2"):
-        SAM("sam2.1_b.pt", device="cpu")
+    for name, size in (("sam2_t", "sam2_t"), ("sam2.1_b.pt", "sam2_b")):
+        sam = SAM(name, device="cpu")
+        assert sam.is_sam2 is True and sam.info_dict["is_sam2"] is True
+        assert sam.info_dict["name"] == size and sam.device.type == "cpu"
+    with pytest.raises(ValueError, match="unknown SAM2 variant"):
+        SAM("sam2_q", device="cpu")
     with pytest.raises(ValueError, match="unknown SAM variant"):
         SAM("sam_q", device="cpu")
     with pytest.raises(ValueError, match="SAM2"):
@@ -207,7 +210,7 @@ def test_sam_packages_import_no_jax():
     banned = {"jax", "jaxlib", "flax", "sar_yolo_tpu", "cv2", "PIL", "yaml"}
     files = [p for d in ("models/sam", "models/fastsam", "models/nas")
              for p in sorted((REPO / "sar_yolo_tpu_torch" / d).glob("*.py"))]
-    assert len(files) == 10
+    assert len(files) == 11 and any(p.name == "modules2.py" for p in files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
