@@ -130,7 +130,7 @@ Phases, in order; any failure exits non-zero:
      batch 1, the same in float32 and bf16 (the kernel at Na = 1600); yolo11n-JDE_CBAM @640
      as phase 14 serves yolo11n-JDE (no kernel), img/s at batch 8; the yolov13n-JDE_CBAM
      train step @640, batch 16: one step kernel against plain in float32 (phase 6's
-     `_train_ab`) and in amp (phase 13's `_amp_ab`), step ms (median of 10 after 3) and
+     `_train_ab`) and in amp (phase 13's `_amp_ab`), step ms (median of 5 after 2) and
      peak memory in both; then the facade: `YOLO.train(epochs=1)` with a callback on each
      of the ten trainer events (each called at the expected count, at epoch 0), `save` and
      `YOLO(checkpoint)` serving the same detections, `fuse()` serving the same detections,
@@ -161,7 +161,7 @@ Phases, in order; any failure exits non-zero:
      rows finite; img/s at batch 8 (P6: 1) in float32 and bf16 in turns.
  17. the pose and segment tasks, none with an A2C2f block: 0 kernel launches in the whole
      phase. A 17-keypoint pose dataset (COCO's flip_idx) and a two-class polygon dataset, each
-     32 train and 16 val PNG frames at 720x1280 written under runs/ from a seed. yolov8n-pose
+     16 train and 8 val PNG frames at 720x1280 written under runs/ from a seed. yolov8n-pose
      (nc 1, 17 x 3) and yolov8n-seg (nc 80, 32 prototypes) on phase 14's ragged 480x640 frames,
      BN-folded with seeded, perturbed weights and damped class and box logits: 2 frames served
      one at a time at `_nms_stable_conf` thresholds against the model in float64 (boxes and
@@ -175,7 +175,7 @@ Phases, in order; any failure exits non-zero:
      yolo11n-pose, yolo11n-seg and yolov9c-seg the same at batch 8. The yolov8n-pose train
      step @640, batch 16, on its dataset on the host route (copy_paste 0.1) and the device
      route (copy_paste 0), yolov8n-seg on the host route with copy_paste 0.5, each float32
-     and amp: one step's items finite, then 13 timed steps (`_timed_steps`); `YOLO.train(
+     and amp: one step's items finite, then 7 timed steps (`_timed_steps`); `YOLO.train(
      epochs=1)` of each with its (P) or (M) validation, `YOLO.val`, `YOLO(checkpoint)` served
      and validated as its task, and `YOLO.predict` of the 12 JPEG frames (Results.keypoints,
      Results.masks).
@@ -279,7 +279,7 @@ Phases, in order; any failure exits non-zero:
      5e-3, equal classes (the JAX export tests' round trip); on the JPEG files themselves the
      same comparison is printed, not held (the host letterbox rounds to uint8, the card's
      keeps float32, and random weights turn that into pixels). The raw ONNX artifact at
-     640, one frame through the port's numpy runtime on the host against the eager
+     320, one frame through the port's numpy runtime on the host against the eager
      predictions on the card (atol 2e-3, rtol 1e-3), its seconds. yolov8n @640 on bench.py's
      480x640 frames: the two pt2 artifacts with the same gates at batch 1 and 8 (no kernel
      launch), img/s in turns.
@@ -321,7 +321,19 @@ Phases, in order; any failure exits non-zero:
      its peak memory, a track step's ms split into encode, memory conditioning, decode and
      memory encode at Q = 6 on a full bank, the step's peak memory, `SAM.track`'s frames/s.
      sam2_t, sam2_s and sam2_l build at 1024 and serve one box prompt.
- 24. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+ 24. video: tests/data/video/flight.avi (a synthetic UAV flight, 24 Motion-JPEG frames of
+     720x1280 at 25 fps, the camera panning and turning) demuxed and decoded on the host:
+     every packet's and every frame's SHA-256, fps and frame count equal the fixture's
+     digests of cv2.VideoCapture's (decode ms a frame printed); GMC("sparseOptFlow") on the
+     host over the frames within 1e-5 (2x2) and 1e-3 px (translation) of the JAX package's
+     warps (GMC ms a frame printed). `YOLO.track` of a seeded, perturbed yolov13n-JDE @640
+     over the file with ByteTrack and with BoT-SORT + sparseOptFlow (phase 10's thresholds,
+     read off this video's scores): 8 kernel launches a frame, the same ids as the
+     `use_flash=False` run and rows within phase 10's bound, one tracker at the file's 25
+     fps; frames/s and a frame's split into decode, forward, and GMC plus the tracker. Then
+     a `.streams` list of two copies of the file with `stream_buffer=True`: 48 frames, 384
+     launches, each source's tracks those of the file's run.
+ 25. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
      the amp train step's forward, phases 16-19's, 22's and 23's paths at 0, its launches and device
      ms in phase 21's .pt2 program; the int8 convolution and the int8 quantization: one int8
      forward of yolov13n-JDE at 640, batch 8), the card line, and the result line.
@@ -944,7 +956,7 @@ def _train_ab(overrides: dict, batches):
     return trainers["k"], lk
 
 
-def _timed_steps(tr, batch, n: int = 10, warmup: int = 3):
+def _timed_steps(tr, batch, n: int = 5, warmup: int = 2):
     """Median host-clock ms of a whole train step (batch to the card, forward, loss,
     backward, optimizer + EMA; synchronized), then medians of each part, timed apart."""
     import torch
@@ -1798,14 +1810,15 @@ def _gap_threshold(scores: np.ndarray, q: float, margin: float) -> float:
     return float(mids[np.abs(mids - np.quantile(s, q)).argmin()])
 
 
-def _write_tracker_configs(root: Path, high: float, low: float, new: float) -> dict:
-    """ByteTrack and BoT-SORT (ReID, no camera-motion compensation) YAMLs at these
+def _write_tracker_configs(root: Path, high: float, low: float, new: float,
+                           gmc_method: str = "none") -> dict:
+    """ByteTrack and BoT-SORT (ReID; camera-motion compensation `gmc_method`) YAMLs at these
     thresholds, the other keys as the shipped configs have them but fuse_score off: a
     seeded model's scores (~0.01) would scale every IoU cost past match_thresh."""
     common = (f"track_high_thresh: {high}\ntrack_low_thresh: {low}\nnew_track_thresh: {new}\n"
               "track_buffer: 30\nmatch_thresh: 0.8\nfuse_score: False\n")
     configs = {"bytetrack": "tracker_type: bytetrack\n" + common,
-               "botsort": "tracker_type: botsort\n" + common + "gmc_method: none\n"
+               "botsort": "tracker_type: botsort\n" + common + f"gmc_method: {gmc_method}\n"
                           "proximity_thresh: 0.5\nappearance_thresh: 0.25\nwith_reid: True\n"}
     paths = {}
     for name, text in configs.items():
@@ -2977,7 +2990,7 @@ POSE_SEG_SERVE = (("yolov8n-pose.yaml", (1, 8, 128)), ("yolov8n-seg.yaml", (1, 8
                   ("yolo11n-pose.yaml", (FAMILY_BATCH,)), ("yolo11n-seg.yaml", (FAMILY_BATCH,)),
                   ("yolov9c-seg.yaml", (FAMILY_BATCH,)))  # (model, rate batches)
 COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
-POSE_SEG_TRAIN, POSE_SEG_VAL = 32, 16  # frames of phase 17's datasets, 720x1280
+POSE_SEG_TRAIN, POSE_SEG_VAL = 16, 8   # frames of phase 17's datasets, 720x1280
 MASK_MARGIN = 1e-4        # mask pixels whose float64 probability is this near 0.5 are left out
 VIS_TOL = 1e-5            # keypoint visibility against float64 (or the maps' own distance)
 
@@ -4850,7 +4863,7 @@ EXPORT_BATCH = 8          # letterboxed frames of the artifact gates and of the 
 EXPORT_CANDIDATES = 200   # the class biases are shifted so that no frame has this many
                           # anchors over the artifacts' threshold (0.25)
 EXPORT_MARGIN = 5e-3      # the round trip's conf tolerance (the JAX tests' `_roundtrip`)
-ONNX_IMGSZ = 640          # the ONNX artifact's side (the numpy runtime takes ~40 s a frame)
+ONNX_IMGSZ = 320          # the ONNX artifact's side (the numpy runtime: ~35 s a frame at 640)
 
 
 def _letterboxed(frames, imgsz: int) -> np.ndarray:
@@ -5707,6 +5720,190 @@ def phase_sam2(card: str) -> dict:
     return paths
 
 
+VIDEO_DIR = Path("tests/data/video")  # the committed fixture (tools/torch_port_video_fixtures.py)
+VIDEO_FRAMES = 24                     # flight.avi: 720x1280 Motion-JPEG at 25 fps
+GMC_ROT_TOL, GMC_SHIFT_TOL = 1e-5, 1e-3  # the warp's 2x2 block and its translation (px)
+
+
+def _sha256(data) -> str:
+    import hashlib
+    return hashlib.sha256(data).hexdigest()
+
+
+def _video_fixture(card: str):
+    """flight.avi against its digests (every packet, every decoded frame, fps and frame
+    count), the decode ms a frame (median of 3 passes), then GMC("sparseOptFlow") on the
+    frames against the JAX package's warps, its host ms a frame. Returns the frames."""
+    from sar_yolo_tpu_torch.data.avi import AviReader
+    from sar_yolo_tpu_torch.data.imageio import decode_mjpeg_frame
+    from sar_yolo_tpu_torch.trackers.gmc import GMC
+    digests = json.loads((VIDEO_DIR / "digests.json").read_text())
+    reader = AviReader(VIDEO_DIR / "flight.avi")
+    check((reader.fps, reader.frame_count, len(reader)) == (digests["fps"], digests["frame_count"],
+                                                           VIDEO_FRAMES),
+          f"flight.avi: fps {reader.fps}, {reader.frame_count} frames in its header, "
+          f"{len(reader)} in movi; the digests: {digests['fps']}, {digests['frame_count']}")
+    packets = list(reader.packets())
+    frames, decode_ms = [], []
+    for _ in range(3):
+        frames = []
+        for packet in packets:
+            t0 = time.perf_counter()
+            frames.append(decode_mjpeg_frame(packet))
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    for i, (packet, frame, entry) in enumerate(zip(packets, frames, digests["frames"])):
+        check(_sha256(packet) == entry["packet_sha256"], f"flight.avi frame {i}: packet differs")
+        check(list(frame.shape) == digests["shape"] and
+              _sha256(frame.tobytes()) == entry["bgr_sha256"],
+              f"flight.avi frame {i}: pixels differ from cv2.VideoCapture's")
+    gmc, gmc_ms, rot, shift = GMC("sparseOptFlow"), [], 0.0, 0.0
+    for frame, entry in zip(frames, digests["frames"]):
+        t0 = time.perf_counter()
+        warp = gmc.apply(frame)
+        gmc_ms.append((time.perf_counter() - t0) * 1e3)
+        ref = np.array(entry["gmc"])
+        rot = max(rot, float(np.abs(warp[:, :2] - ref[:, :2]).max()))
+        shift = max(shift, float(np.abs(warp[:, 2] - ref[:, 2]).max()))
+    out = {"video_fixture": "tests/data/video/flight.avi", "frames": len(frames),
+           "bytes": (VIDEO_DIR / "flight.avi").stat().st_size, "fps": reader.fps,
+           "packets_and_pixels_matched": len(frames),
+           "decode_ms_per_frame_median": statistics.median(decode_ms),
+           "gmc_ms_per_frame_median": statistics.median(gmc_ms[1:]),
+           "gmc_rot_err": rot, "gmc_shift_err_px": shift, "gmc_on": "host (numpy)",
+           "card": card}
+    print(json.dumps(out))
+    check(rot <= GMC_ROT_TOL and shift <= GMC_SHIFT_TOL,
+          f"GMC against the JAX package's warps: 2x2 {rot}, translation {shift} px")
+    return frames
+
+
+def _relabelled(ids: list) -> list:
+    """Track ids per frame renumbered by first appearance (a second tracker of the process
+    draws other numbers from the shared counter)."""
+    first = {}
+    return [[first.setdefault(i, len(first)) for i in frame] for frame in ids]
+
+
+def phase_video(card: str, seed: int = 2) -> dict:
+    """Phase 24: video sources and BoT-SORT's camera-motion compensation (see the module
+    docstring). Returns the kernel launches by path."""
+    import torch
+
+    from sar_yolo_tpu_torch.data import loaders
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    from sar_yolo_tpu_torch.trackers.byte_tracker import BYTETracker, STrack
+    from sar_yolo_tpu_torch.trackers.gmc import GMC
+    t_phase = time.perf_counter()
+    frames = _video_fixture(card)
+    avi = VIDEO_DIR / "flight.avi"
+    yolo = _perturbed_yolo("yolov13n-JDE.yaml", seed, TRAIN_IMGSZ)
+    plain = copy.deepcopy(yolo)
+    _set_flash(plain, False)
+    meta, n_emb, n_states = yolo.meta, yolo.meta["embed_dim"], yolo.meta["state_classes"]
+    predictor = yolo._get_predictor({"imgsz": TRAIN_IMGSZ})
+    with torch.no_grad():
+        scores = torch.cat([decode_detect(predictor.model(predictor.preprocess(f[None])[0]),
+                                          meta["strides"], meta["nc"], meta["reg_max"],
+                                          extra_sigmoid=n_states, split_extras=n_emb)[0]
+                            [..., 4:4 + meta["nc"]].flatten(1) for f in frames])
+    conf, margin = _ab_conf(scores.double().cpu().numpy(), 300, margin=1e-4)
+    kw = dict(imgsz=TRAIN_IMGSZ, conf=conf)
+    kept = yolo.predict(str(avi), **kw)  # warm-up, and the scores the thresholds sit among
+    kept_scores = np.concatenate([r.boxes.conf for r in kept])
+    high, new = (_gap_threshold(kept_scores, q, margin) for q in (0.5, 0.7))
+    root = Path("runs") / "chip_smoke_video"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    configs = _write_tracker_configs(root, high, conf, new, gmc_method="sparseOptFlow")
+    r = TRAIN_IMGSZ / max(frames[0].shape[:2])
+    box_tol = 32e-3 / r  # phase 10's bound: 1e-3 of the coarsest DFL bin, in frame pixels
+    paths, track, file_ids, file_rows = {}, {}, {}, {}
+    for name, cfg in configs.items():
+        ids, rows = {}, {}
+        for label, model in (("kernel", yolo), ("plain", plain)):
+            decode_ms, update_ms, gmc_ms = [], [], []
+            STrack._count = 0
+            flash_area_attention.launches = 0
+            t0 = time.perf_counter()
+            with _timed_function(loaders, "decode_mjpeg_frame", decode_ms), \
+                    _timed_function(BYTETracker, "update", update_ms), \
+                    _timed_function(GMC, "apply", gmc_ms):
+                res = model.track(str(avi), tracker=str(cfg), **kw)
+            wall = time.perf_counter() - t0
+            launches = flash_area_attention.launches
+            ids[label] = [r.boxes.id.astype(int).tolist() for r in res]
+            rows[label] = [r.boxes.data[:, :5] for r in res]
+            trk = model._predictor_cache[1].trackers[str(avi)]
+            check(len(res) == VIDEO_FRAMES and [r.frame for r in res] == list(range(VIDEO_FRAMES))
+                  and trk.max_time_lost == int(25 / 30.0 * 30)
+                  and (getattr(trk, "gmc", None) is not None) == (name == "botsort"),
+                  f"YOLO.track {name} {label}: {len(res)} Results, frame rate of its tracker "
+                  f"{trk.max_time_lost}")
+            if label == "kernel":
+                check(launches == VIDEO_FRAMES * LAUNCHES_PER_FORWARD,
+                      f"YOLO.track {name} over flight.avi: {launches} kernel launches")
+                paths[f"YOLO.track {name}"
+                      f"{' (sparseOptFlow)' if name == 'botsort' else ''} flight.avi "
+                      f"{VIDEO_FRAMES} frames @{TRAIN_IMGSZ}"] = launches
+                forward = [r.speed["preprocess"] + r.speed["inference"] for r in res]
+                track[name] = {"frames_per_s": VIDEO_FRAMES / wall,
+                               "decode_ms": statistics.median(decode_ms),
+                               "forward_ms": statistics.median(forward),
+                               "gmc_plus_tracker_ms": statistics.median(update_ms),
+                               "gmc_ms": statistics.median(gmc_ms[1:]) if gmc_ms else 0.0,
+                               "kernel_launches": launches}
+            else:
+                check(launches == 0, f"YOLO.track {name}: use_flash=False launched the kernel")
+        flat = [i for frame in ids["kernel"] for i in frame]
+        check(ids["kernel"] == ids["plain"], f"YOLO.track {name} over flight.avi: ids "
+              f"{ids['kernel']} on the kernel path, {ids['plain']} on the plain path")
+        check(len(flat) > len(set(flat)) > 0, f"YOLO.track {name}: no identity crosses frames")
+        box_err = max((float(np.abs(g[:, :4] - w[:, :4]).max()) for g, w in
+                       zip(rows["kernel"], rows["plain"]) if len(g)), default=0.0)
+        conf_err = max((float(np.abs(g[:, 4] - w[:, 4]).max()) for g, w in
+                        zip(rows["kernel"], rows["plain"]) if len(g)), default=0.0)
+        check(box_err <= box_tol and conf_err <= 1e-3,
+              f"YOLO.track {name}: rows {box_err} px (bound {box_tol}), conf {conf_err}")
+        track[name].update({"tracks": len(set(flat)), "rows": len(flat),
+                            "box_err_px_vs_plain": box_err, "conf_err_vs_plain": conf_err})
+        file_ids[name], file_rows[name] = ids["kernel"], rows["kernel"]
+
+    # a .streams list of two copies of the file, every frame queued (stream_buffer)
+    copies = [root / "a.avi", root / "b.avi"]
+    for c in copies:
+        shutil.copy(avi, c)
+    streams = root / "two.streams"
+    streams.write_text("".join(f"{c}\n" for c in copies))
+    STrack._count = 0
+    flash_area_attention.launches = 0
+    t0 = time.perf_counter()
+    res = yolo.track(str(streams), stream_buffer=True, tracker=str(configs["bytetrack"]), **kw)
+    wall = time.perf_counter() - t0
+    launches = flash_area_attention.launches
+    check(launches == 2 * VIDEO_FRAMES * LAUNCHES_PER_FORWARD and len(res) == 2 * VIDEO_FRAMES,
+          f".streams: {len(res)} Results, {launches} kernel launches")
+    for i, c in enumerate(copies):
+        mine = [r for r in res if r.path == str(c)]
+        check([r.frame for r in mine] == list(range(VIDEO_FRAMES)),
+              f".streams source {i}: frames {[r.frame for r in mine]}")
+        check(_relabelled([r.boxes.id.astype(int).tolist() for r in mine])
+              == _relabelled(file_ids["bytetrack"]),
+              f".streams source {i}: tracks differ from the file's")
+        err = max((float(np.abs(r.boxes.data[:, :5] - w).max()) for r, w in
+                   zip(mine, file_rows["bytetrack"]) if len(w)), default=0.0)
+        check(err <= box_tol, f".streams source {i}: rows {err} from the file's")
+    paths[f"YOLO.track bytetrack .streams 2 x flight.avi, stream_buffer, {2 * VIDEO_FRAMES} "
+          f"frames @{TRAIN_IMGSZ}"] = launches
+    track["streams_buffer_frames_per_s"] = 2 * VIDEO_FRAMES / wall
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"yolo_track_video": f"yolov13n-JDE @{TRAIN_IMGSZ}, flight.avi "
+                      f"{VIDEO_FRAMES} frames of 720x1280 at 25 fps", "conf": conf,
+                      "high": high, "new": new, "box_tol_px": box_tol, **track,
+                      "phase_s": time.perf_counter() - t_phase, "card": card}))
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5777,6 +5974,8 @@ def main() -> int:
     lap("sam")
     sam2_launches = phase_sam2(card)
     lap("sam2")
+    video_launches = phase_video(card)
+    lap("video")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -5849,7 +6048,8 @@ def main() -> int:
                              **detect_launches["float32"], **cbam_launches["float32"],
                              **family_launches, **pose_seg_launches, **obb_cls_launches,
                              **rtdetr_world_launches, **int8_ddp_launches,
-                             **export["paths"], **sam_launches, **sam2_launches}}, {
+                             **export["paths"], **sam_launches, **sam2_launches,
+                             **video_launches}}, {
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",

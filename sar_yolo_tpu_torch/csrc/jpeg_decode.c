@@ -17,6 +17,29 @@
  * Progressive, arithmetic-coded, lossless and 12-bit files and four-component
  * images are refused with a code of their own; what libjpeg cannot decode either
  * (hierarchical frames, unknown markers) is corrupt.
+ *
+ * mjpeg_decode gives a Motion-JPEG video frame's pixels as cv2.VideoCapture gives
+ * them through FFmpeg (avcodec 62.28, swscale 9.5, as OpenCV 5.0's wheel bundles
+ * them), which are not libjpeg's. Each step below was confirmed against
+ * VideoCapture: its Y plane (CAP_PROP_CONVERT_RGB off) and its BGR frame, on sizes
+ * from 2x2 to 720x1280 (odd ones included) at qualities 10 to 100:
+ *   - the Huffman decoding, tables and restarts are the ones above;
+ *   - mjpegdec.c dequantizes into int16 with the DC predictor starting at
+ *     4 << 8 = 1024 (the level shift), the DC clipped to int16;
+ *   - ff_simple_idct_int16_8bit (simple_idct_template.c: W1..W7 = 22725, 21407,
+ *     19266, 16383, 12873, 8867, 4520, row shift 11 with the DC-only shortcut row[0]
+ *     << 3, column shift 20) into 4:2:0 planes; the x86 SIMD IDCT FFmpeg picks
+ *     gives the same Y plane as its C path;
+ *   - swscale's yuvj420p -> bgr24 is its SIMD yuv2rgb (the C path differs by up to
+ *     2 levels): per pixel Y' = Y * 8 * 8192 >> 16 = Y, U' = U * 8 - 1024, V' the
+ *     same, B = Y' + (U' * 14516 >> 16), G = Y' + (U' * -2819 >> 16) + (V' * -5850
+ *     >> 16), R = Y' + (V' * 11485 >> 16), 16-bit saturating adds, then clipped to
+ *     0..255; the coefficients are ff_yuv2rgb_c_init_tables' for BT.601 at full range
+ *     (crv 104597 * 224 / 255, ...) in units of 2^-13; chroma is replicated over each
+ *     2x2 block (no fancy upsampling).
+ * Only three-component 4:2:0 frames of at least 2x2 pixels are taken (JPEG_LAYOUT
+ * otherwise): OpenCV's FFmpeg writer makes no other, and frames of one row (and some
+ * of one column) decode otherwise in FFmpeg.
  */
 #include <stdint.h>
 #include <stdlib.h>
@@ -894,6 +917,167 @@ int jpeg_decode(const uint8_t *data, long n, uint8_t *out) {
     }
 done:
     for (int i = 0; i < 3; i++) free(full[i]);
+    release(d);
+    free(d);
+    return r;
+}
+
+/* ------------------------------------------------- FFmpeg's MJPEG video path */
+
+enum { JPEG_LAYOUT = 6 }; /* a video frame that is not three-component 4:2:0 */
+
+#define W1 22725
+#define W2 21407
+#define W3 19266
+#define W4 16383
+#define W5 12873
+#define W6 8867
+#define W7 4520
+#define ROW_SHIFT 11
+#define COL_SHIFT 20
+
+/* simple_idct_template.c idctRowCondDC (8-bit, extra_shift 0): the results are
+ * stored back into the int16 block, as FFmpeg stores them. */
+static void simple_idct_row(int16_t *row) {
+    if (!(row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7])) {
+        int16_t dc = (int16_t)(uint16_t)((unsigned)row[0] << 3);
+        for (int i = 0; i < 8; i++) row[i] = dc;
+        return;
+    }
+    uint32_t a0, a1, a2, a3, b0, b1, b2, b3;
+    a0 = (uint32_t)(W4 * row[0]) + (1u << (ROW_SHIFT - 1));
+    a1 = a0;
+    a2 = a0;
+    a3 = a0;
+    a0 += (uint32_t)(W2 * row[2]);
+    a1 += (uint32_t)(W6 * row[2]);
+    a2 -= (uint32_t)(W6 * row[2]);
+    a3 -= (uint32_t)(W2 * row[2]);
+    b0 = (uint32_t)(W1 * row[1]) + (uint32_t)(W3 * row[3]);
+    b1 = (uint32_t)(W3 * row[1]) + (uint32_t)(-W7 * row[3]);
+    b2 = (uint32_t)(W5 * row[1]) + (uint32_t)(-W1 * row[3]);
+    b3 = (uint32_t)(W7 * row[1]) + (uint32_t)(-W5 * row[3]);
+    a0 += (uint32_t)(W4 * row[4] + W6 * row[6]);
+    a1 += (uint32_t)(-W4 * row[4] - W2 * row[6]);
+    a2 += (uint32_t)(-W4 * row[4] + W2 * row[6]);
+    a3 += (uint32_t)(W4 * row[4] - W6 * row[6]);
+    b0 += (uint32_t)(W5 * row[5]) + (uint32_t)(W7 * row[7]);
+    b1 += (uint32_t)(-W1 * row[5]) + (uint32_t)(-W5 * row[7]);
+    b2 += (uint32_t)(W7 * row[5]) + (uint32_t)(W3 * row[7]);
+    b3 += (uint32_t)(W3 * row[5]) + (uint32_t)(-W1 * row[7]);
+    row[0] = (int16_t)((int32_t)(a0 + b0) >> ROW_SHIFT);
+    row[7] = (int16_t)((int32_t)(a0 - b0) >> ROW_SHIFT);
+    row[1] = (int16_t)((int32_t)(a1 + b1) >> ROW_SHIFT);
+    row[6] = (int16_t)((int32_t)(a1 - b1) >> ROW_SHIFT);
+    row[2] = (int16_t)((int32_t)(a2 + b2) >> ROW_SHIFT);
+    row[5] = (int16_t)((int32_t)(a2 - b2) >> ROW_SHIFT);
+    row[3] = (int16_t)((int32_t)(a3 + b3) >> ROW_SHIFT);
+    row[4] = (int16_t)((int32_t)(a3 - b3) >> ROW_SHIFT);
+}
+
+static uint8_t clip_pixel(int32_t x) { return (uint8_t)(x < 0 ? 0 : (x > 255 ? 255 : x)); }
+
+/* simple_idct_template.c idctSparseColPut */
+static void simple_idct_col_put(const int16_t *col, uint8_t *dest, int stride) {
+    uint32_t a0, a1, a2, a3, b0, b1, b2, b3;
+    a0 = (uint32_t)(W4 * (col[0] + ((1 << (COL_SHIFT - 1)) / W4)));
+    a1 = a0;
+    a2 = a0;
+    a3 = a0;
+    a0 += (uint32_t)(W2 * col[16]);
+    a1 += (uint32_t)(W6 * col[16]);
+    a2 += (uint32_t)(-W6 * col[16]);
+    a3 += (uint32_t)(-W2 * col[16]);
+    b0 = (uint32_t)(W1 * col[8]) + (uint32_t)(W3 * col[24]);
+    b1 = (uint32_t)(W3 * col[8]) + (uint32_t)(-W7 * col[24]);
+    b2 = (uint32_t)(W5 * col[8]) + (uint32_t)(-W1 * col[24]);
+    b3 = (uint32_t)(W7 * col[8]) + (uint32_t)(-W5 * col[24]);
+    a0 += (uint32_t)(W4 * col[32]);
+    a1 += (uint32_t)(-W4 * col[32]);
+    a2 += (uint32_t)(-W4 * col[32]);
+    a3 += (uint32_t)(W4 * col[32]);
+    b0 += (uint32_t)(W5 * col[40]);
+    b1 += (uint32_t)(-W1 * col[40]);
+    b2 += (uint32_t)(W7 * col[40]);
+    b3 += (uint32_t)(W3 * col[40]);
+    a0 += (uint32_t)(W6 * col[48]);
+    a1 += (uint32_t)(-W2 * col[48]);
+    a2 += (uint32_t)(W2 * col[48]);
+    a3 += (uint32_t)(-W6 * col[48]);
+    b0 += (uint32_t)(W7 * col[56]);
+    b1 += (uint32_t)(-W5 * col[56]);
+    b2 += (uint32_t)(W3 * col[56]);
+    b3 += (uint32_t)(-W1 * col[56]);
+    dest[0 * stride] = clip_pixel((int32_t)(a0 + b0) >> COL_SHIFT);
+    dest[1 * stride] = clip_pixel((int32_t)(a1 + b1) >> COL_SHIFT);
+    dest[2 * stride] = clip_pixel((int32_t)(a2 + b2) >> COL_SHIFT);
+    dest[3 * stride] = clip_pixel((int32_t)(a3 + b3) >> COL_SHIFT);
+    dest[4 * stride] = clip_pixel((int32_t)(a3 - b3) >> COL_SHIFT);
+    dest[5 * stride] = clip_pixel((int32_t)(a2 - b2) >> COL_SHIFT);
+    dest[6 * stride] = clip_pixel((int32_t)(a1 - b1) >> COL_SHIFT);
+    dest[7 * stride] = clip_pixel((int32_t)(a0 - b0) >> COL_SHIFT);
+}
+
+/* mjpegdec.c decode_block's dequantisation (int16 products, the DC clipped), then
+ * ff_simple_idct_put_int16_8bit. */
+static void simple_idct_put(const int16_t *coef, const int16_t *q, uint8_t *out, int stride) {
+    int16_t blk[64];
+    int32_t dc = 1024 + (int32_t)coef[0] * q[0]; /* last_dc starts at 4 << 8 */
+    blk[0] = (int16_t)(dc < -32768 ? -32768 : (dc > 32767 ? 32767 : dc));
+    for (int k = 1; k < 64; k++) blk[k] = (int16_t)(uint16_t)((int32_t)coef[k] * q[k]);
+    for (int r = 0; r < 8; r++) simple_idct_row(blk + 8 * r);
+    for (int c = 0; c < 8; c++) simple_idct_col_put(blk + c, out + c, stride);
+}
+
+static int16_t sat16(int32_t x) { return (int16_t)(x < -32768 ? -32768 : (x > 32767 ? 32767 : x)); }
+static int16_t mulhw(int16_t a, int16_t b) { return (int16_t)(((int32_t)a * b) >> 16); }
+
+/* A three-component 4:2:0 frame as FFmpeg decodes it and swscale's SIMD yuv2rgb
+ * converts it (the file's header): out is height x width x 3 BGR bytes. */
+int mjpeg_decode(const uint8_t *data, long n, uint8_t *out) {
+    decoder_t *d = (decoder_t *)calloc(1, sizeof(decoder_t));
+    if (!d) return JPEG_NO_MEMORY;
+    d->data = data;
+    d->end = data + n;
+    int r = parse(d, 0);
+    const int W = d->width, H = d->height;
+    if (r != JPEG_OK) goto done;
+    if (d->ncomp != 3 || d->comp[0].h != 2 || d->comp[0].v != 2 || d->comp[1].h != 1 ||
+        d->comp[1].v != 1 || d->comp[2].h != 1 || d->comp[2].v != 1 || W < 2 || H < 2) {
+        r = JPEG_LAYOUT;
+        goto done;
+    }
+    for (int i = 0; i < 3; i++) {
+        comp_t *c = &d->comp[i];
+        c->pstride = 8 * c->bw;
+        c->plane = (uint8_t *)malloc((size_t)c->pstride * 8 * c->bh);
+        if (!c->plane) {
+            r = JPEG_NO_MEMORY;
+            goto done;
+        }
+        for (int by = 0; by < c->bh; by++)
+            for (int bx = 0; bx < c->bw; bx++)
+                simple_idct_put(c->coef + ((size_t)by * c->bw + bx) * 64, c->q,
+                                c->plane + (size_t)8 * by * c->pstride + 8 * bx, c->pstride);
+    }
+    /* ff_yuv2rgb_c_init_tables for full range, ITU-R BT.601, default contrast and
+     * saturation: Y' = Y * 8, U' = U * 8 - 1024, coefficients in units of 2^-13 */
+    const int16_t ycoef = 8192, vr = 11485, ub = 14516, ug = -2819, vg = -5850;
+    for (int y = 0; y < H; y++) {
+        const uint8_t *py = d->comp[0].plane + (size_t)y * d->comp[0].pstride;
+        const uint8_t *pu = d->comp[1].plane + (size_t)(y >> 1) * d->comp[1].pstride;
+        const uint8_t *pv = d->comp[2].plane + (size_t)(y >> 1) * d->comp[2].pstride;
+        uint8_t *op = out + (size_t)y * W * 3;
+        for (int x = 0; x < W; x++) {
+            int16_t Y = mulhw((int16_t)(py[x] << 3), ycoef);
+            int16_t U = sat16((pu[x >> 1] << 3) - 1024), V = sat16((pv[x >> 1] << 3) - 1024);
+            int16_t cg = sat16(mulhw(U, ug) + mulhw(V, vg));
+            op[3 * x + 0] = clip_pixel(sat16(Y + mulhw(U, ub)));
+            op[3 * x + 1] = clip_pixel(sat16(Y + cg));
+            op[3 * x + 2] = clip_pixel(sat16(Y + mulhw(V, vr)));
+        }
+    }
+done:
     release(d);
     free(d);
     return r;

@@ -13,6 +13,9 @@ nor PIL.
   orientation as OpenCV turns it; pixel for pixel libjpeg-turbo's default decode
   (the islow IDCT, fancy upsampling, fixed-point YCbCr->BGR). None where the file
   is corrupt; a JPEG whose data ends early decodes as libjpeg pads it (grey).
+* `decode_mjpeg_frame`: a Motion-JPEG video frame as `cv2.VideoCapture` decodes it
+  through FFmpeg (its simple IDCT, then swscale's yuvj420p -> BGR), not as `cv2.imread`
+  decodes the same bytes; three-component 4:2:0 frames only.
 * Every other kind raises NotImplementedError: progressive, arithmetic-coded,
   lossless, 12-bit and CMYK/YCCK JPEG, BMP pixels, TIFF, WebP, GIF, PFM and
   interlaced PNG. They are not decoded here, and not dropped either.
@@ -288,13 +291,18 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(np.flip(img, flips) if flips else img)
 
 
+# every entry point of jpeg_decode.c, bound when its library is first loaded
+_JPEG_SIGNATURES = {
+    "jpeg_header": ([ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+    "jpeg_decode": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p], ctypes.c_int),
+    "mjpeg_decode": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p], ctypes.c_int)}
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
     """The pixels of a JPEG file's bytes, BGR uint8 (h, w, 3), as `cv2.imread` gives them
     (its Exif orientation applied); ValueError where the file is corrupt."""
-    lib = _library(JPEG_SOURCE, {
-        "jpeg_header": ([ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
-                         ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
-        "jpeg_decode": ([ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p], ctypes.c_int)})
+    lib = _library(JPEG_SOURCE, _JPEG_SIGNATURES)
     h, w = ctypes.c_int(), ctypes.c_int()
     status = lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w))
     if status == 0:
@@ -308,6 +316,32 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if status != 0:
         raise ValueError("corrupt JPEG file")
     return _orient(out, _exif_orientation(data))
+
+
+def decode_mjpeg_frame(data: bytes) -> np.ndarray:
+    """A Motion-JPEG video frame's pixels, BGR uint8 (h, w, 3), as `cv2.VideoCapture`
+    gives them through FFmpeg (not as `cv2.imread` decodes the same bytes): FFmpeg's
+    mjpeg decoder (simple_idct into 4:2:0 planes), then swscale's yuvj420p -> bgr24
+    (`csrc/jpeg_decode.c`, `mjpeg_decode`). Frames that are not three-component 4:2:0,
+    or under 2 pixels wide or high, raise NotImplementedError; a corrupt frame raises
+    ValueError."""
+    lib = _library(JPEG_SOURCE, _JPEG_SIGNATURES)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    status = lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w))
+    if status == 0:
+        out = np.empty((h.value, w.value, 3), np.uint8)
+        status = lib.mjpeg_decode(data, len(data), out.ctypes.data)
+    if status == 6:
+        raise NotImplementedError("Motion-JPEG frames other than three-component 4:2:0 of at "
+                                  "least 2x2 pixels are not part of this port yet")
+    if status in _JPEG_UNSUPPORTED:
+        raise NotImplementedError(f"decoding {_JPEG_UNSUPPORTED[status]} Motion-JPEG frames is "
+                                  "not part of this port yet")
+    if status == 7:
+        raise MemoryError("out of memory decoding a Motion-JPEG frame")
+    if status != 0:
+        raise ValueError("corrupt Motion-JPEG frame")
+    return out
 
 
 _DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg}

@@ -1,23 +1,32 @@
-"""Inference sources of `YOLO.predict` and `YOLO.track` (port of the image, array and
-tensor loaders of `sar_yolo_tpu/data/loaders.py`).
+"""Inference sources of `YOLO.predict` and `YOLO.track` (port of
+`sar_yolo_tpu/data/loaders.py`): image files, folders and globs, video files, `.streams`
+lists of video files, arrays and tensors.
 
 Every loader yields (path, frame_bgr_uint8, meta) triples; the predictor serves them one
 frame at a time. Image files are read by `data/imageio.py` (PNG and JPEG as
-`cv2.imread` reads them). Video files, streams and screenshots raise
-NotImplementedError: they need `cv2.VideoCapture` or `mss`, which the card's machine
-does not have.
+`cv2.imread` reads them). Video files are Motion-JPEG AVI (`data/avi.py`), their frames
+decoded as `cv2.VideoCapture` decodes them (`imageio.decode_mjpeg_frame`), each yielded
+with {"video": True, "frame": i, "frames": total, "fps": fps}; every frame is served
+(`vid_stride` is accepted and not read, as in the JAX package). `LoadStreams` reads the
+video files listed in a `.streams` file, one reader thread each. Other video containers
+and codecs, webcam indices, network URLs and screenshots raise NotImplementedError:
+they need a capture device, the network, `mss` or a decoder this port does not have.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+from collections import deque
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from sar_yolo_tpu_torch.data.avi import AviReader
 from sar_yolo_tpu_torch.data.dataset import IMG_FORMATS
-from sar_yolo_tpu_torch.data.imageio import imread
+from sar_yolo_tpu_torch.data.imageio import decode_mjpeg_frame, imread
 
 VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts",
                "wmv", "webm"}
@@ -39,14 +48,137 @@ def is_stream_source(source) -> bool:
             or s.endswith(".streams"))
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} sources are not part of this port yet: they need a "
-                              "video decoder (cv2.VideoCapture) or screen capture (mss)")
+def _not_ported(what: str, needs: str):
+    raise NotImplementedError(f"{what} sources are not part of this port yet (ROADMAP Queue A "
+                              f"item 1): they need {needs}")
+
+
+def open_video(path) -> AviReader:
+    """The demuxer of a local video file: Motion-JPEG AVI; other containers raise."""
+    s = str(path)
+    if s.isnumeric() or s.lower().startswith(("rtsp://", "rtmp://", "http://", "https://",
+                                              "tcp://")):
+        _not_ported(f"live camera and network ({s})", "a capture device or the network")
+    p = Path(s)
+    if not p.is_file():
+        raise FileNotFoundError(f"video not found: {s}")
+    if p.suffix[1:].lower() != "avi":
+        _not_ported(f"{p.suffix} video ({s})", "a decoder of its codec; Motion-JPEG AVI is read")
+    return AviReader(p)
+
+
+def video_frames(path):
+    """(path, frame, meta) of each frame of a video file, decoded as cv2.VideoCapture
+    decodes it."""
+    reader = open_video(path)
+    meta = {"video": True, "frames": reader.frame_count, "fps": reader.fps or 30}
+    for i, packet in enumerate(reader.packets()):
+        yield str(path), decode_mjpeg_frame(packet), {**meta, "frame": i}
+
+
+class LoadStreams:
+    """Video files read as live streams, one reader thread each: a `.streams` file lists
+    them one a line (or `sources` is one file). The JAX package's reader over
+    cv2.VideoCapture, for local files: webcam indices and URLs raise NotImplementedError.
+
+    `buffer=False` (the JAX package's only mode): each reader keeps the latest frame and
+    the consumer takes whatever is newest, so a slow consumer drops frames. `buffer=True`
+    queues every frame: round k yields frame k of each source that still has one, in the
+    order of the list, whatever the readers' pace (the JAX package ignores
+    `stream_buffer`; its buffered reader skips each source's first frame). A reader's
+    decode error is raised by the iteration."""
+
+    def __init__(self, sources="0", buffer: bool = False):
+        src = str(sources)
+        if src.endswith(".streams") and Path(src).is_file():
+            items = [s.strip() for s in Path(src).read_text().splitlines() if s.strip()]
+        else:
+            items = [src]
+        self.sources = items
+        self.buffer = buffer
+        self.frames = [None] * len(items)           # latest frame per source
+        self.queues = [deque() for _ in items]      # buffered mode
+        self.errors = [None] * len(items)
+        self.cond = threading.Condition()
+        self.running = True
+        self._packets = [open_video(s).packets() for s in items]
+        if not buffer:  # the first frame before any reader starts, as the JAX package reads it
+            for i, packets in enumerate(self._packets):
+                first = next(packets, None)
+                if first is None:
+                    raise ValueError(f"no frame in stream {items[i]}")
+                self.frames[i] = decode_mjpeg_frame(first)
+        self.threads = [threading.Thread(target=self._reader, args=(i,), daemon=True)
+                        for i in range(len(items))]
+        for t in self.threads:
+            t.start()
+
+    def _reader(self, i):
+        try:
+            for packet in self._packets[i]:
+                if not self.running:
+                    break
+                frame = decode_mjpeg_frame(packet)
+                with self.cond:
+                    if self.buffer:
+                        self.queues[i].append(frame)
+                    else:
+                        self.frames[i] = frame
+                    self.cond.notify_all()
+        except Exception as e:  # handed to the consumer, which raises it
+            self.errors[i] = e
+        finally:
+            with self.cond:
+                self.cond.notify_all()
+
+    def _take(self, i):
+        """The next frame of source i, or None; buffered: waits while its reader runs."""
+        with self.cond:
+            while True:
+                done = not self.threads[i].is_alive()
+                if self.errors[i] is not None:
+                    raise self.errors[i]
+                if self.buffer:
+                    if self.queues[i]:
+                        return self.queues[i].popleft(), True
+                    if done:
+                        return None, False
+                    self.cond.wait(0.05)
+                else:
+                    frame, self.frames[i] = self.frames[i], None
+                    return frame, not done
+
+    def __iter__(self):
+        frame_idx = 0
+        try:
+            while self.running:
+                alive = False
+                for i, s in enumerate(self.sources):
+                    frame, live = self._take(i)
+                    alive |= live
+                    if frame is None:
+                        continue
+                    alive = True
+                    yield s, frame, {"stream": True, "frame": frame_idx, "source_i": i}
+                frame_idx += 1
+                if not alive:
+                    break
+                if not self.buffer:
+                    time.sleep(0.002)  # let the readers refill the latest-frame slots
+        finally:
+            self.close()
+
+    def close(self):
+        self.running = False
+        for t in self.threads:
+            if t.is_alive() and t is not threading.current_thread():
+                t.join(timeout=2)
 
 
 class LoadImagesAndVideos:
-    """Image files: one file, a directory (searched recursively) or a glob (relative, or
-    absolute, which the JAX package's `Path().glob` refuses), in sorted order."""
+    """Image and video files: one file, a directory (searched recursively) or a glob
+    (relative, or absolute, which the JAX package's `Path().glob` refuses), in sorted
+    order; a video yields its frames in turn."""
 
     def __init__(self, source):
         p = Path(source)
@@ -64,7 +196,8 @@ class LoadImagesAndVideos:
     def __iter__(self):
         for f in self.files:
             if f.suffix[1:].lower() in VID_FORMATS:
-                _not_ported(f"video file ({f})")
+                yield from video_frames(f)
+                continue
             img = imread(f)
             if img is not None:
                 yield str(f), img, {}
@@ -134,8 +267,9 @@ class _Chain:
             yield from LoadImagesAndVideos(it)
 
 
-def load_inference_source(source):
-    """The loader of a user's source, and its SourceTypes."""
+def load_inference_source(source, buffer: bool = False):
+    """The loader of a user's source, and its SourceTypes. `buffer`: a stream source's
+    `LoadStreams` queues every frame."""
     st = SourceTypes()
     if source is None:
         raise ValueError("source is required")
@@ -157,9 +291,10 @@ def load_inference_source(source):
         return LoadPilAndNumpy(source), st
     s = str(source)
     if s.lower().startswith("screen"):
-        _not_ported("screenshot")
+        _not_ported("screenshot", "screen capture (mss)")
     if is_stream_source(s):
-        _not_ported("stream")
+        st.stream = True
+        return LoadStreams(s, buffer=buffer), st
     if isinstance(source, (list, tuple)):
         return _Chain(source), st
     return LoadImagesAndVideos(source), st

@@ -43,7 +43,7 @@ from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 # the arguments the predictor reads, with the JAX package's defaults for predict
 PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
                     "agnostic_nms": False, "half": False, "int8": False, "save": False,
-                    "save_txt": False,
+                    "save_txt": False, "stream_buffer": False, "vid_stride": 1,
                     "save_dir": None, "project": None, "name": None, "exist_ok": False}
 
 
@@ -315,6 +315,8 @@ class YOLO:
         unknown = set(kwargs) - set(PREDICT_DEFAULTS)
         if unknown:
             raise TypeError(f"unsupported predict arguments {sorted(unknown)}")
+        if not isinstance(kwargs.get("vid_stride", 1), int):  # checked, never read (JAX's)
+            raise TypeError("'vid_stride' must be an int")
         overrides = {**{k: v for k, v in self.overrides.items() if k in PREDICT_DEFAULTS},
                      **kwargs}
         overrides.setdefault("conf", 0.25)
@@ -402,9 +404,10 @@ class YOLO:
         """`predict` with a multi-object tracker: each frame's boxes carry a track id
         (column 6). conf defaults to 0.1, so low-confidence detections reach the
         tracker's second association. `persist=True` keeps the tracks of the previous
-        call; otherwise they start again. `tracker`: bytetrack.yaml, or a BoT-SORT YAML
-        with `gmc_method: none` (the shipped botsort.yaml asks for camera-motion
-        compensation, which is not ported, and raises)."""
+        call; otherwise they start again. `tracker`: bytetrack.yaml or botsort.yaml
+        (camera-motion compensation `gmc_method`: sparseOptFlow or none; orb, sift and
+        ecc raise). Each video file and each stream of a `.streams` source gets a tracker
+        of its own, at the video's frame rate."""
         from sar_yolo_tpu_torch.trackers import make_tracker, register_tracker
         self._needs_model("track")
         make_tracker(tracker)  # a config this port cannot run raises before any frame

@@ -169,7 +169,8 @@ class BasePredictor(HasCallbacks):
         ended on the device): preprocess (the raw uint8 frame to the device and its
         letterbox), inference (forward, decode, NMS, rescale and the copy to the host),
         postprocess (Results and the on_predict_postprocess_end callbacks)."""
-        loader, self.source_types = load_inference_source(source)
+        loader, self.source_types = load_inference_source(
+            source, buffer=bool(getattr(self.args, "stream_buffer", False)))
         save_dir = None
         if getattr(self.args, "save_txt", False):
             save_dir = Path(self.args.save_dir or get_save_dir(self.args, self.meta["task"]))

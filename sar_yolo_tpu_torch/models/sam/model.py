@@ -55,7 +55,7 @@ class SAM:
 
     def track(self, source, bboxes=None, points=None, labels=None, **kwargs):
         """Video object segmentation: the objects prompted on the first frame of `source` (a
-        list of frames or a folder of images) are carried through the others by SAM2's memory
+        list of frames, a folder of images, a video file or a `.streams` list) are carried through the others by SAM2's memory
         bank; one Results a frame, the object's index in box column 6 and `frame` set.
         Raises ValueError for a model that is not SAM2."""
         if not self.is_sam2:

@@ -374,8 +374,9 @@ class SAM2VideoPredictor(SAMPredictor):
                 obj.float().cpu().numpy())
 
     def __call__(self, source, bboxes=None, points=None, labels=None, **kwargs):
-        """One Results a frame of `source` (a list of frames or a folder of images), the
-        objects prompted on its first frame: masks, their boxes, the score, class 0 and the
+        """One Results a frame of `source` (a list of frames, a folder of images, a video
+        file or a `.streams` list, through `load_inference_source`), the objects prompted
+        on its first frame: masks, their boxes, the score, class 0 and the
         object's index in column 6; `frame` set."""
         from sar_yolo_tpu_torch.data.loaders import load_inference_source
         loader, _ = load_inference_source(source)

@@ -160,7 +160,8 @@ class BackendPredictor:
         from sar_yolo_tpu_torch.data.augment import letterbox
         from sar_yolo_tpu_torch.data.loaders import load_inference_source
 
-        loader, _ = load_inference_source(source)
+        loader, _ = load_inference_source(
+            source, buffer=bool(getattr(self.args, "stream_buffer", False)))
         for path, img, meta in loader:
             t0 = time.perf_counter()
             lb, r, pad = letterbox(img, self.imgsz, scaleup=False)

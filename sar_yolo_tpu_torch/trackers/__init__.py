@@ -55,10 +55,10 @@ def track_results(results, tracker="bytetrack.yaml"):
 
 def register_tracker(predictor, tracker="bytetrack.yaml", persist: bool = False):
     """Attach per-frame tracking to a predictor through its callbacks: one tracker per
-    stream (`meta["source_i"]`), and one for all the frames of an image source (files,
-    arrays, tensors) in their order, as Ultralytics keys them (the JAX package keys them
-    by frame path, so each image file got a tracker of its own and no identity crossed
-    frames). `predictor._tracker` and
+    stream (`meta["source_i"]`), one per video file (its path, at its frame rate), and one
+    for all the frames of an image source (files, arrays, tensors) in their order, as
+    Ultralytics keys them (the JAX package keys them by frame path, so each image file got
+    a tracker of its own and no identity crossed frames). `predictor._tracker` and
     `predictor._tracker_persist`, read at each call's start, name the config and whether
     the trackers of earlier calls go on (True) or start again (False, and on a change of
     config)."""
@@ -70,8 +70,8 @@ def register_tracker(predictor, tracker="bytetrack.yaml", persist: bool = False)
         pred._tracker_made = pred._tracker
 
     def on_predict_postprocess_end(pred):
-        meta = pred.batch[2]
-        key = meta.get("source_i", 0)
+        path, _, meta = pred.batch
+        key = meta["source_i"] if "source_i" in meta else (str(path) if meta.get("video") else 0)
         trk = pred.trackers.get(key)
         if trk is None:
             trk = make_tracker(pred._tracker, frame_rate=int(meta.get("fps") or 30))

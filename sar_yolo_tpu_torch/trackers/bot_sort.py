@@ -2,8 +2,9 @@
 `sar_yolo_tpu/trackers/bot_sort.py`), the JDE head's embeddings as the ReID features. A
 detect model's Results carry no embeddings: its tracks then match by IoU alone.
 
-Camera-motion compensation (the JAX package's `trackers/gmc.py`) is built on OpenCV's
-optical flow and RANSAC: a `gmc_method` other than "none" raises NotImplementedError.
+Camera-motion compensation (`trackers/gmc.py`, `gmc_method`: sparseOptFlow, the default,
+or none) warps the predicted tracks by the camera's motion before they are matched;
+orb, sift and ecc raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .byte_tracker import BYTETracker, STrack
+from .gmc import GMC
 from .kalman_filter import KalmanFilterXYWH
 from .matching import embedding_distance, iou_distance
 
@@ -64,10 +66,7 @@ class BOTSORT(BYTETracker):
         self.appearance_thresh = appearance_thresh
         self.with_reid = with_reid
         self.kalman_filter = KalmanFilterXYWH()
-        if gmc_method not in (None, "none"):
-            raise NotImplementedError(
-                f"BoT-SORT gmc_method '{gmc_method}': camera-motion compensation (OpenCV "
-                "optical flow) is not part of this port yet; use gmc_method: none")
+        self.gmc = GMC(method=gmc_method) if gmc_method not in (None, "none") else None
 
     def make_track(self, xyxy, score, cls, extra=None):
         return BOTrack(xyxy, score, cls, feat=extra if self.with_reid else None)

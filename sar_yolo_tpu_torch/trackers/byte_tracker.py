@@ -44,6 +44,23 @@ class STrack:
         STrack._count += 1
         return STrack._count
 
+    @staticmethod
+    def multi_gmc(stracks, H=np.eye(2, 3)):
+        """Warp the tracks' Kalman states by the camera's motion H (2x3): its rotation
+        block over all four (x, y) pairs of the state and the covariance, its translation
+        on the position only."""
+        if not len(stracks):
+            return
+        R8x8 = np.kron(np.eye(4), H[:2, :2])
+        t = H[:2, 2]
+        for st in stracks:
+            if st.mean is None:
+                continue
+            mean = R8x8.dot(st.mean)
+            mean[:2] += t
+            st.mean = mean
+            st.covariance = R8x8.dot(st.covariance).dot(R8x8.T)
+
     @property
     def tlwh(self):
         if self.mean is None:
@@ -129,7 +146,8 @@ class BYTETracker:
     def update(self, dets: np.ndarray, extras: np.ndarray | None = None,
                img: np.ndarray | None = None) -> np.ndarray:
         """dets: (n, 6) [x1, y1, x2, y2, conf, cls]; returns (m, 7) rows with the track id.
-        `img`: the frame, which only camera-motion compensation (not ported) reads."""
+        `img`: the BGR frame, which camera-motion compensation reads (a tracker with a
+        `gmc`, BoT-SORT) to warp the predicted tracks by the camera's motion."""
         self.frame_id += 1
         scores = dets[:, 4]
         high = scores >= self.track_high_thresh
@@ -145,6 +163,10 @@ class BYTETracker:
         pool = joint_stracks(tracked, self.lost_stracks)
         for t in pool:
             t.predict()
+        if getattr(self, "gmc", None) is not None and img is not None:
+            warp = self.gmc.apply(img)
+            STrack.multi_gmc(pool, warp)
+            STrack.multi_gmc(unconfirmed, warp)
 
         # stage 1: high-conf
         dists = self.get_dists(pool, det_high)

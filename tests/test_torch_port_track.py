@@ -11,8 +11,10 @@ package's tracker run over JAX's `YOLO.predict` results of the same frames
 that scores spread). The port keys trackers as Ultralytics does, one for all the frames
 of an image source; the JAX package's `YOLO.track` keys them by frame path, so on a
 folder every frame gets a tracker of its own. `persist=True` carries identities across
-calls; without it the second call starts new tracks. BoT-SORT with camera-motion
-compensation (the shipped botsort.yaml) raises NotImplementedError.
+calls; without it the second call starts new tracks. BoT-SORT's camera-motion
+compensation methods other than sparseOptFlow and none (orb, sift, ecc) raise
+NotImplementedError; sparseOptFlow is held to the JAX package in
+test_torch_port_gmc.py and test_torch_port_video.py.
 """
 
 from pathlib import Path
@@ -182,10 +184,13 @@ def test_persist_carries_ids_across_calls(persist, tiny, sequence_dir):
 
 def test_botsort_with_camera_motion_compensation_raises(tiny, sequence_dir, tmp_path):
     _, pyolo = tiny
-    with pytest.raises(NotImplementedError, match="gmc_method 'sparseOptFlow'"):
-        pyolo.track(str(sequence_dir), tracker="botsort.yaml", **KW)
-    with pytest.raises(NotImplementedError, match="gmc_method"):
-        make_tracker("botsort.yaml")
+    orb = tmp_path / "botsort_orb.yaml"
+    orb.write_text(CONFIGS["botsort_no_gmc"].format(buffer=30).replace("none", "orb"))
+    with pytest.raises(NotImplementedError, match="GMC method 'orb'.*ROADMAP"):
+        pyolo.track(str(sequence_dir), tracker=str(orb), **KW)
+    with pytest.raises(NotImplementedError, match="GMC method 'orb'"):
+        make_tracker(str(orb))
+    assert make_tracker("botsort.yaml").gmc.method == "sparseOptFlow"
     # a tracker config changed between calls makes new trackers, persist or not
     pyolo.track(str(sequence_dir), **KW)
     predictor = pyolo._predictor_cache[1]
