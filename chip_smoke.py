@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero:
      plain version, F.scaled_dot_product_attention as a yardstick, and the
      bound (bytes over 3.35 TB/s or FLOPs over 495/3 TFLOP/s f32 / 989 bf16);
      then, for correctness only, channel-contiguous inputs and the chunk
-     lengths of imgsz 480 and 320 and of a chunk shorter than one key stage.
+     lengths of imgsz 480 and 320 and of a chunk shorter than one key stage. The timed
+     shapes include test-time augmentation's passes at 544 and 448 (Na = 289 and 196).
      At every shape the library's launch plan must equal the wrapper's mirror.
      The timed shapes include those of phase 8's rect batches (Na = 252), of
      yolov12n's batch of 128 in phase 14 (B·area 512 at P4, 128 at P5) and of
@@ -54,11 +55,11 @@ Phases, in order; any failure exits non-zero:
      per image and its split (batch to the card, forward, decode + NMS, to the
      host, host metrics).
   8. the disk dataset: a JDE dataset of PNG files (rows filtered by all five PNG
-     filters) written under runs/: 64 train frames at 720x1280, 24 val frames (16 at
+     filters) written under runs/: 32 train frames at 720x1280, 24 val frames (16 at
      720x1280, 8 at 1280x720), 1-20 persons of 10-60 px each, 6-column labels;
      `YOLO.train(data=<dict>, imgsz=640, batch=16, epochs=2, close_mosaic=1)` with
      the host augmentation: epoch 1 with mosaic, epoch 2 without, every loss finite,
-     2 x (4 x 8 + 2 x 8) = 96 kernel launches; step time against the loader's own time
+     2 x (2 x 8 + 2 x 8) = 64 kernel launches; step time against the loader's own time
      per batch; then `YOLO.val(data=<dict>, rect=True)`: batches of 384x672 and
      672x384, 16 launches at Na = 252, the A/B against `use_flash=False` of phase 7,
      ms per image and its split with the loader's part (PNG decode, resize, letterbox).
@@ -68,14 +69,14 @@ Phases, in order; any failure exits non-zero:
   9. device augmentation and checkpoints, on phase 8's dataset (cuDNN deterministic):
      `YOLO.train(copy_paste=0.0, epochs=2, close_mosaic=1, save_period=1)` takes the
      device route (the loader yields uint8 letterbox tiles; mosaic on the card in epoch
-     1 only; 2 x (4 x 8 + 2 x 8) = 96 kernel launches); `device_train_augment` on the
+     1 only; 2 x (2 x 8 + 2 x 8) = 64 kernel launches); `device_train_augment` on the
      card against the same function on the CPU with the same draws, on a mosaic and a
      letterbox batch (classes, masks and tags equal, boxes within 1e-6, the image within
      1e-3 of a grey level); the loader alone, the augmentation (CUDA events, median of
      10), the steps, the epochs and the peak memory; weights/{last,best,epoch1,epoch2};
      a second run resumed from epoch1 whose weights/last equals the first run's tensor
      for tensor (parameters, BN statistics, EMA, cb_counts, optimizer, dropout stream;
-     48 launches); `YOLO(checkpoint)` serving phase 4's frames and validating rect
+     32 launches); `YOLO(checkpoint)` serving phase 4's frames and validating rect
      exactly as the object that trained.
  10. JPEG frames through `YOLO.predict` and `YOLO.track` (a seeded, perturbed
      yolov13n-JDE @640): every fixture of tests/data/jpeg/ decodes to the SHA-256 of
@@ -130,7 +131,7 @@ Phases, in order; any failure exits non-zero:
      batch 1, the same in float32 and bf16 (the kernel at Na = 1600); yolo11n-JDE_CBAM @640
      as phase 14 serves yolo11n-JDE (no kernel), img/s at batch 8; the yolov13n-JDE_CBAM
      train step @640, batch 16: one step kernel against plain in float32 (phase 6's
-     `_train_ab`) and in amp (phase 13's `_amp_ab`), step ms (median of 5 after 2) and
+     `_train_ab`) and in amp (phase 13's `_amp_ab`), step ms (median of 3 after 2) and
      peak memory in both; then the facade: `YOLO.train(epochs=1)` with a callback on each
      of the ten trainer events (each called at the expected count, at epoch 0), `save` and
      `YOLO(checkpoint)` serving the same detections, `fuse()` serving the same detections,
@@ -175,8 +176,8 @@ Phases, in order; any failure exits non-zero:
      yolo11n-pose, yolo11n-seg and yolov9c-seg the same at batch 8. The yolov8n-pose train
      step @640, batch 16, on its dataset on the host route (copy_paste 0.1) and the device
      route (copy_paste 0), yolov8n-seg on the host route with copy_paste 0.5, each float32
-     and amp: one step's items finite, then 7 timed steps (`_timed_steps`); `YOLO.train(
-     epochs=1)` of each with its (P) or (M) validation, `YOLO.val`, `YOLO(checkpoint)` served
+     and amp: one step's items finite, then 5 timed steps (`_timed_steps`: 3 after 2);
+     `YOLO.train(epochs=1)` of each with its (P) or (M) validation, `YOLO.val`, `YOLO(checkpoint)` served
      and validated as its task, and `YOLO.predict` of the 12 JPEG frames (Results.keypoints,
      Results.masks).
  18. the OBB and classify tasks, none with an A2C2f block: 0 kernel launches in the whole
@@ -333,10 +334,31 @@ Phases, in order; any failure exits non-zero:
      fps; frames/s and a frame's split into decode, forward, and GMC plus the tracker. Then
      a `.streams` list of two copies of the file with `stream_buffer=True`: 48 frames, 384
      launches, each source's tracks those of the file's run.
- 25. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+ 25. the facade's remaining modes at 640 (seeded, perturbed weights). The command line:
+     `python -m sar_yolo_tpu_torch version` and `checks` in two subprocesses (exit 0, `checks`
+     names the card); `entrypoint(["jde", "predict", "model=<checkpoint>", ...])` of the 12
+     JPEG frames with the rows of `YOLO.predict` of the same model (96 launches) and `jde
+     track` of flight.avi (192). Test-time augmentation of yolov13n (its YAML's nc 6, class logits
+     damped as phase 14 damps them): `YOLO.predict(
+     augment=True)` of the 12 frames, 24 launches a frame (passes at 640, 544 and 448: Na 400,
+     289 and 196), the same rows as `use_flash=False` at a threshold where NMS's choices do not
+     hang on rounding (phase 14's `_nms_stable_conf`; boxes within phase 10's bound, scores
+     within 1e-3 and the threshold's margin); `half=True`: 288 bf16 launches, the three
+     passes' predictions of the bf16 kernel path no farther (relative L2) from the float32
+     plain path's than twice the bf16 plain path's; `YOLO.val(augment=True)` at batch 16 (24
+     launches), metrics within 1e-3 of the plain path's; yolov13n-JDE with augment=True warns
+     and gives augment=False's rows. `YOLO.embed` of the frames at the default layer, [6] and
+     [6, 8]: within 1e-4 (relative) of the plain path, launches those of the layers run.
+     `YOLO.benchmark(formats=("pt2",))` of yolov13n on the synthetic set: no error row, the
+     pt2 row's mAP50-95 within 1e-3 of the native one's. `YOLO.tune` of yolov13n-JDE, 2
+     trials of one epoch at batch 16 (float32): two finite rows in tune_results.csv, 80
+     launches. batch=-1: the batch the trainer picks for yolov13n-JDE in float32, one train
+     step at it, its peak memory within 0.8 of the card's.
+ 26. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
      the amp train step's forward, phases 16-19's, 22's and 23's paths at 0, its launches and device
-     ms in phase 21's .pt2 program; the int8 convolution and the int8 quantization: one int8
-     forward of yolov13n-JDE at 640, batch 8), the card line, and the result line.
+     ms in phase 21's .pt2 program, its times at the TTA shapes; the int8 convolution and the
+     int8 quantization: one int8 forward of yolov13n-JDE at 640, batch 8), the card line, and
+     the result line.
 The earlier phases pass `amp=False`, so their float32 gates and numbers keep their meaning.
 Needs no network; builds into sar_yolo_tpu_torch/build/.
 """
@@ -378,6 +400,11 @@ KERNEL_SHAPES = [
     ("640 P4 b8 s", 8, 128, 40, 40, 4, 4), ("640 P5 b8 s", 8, 256, 20, 20, 8, 1),
     ("640 P4 b8 l, yolov12m", 8, 256, 40, 40, 8, 4), ("640 P5 b8 l, yolov12m", 8, 256, 20, 20, 8, 1),
     ("640 P4 b8 x", 8, 384, 40, 40, 12, 4), ("640 P5 b8 x", 8, 384, 20, 20, 12, 1),
+    # test-time augmentation at 640 (phase 25), a served frame: the 0.83 pass at 544 (Na = 289:
+    # 1156-byte f32 chunks take 4-byte cp.async, 578-byte bf16 ones element copies) and the
+    # 0.67 pass at 448 (Na = 196)
+    ("TTA 544 P4 b1", 1, 64, 34, 34, 2, 4), ("TTA 544 P5 b1", 1, 128, 17, 17, 4, 1),
+    ("TTA 448 P4 b1", 1, 64, 28, 28, 2, 4), ("TTA 448 P5 b1", 1, 128, 14, 14, 4, 1),
 ]
 # (label, B, C, H, W, heads, area, layout), correctness only: channel-contiguous
 # (B, N, C) inputs; imgsz 480 P4 (Na = 225: chunk starts not 16-byte aligned);
@@ -386,6 +413,9 @@ CHECK_SHAPES = [
     ("640 P4 b2 channel-contiguous", 2, 64, 40, 40, 2, 4, "channels"),
     ("480 P4 b2", 2, 64, 30, 30, 2, 4, "tokens"), ("320 P4 b2", 2, 64, 20, 20, 2, 4, "tokens"),
     ("Na 25", 1, 32, 5, 5, 1, 1, "tokens"),
+    # test-time augmentation's val batch of 16 at 640 (phase 25): Na = 289 and 196
+    ("TTA 544 P4 b16", 16, 64, 34, 34, 2, 4, "tokens"), ("TTA 544 P5 b16", 16, 128, 17, 17, 4, 1, "tokens"),
+    ("TTA 448 P4 b16", 16, 64, 28, 28, 2, 4, "tokens"), ("TTA 448 P5 b16", 16, 128, 14, 14, 4, 1, "tokens"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # both backwards run the plain version's: float32 absolute, bf16 relative to the largest gradient
@@ -396,7 +426,7 @@ HALF_BATCH = 8            # frames of the half-served batch (yolov13n-JDE @640)
 TRAIN_IMGSZ, TRAIN_BATCH = 640, 16  # the train step and the validation
 PRE_TOPK = 1024           # ops/nms.py: candidates kept before suppression
 VAL_IMAGES = 16           # the synthetic val set of YOLO.val and of the trainer
-DATA_TRAIN = 64           # phase 8's train frames, 720x1280
+DATA_TRAIN = 32           # phase 8's train frames, 720x1280
 DATA_VAL = ((720, 1280),) * 16 + ((1280, 720),) * 8  # phase 8's val frames
 RECT_SHAPES = [(384, 672), (672, 384)]  # their rect batches at 640 (JAX's init_rect)
 RECT_NA = 252             # the attention's chunk length in both: 24x42/4 at P4, 12x21 at P5
@@ -721,7 +751,7 @@ def _compare_detections(got, want, n_emb: int, label: str, by_row: bool = False)
     return kept, errs
 
 
-def _img_per_s(yolo, frames, kw, n: int = 10):
+def _img_per_s(yolo, frames, kw, n: int = 5):
     for _ in range(3):
         yolo.predict_batched(frames, **kw)
     t0 = time.perf_counter()
@@ -956,7 +986,7 @@ def _train_ab(overrides: dict, batches):
     return trainers["k"], lk
 
 
-def _timed_steps(tr, batch, n: int = 5, warmup: int = 2):
+def _timed_steps(tr, batch, n: int = 3, warmup: int = 2):
     """Median host-clock ms of a whole train step (batch to the card, forward, loss,
     backward, optimizer + EMA; synchronized), then medians of each part, timed apart."""
     import torch
@@ -1717,9 +1747,9 @@ def phase_checkpoint(card: str, data: dict, host_loader: dict, seed: int = 0):
         **aug, "resumed_equal": True, "best_epoch": best_epoch + 1, "served": ckpt.name,
         "served_rows_kept": (got[..., 4] > 0).sum(1).tolist(), "kernel_launches": train_launches,
         "resumed_kernel_launches": resume_launches, "loss_items": [it.tolist() for _, _, it in steps]}))
-    return {f"YOLO.train device route @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 epochs (8 steps + 2 "
-            "validations)": train_launches,
-            "YOLO.train resumed from epoch1 (4 steps + 1 validation)": resume_launches,
+    return {f"YOLO.train device route @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 epochs ({2 * nb} steps "
+            "+ 2 validations)": train_launches,
+            f"YOLO.train resumed from epoch1 ({nb} steps + 1 validation)": resume_launches,
             f"YOLO({ckpt.name}).predict_batched b{MAIN_BATCH}": serve_launches,
             f"YOLO({ckpt.name}).val rect": val_launches}
 
@@ -2414,8 +2444,8 @@ def phase_detect_serve(name: str, launches: int, batches, card: str, seed: int =
     torch.cuda.empty_cache()
     rates = {}
     for b in batches:
-        r = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
-                   lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+        r = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=3),
+                   lambda: _img_per_s(yolo, frames[:b], hkw, n=3))
         rates.update({f"img_per_s_b{b}_{k}": v for k, v in r.items()})
     big = max(batches)
     memory, candidates = {}, {}
@@ -2818,8 +2848,8 @@ def phase_v10_serve(card: str, seed: int = 3) -> dict:
     kw, hkw = dict(imgsz=DETECT_IMGSZ, conf=0.25), dict(imgsz=DETECT_IMGSZ, conf=0.25, half=True)
     rates = {}
     for b in V10_BATCHES:
-        r = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
-                   lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+        r = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=3),
+                   lambda: _img_per_s(yolo, frames[:b], hkw, n=3))
         rates.update({f"img_per_s_b{b}_{k}": v for k, v in r.items()})
     big = max(V10_BATCHES)
     memory = {}
@@ -2947,8 +2977,8 @@ def phase_family_serve(name: str, imgsz: int, card: str, seed: int = 3) -> dict:
     kw, hkw = dict(imgsz=imgsz, conf=0.25), dict(imgsz=imgsz, conf=0.25, half=True)
     half = yolo.predict_batched(frames[:batch], **hkw)
     check(half.shape == (batch, 300, 6) and np.isfinite(half).all(), f"{name} half: {half.shape}")
-    r = _rates(lambda: _img_per_s(yolo, frames[:batch], kw, n=5),
-               lambda: _img_per_s(yolo, frames[:batch], hkw, n=5))
+    r = _rates(lambda: _img_per_s(yolo, frames[:batch], kw, n=3),
+               lambda: _img_per_s(yolo, frames[:batch], hkw, n=3))
     out = {"serve_family": name, "imgsz": imgsz, "batch": batch, "frames": f"{hw[0]}x{hw[1]}",
            "params": sum(p.numel() for p in yolo.model.parameters()), "confs": confs,
            "class_logit_gain": gain, "box_logit_gain": box_gain, "kept_per_frame": kept,
@@ -3175,8 +3205,8 @@ def phase_pose_seg_serve(name: str, batches, card: str, seed: int = 3) -> dict:
     kw, hkw = dict(imgsz=DETECT_IMGSZ, conf=0.25), dict(imgsz=DETECT_IMGSZ, conf=0.25, half=True)
     rates = {}
     for bsz in batches:
-        rr = _rates(lambda: _img_per_s(yolo, frames[:bsz], kw, n=5),
-                    lambda: _img_per_s(yolo, frames[:bsz], hkw, n=5))
+        rr = _rates(lambda: _img_per_s(yolo, frames[:bsz], kw, n=3),
+                    lambda: _img_per_s(yolo, frames[:bsz], hkw, n=3))
         rates.update({f"img_per_s_b{bsz}_{k}": v for k, v in rr.items()})
     big = max(batches)
     memory = {}
@@ -3494,8 +3524,8 @@ def phase_obb_serve(card: str, seed: int = 3) -> dict:
     kw, hkw = dict(imgsz=OBB_IMGSZ), dict(imgsz=OBB_IMGSZ, half=True)
     rates = {}
     for b in OBB_BATCHES:
-        rr = _rates(lambda: _img_per_s(yolo, tiles[:b], kw, n=5),
-                    lambda: _img_per_s(yolo, tiles[:b], hkw, n=5))
+        rr = _rates(lambda: _img_per_s(yolo, tiles[:b], kw, n=3),
+                    lambda: _img_per_s(yolo, tiles[:b], hkw, n=3))
         rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3520,7 +3550,7 @@ def phase_obb_serve(card: str, seed: int = 3) -> dict:
         rows = y11.predict_batched(tiles, imgsz=OBB_IMGSZ, **hkw)
         check(rows.shape == (nb, 300, 7) and np.isfinite(rows).all(), f"yolo11n-obb {label}")
         b8[f"kept_{label}"] = (rows[..., 5] > 0).sum(1).tolist()
-    rr = _rates(lambda: _img_per_s(y11, tiles, kw, n=5), lambda: _img_per_s(y11, tiles, hkw, n=5))
+    rr = _rates(lambda: _img_per_s(y11, tiles, kw, n=3), lambda: _img_per_s(y11, tiles, hkw, n=3))
     print(json.dumps({"serve_obb": "yolo11n-obb.yaml", "imgsz": OBB_IMGSZ, **b8,
                       **{f"img_per_s_b{nb}_{k}": v for k, v in rr.items()}, "card": card}))
     del y11
@@ -3669,8 +3699,8 @@ def phase_cls_serve(card: str, seed: int = 3) -> dict:
         kw, hkw = dict(imgsz=CLS_IMGSZ), dict(imgsz=CLS_IMGSZ, half=True)
         rates = {}
         for b in batches:
-            rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
-                        lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+            rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=3),
+                        lambda: _img_per_s(yolo, frames[:b], hkw, n=3))
             rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
         outs[name] = {"serve_cls": name, "imgsz": CLS_IMGSZ, "nc": nc,
                       "frames": f"{BENCH_HW[0]}x{BENCH_HW[1]}", "prob_err_vs_f64": prob_err,
@@ -3968,8 +3998,8 @@ def phase_rtdetr_serve(name: str, batches, min_e2e: int, card: str, seed: int = 
     torch.cuda.empty_cache()
     rates = {}
     for b in batches:
-        rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=3 if b > 8 else 5),
-                    lambda: _img_per_s(yolo, frames[:b], hkw, n=3 if b > 8 else 5))
+        rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=3),
+                    lambda: _img_per_s(yolo, frames[:b], hkw, n=3))
         rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
     big = max(batches)
     memory = {}
@@ -4131,8 +4161,8 @@ def phase_world_serve(name: str, batches, card: str, seed: int = 3) -> dict:
     kw, hkw = dict(imgsz=RTDETR_IMGSZ, conf=0.25), dict(imgsz=RTDETR_IMGSZ, conf=0.25, half=True)
     rates = {}
     for b in batches:
-        rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=5),
-                    lambda: _img_per_s(yolo, frames[:b], hkw, n=5))
+        rr = _rates(lambda: _img_per_s(yolo, frames[:b], kw, n=3),
+                    lambda: _img_per_s(yolo, frames[:b], hkw, n=3))
         rates.update({f"img_per_s_b{b}_{k}": v for k, v in rr.items()})
     out = {"serve_world": name, "imgsz": RTDETR_IMGSZ, "vocabulary": WORLD_NAMES,
            "ab_confs": confs, "kept_per_frame": kept, **{f"{k}_vs_f64": v for k, v in errs.items()
@@ -4193,7 +4223,7 @@ def phase_world_train(card: str, seed: int = 0) -> dict:
         _, items = tr.train_step(batch)
         items = items.cpu().numpy()
         check(np.isfinite(items).all(), f"world {label}: items {items}")
-        steps[label] = {"items": items.tolist(), **_timed_steps(tr, batch, n=5, warmup=2)}
+        steps[label] = {"items": items.tolist(), **_timed_steps(tr, batch)}
         world_model = tr.model
         del tr, batch
         torch.cuda.empty_cache()
@@ -4863,7 +4893,7 @@ EXPORT_BATCH = 8          # letterboxed frames of the artifact gates and of the 
 EXPORT_CANDIDATES = 200   # the class biases are shifted so that no frame has this many
                           # anchors over the artifacts' threshold (0.25)
 EXPORT_MARGIN = 5e-3      # the round trip's conf tolerance (the JAX tests' `_roundtrip`)
-ONNX_IMGSZ = 320          # the ONNX artifact's side (the numpy runtime: ~35 s a frame at 640)
+ONNX_IMGSZ = 256          # the ONNX artifact's side (the numpy runtime: ~35 s a frame at 640)
 
 
 def _letterboxed(frames, imgsz: int) -> np.ndarray:
@@ -4941,7 +4971,7 @@ def _profiled(fn, n: int = 5) -> dict:
             "flash_area_attention_op": cpu.get("sar_yolo_tpu_torch::flash_area_attention", 0.0)}
 
 
-def _rates_in_turns(fns: dict, rounds: int = 2, n: int = 10) -> dict:
+def _rates_in_turns(fns: dict, rounds: int = 2, n: int = 5) -> dict:
     """img/s of each fn (one call serves `batch` images; host clock, synchronized), taken in
     turns, a, b, ..., b, a per round; the median of each fn's runs."""
     import torch
@@ -5904,6 +5934,397 @@ def phase_video(card: str, seed: int = 2) -> dict:
     return paths
 
 
+TTA_LAUNCHES = 3 * LAUNCHES_PER_FORWARD  # the three passes of a frame
+TUNE_ITERATIONS, TUNE_EPOCHS = 2, 1       # YOLO.tune on the card
+AUTOBATCH_FRACTION = 0.8                  # of the card's memory a batch=-1 step may peak at
+
+
+@contextlib.contextmanager
+def _recorded_warnings():
+    """While active, the port's logger warnings are appended to the yielded list (and still
+    logged)."""
+    from sar_yolo_tpu_torch.utils import LOGGER
+    warned, orig = [], LOGGER.warning
+
+    def record(msg, *args, **kwargs):
+        warned.append(str(msg))
+        return orig(msg, *args, **kwargs)
+    LOGGER.warning = record
+    try:
+        yield warned
+    finally:
+        LOGGER.warning = orig
+
+
+def _rows_array(results: list, max_det: int = 300) -> np.ndarray:
+    """Detect Results as a (B, max_det, 6) array, padding rows zero."""
+    out = np.zeros((len(results), max_det, 6), np.float32)
+    for b, r in enumerate(results):
+        out[b, :len(r)] = r.boxes.data[:, :6]
+    return out
+
+
+def _aattn_launches(model, last: int) -> int:
+    """Kernel launches of a forward that stops after layer `last`: one an AAttn before it."""
+    from sar_yolo_tpu_torch.nn.modules.block import AAttn
+    return sum(isinstance(m, AAttn) for blk in model.blocks[:last + 1] for m in blk.modules())
+
+
+def _modes_cli(jde, conf: float, root: Path, card: str) -> dict:
+    """Phase 25's command line: `version` and `checks` in two subprocesses started together;
+    `jde predict` of the 12 JPEG frames and `jde track` of flight.avi in process, the model a
+    checkpoint of `jde`. Returns the kernel launches by path."""
+    import os
+
+    from sar_yolo_tpu_torch.cfg import entrypoint
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    t0 = time.perf_counter()
+    env = {**os.environ, "SARYOLO_VERBOSE": "1"}
+    procs = {mode: subprocess.Popen([sys.executable, "-m", "sar_yolo_tpu_torch", mode],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    env=env) for mode in ("version", "checks")}
+    outs = {}
+    for mode, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        check(p.returncode == 0, f"python -m sar_yolo_tpu_torch {mode}: exit {p.returncode}, "
+              f"{stderr[-2000:]}")
+        outs[mode] = stdout
+    import torch
+    name = torch.cuda.get_device_name(0)
+    check(outs["version"].strip().splitlines()[-1].startswith("sar_yolo_tpu_torch "),
+          f"version printed {outs['version']!r}")
+    check(f"device: {name}" in outs["checks"], f"checks did not name the card: {outs['checks']!r}")
+    subprocess_s = time.perf_counter() - t0
+    frames_dir, avi = JPEG_DIR / "frames", VIDEO_DIR / "flight.avi"
+    ckpt = jde.save(root / "jde_ckpt")
+    n_emb, n_states = jde.meta["embed_dim"], jde.meta["state_classes"]
+    want = jde.predict(str(frames_dir), imgsz=TRAIN_IMGSZ, conf=conf)
+    flash_area_attention.launches = 0
+    t0 = time.perf_counter()
+    got = entrypoint(["jde", "predict", f"model={ckpt}", f"source={frames_dir}",
+                      f"imgsz={TRAIN_IMGSZ}", f"conf={conf}"])
+    predict_s = time.perf_counter() - t0
+    predict_launches = flash_area_attention.launches
+    check(predict_launches == JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+          f"CLI jde predict: {predict_launches} kernel launches")
+    kept, errs = _compare_detections(_results_array(got, n_emb, n_states),
+                                     _results_array(want, n_emb, n_states), n_emb,
+                                     "CLI jde predict vs YOLO.predict", by_row=True)
+    check(max(errs.values()) <= 1e-5, f"CLI jde predict vs YOLO.predict: {errs}")
+    flash_area_attention.launches = 0
+    t0 = time.perf_counter()
+    tracked = entrypoint(["jde", "track", f"model={ckpt}", f"source={avi}", f"imgsz={TRAIN_IMGSZ}",
+                          f"conf={conf}"])
+    track_s = time.perf_counter() - t0
+    track_launches = flash_area_attention.launches
+    check(track_launches == VIDEO_FRAMES * LAUNCHES_PER_FORWARD and len(tracked) == VIDEO_FRAMES
+          and all(r.boxes.id is not None for r in tracked if len(r)),
+          f"CLI jde track: {len(tracked)} Results, {track_launches} kernel launches")
+    print(json.dumps({"cli": "python -m sar_yolo_tpu_torch version / checks (subprocesses), "
+                      f"jde predict / track model=<checkpoint> @{TRAIN_IMGSZ}",
+                      "subprocess_s": subprocess_s, "checks_device": name,
+                      "predict_kept_per_frame": kept, **errs, "predict_s": predict_s,
+                      "track_s": track_s, "predict_launches": predict_launches,
+                      "track_launches": track_launches, "card": card}))
+    return {f"CLI jde predict {JPEG_FRAMES} JPEG frames @{TRAIN_IMGSZ}": predict_launches,
+            f"CLI jde track flight.avi {VIDEO_FRAMES} frames @{TRAIN_IMGSZ}": track_launches}
+
+
+def _modes_tta(frames: list, root: Path, card: str, seed: int) -> tuple:
+    """Phase 25's test-time augmentation on yolov13n: predict in float32 against the
+    plain path and in bf16 against float32, and val. Returns (the model, launches by path,
+    bf16 launches by path)."""
+    import torch
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    from sar_yolo_tpu_torch.ops.tta import forward_tta
+    frames_dir = JPEG_DIR / "frames"
+    det = _perturbed_yolo("yolov13n.yaml", seed, TRAIN_IMGSZ)
+    _damp_class_logits(det, np.stack(frames[:DETECT_AB_BATCH]), TRAIN_IMGSZ)  # no tie at 1.0
+    plain = copy.deepcopy(det)
+    _set_flash(plain, False)
+    meta, nc = det.meta, det.meta["nc"]
+    predictor = det._get_predictor({"imgsz": TRAIN_IMGSZ})
+    with torch.no_grad():
+        preds = np.stack([forward_tta(predictor.model, predictor.preprocess(f[None])[0],
+                                      meta["strides"], nc, meta["reg_max"])[0].double().cpu().numpy()
+                          for f in frames])
+    # a threshold where greedy NMS over the three passes' candidates keeps the same rows under
+    # rounding (phase 14's rule)
+    conf, margin = _nms_stable_conf(preds, nc, 0.7, DETECT_CANDIDATES)
+    del preds
+    kw = dict(imgsz=TRAIN_IMGSZ, conf=conf, augment=True)
+    det.predict(str(frames_dir), **kw)  # warm-up: BN folding, cuDNN's plans at 640, 544, 448
+    reset_launches()
+    t0 = time.perf_counter()
+    got = det.predict(str(frames_dir), **kw)
+    tta_s = time.perf_counter() - t0
+    launches = flash_area_attention.launches
+    check(launches == JPEG_FRAMES * TTA_LAUNCHES and
+          flash_area_attention.launches_by_dtype["float32"] == launches,
+          f"YOLO.predict(augment=True): {launches} kernel launches for {JPEG_FRAMES} frames")
+    want = plain.predict(str(frames_dir), **kw)
+    check(flash_area_attention.launches == launches, "TTA: use_flash=False launched the kernel")
+    r = TRAIN_IMGSZ / max(frames[0].shape[:2])
+    box_tol = 32e-3 / r  # phase 10's bound: 1e-3 of the coarsest DFL bin, in frame pixels
+    kept, errs = _compare_detections(_rows_array(got), _rows_array(want), 0, "YOLO.predict TTA",
+                                     by_row=True)
+    check(errs["box_err_px"] <= box_tol and errs["score_err"] <= min(1e-3, margin),
+          f"YOLO.predict TTA kernel vs plain: {errs}, box tolerance {box_tol} px, threshold "
+          f"margin {margin}")
+    t0 = time.perf_counter()
+    single = det.predict(str(frames_dir), imgsz=TRAIN_IMGSZ, conf=conf)
+    single_s = time.perf_counter() - t0
+    # half: 24 bf16 launches a frame; the three passes' predictions of the bf16 kernel path no
+    # farther (relative L2) from the float32 plain path's than twice the bf16 plain path's
+    hkw = {**kw, "half": True}
+    det.predict(str(frames_dir), **hkw)  # warm-up: the bf16 copy
+    reset_launches()
+    got_h = det.predict(str(frames_dir), **hkw)
+    half_launches = _check_bf16_launches(JPEG_FRAMES * TTA_LAUNCHES, "YOLO.predict TTA half")
+    check(all(np.isfinite(x.boxes.data).all() for x in got_h) and sum(map(len, got_h)) > 0,
+          "YOLO.predict TTA half: no finite rows")
+    x32 = det._get_predictor({"imgsz": TRAIN_IMGSZ}).preprocess(np.stack(frames[:2]))[0]
+    x16 = det._get_predictor({"imgsz": TRAIN_IMGSZ, "half": True}).preprocess(
+        np.stack(frames[:2]))[0]
+
+    def passes(m):
+        return lambda inp: [forward_tta(m, inp.float(), meta["strides"], nc, meta["reg_max"])]
+    maps = _maps_vs_f32(passes(det._fused_for_serving(True)), passes(plain._fused_for_serving(True)),
+                        passes(plain._fused_for_serving()), x16, x32)
+    check(maps["maps_bf16_kernel_vs_f32"] <= 2 * maps["maps_bf16_plain_vs_f32"],
+          f"TTA half: kernel path {maps['maps_bf16_kernel_vs_f32']} from float32, plain path "
+          f"{maps['maps_bf16_plain_vs_f32']}")
+    # val: one synthetic batch of 16 through the three passes
+    vkw = dict(data="synthetic", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, augment=True,
+               project=str(root))
+    det.val(**vkw)  # warm-up at batch 16
+    reset_launches()
+    t0 = time.perf_counter()
+    mk = det.val(**vkw)
+    val_s = time.perf_counter() - t0
+    val_launches = flash_area_attention.launches
+    check(val_launches == TTA_LAUNCHES, f"YOLO.val(augment=True): {val_launches} launches")
+    mp = plain.val(**vkw)
+    metric_err = max(abs(mk[k] - mp[k]) for k in mk if not k.startswith("speed"))
+    check(set(mk) == set(mp) and metric_err <= 1e-3,
+          f"YOLO.val(augment=True) kernel vs plain: {mk} vs {mp}")
+    print(json.dumps({"tta": f"yolov13n @{TRAIN_IMGSZ} (nc {nc}), {JPEG_FRAMES} JPEG frames of "
+                      "720x1280, passes at 640, 544, 448 (Na 400, 289, 196)", "conf": conf,
+                      "conf_margin": margin, "kept_per_frame": kept, **errs,
+                      "box_tol_px": box_tol, "kernel_launches": launches,
+                      "frames_per_s_tta": JPEG_FRAMES / tta_s,
+                      "frames_per_s_single": JPEG_FRAMES / single_s,
+                      "kept_per_frame_single": [len(x) for x in single],
+                      "bf16_kernel_launches": half_launches["bfloat16"],
+                      "kept_per_frame_bf16": [len(x) for x in got_h], **maps,
+                      "val_ms_per_image": mk["speed/ms_per_image"], "val_s": val_s,
+                      "val_launches": val_launches, "val_metric_err_vs_plain": metric_err,
+                      "card": card}))
+    return det, {f"YOLO.predict augment=True yolov13n {JPEG_FRAMES} JPEG frames @{TRAIN_IMGSZ}":
+                 launches, f"YOLO.val augment=True yolov13n @{TRAIN_IMGSZ} b{TRAIN_BATCH}":
+                 val_launches}, \
+        {f"YOLO.predict augment=True half yolov13n {JPEG_FRAMES} JPEG frames @{TRAIN_IMGSZ}":
+         half_launches["bfloat16"]}
+
+
+def _modes_embed(jde, card: str) -> dict:
+    """Phase 25's `YOLO.embed` of the 12 JPEG frames at the default layer, [6] and [6, 8],
+    against the plain path. Returns the kernel launches by path."""
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    frames_dir = JPEG_DIR / "frames"
+    plain = copy.deepcopy(jde)
+    _set_flash(plain, False)
+    plain._fused = plain._half = plain._predictor_cache = None  # jde's folded copy: the kernel's
+    n = len(jde.model.specs)
+    paths, out = {}, {}
+    for layers in (None, [6], [6, 8]):
+        last = max(layers or [n - 2])
+        expected = JPEG_FRAMES * _aattn_launches(jde.model, last)
+        flash_area_attention.launches = 0
+        t0 = time.perf_counter()
+        got = jde.embed(str(frames_dir), embed=layers, imgsz=TRAIN_IMGSZ)
+        wall = time.perf_counter() - t0
+        launches = flash_area_attention.launches
+        check(launches == expected, f"YOLO.embed {layers}: {launches} kernel launches, "
+              f"expected {expected}")
+        want = plain.embed(str(frames_dir), embed=layers, imgsz=TRAIN_IMGSZ)
+        check(flash_area_attention.launches == launches, "embed: use_flash=False launched")
+        rel = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+        check(len(got) == JPEG_FRAMES and rel <= 1e-4 and all(np.isfinite(g).all() for g in got),
+              f"YOLO.embed {layers}: {len(got)} vectors, {rel} relative from the plain path")
+        label = f"YOLO.embed {layers or f'default [{n - 2}]'} yolov13n-JDE {JPEG_FRAMES} JPEG frames"
+        paths[f"{label} @{TRAIN_IMGSZ}"] = launches
+        out[str(layers or "default")] = {"dim": int(got[0].shape[0]), "rel_err_vs_plain": rel,
+                                         "launches": launches, "frames_per_s": JPEG_FRAMES / wall}
+    check(out["[6]"]["launches"] < out["[6, 8]"]["launches"], "embed=[6] ran layer 8")
+    print(json.dumps({"embed": f"yolov13n-JDE @{TRAIN_IMGSZ}", **out, "card": card}))
+    return paths
+
+
+def _modes_benchmark(det, card: str) -> dict:
+    """Phase 25's `YOLO.benchmark` of yolov13n with the pt2 format on the synthetic set."""
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    shutil.rmtree("exports", ignore_errors=True)
+    flash_area_attention.launches = 0
+    t0 = time.perf_counter()
+    rows = det.benchmark(imgsz=TRAIN_IMGSZ, formats=("pt2",), n_iter=10, data="synthetic")
+    wall = time.perf_counter() - t0
+    launches = flash_area_attention.launches
+    shutil.rmtree("exports", ignore_errors=True)
+    check([r["format"] for r in rows] == ["torch", "pt2"] and not any("error" in r for r in rows),
+          f"YOLO.benchmark: {rows}")
+    check(abs(rows[1]["mAP50-95"] - rows[0]["mAP50-95"]) <= 1e-3,
+          f"YOLO.benchmark: pt2 mAP50-95 {rows[1]['mAP50-95']}, native {rows[0]['mAP50-95']}")
+    # each format: 1 + 10 timed predicts and 8 scored images, 8 launches each
+    check(launches == 2 * 19 * LAUNCHES_PER_FORWARD, f"YOLO.benchmark: {launches} launches")
+    print(json.dumps({"benchmark": f"yolov13n @{TRAIN_IMGSZ}, synthetic, n_iter 10", "rows": rows,
+                      "s": wall, "kernel_launches": launches, "card": card}))
+    return {f"YOLO.benchmark yolov13n @{TRAIN_IMGSZ} (native and pt2 rows)": launches}
+
+
+def _modes_tune(root: Path, card: str) -> dict:
+    """Phase 25's `YOLO.tune` of yolov13n-JDE at 640 on the synthetic set, float32."""
+    import csv
+    import math
+
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    shutil.rmtree(Path("runs") / "tune", ignore_errors=True)
+    flash_area_attention.launches = 0
+    t0 = time.perf_counter()
+    with _recorded_warnings() as warned:
+        best = YOLO("yolov13n-JDE.yaml").tune(iterations=TUNE_ITERATIONS, data="synthetic",
+                                              epochs=TUNE_EPOCHS, batch=TRAIN_BATCH,
+                                              imgsz=TRAIN_IMGSZ, amp=False,
+                                              project=str(root / "tune"))
+    wall = time.perf_counter() - t0
+    launches = flash_area_attention.launches
+    with open(Path("runs") / "tune" / "tune_results.csv") as f:
+        rows = list(csv.DictReader(f))
+    shutil.rmtree(Path("runs") / "tune", ignore_errors=True)
+    fitness = [float(r["fitness"]) for r in rows]
+    check(not [w for w in warned if "failed" in w], f"YOLO.tune: {warned}")
+    check(len(rows) == TUNE_ITERATIONS and all(math.isfinite(f) for f in fitness),
+          f"YOLO.tune: tune_results.csv rows {rows}")
+    # each trial: 4 steps of 8 and one validation batch of 8 (phase 6's YOLO.train)
+    check(launches == TUNE_ITERATIONS * 5 * LAUNCHES_PER_FORWARD, f"YOLO.tune: {launches} launches")
+    print(json.dumps({"tune": f"yolov13n-JDE @{TRAIN_IMGSZ} b{TRAIN_BATCH}, {TUNE_ITERATIONS} "
+                      f"iterations of {TUNE_EPOCHS} epoch, synthetic, float32",
+                      "fitness": fitness, "best_fitness": best[0],
+                      "trial_s": [float(r["seconds"]) for r in rows], "s": wall,
+                      "kernel_launches": launches, "card": card}))
+    return {f"YOLO.tune yolov13n-JDE @{TRAIN_IMGSZ} b{TRAIN_BATCH}, {TUNE_ITERATIONS} trials of "
+            f"{TUNE_EPOCHS} epoch": launches}
+
+
+def _modes_autobatch(root: Path, card: str) -> dict:
+    """Phase 25's batch=-1: the trainer's autobatch for yolov13n-JDE at 640 in float32, then
+    one train step at that batch and its peak memory."""
+    import torch
+
+    from sar_yolo_tpu_torch.data.build import DataLoader
+    from sar_yolo_tpu_torch.data.dataset import SyntheticDataset
+    from sar_yolo_tpu_torch.engine.trainer import JDETrainer
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    t0 = time.perf_counter()
+    tr = JDETrainer({"model": "yolov13n-JDE.yaml", "data": "synthetic", "batch": -1,
+                     "imgsz": TRAIN_IMGSZ, "amp": False, "epochs": 1,
+                     "project": str(root / "autobatch")}, device="cuda")
+    tr.setup()
+    choose_s = time.perf_counter() - t0
+    B = tr.args.batch
+    check(B >= 1 and B & (B - 1) == 0, f"batch=-1 chose {B}")
+    ds = SyntheticDataset(n=B, imgsz=TRAIN_IMGSZ, nc=3, max_labels=tr.args.max_labels, task="jde")
+    batch = next(iter(DataLoader(ds, B, workers=8, shuffle=False)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_area_attention.launches = 0
+    t0 = time.perf_counter()
+    total, _ = tr.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = flash_area_attention.launches
+    peak, card_bytes = torch.cuda.max_memory_allocated(), torch.cuda.get_device_properties(0).total_memory
+    out = {"autobatch": f"yolov13n-JDE @{TRAIN_IMGSZ}, float32", "batch": B,
+           "choose_s": choose_s, "step_s": step_s, "peak_gib": peak / 2**30,
+           "card_gib": card_bytes / 2**30, "peak_share": peak / card_bytes,
+           "kernel_launches": launches, "card": card}
+    print(json.dumps(out))
+    check(bool(torch.isfinite(total)) and launches == LAUNCHES_PER_FORWARD,
+          f"batch=-1 step: loss {total}, {launches} launches")
+    check(peak <= AUTOBATCH_FRACTION * card_bytes, f"batch={B}: peak {peak} bytes of {card_bytes}")
+    del tr, batch
+    torch.cuda.empty_cache()
+    return {f"train step batch=-1 (chose {B}) yolov13n-JDE @{TRAIN_IMGSZ}": launches}
+
+
+def phase_modes(card: str, seed: int = 2) -> tuple:
+    """Phase 25: the command line, test-time augmentation, embed, benchmark, tune and batch=-1
+    (see the module docstring). Returns (float32 launches by path, bf16 launches by path)."""
+    import torch
+
+    from sar_yolo_tpu_torch.data.imageio import imread
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    t_phase = time.perf_counter()
+    root = Path("runs") / "chip_smoke_modes"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    frames_dir = JPEG_DIR / "frames"
+    frames = [imread(f) for f in sorted(frames_dir.glob("*.jpg"))]
+    check(len(frames) == JPEG_FRAMES, f"{len(frames)} JPEG frames")
+    laps, t = {}, time.perf_counter()
+
+    def lap(label):
+        nonlocal t
+        laps[label], t = time.perf_counter() - t, time.perf_counter()
+
+    jde = _perturbed_yolo("yolov13n-JDE.yaml", seed, TRAIN_IMGSZ)
+    meta, n_emb, n_states = jde.meta, jde.meta["embed_dim"], jde.meta["state_classes"]
+    predictor = jde._get_predictor({"imgsz": TRAIN_IMGSZ})
+    with torch.no_grad():
+        scores = torch.cat([decode_detect(predictor.model(predictor.preprocess(f[None])[0]),
+                                          meta["strides"], meta["nc"], meta["reg_max"],
+                                          extra_sigmoid=n_states, split_extras=n_emb)[0]
+                            [..., 4:4 + meta["nc"]].flatten(1) for f in frames])
+    conf, _ = _ab_conf(scores.double().cpu().numpy(), 300, margin=1e-4)
+    paths = _modes_cli(jde, conf, root, card)
+    lap("cli")
+    # a JDE head warns and serves augment=False's rows
+    kw = dict(imgsz=TRAIN_IMGSZ, conf=conf)
+    want = jde.predict(str(frames_dir), **kw)
+    flash_area_attention.launches = 0
+    with _recorded_warnings() as warned:
+        got = jde.predict(str(frames_dir), augment=True, **kw)
+    launches = flash_area_attention.launches
+    check(any("Detect-only" in w for w in warned) and launches == JPEG_FRAMES * LAUNCHES_PER_FORWARD
+          and np.array_equal(_results_array(got, n_emb, n_states),
+                             _results_array(want, n_emb, n_states)),
+          f"yolov13n-JDE augment=True: warnings {warned}, {launches} launches")
+    paths[f"YOLO.predict augment=True yolov13n-JDE (one scale) {JPEG_FRAMES} JPEG frames "
+          f"@{TRAIN_IMGSZ}"] = launches
+    det, tta_paths, bf16_paths = _modes_tta(frames, root, card, seed)
+    paths.update(tta_paths)
+    lap("tta")
+    paths.update(_modes_embed(jde, card))
+    lap("embed")
+    paths.update(_modes_benchmark(det, card))
+    lap("benchmark")
+    del det, jde
+    paths.update(_modes_tune(root, card))
+    lap("tune")
+    paths.update(_modes_autobatch(root, card))
+    lap("autobatch")
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"modes": "phase 25", "parts_s": laps,
+                      "phase_s": time.perf_counter() - t_phase, "card": card}))
+    return paths, bf16_paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5976,6 +6397,8 @@ def main() -> int:
     lap("sam2")
     video_launches = phase_video(card)
     lap("video")
+    modes_launches, modes_bf16_launches = phase_modes(card)
+    lap("modes")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -5994,6 +6417,24 @@ def main() -> int:
     # in bf16 (amp, the default)
     total, total_bf16 = per_forward("float32", TRAIN_BATCH), per_forward("bfloat16", TRAIN_BATCH)
     total_b8 = per_forward("float32", EXPORT_BATCH)
+
+    # test-time augmentation: each TTA shape, and one served frame's three passes (4 calls at
+    # each P4 and P5 shape of 640, 544 and 448, batch 1)
+    def tta(dname):
+        keys = ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "stage_bytes", "Na")
+        shapes = {r["shape"]: {k: r[k] for k in keys} for r in rows
+                  if r["dtype"] == dname and r["shape"].startswith("TTA")}
+        frame = [r for r in rows if r["dtype"] == dname and r["shape"] in (
+            "640 P4 b1", "640 P5 b1", "TTA 544 P4 b1", "TTA 544 P5 b1", "TTA 448 P4 b1",
+            "TTA 448 P5 b1")]
+        per_frame = {k: 4 * sum(r[k] for r in frame) for k in ("kernel_ms", "plain_ms",
+                                                                "library_ms", "flops", "bytes")}
+        t_ops = per_frame["flops"] / PEAK_FLOPS[dname] * 1e3
+        t_bytes = per_frame["bytes"] / PEAK_BYTES * 1e3
+        per_frame.update(bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes")
+        return {"shapes": shapes, "per_frame": per_frame}
     print(json.dumps({"kernels": [{
         "name": "flash_area_attention", "route": "cuda",
         "source": "sar_yolo_tpu_torch/csrc/flash_area_attention.cu",
@@ -6032,8 +6473,12 @@ def main() -> int:
                    "of the kernel's 8 launches in the artifact's and in the eager served "
                    "forward; graph_replay_ms, plain_ms, bound_ms and library_ms phase 3's at "
                    "the same shapes"},
+        "tta": {"per": "phase 3's times of the TTA shapes (Na 289 at 544, 196 at 448), and "
+                       "of one augmented frame of yolov13n at 640, batch 1 (24 launches)",
+                "float32": tta("float32"), "bfloat16": tta("bfloat16")},
         "launches_by_path_bfloat16": {**half_launches, **amp_launches,
-                                      **detect_launches["bfloat16"], **cbam_launches["bfloat16"]},
+                                      **detect_launches["bfloat16"], **cbam_launches["bfloat16"],
+                                      **modes_bf16_launches},
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
                              "serve yolov13n-JDE_P24@1280 b1": p24_launches,
                              **train_launches,
@@ -6042,14 +6487,15 @@ def main() -> int:
                              f"YOLO.val yolov13n-JDE@{TRAIN_IMGSZ} b{TRAIN_BATCH}, trained":
                                  val_launches,
                              f"YOLO.train on a disk dataset @{TRAIN_IMGSZ} b{TRAIN_BATCH}, 2 "
-                             "epochs (8 steps + 2 validations)": disk_train_launches,
+                             f"epochs ({2 * (DATA_TRAIN // TRAIN_BATCH)} steps + 2 validations)":
+                                 disk_train_launches,
                              f"YOLO.val rect @{TRAIN_IMGSZ} b{TRAIN_BATCH} (384x672, 672x384)":
                                  rect_val_launches, **ckpt_launches, **jpeg_launches,
                              **detect_launches["float32"], **cbam_launches["float32"],
                              **family_launches, **pose_seg_launches, **obb_cls_launches,
                              **rtdetr_world_launches, **int8_ddp_launches,
                              **export["paths"], **sam_launches, **sam2_launches,
-                             **video_launches}}, {
+                             **video_launches, **modes_launches}}, {
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",

@@ -10,12 +10,15 @@ YOLO-format JDE dataset on disk. `RTDETR("rtdetr-l.yaml")` serves, trains and va
 RT-DETR (no NMS), `YOLOWorld("yolov8s-world.yaml").set_classes([...])` YOLO-World.
 `SAM("sam_b.pt")` / `SAM("mobile_sam")` serve promptable and segment-everything masks,
 `FastSAM("FastSAM-s.yaml")` prompt-filtered everything-segmentation, `NAS("yolo_nas.yaml")`
-a predict / val-only detector.
+a predict / val-only detector. `python -m sar_yolo_tpu_torch TASK MODE key=value` is the
+command line (`cfg/__init__.py`).
 """
 
 # registers the area attention as `torch.ops.sar_yolo_tpu_torch.flash_area_attention`, which
 # `torch.export.load` needs before it reads a .pt2 program of a model with A2C2f blocks
 from sar_yolo_tpu_torch.ops.cuda import flash_attention as _flash_attention  # noqa: F401,E402
+
+__version__ = "0.1.0"
 
 __all__ = ["YOLO", "RTDETR", "YOLOWorld", "SAM", "FastSAM", "NAS"]
 

@@ -19,10 +19,11 @@ DEFAULT_CFG = {
     "epochs": 100,
     "time": None,             # hours to train for: the epoch loop stops once over it
     "patience": 100,          # epochs without fitness improvement before stopping
-    "batch": 16,
+    "batch": 16,              # -1: the largest power of two that fits (`utils/autobatch.py`)
     "imgsz": 640,
     "save": True,             # weights/last every epoch, weights/best on improvement
     "save_period": -1,        # also weights/epoch{n} every N epochs (< 1: never)
+    "device": None,           # the command line's device ('cuda', 'cuda:1', 'cpu'); default cuda
     "workers": 8,             # host threads that build samples
     "project": None,          # runs are saved under project/task/name (default runs/)
     "name": None,             # default: the task
@@ -46,6 +47,7 @@ DEFAULT_CFG = {
     "max_det": 300,
     "save_txt": False,        # per-image label files of the detections
     "save_conf": False,       # with their confidences
+    "augment": False,         # test-time augmentation (3 scales and a flip; Detect heads only)
     "lr0": 0.01,
     "lrf": 0.01,
     "momentum": 0.937,        # SGD momentum / Adam beta1
@@ -107,7 +109,6 @@ DEFAULT_CFG = {
 # raise only when set to another value
 NOT_PORTED = {
     "plots": "plots",
-    "augment": "test-time augmentation",
     "keras": "TF keras export (jax2tf)",
     "optimize": "TFLite's mobile optimize (jax2tf)",
     "simplify": "export graph simplification",

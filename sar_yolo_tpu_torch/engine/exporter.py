@@ -42,8 +42,8 @@ EXPORT_FORMATS = ("pt2", "onnx")
 EXPORT_CONF = 0.25  # the embedded NMS's threshold (the JAX exporter's)
 # formats of the JAX package that the port does not write, and why
 NOT_EXPORTED = {
-    "stablehlo": (ValueError, "the port writes no StableHLO; its counterpart of the JAX "
-                              "package's `stablehlo` artifact is format='pt2' (torch.export)"),
+    "stablehlo": (ValueError, "use format='pt2' (torch.export): the port's counterpart of the "
+                              "JAX package's `stablehlo` artifact (it writes no StableHLO)"),
     "saved_model": (NotImplementedError, "the JAX package writes it through jax2tf, which "
                                          "the port has no counterpart of"),
     "tflite": (NotImplementedError, "the JAX package writes it through jax2tf, which the "

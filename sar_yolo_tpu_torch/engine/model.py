@@ -1,8 +1,9 @@
 """YOLO facade of the port: build from a config name or YAML path, seed or load weights (a
 checkpoint directory too), train, validate, fuse, save, serve batches, predict and track
 sources, summarize and profile, export (`engine/exporter.py`) and serve an exported artifact
-(`nn/autobackend.py`) (port of `sar_yolo_tpu/engine/model.py` without `embed`, `benchmark`
-and `tune`), for the detect, JDE, pose, segment, OBB and classify
+(`nn/autobackend.py`), pooled feature vectors (`embed`), a format table (`benchmark`,
+`utils/benchmarks.py`) and hyperparameter search (`tune`: `engine/tuner.py`, or ASHA in
+`utils/tuner.py`) (port of `sar_yolo_tpu/engine/model.py`), for the detect, JDE, pose, segment, OBB and classify
 tasks: each call takes the trainer, validator or predictor of `task_map[task]` (`TRAINERS`,
 their `validator_cls`, `PREDICTORS`; an RT-DETR model: `RTDETRTrainer`, `RTDETRValidator`,
 `RTDETRPredictor`). `Ensemble` merges the detections of several models."""
@@ -22,8 +23,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from sar_yolo_tpu_torch.cfg.default import DEFAULT_CFG, check_ported, get_cfg, get_save_dir
+from sar_yolo_tpu_torch.data.augment import letterbox
 from sar_yolo_tpu_torch.data.dataset import (ClassificationDataset, SyntheticDataset, YOLODataset,
                                              check_det_dataset)
+from sar_yolo_tpu_torch.data.loaders import load_inference_source
 from sar_yolo_tpu_torch.engine.exporter import Exporter
 from sar_yolo_tpu_torch.engine.predictor import PREDICTORS, RTDETRPredictor
 from sar_yolo_tpu_torch.engine.trainer import TRAINERS, RTDETRTrainer, train_rank
@@ -43,7 +46,7 @@ from sar_yolo_tpu_torch.utils.convert import from_jax_variables
 # the arguments the predictor reads, with the JAX package's defaults for predict
 PREDICT_DEFAULTS = {"imgsz": 640, "conf": 0.25, "iou": 0.7, "max_det": 300,
                     "agnostic_nms": False, "half": False, "int8": False, "save": False,
-                    "save_txt": False, "stream_buffer": False, "vid_stride": 1,
+                    "save_txt": False, "stream_buffer": False, "vid_stride": 1, "augment": False,
                     "save_dir": None, "project": None, "name": None, "exist_ok": False}
 
 
@@ -91,6 +94,11 @@ class YOLO:
         >>> m.save("ckpt"); m.fuse(); print(m.info(detailed=True)); m.profile(imgsz=64)
         >>> path = YOLO("yolov13n-JDE.yaml").export(format="pt2", nms=True, dynamic=True)
         >>> results = YOLO(path).predict("frames/")  # the artifact, on the device it was traced on
+        >>> results = YOLO("yolov13n.yaml").predict("frames/", augment=True)  # 3-pass TTA (Detect)
+        >>> vectors = m.embed("frames/", embed=[6, 8])  # (D,) pooled features an image
+        >>> rows = YOLO("yolov13n.yaml").benchmark(imgsz=640, formats=("pt2",))
+        >>> best_fitness, hyp = m.tune(data="synthetic", epochs=1, iterations=2)
+        >>> m.train(data="synthetic", batch=-1)  # the largest power of two that fits
     """
 
     def __init__(self, model: str = "yolov13n-JDE.yaml", task: str | None = None, device=None):
@@ -392,9 +400,32 @@ class YOLO:
         """Results of each image of `source`: an image file, a folder, a glob, a list of
         paths, a uint8 BGR array, a list of arrays, or a torch/numpy NCHW or NHWC tensor
         (float RGB in [0, 1], or uint8). `stream=True` returns a generator.
-        kwargs: those of `predict_batched`, and save_txt with save_dir or
-        project/name/exist_ok."""
+        kwargs: those of `predict_batched`, save_txt with save_dir or project/name/exist_ok,
+        and augment (test-time augmentation, `ops/tta.py`: a Detect head only; any other head
+        warns and serves one scale)."""
         return self._get_predictor(kwargs)(source, stream=stream)
+
+    def embed(self, source, embed=None, imgsz: int = 640, **kwargs) -> list:
+        """The mean over H and W of the listed layers' outputs (default: the second-to-last
+        layer; negative indices wrap), concatenated over the channels: a list of (D,) numpy
+        vectors, one an image of `source` (any source `predict` takes). Each frame is
+        letterboxed on the host to imgsz x imgsz (RGB, / 255) and runs through the served
+        (BN-folded) model on its device up to the last listed layer only. Other kwargs are
+        accepted and unread, as in the JAX package."""
+        self._needs_model("embed")
+        model = self._fused_for_serving()
+        n = len(model.specs)
+        idx = tuple(int(i) % n for i in (embed or [n - 2]))
+        dtype = getattr(model, "compute_dtype", torch.float32)
+        loader, _ = load_inference_source(source)
+        out = []
+        with torch.no_grad():
+            for _, img, _meta in loader:
+                lb = letterbox(img[..., ::-1], (imgsz, imgsz))[0]
+                x = torch.from_numpy(np.ascontiguousarray(lb)).to(self.device)
+                x = (x.permute(2, 0, 1)[None].float() / 255.0).to(dtype)
+                out.append(model(x, embed=idx)[0].float().cpu().numpy())
+        return out
 
     def __call__(self, source, **kwargs):
         return self.predict(source, **kwargs)
@@ -418,6 +449,26 @@ class YOLO:
             predictor._tracking_registered = True
         predictor._tracker, predictor._tracker_persist = tracker, persist
         return predictor(source, stream=stream)
+
+    def benchmark(self, **kwargs) -> list:
+        """Rows of the native model and of each export format's reloaded artifact: size, mAP50-95,
+        ms an image and FPS (`utils/benchmarks.py::benchmark`; formats 'pt2' and 'onnx')."""
+        from sar_yolo_tpu_torch.utils.benchmarks import benchmark
+        self._needs_model("benchmark")
+        return benchmark(self, **kwargs)
+
+    def tune(self, iterations: int = 10, use_ray: bool = False, **kwargs):
+        """Hyperparameter search over `iterations` trainings with this model's config, task and
+        device and the train kwargs: mutation evolution (`engine/tuner.py`, runs/tune/
+        tune_results.csv; returns (best fitness, its hyperparameters)), or with
+        `use_ray=True` the built-in ASHA (`utils/tuner.py`; returns rows best first)."""
+        self._needs_model("tune")
+        if use_ray:
+            from sar_yolo_tpu_torch.utils.tuner import run_ray_tune
+            return run_ray_tune(self, max_samples=iterations, **kwargs)
+        from sar_yolo_tpu_torch.engine.tuner import Tuner
+        overrides = {**self.overrides, "model": self.cfg, **kwargs}
+        return Tuner(overrides, device=self.device)(iterations=iterations)
 
     def add_callback(self, event: str, func) -> None:
         """Register a callback for every trainer (`on_train_*`, `on_fit_epoch_end`, ...) and

@@ -21,7 +21,10 @@ float32, class scores sigmoided in bf16, the rows promoted to float32).
 Two routes share that tail (`_dets_in_orig_coords`): `predict_batch` serves a uniform
 (B, H, W, 3) batch (split over a mesh of devices, each share on a replica of the model,
 with `devices`), and `__call__` / `stream_inference` stream a source (files, folders,
-globs, arrays, tensors) frame by frame with the callback bus that the trackers use.
+globs, arrays, tensors) frame by frame with the callback bus that the trackers use. With
+`augment` the frame-by-frame route of a Detect head serves test-time augmentation
+(`serve_augmented`); `predict_batch` never reads the key, as the JAX package's batched
+route does not.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from sar_yolo_tpu_torch.ops.masks import process_mask
 from sar_yolo_tpu_torch.ops.nms import (non_max_suppression, non_max_suppression_rotated,
                                         postprocess_end2end)
 from sar_yolo_tpu_torch.ops.preprocess import letterbox_device
+from sar_yolo_tpu_torch.ops.tta import forward_tta
+from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 
 
@@ -90,9 +95,28 @@ class BasePredictor(HasCallbacks):
     def _dets_in_orig_coords(self, x, r: float, pad):
         """Normalized letterboxed NCHW batch -> forward, decode, NMS -> boxes in original
         pixels."""
-        dets = self.decode_nms(self.model(x))
-        pad4 = torch.tensor([*pad, *pad], dtype=dets.dtype, device=dets.device)
-        return torch.cat([(dets[..., :4] - pad4) / r, dets[..., 4:]], -1)
+        return _unletterbox(self.decode_nms(self.model(x)), r, pad)
+
+    def uses_tta(self) -> bool:
+        """Whether `augment` applies: to a Detect head only; any other head warns and serves
+        one scale, as the JAX predictor does."""
+        if not getattr(self.args, "augment", False):
+            return False
+        if self.meta.get("head") != "Detect":
+            LOGGER.warning("augment=True is Detect-only; reverting to single-scale prediction")
+            return False
+        return True
+
+    def serve_augmented(self, x, r: float, pad):
+        """Test-time augmentation of a letterboxed batch (`ops/tta.py::forward_tta`: three
+        passes resized in float32), then single-label NMS: (B, max_det, 6) rows in original
+        pixels."""
+        args, meta = self.args, self.meta
+        preds = forward_tta(self.model, x.float(), meta["strides"], meta["nc"], meta["reg_max"])
+        dets = non_max_suppression(preds, conf_thres=args.conf if args.conf is not None else 0.25,
+                                   iou_thres=args.iou, max_det=args.max_det, nc=meta["nc"],
+                                   agnostic=args.agnostic_nms)
+        return _unletterbox(dets, r, pad)
 
     def serve(self, x, r: float, pad):
         """The task's outputs of a letterboxed batch, on the device (the rows here)."""
@@ -171,6 +195,7 @@ class BasePredictor(HasCallbacks):
         postprocess (Results and the on_predict_postprocess_end callbacks)."""
         loader, self.source_types = load_inference_source(
             source, buffer=bool(getattr(self.args, "stream_buffer", False)))
+        serve = self.serve_augmented if self.uses_tta() else self.serve
         save_dir = None
         if getattr(self.args, "save_txt", False):
             save_dir = Path(self.args.save_dir or get_save_dir(self.args, self.meta["task"]))
@@ -183,7 +208,7 @@ class BasePredictor(HasCallbacks):
                 x, r, pad = self.preprocess(img[None])
                 self._sync()
                 t1 = time.perf_counter()
-                dets = _numpy(self.serve(x, r, pad))
+                dets = _numpy(serve(x, r, pad))
                 t2 = time.perf_counter()
                 speed = {"preprocess": (t1 - t0) * 1e3, "inference": (t2 - t1) * 1e3}
                 res = self.postprocess(dets, path, img, speed)
@@ -198,6 +223,12 @@ class BasePredictor(HasCallbacks):
                 yield res
         finally:
             self.run_callbacks("on_predict_end")
+
+
+def _unletterbox(dets, r: float, pad):
+    """Rows' boxes from letterboxed to original pixels."""
+    pad4 = torch.tensor([*pad, *pad], dtype=dets.dtype, device=dets.device)
+    return torch.cat([(dets[..., :4] - pad4) / r, dets[..., 4:]], -1)
 
 
 def _numpy(out):

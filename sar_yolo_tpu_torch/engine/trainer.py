@@ -407,6 +407,9 @@ class BaseTrainer(HasCallbacks):
         self.eval_model = None  # validate's copy, made at the first validation
         self.generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)  # dropout
         set_generator(self.model, self.generator)
+        self.cb_counts = torch.zeros(self.meta.get("state_classes") or 1, device=self.device)
+        if args.batch == -1:
+            args.batch = self._autobatch()
         self.train_loader = DataLoader(self.train_set, args.batch, workers=args.workers,
                                        seed=args.seed, rank=self.rank, world=self.world)
         if dist.is_initialized() and args.mesh_shape:
@@ -416,7 +419,6 @@ class BaseTrainer(HasCallbacks):
         self.optimizer = Optimizer(args, self.nb, nc, self.model)
         self.accumulate = self.optimizer.accumulate
         self.ema = [p.detach().clone() for p in self.model.parameters()]
-        self.cb_counts = torch.zeros(self.meta.get("state_classes") or 1, device=self.device)
         self.step = 0  # micro-steps so far
         self.epoch = 0
         self.device_augment = bool(getattr(self.train_set, "device_augment", False))
@@ -433,6 +435,44 @@ class BaseTrainer(HasCallbacks):
         if args.resume:
             self._resume()
         self.run_callbacks("on_pretrain_routine_end")
+
+    def _autobatch(self) -> int:
+        """batch=-1 (`utils/autobatch.py`): on CUDA, the bytes of a forward, loss and backward
+        of the model on the first train samples at the probe batches (the model's state and
+        the dropout and denoising streams put back after), the EMA and two optimizer
+        moments beside them."""
+        from sar_yolo_tpu_torch.utils.autobatch import PROBE_BATCHES, check_train_batch_size
+        if self.device.type != "cuda":
+            return check_train_batch_size(device=self.device)
+        first = next(iter(DataLoader(self.train_set, max(PROBE_BATCHES), workers=self.args.workers,
+                                     shuffle=False, drop_last=False)))
+        state = copy.deepcopy(self.model.state_dict())
+        gens = [g for g in (self.generator, getattr(self, "dn_generator", None)) if g is not None]
+        rngs = [g.get_state() for g in gens]
+
+        def step_peak(b: int) -> int:
+            part = {k: v[:b] for k, v in first.items() if isinstance(v, (np.ndarray, list))}
+            batch = {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in part.items()
+                     if isinstance(v, np.ndarray)}
+            batch["img"] = (batch["img"].permute(0, 3, 1, 2).float() / 255.0).to(
+                self.model.compute_dtype)
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+            total = self.loss(*self.gather_global(self.forward(batch), batch))[0]
+            total.backward()
+            peak = torch.cuda.max_memory_allocated(self.device) - base
+            self.model.zero_grad(set_to_none=True)
+            return peak
+
+        try:
+            fixed = 3 * sum(p.numel() * p.element_size() for p in self.model.parameters())
+            return check_train_batch_size(step_peak, self.device, fixed=fixed)
+        finally:
+            self.model.load_state_dict(state)
+            for g, rng in zip(gens, rngs):
+                g.set_state(rng)
+            torch.cuda.empty_cache()
 
     def aug_params(self, batch: dict, i: int):
         """The device augmentation's draws for batch i of this epoch, from a generator keyed

@@ -25,8 +25,11 @@ CPU model runs its N shares on the CPU), each share through a replica of the mod
 device, the rows put back together in order; with fewer devices than N, or a batch that
 does not split, it warns and runs on one device, as the JAX validator does.
 
-Not ported yet, each refused where asked for: test-time augmentation and plots
-(`cfg/default.py` NOT_PORTED).
+With `augment` a Detect head is validated with test-time augmentation (`ops/tta.py`): the
+three passes' decoded predictions go straight to single-label NMS at conf (0.001), as the
+JAX validator does; any other head warns and validates one scale.
+
+Not ported yet, refused where asked for: plots (`cfg/default.py` NOT_PORTED).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from sar_yolo_tpu_torch.ops.decode import decode_detect, decode_obb
 from sar_yolo_tpu_torch.ops.masks import process_mask
 from sar_yolo_tpu_torch.ops.nms import (non_max_suppression, non_max_suppression_rotated,
                                         postprocess_end2end)
+from sar_yolo_tpu_torch.ops.tta import forward_tta
 from sar_yolo_tpu_torch.parallel.mesh import mesh_devices_count, model_mesh
 from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.loss import OKS_SIGMA
@@ -104,6 +108,10 @@ class BaseValidator:
         workers, conf, iou, max_det, save_json, save_txt, save_conf, verbose, save_dir."""
         self.args, self.meta, self.data = args, meta, data or {}
         self.conf = args.conf if args.conf is not None else 0.001
+        self.use_tta = bool(getattr(args, "augment", False))
+        if self.use_tta and meta.get("head") != "Detect":
+            LOGGER.warning("augment=True is Detect-only; reverting to single-scale eval")
+            self.use_tta = False
         device = next(model.parameters()).device
         bs = min(args.batch, len(dataset))
         mesh = mesh_replicas(model, args, bs, device)
@@ -168,7 +176,12 @@ class BaseValidator:
     @torch.no_grad()
     def predict(self, model, x: torch.Tensor):
         """Eval forward, then decode and NMS: (B, max_det, 6 + E + S) on the device; a segment
-        model's (rows, prototypes)."""
+        model's (rows, prototypes); with `use_tta` the three passes' rows (B, max_det, 6)."""
+        if self.use_tta:
+            meta, args = self.meta, self.args
+            preds = forward_tta(model, x, meta["strides"], meta["nc"], meta["reg_max"])
+            return non_max_suppression(preds, conf_thres=self.conf, iou_thres=args.iou,
+                                       max_det=args.max_det, nc=meta["nc"])
         out = model(x)
         if isinstance(out, tuple):
             return self.postprocess(out[0]), out[1]

@@ -345,10 +345,15 @@ class GraphModel(nn.Module):
             embed = heads[0].args[1] if heads and len(heads[0].args) > 1 else 512
             self.text_embeddings = nn.Parameter(torch.zeros(specs[-1].args[0], embed))
 
-    def forward(self, x, batch_gt: dict | None = None, cdn_draws: dict | None = None):
+    def forward(self, x, batch_gt: dict | None = None, cdn_draws: dict | None = None,
+                embed: tuple = ()):
         """The head's output; an RT-DETR head in train mode takes `batch_gt` and `cdn_draws`
-        (`nn/modules/transformer.py::draw_cdn`) for its denoising queries."""
+        (`nn/modules/transformer.py::draw_cdn`) for its denoising queries. `embed` (layer
+        indices): the mean over H and W of each listed layer's output, concatenated over
+        the channels, (B, sum of C), returned after layer max(embed) without running the
+        layers after it."""
         saved = {}
+        embeds: list = []
         out = x
         last = self.specs[-1]
         txt = txt0 = getattr(self, "text_embeddings", None)
@@ -376,6 +381,10 @@ class GraphModel(nn.Module):
                 out = run(inp)
             if spec.i in self.save:
                 saved[spec.i] = out
+            if embed and spec.i in embed:
+                embeds.append(out.mean((2, 3)))
+                if spec.i == max(embed):
+                    return torch.cat(embeds, -1)
         return out
 
 

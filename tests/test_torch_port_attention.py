@@ -214,6 +214,18 @@ def test_launch_geometry_on_path(shape, grid, splits, dtype, itemsize):
     ((1, 32, 5, 5, 1, 1), "tokens", torch.float32, 4),       # Na = 25: channel stride 100 bytes
     ((2, 64, 40, 40, 2, 4), "channels", torch.float32, 0),   # channel-contiguous
     ((2, 64, 40, 40, 2, 4), "channels", torch.bfloat16, 0),
+    # test-time augmentation at 640: the 0.83 pass at 544 (Na = 289: 1156-byte f32 chunks,
+    # 578-byte bf16 ones) and the 0.67 pass at 448 (Na = 196), P4 and P5, batch 1 and 16
+    ((1, 64, 34, 34, 2, 4), "tokens", torch.float32, 4),
+    ((1, 64, 34, 34, 2, 4), "tokens", torch.bfloat16, 0),
+    ((1, 128, 17, 17, 4, 1), "tokens", torch.float32, 4),
+    ((1, 128, 17, 17, 4, 1), "tokens", torch.bfloat16, 0),
+    ((16, 64, 34, 34, 2, 4), "tokens", torch.float32, 4),
+    ((1, 64, 28, 28, 2, 4), "tokens", torch.float32, 16),
+    ((1, 64, 28, 28, 2, 4), "tokens", torch.bfloat16, 8),
+    ((1, 128, 14, 14, 4, 1), "tokens", torch.float32, 16),
+    ((1, 128, 14, 14, 4, 1), "tokens", torch.bfloat16, 8),
+    ((16, 128, 14, 14, 4, 1), "tokens", torch.bfloat16, 8),
 ], ids=str)
 def test_launch_geometry_staging_width(shape, layout, dtype, stage_bytes):
     geo = _token_view_geometry(*shape, dtype, layout=layout)

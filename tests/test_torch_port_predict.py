@@ -185,8 +185,6 @@ def test_unported_options_and_sources_raise(tiny, frames_dir, tmp_path):
     _, pyolo = tiny
     with pytest.raises(NotImplementedError, match="save=True"):
         pyolo.predict(str(frames_dir), imgsz=64, save=True)
-    with pytest.raises(NotImplementedError, match="test-time augmentation"):
-        pyolo.predict(str(frames_dir), imgsz=64, augment=True)
     with pytest.raises(TypeError, match="unsupported predict arguments"):
         pyolo.predict(str(frames_dir), imgsz=64, visualize=True)
     (tmp_path / "clip.mp4").write_bytes(b"\0" * 16)

@@ -152,7 +152,12 @@ def test_port_imports_no_jax():
     assert {"sar_yolo_tpu_torch/data/loaders.py", "sar_yolo_tpu_torch/engine/predictor.py",
             "sar_yolo_tpu_torch/trackers/byte_tracker.py", "sar_yolo_tpu_torch/trackers/bot_sort.py",
             "sar_yolo_tpu_torch/trackers/matching.py", "sar_yolo_tpu_torch/utils/callbacks.py",
-            "sar_yolo_tpu_torch/ops/slicing.py", "sar_yolo_tpu_torch/cfg/models.py"} <= names
+            "sar_yolo_tpu_torch/ops/slicing.py", "sar_yolo_tpu_torch/cfg/models.py",
+            "sar_yolo_tpu_torch/__main__.py", "sar_yolo_tpu_torch/cfg/__init__.py",
+            "sar_yolo_tpu_torch/utils/settings.py", "sar_yolo_tpu_torch/ops/tta.py",
+            "sar_yolo_tpu_torch/utils/benchmarks.py", "sar_yolo_tpu_torch/utils/mfu.py",
+            "sar_yolo_tpu_torch/engine/tuner.py", "sar_yolo_tpu_torch/utils/tuner.py",
+            "sar_yolo_tpu_torch/utils/autobatch.py"} <= names
     assert len(files) > 30
     assert not found
 
