@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off
      for convolutions and matmuls so the float32 comparisons mean something; the
-     C compiler that builds the PNG row filters and the JPEG decoder.
+     C compiler that builds the PNG row filters, the JPEG decoder and encoder and the
+     mask contours.
   2. build: nvcc builds every kernel source of the checkout side by side (the
      area attention, and phase 20's int8 convolution and quantization); the area
      attention's ptxas registers and spills are printed (a spill fails), and
@@ -354,7 +355,24 @@ Phases, in order; any failure exits non-zero:
      trials of one epoch at batch 16 (float32): two finite rows in tune_results.csv, 80
      launches. batch=-1: the batch the trainer picks for yolov13n-JDE in float32, one train
      step at it, its peak memory within 0.8 of the card's.
- 26. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+ 26. annotated output of yolov13n-JDE @640 (seeded perturbed weights, phase 10's threshold):
+     `YOLO.predict(save=True)` of the 12 JPEG frames (96 launches), every written file the
+     JPEG (`encode_jpeg`, libjpeg-turbo's bytes) of its Results' `plot()`; `save_crop` of one
+     frame, each crop the JPEG of the frame's pixels; `YOLO.track(save=True)` of flight.avi
+     with ByteTrack (192 launches), the written AVI read back by `AviReader` (24 frames, 25
+     fps, 720x1280), each frame the JPEG of its `plot()`; both paths again with
+     `use_flash=False`: the same track ids, rows within phase 10's bound, the plotted frames
+     equal wherever plot() reads the two paths' rows alike (every box coordinate truncating
+     to the same integer, the same labels), and in the frames excluded by that rule (counted
+     and printed) different only inside the regions of the rows read differently (box, line
+     width, label extent);
+     `YOLO.predict(half=True, save=True)` (96 bf16 launches); `Masks.xy` of a yolov8n-seg frame
+     (each contour the largest of its mask, its points on the mask's border); `auto_annotate`
+     of 4 frames with this detector (32 launches) and sam_b at 1024 (seeded, the
+     hypernetworks scaled as phase 22 scales them): a polygon file a frame, coordinates in
+     [0, 1] with 6 decimals. Prints frames/s with save on and off, the plot and encode ms of
+     a 720x1280 frame, the AVI's bytes and auto_annotate's s a frame.
+ 27. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
      the amp train step's forward, phases 16-19's, 22's and 23's paths at 0, its launches and device
      ms in phase 21's .pt2 program, its times at the TTA shapes; the int8 convolution and the
      int8 quantization: one int8 forward of yolov13n-JDE at 640, batch 8), the card line, and
@@ -4468,6 +4486,39 @@ def _int8_shape_rows(calls: list, label: str) -> list:
     return rows
 
 
+PROFILE_TRIES = 3  # traces taken of one call before a trace that lost records fails
+
+
+def _complete_trace(fn, names: tuple, launched) -> tuple:
+    """(torch.profiler's `key_averages()` (CPU and CUDA activities) over fn(), the counts of
+    each trace taken): the trace is taken again, up to PROFILE_TRIES times, while it shows
+    that it lost device records, that is fewer kernels named by `names` on the device than
+    the port's wrappers counted (`launched()`, read before and after). CUPTI can drop
+    activity records: one run of phase 20 saw 91 of a forward's 103 launches of each int8
+    kernel (12 of each missing, spread over every conv tiling) while its wrappers counted
+    103. A drop only lowers the counts, so a complete trace is one that shows every counted
+    launch. Fails if none is. (The runtime's launch calls are no measure of completeness: the
+    `.pt2` program's traces hold 9 more `cudaLaunch*` calls than kernels, in every take.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        n0 = launched()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        seen.append({"named": sum(ev.count for ev in events if ev.device_type == DeviceType.CUDA
+                                  and any(n in ev.key for n in names)),
+                     "counted": launched() - n0})
+        if seen[-1]["named"] >= seen[-1]["counted"]:
+            return events, seen
+    check(False, f"every one of {PROFILE_TRIES} profiler traces lost device records (kernels "
+          f"named {names} against the wrappers' count): {seen}")
+
+
 def _int8_device_launches(model, x) -> dict:
     """Device launches (torch.profiler's CUDA events: kernels, copies, memsets) of one forward
     of `model` on x, and of its quantized convolutions alone, each run on the input it
@@ -4476,9 +4527,9 @@ def _int8_device_launches(model, x) -> dict:
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from sar_yolo_tpu_torch.nn.modules.conv import Int8Conv2d
+    from sar_yolo_tpu_torch.ops.cuda import int8_conv as ic
     seen = []
     hooks = [m.register_forward_pre_hook(lambda m, a: seen.append((m, a[0])))
              for m in model.modules() if isinstance(m, Int8Conv2d)]
@@ -4488,20 +4539,19 @@ def _int8_device_launches(model, x) -> dict:
         h.remove()
 
     def device_events(fn) -> collections.Counter:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with torch.no_grad():
-                fn()
-            torch.cuda.synchronize()
-        return collections.Counter({ev.key: ev.count for ev in prof.key_averages()
-                                    if ev.device_type == DeviceType.CUDA})
-    forward = device_events(lambda: model(x))
-    convs = device_events(lambda: [m(xi) for m, xi in seen])
+        with torch.no_grad():
+            events, traces = _complete_trace(fn, ("int8_quantize", "int8_conv"), lambda: (
+                ic.int8_conv.launches + ic.int8_quantize.launches))
+        return collections.Counter({ev.key: ev.count for ev in events
+                                    if ev.device_type == DeviceType.CUDA}), traces
+    forward, forward_traces = device_events(lambda: model(x))
+    convs, conv_traces = device_events(lambda: [m(xi) for m, xi in seen])
     check(sum(convs.values()) > 0, "the profiler saw no device event in the quantized convs")
     return {"forward": sum(forward.values()), "quantized_convs": len(seen),
             "in_quantized_convs": sum(convs.values()),
             "per_quantized_conv": sum(convs.values()) / len(seen),
-            "by_kernel": {k[:60]: v for k, v in convs.most_common()}}
+            "by_kernel": {k[:60]: v for k, v in convs.most_common()},
+            "profiler_traces": {"forward": forward_traces, "quantized_convs": conv_traces}}
 
 
 def _maps_distance(a, b) -> float:
@@ -4954,21 +5004,20 @@ def _program_ops(backend) -> dict:
 def _profiled(fn, n: int = 5) -> dict:
     """torch.profiler over n calls of fn: the area-attention kernel's launches and device ms,
     and the count of each CPU op, a call."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernel = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention
+    events, traces = _complete_trace(lambda: [fn() for _ in range(n)],
+                                     ("flash_area_attention_kernel",),
+                                     lambda: flash_area_attention.launches)
+    kernel = [ev for ev in events if ev.device_type == DeviceType.CUDA
               and "flash_area_attention_kernel" in ev.key]
-    cpu = {ev.key: ev.count / n for ev in prof.key_averages() if ev.device_type == DeviceType.CPU}
+    cpu = {ev.key: ev.count / n for ev in events if ev.device_type == DeviceType.CPU}
     return {"kernel_launches": sum(ev.count for ev in kernel) / n,
             "kernel_ms": sum(getattr(ev, "device_time_total", 0.0) for ev in kernel) / n / 1e3,
             "einsum": cpu.get("aten::einsum", 0.0),
-            "flash_area_attention_op": cpu.get("sar_yolo_tpu_torch::flash_area_attention", 0.0)}
+            "flash_area_attention_op": cpu.get("sar_yolo_tpu_torch::flash_area_attention", 0.0),
+            "profiler_traces": traces}
 
 
 def _rates_in_turns(fns: dict, rounds: int = 2, n: int = 5) -> dict:
@@ -5296,7 +5345,6 @@ def _sam_serve(name: str, imgsz: int, frame: np.ndarray, persons: list, card: st
     import torch
 
     from sar_yolo_tpu_torch import SAM
-    from sar_yolo_tpu_torch.models.sam.amg import build_point_grid
     from sar_yolo_tpu_torch.models.sam.predict import SAMPredictor
     t0 = time.perf_counter()
     sam = SAM(name, imgsz=imgsz)
@@ -5314,19 +5362,7 @@ def _sam_serve(name: str, imgsz: int, frame: np.ndarray, persons: list, card: st
     if hasattr(enc, "depth"):  # the ViT: a global block's float32 logits, (1, heads, N, N)
         n_tok = (imgsz // 16) ** 2
         out["global_logits_mib"] = enc.block_0.attn.num_heads * n_tok ** 2 * 4 / 2 ** 20
-    # random weights give mask logits of ~0.1: the hypernetworks' last layers are scaled so
-    # that the first grid chunk's largest |logit| is SAM_MASK_LOGIT (a trained SAM's scale),
-    # so the masks, their stability and their boxes have structure
-    h, w, nh, nw = p32._im_meta
-    pts = build_point_grid(SAM_GRID[0])[:SAM_GRID[1], None] * np.float32([nw, nh])
-    low, _ = p32.decode(pts, np.ones((len(pts), 1), np.float32))
-    gain = SAM_MASK_LOGIT / low.abs().max().item()
-    with torch.no_grad():
-        for i in range(sam.model.mask_decoder.n_tokens):
-            layer = getattr(sam.model.mask_decoder, f"hyper_mlp_{i}").l2
-            layer.weight.mul_(gain)
-            layer.bias.mul_(gain)
-    out["mask_gain"] = gain
+    out["mask_gain"] = _sam_mask_gain(sam)
     m64 = copy.deepcopy(sam.model).double()
     p64 = SAMPredictor(m64, imgsz=imgsz)
     p64.set_image(frame)
@@ -6325,6 +6361,316 @@ def phase_modes(card: str, seed: int = 2) -> tuple:
     return paths, bf16_paths
 
 
+ANNOTATE_FRAMES = 4          # auto_annotate's JPEG frames (sam_b at 1024)
+SEG_ROWS = 20                # yolov8n-seg's rows of the Masks.xy frame
+
+
+def _row_labels(res) -> list:
+    """The label plot() writes for each box of `res`."""
+    ids, out = res.boxes.id, []
+    for i, row in enumerate(res.boxes.data):
+        label = f"{res.names.get(int(row[5]), int(row[5]))} {row[4]:.2f}"
+        if ids is not None:
+            label = f"id:{int(ids[i])} " + label
+        if res.person_states is not None:
+            label += f" s{int(res.person_states[i])}"
+        out.append(label)
+    return out
+
+
+def _row_region(row, label: str, lw: int, shape) -> tuple:
+    """(y0, y1, x0, x1) that plot() can touch for one box: the rectangle grown by the line
+    width and the label's Hershey extent at its origin (scale 0.5, thickness lw - 1)."""
+    from sar_yolo_tpu_torch.data.hershey import BASE_LINE, CAP_LINE, GLYPHS
+    x1, y1, x2, y2 = (int(v) for v in row[:4])
+    ox, oy = x1, max(y1 - 3, 10)
+    width = sum(ord(GLYPHS.get(ch, GLYPHS["?"])[1]) - ord(GLYPHS.get(ch, GLYPHS["?"])[0])
+                for ch in label) * 0.5
+    pad = lw + 2
+    y0 = min(y1, y2, oy - int(CAP_LINE * 0.5)) - pad
+    yb = max(y1, y2, oy + int(BASE_LINE * 0.5) + 1) + pad
+    x0 = min(x1, x2, ox) - pad
+    xb = max(x1, x2, ox + int(width) + 1) + pad
+    return max(y0, 0), min(yb + 1, shape[0]), max(x0, 0), min(xb + 1, shape[1])
+
+
+def _plot_rule(got: list, want: list, box_tol: float, label: str) -> dict:
+    """Kernel path's plotted frames against the plain path's. A frame whose rows plot()
+    reads alike in both paths (every box coordinate truncating to the same integer, the same
+    class, track id and label) must be equal; in the others the frames may differ only
+    inside the regions (box, line width, label extent) of the rows read differently. Returns
+    the counts and the largest row difference."""
+    exact, local, box_err = 0, 0, 0.0
+    apart_by = {"coordinates": 0, "labels": 0}  # rows read differently, by what differs
+    for i, (g, w) in enumerate(zip(got, want)):
+        gb, wb = g.boxes.data, w.boxes.data
+        check(gb.shape == wb.shape, f"{label} frame {i}: rows {gb.shape} vs {wb.shape}")
+        if len(gb):
+            box_err = max(box_err, float(np.abs(gb[:, :4] - wb[:, :4]).max()))
+        gl, wl = _row_labels(g), _row_labels(w)
+        coords = [not np.array_equal(gb[k, :4].astype(int), wb[k, :4].astype(int))
+                  or not np.array_equal(gb[k, 5:], wb[k, 5:]) for k in range(len(gb))]
+        apart = [k for k in range(len(gb)) if coords[k] or gl[k] != wl[k]]
+        apart_by["coordinates"] += sum(coords)
+        apart_by["labels"] += sum(gl[k] != wl[k] for k in range(len(gb)))
+        gp, wp = g.plot(), w.plot()
+        if not apart:
+            check(np.array_equal(gp, wp), f"{label} frame {i}: the kernel path's plotted frame "
+                  "differs from the plain path's")
+            exact += 1
+            continue
+        lw = max(2, round(min(g.orig_shape) / 320))
+        allowed = np.zeros(g.orig_shape, bool)
+        for k in apart:
+            for rows, labels in ((gb, gl), (wb, wl)):
+                y0, y1, x0, x1 = _row_region(rows[k], labels[k], lw, g.orig_shape)
+                allowed[y0:y1, x0:x1] = True
+        diff = (gp != wp).any(-1)
+        check(not (diff & ~allowed).any(), f"{label} frame {i}: {int((diff & ~allowed).sum())} "
+              "pixels differ outside the rows the two paths read differently")
+        local += 1
+    check(box_err <= box_tol, f"{label}: rows {box_err} px from the plain path's (bound "
+          f"{box_tol})")
+    return {"frames_equal": exact, "frames_excluded": local, "rows_read_differently": apart_by,
+            "box_err_px": box_err}
+
+
+def _sam_mask_gain(sam) -> float:
+    """Random weights give mask logits of ~0.1: the hypernetworks' last layers are scaled so
+    that the first grid chunk's largest |logit| on the image set in `sam.predictor` is
+    SAM_MASK_LOGIT (a trained SAM's scale), so the masks, their stability and their boxes
+    have structure. Returns the gain."""
+    import torch
+
+    from sar_yolo_tpu_torch.models.sam.amg import build_point_grid
+    p32 = sam.predictor
+    h, w, nh, nw = p32._im_meta
+    pts = build_point_grid(SAM_GRID[0])[:SAM_GRID[1], None] * np.float32([nw, nh])
+    low, _ = p32.decode(pts, np.ones((len(pts), 1), np.float32))
+    gain = SAM_MASK_LOGIT / low.abs().max().item()
+    with torch.no_grad():
+        for i in range(sam.model.mask_decoder.n_tokens):
+            layer = getattr(sam.model.mask_decoder, f"hyper_mlp_{i}").l2
+            layer.weight.mul_(gain)
+            layer.bias.mul_(gain)
+    return gain
+
+
+def _check_contours(masks, xy, label: str) -> int:
+    """Each Masks.xy contour: the largest outer contour of its mask by area, its points on
+    the mask's border (inside it, a 4-neighbour outside it or the frame's edge). Returns the
+    points checked."""
+    from sar_yolo_tpu_torch.data.cv import contour_area, find_contours_external
+    points = 0
+    for k, (m, c) in enumerate(zip(masks, xy)):
+        m = np.asarray(m, bool)
+        check(c.dtype == np.float32 and c.ndim == 2 and c.shape[1] == 2,
+              f"{label} mask {k}: contour {c.dtype} {c.shape}")
+        if not m.any():
+            check(len(c) == 0, f"{label} mask {k}: empty mask, {len(c)} contour points")
+            continue
+        pts = c.astype(int)
+        check(len(pts) > 0 and np.array_equal(pts, c), f"{label} mask {k}: no contour")
+        pad = np.pad(m, 1)
+        x, y = pts[:, 0] + 1, pts[:, 1] + 1
+        inside = pad[y, x]
+        border = ~(pad[y - 1, x] & pad[y + 1, x] & pad[y, x - 1] & pad[y, x + 1])
+        check(bool(inside.all() and border.all()), f"{label} mask {k}: contour points off the "
+              "mask's border")
+        areas = [contour_area(cc) for cc in find_contours_external(m.astype(np.uint8))]
+        check(contour_area(c) == max(areas), f"{label} mask {k}: not the largest contour")
+        points += len(pts)
+    return points
+
+
+def phase_annotate(card: str, seed: int = 2) -> tuple:
+    """Phase 26: annotated output (see the module docstring). Returns the kernel launches by
+    path, float32 and bfloat16."""
+    import torch
+
+    from sar_yolo_tpu_torch import SAM
+    from sar_yolo_tpu_torch.data.annotator import auto_annotate
+    from sar_yolo_tpu_torch.data.avi import AviReader
+    from sar_yolo_tpu_torch.data.imageio import decode_mjpeg_frame, encode_jpeg, imread
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    from sar_yolo_tpu_torch.ops.decode import decode_detect
+    from sar_yolo_tpu_torch.trackers.byte_tracker import STrack
+    t_phase = time.perf_counter()
+    frames_dir, avi = JPEG_DIR / "frames", VIDEO_DIR / "flight.avi"
+    files = sorted(frames_dir.glob("*.jpg"))
+    yolo = _perturbed_yolo("yolov13n-JDE.yaml", seed, TRAIN_IMGSZ)
+    plain = copy.deepcopy(yolo)
+    _set_flash(plain, False)
+    meta = yolo.meta
+    # phase 10's threshold: under max_det candidates a frame, in a gap of the scores
+    predictor = yolo._get_predictor({"imgsz": TRAIN_IMGSZ})
+    with torch.no_grad():
+        scores = torch.cat([decode_detect(predictor.model(predictor.preprocess(imread(f)[None])[0]),
+                                          meta["strides"], meta["nc"], meta["reg_max"],
+                                          extra_sigmoid=meta["state_classes"],
+                                          split_extras=meta["embed_dim"])[0]
+                            [..., 4:4 + meta["nc"]].flatten(1) for f in files])
+    conf, margin = _ab_conf(scores.double().cpu().numpy(), 300, margin=1e-4)
+    root = Path("runs") / "chip_smoke_annotate"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    kw = dict(imgsz=TRAIN_IMGSZ, conf=conf, project=str(root), exist_ok=True)
+    box_tol = 32e-3 / (TRAIN_IMGSZ / 1280)  # phase 10's bound in the frames' pixels
+    paths, paths_bf16, out = {}, {}, {"conf": conf, "box_tol_px": box_tol}
+
+    # YOLO.predict(save=True) of the JPEG frames: every file is the JPEG of its plot()
+    # warm-up, with save: the host encoder is built here, not in the timed run
+    yolo.predict(str(frames_dir), save=True, name="warmup", **kw)
+    t0 = time.perf_counter()
+    yolo.predict(str(frames_dir), imgsz=TRAIN_IMGSZ, conf=conf)
+    out["frames_per_s_save_off"] = JPEG_FRAMES / (time.perf_counter() - t0)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = yolo.predict(str(frames_dir), save=True, name="predict", **kw)
+    out["frames_per_s_save_on"] = JPEG_FRAMES / (time.perf_counter() - t0)
+    launches = flash_area_attention.launches
+    check(launches == JPEG_FRAMES * LAUNCHES_PER_FORWARD,
+          f"YOLO.predict(save=True): {launches} kernel launches")
+    paths[f"YOLO.predict save=True {JPEG_FRAMES} JPEG frames 720x1280 @{TRAIN_IMGSZ}"] = launches
+    plot_ms, encode_ms = [], []
+    for r in got:
+        t0 = time.perf_counter()
+        img = r.plot()
+        t1 = time.perf_counter()
+        data = encode_jpeg(img)
+        plot_ms.append((t1 - t0) * 1e3)
+        encode_ms.append((time.perf_counter() - t1) * 1e3)
+        written = (root / "jde" / "predict" / Path(r.path).name).read_bytes()
+        check(written == data, f"YOLO.predict(save=True) {Path(r.path).name}: the file is not "
+              "the JPEG of plot()")
+    out.update(plot_ms_median=statistics.median(plot_ms), encode_ms_median=statistics.median(
+        encode_ms), rows_per_frame=[len(r) for r in got])
+    want = plain.predict(str(frames_dir), save=True, name="predict_plain", **kw)
+    out["predict_vs_plain"] = _plot_rule(got, want, box_tol, "YOLO.predict(save=True)")
+    for r in want:
+        name = Path(r.path).name
+        check((root / "jde" / "predict_plain" / name).read_bytes() == encode_jpeg(r.plot()),
+              f"YOLO.predict(save=True) plain {name}: the file is not the JPEG of plot()")
+
+    # save_crop of one frame
+    r = got[0]
+    r.save_crop(root / "crops")
+    h, w = r.orig_shape
+    crops = 0
+    for i, row in enumerate(r.boxes.data):
+        x1, y1, x2, y2 = (int(np.clip(v, 0, lim)) for v, lim in zip(row[:4], (w, h, w, h)))
+        f = root / "crops" / str(r.names.get(int(row[5]), int(row[5]))) / f"{Path(r.path).stem}_{i}.jpg"
+        if x2 <= x1 or y2 <= y1:
+            check(not f.exists(), f"save_crop: {f} of a box of no area")
+            continue
+        check(f.read_bytes() == encode_jpeg(r.orig_img[y1:y2, x1:x2]), f"save_crop: {f}")
+        crops += 1
+    check(crops > 0 and crops == len(list((root / "crops").rglob("*.jpg"))),
+          f"save_crop: {crops} crops")
+    out["save_crop_files"] = crops
+
+    # YOLO.track(save=True) of flight.avi with ByteTrack: the AVI holds the plotted frames
+    kept = np.concatenate([r.boxes.conf for r in got])
+    high, new = (_gap_threshold(kept, q, margin) for q in (0.5, 0.7))
+    cfg = _write_tracker_configs(root, high, conf, new)["bytetrack"]
+    tracks = {}
+    for label, model in (("kernel", yolo), ("plain", plain)):
+        STrack._count = 0
+        reset_launches()
+        t0 = time.perf_counter()
+        tracks[label] = model.track(str(avi), tracker=str(cfg), save=True, name=f"track_{label}",
+                                    **kw)
+        wall = time.perf_counter() - t0
+        launches = flash_area_attention.launches
+        if label == "kernel":
+            check(launches == VIDEO_FRAMES * LAUNCHES_PER_FORWARD,
+                  f"YOLO.track(save=True): {launches} kernel launches")
+            paths[f"YOLO.track save=True bytetrack flight.avi {VIDEO_FRAMES} frames "
+                  f"@{TRAIN_IMGSZ}"] = launches
+            out["track_frames_per_s_save_on"] = VIDEO_FRAMES / wall
+        else:
+            check(launches == 0, "YOLO.track(save=True): use_flash=False launched the kernel")
+        path = root / "jde" / f"track_{label}" / "flight.avi"
+        reader = AviReader(path)
+        packets = list(reader.packets())
+        check((reader.fps, reader.frame_count, len(packets), reader.fourcc) ==
+              (25.0, VIDEO_FRAMES, VIDEO_FRAMES, "MJPG")
+              and decode_mjpeg_frame(packets[0]).shape == (720, 1280, 3),
+              f"YOLO.track(save=True) {label}: {path} reads back as {reader.fps} fps, "
+              f"{reader.frame_count} frames")
+        for i, (r, packet) in enumerate(zip(tracks[label], packets)):
+            check(packet == encode_jpeg(r.plot()), f"YOLO.track(save=True) {label} frame {i}: "
+                  "the AVI's frame is not the JPEG of plot()")
+        out[f"avi_bytes_{label}"] = path.stat().st_size
+    ids = {k: [r.boxes.id.astype(int).tolist() for r in v] for k, v in tracks.items()}
+    check(ids["kernel"] == ids["plain"] and sum(map(len, ids["kernel"])) > 0,
+          f"YOLO.track(save=True): ids {ids['kernel']} on the kernel path, {ids['plain']} on "
+          "the plain path")
+    out["track_vs_plain"] = _plot_rule(tracks["kernel"], tracks["plain"], box_tol,
+                                       "YOLO.track(save=True)")
+
+    # half=True predict with save
+    reset_launches()
+    half = yolo.predict(str(frames_dir), save=True, half=True, name="predict_half", **kw)
+    by = _check_bf16_launches(JPEG_FRAMES * LAUNCHES_PER_FORWARD, "YOLO.predict(half, save)")
+    paths_bf16[f"YOLO.predict half save=True {JPEG_FRAMES} JPEG frames"] = by["bfloat16"]
+    for r in half:
+        check((root / "jde" / "predict_half" / Path(r.path).name).read_bytes()
+              == encode_jpeg(r.plot()), f"YOLO.predict(half, save) {r.path}")
+
+    # Masks.xy of a yolov8n-seg frame (no area attention in it)
+    seg = _perturbed_yolo("yolov8n-seg.yaml", seed, TRAIN_IMGSZ)
+    res = seg.predict(str(files[0]), imgsz=TRAIN_IMGSZ, conf=0.0, max_det=SEG_ROWS)[0]
+    t0 = time.perf_counter()
+    xy = res.masks.xy
+    out["masks_xy_ms"] = (time.perf_counter() - t0) * 1e3
+    out["masks_xy_points"] = _check_contours(res.masks.data, xy, "Masks.xy yolov8n-seg")
+    out["masks_nonempty"] = int(sum(bool(np.asarray(m).any()) for m in res.masks.data))
+    check(out["masks_nonempty"] > 0, "Masks.xy: every mask of the yolov8n-seg frame is empty")
+    del seg
+
+    # auto_annotate of 4 frames: the detector on the kernel path, sam_b at 1024
+    data = root / "auto_frames"
+    data.mkdir()
+    for f in files[:ANNOTATE_FRAMES]:
+        shutil.copy(f, data / f.name)
+    sam = SAM("sam_b")
+    check(sam.device.type == "cuda", f"sam_b built on {sam.device}")
+    sam.predictor.set_image(imread(files[0]))
+    out["sam_mask_gain"] = _sam_mask_gain(sam)
+    reset_launches()
+    t0 = time.perf_counter()
+    labels = auto_annotate(data, det_model=yolo, sam_model=sam, conf=conf, imgsz=TRAIN_IMGSZ,
+                           output_dir=root / "auto_labels")
+    out["auto_annotate_s_per_frame"] = (time.perf_counter() - t0) / ANNOTATE_FRAMES
+    launches = flash_area_attention.launches
+    check(launches == ANNOTATE_FRAMES * LAUNCHES_PER_FORWARD,
+          f"auto_annotate: {launches} kernel launches")
+    paths[f"auto_annotate {ANNOTATE_FRAMES} JPEG frames (detector @{TRAIN_IMGSZ}, sam_b "
+          "@1024)"] = launches
+    polygons, points = 0, 0
+    for f in files[:ANNOTATE_FRAMES]:
+        lines = (labels / f"{f.stem}.txt").read_text().splitlines()
+        for line in lines:
+            v = line.split()
+            coords = np.float64(v[1:])
+            check(v[0] == "0" and len(coords) >= 6 and len(coords) % 2 == 0
+                  and all(len(c.split(".")[1]) == 6 for c in v[1:])
+                  and bool(((coords >= 0) & (coords <= 1)).all()),
+                  f"auto_annotate {f.stem}.txt: line {line[:80]}")
+            points += len(coords) // 2
+        polygons += len(lines)
+    check(polygons > 0, "auto_annotate: no polygon")
+    out.update(auto_annotate_polygons=polygons, auto_annotate_points=points)
+    del sam
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"annotate": f"yolov13n-JDE @{TRAIN_IMGSZ}, {JPEG_FRAMES} JPEG frames and "
+                      f"flight.avi ({VIDEO_FRAMES} frames) of 720x1280", **out,
+                      "phase_s": time.perf_counter() - t_phase, "card": card}))
+    return paths, paths_bf16
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6399,6 +6745,8 @@ def main() -> int:
     lap("video")
     modes_launches, modes_bf16_launches = phase_modes(card)
     lap("modes")
+    annotate_launches, annotate_bf16_launches = phase_annotate(card)
+    lap("annotate")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -6478,7 +6826,7 @@ def main() -> int:
                 "float32": tta("float32"), "bfloat16": tta("bfloat16")},
         "launches_by_path_bfloat16": {**half_launches, **amp_launches,
                                       **detect_launches["bfloat16"], **cbam_launches["bfloat16"],
-                                      **modes_bf16_launches},
+                                      **modes_bf16_launches, **annotate_bf16_launches},
         "launches_by_path": {f"serve yolov13n-JDE@640 b{MAIN_BATCH}": serve_launches,
                              "serve yolov13n-JDE_P24@1280 b1": p24_launches,
                              **train_launches,
@@ -6495,7 +6843,8 @@ def main() -> int:
                              **family_launches, **pose_seg_launches, **obb_cls_launches,
                              **rtdetr_world_launches, **int8_ddp_launches,
                              **export["paths"], **sam_launches, **sam2_launches,
-                             **video_launches, **modes_launches}}, {
+                             **video_launches, **modes_launches,
+                             **annotate_launches}}, {
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",

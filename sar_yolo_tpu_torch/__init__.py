@@ -5,7 +5,8 @@ letterboxes uint8 frames on the card, runs the BN-folded forward (area attention
 hand-written CUDA kernel), decodes, runs NMS and gathers the ReID embeddings of the
 kept detections; `predict("frames/")` streams image files (JPEG and PNG decoded as
 OpenCV decodes them), arrays or tensors through the same path, and `track(...)` adds
-ByteTrack or BoT-SORT identities. `train` and `val` run on synthetic data or on a
+ByteTrack or BoT-SORT identities; with `save=True` both write each frame's `plot()` (JPEG
+images, Motion-JPEG AVI videos). `train` and `val` run on synthetic data or on a
 YOLO-format JDE dataset on disk. `RTDETR("rtdetr-l.yaml")` serves, trains and validates
 RT-DETR (no NMS), `YOLOWorld("yolov8s-world.yaml").set_classes([...])` YOLO-World.
 `SAM("sam_b.pt")` / `SAM("mobile_sam")` serve promptable and segment-everything masks,

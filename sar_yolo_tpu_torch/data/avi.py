@@ -10,12 +10,19 @@ its `rec ` lists), in order; zero-length chunks carry no frame and are skipped. 
 
 OpenDML files (a super index `indx`, `ix##` chunks, an `AVIX` continuation) and codecs
 other than MJPG raise NotImplementedError (ROADMAP Queue A item 1).
+
+`AviWriter` writes such a file: RIFF AVI 1.0 with one Motion-JPEG video stream (`hdrl`:
+`avih`, then `strl` with `strh` 'vids'/'MJPG' and a BITMAPINFOHEADER `strf`), one `00dc`
+chunk a frame in `movi` (each frame `encode_jpeg(frame, 95)`), then the `idx1` index.
 """
 
 from __future__ import annotations
 
 import struct
+from fractions import Fraction
 from pathlib import Path
+
+import numpy as np
 
 NOT_PORTED = "is not part of this port yet (ROADMAP Queue A item 1)"
 
@@ -117,3 +124,74 @@ class AviReader:
                 if len(data) != size:
                     raise ValueError(f"{self.path}: frame chunk cut short at byte {off}")
                 yield data
+
+
+class AviWriter:
+    """A Motion-JPEG AVI file of uint8 BGR frames of one size (w, h) at `fps` (a rate of
+    whole numbers: fps as a fraction of at most 1001 in the denominator), each frame a JPEG
+    of quality 95; `close()` writes the index and the sizes. The port's `AviReader` and
+    OpenCV's FFmpeg reader both read it."""
+
+    def __init__(self, path, fps: float, size):
+        self.path = Path(path)
+        self.w, self.h = int(size[0]), int(size[1])
+        rate = Fraction(float(fps)).limit_denominator(1001) if fps and fps > 0 else Fraction(30)
+        self.rate, self.scale = rate.numerator, rate.denominator
+        self.index: list[tuple[int, int]] = []  # (offset from 'movi', size) of each frame
+        self.max_size = 0
+        self._f = open(self.path, "wb")
+        self._f.write(self._headers())
+        self._movi = self._f.tell() - 4  # the 'movi' list's type, where idx1 offsets start
+
+    def _headers(self) -> bytes:
+        n, biggest = len(self.index), self.max_size
+        usec = round(1e6 * self.scale / self.rate)
+        avih = struct.pack("<10I4I", usec, 0, 0, 0x10, n, 0, 1, biggest, self.w, self.h,
+                           0, 0, 0, 0)  # AVIF_HASINDEX
+        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"MJPG", 0, 0, 0, 0, self.scale,
+                           self.rate, 0, n, biggest, 0xFFFFFFFF, 0, 0, 0, self.w, self.h)
+        strf = struct.pack("<IiiHH4sIiiII", 40, self.w, self.h, 1, 24, b"MJPG",
+                           self.w * self.h * 3, 0, 0, 0, 0)
+        strl = b"strl" + _chunk(b"strh", strh) + _chunk(b"strf", strf)
+        hdrl = b"hdrl" + _chunk(b"avih", avih) + _chunk(b"LIST", strl)
+        return b"RIFF" + b"\0" * 4 + b"AVI " + _chunk(b"LIST", hdrl) + b"LIST" + b"\0" * 4 + b"movi"
+
+    def write(self, frame: np.ndarray):
+        """Append one (h, w, 3) uint8 BGR frame of the writer's size."""
+        from sar_yolo_tpu_torch.data.imageio import encode_jpeg
+        if frame.shape[:2] != (self.h, self.w):
+            raise ValueError(f"frame of {frame.shape[1]}x{frame.shape[0]} for a "
+                             f"{self.w}x{self.h} video")
+        data = encode_jpeg(frame, 95)
+        self.index.append((self._f.tell() - self._movi, len(data)))
+        self.max_size = max(self.max_size, len(data))
+        self._f.write(_chunk(b"00dc", data))
+
+    def close(self):
+        """Write the index and the sizes, and close the file."""
+        if self._f is None:
+            return
+        f = self._f
+        movi_end = f.tell()
+        f.write(_chunk(b"idx1", b"".join(struct.pack("<4sIII", b"00dc", 0x10, off, size)
+                                          for off, size in self.index)))  # AVIIF_KEYFRAME
+        end = f.tell()
+        f.seek(0)
+        f.write(self._headers())
+        f.seek(4)
+        f.write(struct.pack("<I", end - 8))
+        f.seek(self._movi - 4)
+        f.write(struct.pack("<I", movi_end - self._movi))
+        f.close()
+        self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _chunk(cid: bytes, body: bytes) -> bytes:
+    """A RIFF chunk: id, size, body, and a pad byte after an odd size."""
+    return cid + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")

@@ -21,7 +21,7 @@ nor PIL.
   interlaced PNG. They are not decoded here, and not dropped either.
 
 PNG's row filters are undone by `csrc/png_unfilter.c` and JPEG is decoded by
-`csrc/jpeg_decode.c`, each built with the system C compiler at first use into
+`csrc/jpeg_decode.c`, each built by `utils/hostc.py` with the system C compiler at first use into
 `sar_yolo_tpu_torch/build/` (cached under a hash of the source and flags) and called
 through ctypes, which releases the GIL: loader threads decode in parallel.
 """
@@ -29,22 +29,17 @@ through ctypes, which releases the GIL: loader threads decode in parallel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import struct
-import subprocess
-import threading
 import zlib
 from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "png_unfilter.c"
-JPEG_SOURCE = _PKG / "csrc" / "jpeg_decode.c"
-BUILD_DIR = _PKG / "build"
-_CFLAGS = ["-O3", "-std=c99", "-shared", "-fPIC"]
+from sar_yolo_tpu_torch.utils.hostc import CSRC, library
+
+SOURCE = CSRC / "png_unfilter.c"
+JPEG_SOURCE = CSRC / "jpeg_decode.c"
+JPEG_ENCODE_SOURCE = CSRC / "jpeg_encode.c"
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # (bit depth, colour type) pairs a PNG may have; colour type -> samples per pixel
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -157,43 +152,8 @@ def image_shape(path) -> tuple[int, int] | None:
     raise NotImplementedError(f"{path}: reading {kind} files is not part of this port yet")
 
 
-_lock = threading.Lock()
-_libraries: dict = {}
-
-
-def build(source: Path) -> Path:
-    """Compile `source` (a file of `csrc/`) if its library is not built yet; returns its path."""
-    key = hashlib.sha256(" ".join(_CFLAGS).encode() + b"\0" + source.read_bytes())
-    lib = BUILD_DIR / f"lib{source.stem}_{key.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
-    if cc is None:
-        raise RuntimeError(f"no C compiler (cc or gcc) to build {source}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cc, *_CFLAGS, "-o", str(tmp), str(source)], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{cc} failed ({proc.returncode}) for {source}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _library(source: Path, signatures: dict):
-    """The ctypes handle of `source`'s library, built and bound once per process."""
-    with _lock:
-        if source not in _libraries:
-            handle = ctypes.CDLL(str(build(source)))
-            for name, (argtypes, restype) in signatures.items():
-                fn = getattr(handle, name)
-                fn.argtypes, fn.restype = argtypes, restype
-            _libraries[source] = handle
-        return _libraries[source]
-
-
 def _unfilter(raw: bytes, rows: int, row_bytes: int, bpp: int) -> np.ndarray:
-    lib = _library(SOURCE, {"png_unfilter": ([ctypes.c_char_p, ctypes.c_void_p]
+    lib = library(SOURCE, {"png_unfilter": ([ctypes.c_char_p, ctypes.c_void_p]
                                              + [ctypes.c_int] * 3, ctypes.c_int)})
     if len(raw) < rows * (row_bytes + 1):
         raise ValueError("truncated image data")
@@ -302,7 +262,7 @@ _JPEG_SIGNATURES = {
 def decode_jpeg(data: bytes) -> np.ndarray:
     """The pixels of a JPEG file's bytes, BGR uint8 (h, w, 3), as `cv2.imread` gives them
     (its Exif orientation applied); ValueError where the file is corrupt."""
-    lib = _library(JPEG_SOURCE, _JPEG_SIGNATURES)
+    lib = library(JPEG_SOURCE, _JPEG_SIGNATURES)
     h, w = ctypes.c_int(), ctypes.c_int()
     status = lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w))
     if status == 0:
@@ -325,7 +285,7 @@ def decode_mjpeg_frame(data: bytes) -> np.ndarray:
     (`csrc/jpeg_decode.c`, `mjpeg_decode`). Frames that are not three-component 4:2:0,
     or under 2 pixels wide or high, raise NotImplementedError; a corrupt frame raises
     ValueError."""
-    lib = _library(JPEG_SOURCE, _JPEG_SIGNATURES)
+    lib = library(JPEG_SOURCE, _JPEG_SIGNATURES)
     h, w = ctypes.c_int(), ctypes.c_int()
     status = lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w))
     if status == 0:
@@ -360,3 +320,70 @@ def imread(path) -> np.ndarray | None:
         return _DECODERS[kind](data)
     except ValueError:
         return None
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """`cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])[1]`, byte for byte as
+    libjpeg-turbo writes it under OpenCV's defaults: baseline, 4:2:0 for a BGR image,
+    one component for a 2-D one (`csrc/jpeg_encode.c`)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (1, 3))):
+        raise ValueError(f"encode_jpeg takes uint8 (h, w) or (h, w, 3) images, not "
+                         f"{img.dtype} {img.shape}")
+    lib = library(JPEG_ENCODE_SOURCE, {"jpeg_encode": (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_long], ctypes.c_long)})
+    h, w = img.shape[:2]
+    channels = 3 if img.ndim == 3 and img.shape[2] == 3 else 1
+    cap = h * w * channels + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode(img.ctypes.data, h, w, channels, int(quality), out.ctypes.data, cap)
+        if n == -2:
+            raise MemoryError("out of memory encoding a JPEG image")
+        if n < 0:
+            raise ValueError(f"encode_jpeg cannot write a {w}x{h} image")
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A PNG file of a uint8 BGR (h, w, 3) or gray (h, w) image, as `cv2.imwrite` takes it:
+    8-bit RGB or gray, every row filter None, deflated by the standard library's zlib at
+    OpenCV's default level 1. The bytes differ from OpenCV's (zlib version, filter choice);
+    the pixels read back are the same."""
+    img = np.ascontiguousarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_png takes uint8 (h, w) or (h, w, 3) images, not "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rgb = img if img.ndim == 2 else img[..., ::-1]
+    rows = np.zeros((h, 1 + rgb[0].size), np.uint8)
+    rows[:, 1:] = rgb.reshape(h, -1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2, 0, 0, 0)
+    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + _png_chunk(b"IEND", b""))
+
+
+_ENCODERS = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png}
+
+
+def imwrite(path, img: np.ndarray) -> bool:
+    """`cv2.imwrite(path, img)` of a uint8 BGR or gray image to a .jpg / .jpeg (quality 95)
+    or .png file; other extensions raise NotImplementedError naming the format."""
+    path = Path(path)
+    ext = path.suffix.lower()
+    if ext not in _ENCODERS:
+        raise NotImplementedError(f"{path}: writing {ext or 'extensionless'} images is not part "
+                                  "of this port (JPEG and PNG are)")
+    path.write_bytes(_ENCODERS[ext](img))
+    return True

@@ -331,9 +331,6 @@ class YOLO:
         if self.backend is not None:
             return self._backend_predictor(overrides)
         predictor_cls = self._classes()["predictor"]
-        if overrides.get("save"):
-            raise NotImplementedError("save=True (annotated images) is not part of this port "
-                                      "yet: it needs OpenCV's drawing and a JPEG encoder")
         key = tuple(sorted((k, str(v)) for k, v in overrides.items()))
         if self._predictor_cache is None or self._predictor_cache[0] != key:
             args = SimpleNamespace(**{**PREDICT_DEFAULTS, **overrides})
@@ -351,7 +348,8 @@ class YOLO:
 
     def _backend_predictor(self, overrides: dict) -> BackendPredictor:
         """The artifact's predictor; what the artifact fixed (its size, its precision) and
-        what it cannot do (save_txt) raise when asked otherwise."""
+        what it cannot do (save_txt) raise when asked otherwise. `save` is read by nothing
+        here, as the JAX package's artifact predictor writes no annotated files."""
         if any(event.startswith("on_predict") for event in self._callbacks):
             raise NotImplementedError("predict callbacks with an exported artifact")
         imgsz = self.backend.meta.get("imgsz")
@@ -400,8 +398,9 @@ class YOLO:
         """Results of each image of `source`: an image file, a folder, a glob, a list of
         paths, a uint8 BGR array, a list of arrays, or a torch/numpy NCHW or NHWC tensor
         (float RGB in [0, 1], or uint8). `stream=True` returns a generator.
-        kwargs: those of `predict_batched`, save_txt with save_dir or project/name/exist_ok,
-        and augment (test-time augmentation, `ops/tta.py`: a Detect head only; any other head
+        kwargs: those of `predict_batched`; save (each result's `plot()` written: images as
+        save_dir/<name>, each video or stream as save_dir/<stem>.avi, Motion-JPEG) and
+        save_txt, both under save_dir or project/task/name (exist_ok); and augment (test-time augmentation, `ops/tta.py`: a Detect head only; any other head
         warns and serves one scale)."""
         return self._get_predictor(kwargs)(source, stream=stream)
 

@@ -24,7 +24,9 @@ with `devices`), and `__call__` / `stream_inference` stream a source (files, fol
 globs, arrays, tensors) frame by frame with the callback bus that the trackers use. With
 `augment` the frame-by-frame route of a Detect head serves test-time augmentation
 (`serve_augmented`); `predict_batch` never reads the key, as the JAX package's batched
-route does not.
+route does not. With `save` the stream writes each result's `plot()` (`_MediaWriter`:
+images by name, videos and streams as Motion-JPEG AVI files) into the directory that
+`save_txt` uses too.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import numpy as np
 import torch
 
 from sar_yolo_tpu_torch.cfg.default import get_save_dir
+from sar_yolo_tpu_torch.data.avi import AviWriter
+from sar_yolo_tpu_torch.data.imageio import imwrite
 from sar_yolo_tpu_torch.data.loaders import load_inference_source
 from sar_yolo_tpu_torch.engine.results import Results
 from sar_yolo_tpu_torch.ops.decode import decode_detect, decode_obb
@@ -49,9 +53,39 @@ from sar_yolo_tpu_torch.utils import LOGGER
 from sar_yolo_tpu_torch.utils.callbacks import HasCallbacks
 
 
+class _MediaWriter:
+    """The annotated outputs of `save=True` (the JAX package's `_MediaWriter`): each image
+    result's `plot()` written as save_dir/<its file name> (JPEG at quality 95, or PNG), and
+    each video or stream source's plotted frames as one Motion-JPEG AVI, save_dir/<its
+    stem>.avi, at the source's fps (30 where it gives none)."""
+
+    def __init__(self, save_dir: Path):
+        self.dir = Path(save_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writers: dict = {}
+
+    def write(self, res, meta: dict):
+        img = res.plot()
+        path = Path(str(res.path))
+        if meta.get("video") or meta.get("stream"):
+            key = str(res.path)
+            if key not in self.writers:
+                h, w = img.shape[:2]
+                self.writers[key] = AviWriter(self.dir / (path.stem + ".avi"),
+                                              meta.get("fps") or 30, (w, h))
+            self.writers[key].write(img)
+        else:
+            imwrite(self.dir / path.name, img)
+
+    def close(self):
+        for writer in self.writers.values():
+            writer.close()
+        self.writers.clear()
+
+
 class BasePredictor(HasCallbacks):
     """Serves a (fused) model on its device; `args` holds imgsz, conf (None: 0.25), iou,
-    max_det, agnostic_nms, save_txt, save_dir, project, name and exist_ok."""
+    max_det, agnostic_nms, save, save_txt, save_dir, project, name and exist_ok."""
 
     def __init__(self, model, meta: dict, args, names=None):
         self.model = model
@@ -196,9 +230,12 @@ class BasePredictor(HasCallbacks):
         loader, self.source_types = load_inference_source(
             source, buffer=bool(getattr(self.args, "stream_buffer", False)))
         serve = self.serve_augmented if self.uses_tta() else self.serve
-        save_dir = None
-        if getattr(self.args, "save_txt", False):
+        save_txt = bool(getattr(self.args, "save_txt", False))
+        save_dir = writer = None
+        if save_txt or getattr(self.args, "save", False):  # one directory for both
             save_dir = Path(self.args.save_dir or get_save_dir(self.args, self.meta["task"]))
+        if getattr(self.args, "save", False):
+            writer = _MediaWriter(save_dir)
         self.run_callbacks("on_predict_start")
         try:
             for path, img, meta in loader:
@@ -217,11 +254,15 @@ class BasePredictor(HasCallbacks):
                 self.run_callbacks("on_predict_postprocess_end")
                 res = self.results[0]
                 speed["postprocess"] = (time.perf_counter() - t2) * 1e3
-                if save_dir is not None:
+                if writer is not None:
+                    writer.write(res, meta)
+                if save_txt:
                     n = f"_{meta['frame']}" if meta.get("frame") is not None else ""
                     res.save_txt(save_dir / "labels" / f"{Path(str(path)).stem}{n}.txt")
                 yield res
         finally:
+            if writer is not None:
+                writer.close()
             self.run_callbacks("on_predict_end")
 
 

@@ -2,10 +2,11 @@
 pose keypoints, segment masks, classification probabilities and rotated boxes (port of
 `sar_yolo_tpu/engine/results.py`; numpy-backed).
 
-Drawing and file writers (`plot`, `save`, `save_crop`), the pandas tables (`to_df`,
-`to_csv`, `to_xml`) and the mask contours (`Masks.xy`, `Masks.xyn`: cv2.findContours)
-raise NotImplementedError: they need OpenCV, a JPEG encoder or pandas, which the card's
-machine does not have.
+`plot` draws as the JAX package's does with OpenCV, through the port's copies of OpenCV's
+drawing (`data/cv.py`: bit for bit, the label text in OpenCV 4.x's Hershey strokes);
+`save` and `save_crop` write through `data/imageio.py::imwrite` (JPEG bytes equal to
+OpenCV's); `Masks.xy` follows contours as cv2.findContours does. The pandas tables
+(`to_df`, `to_csv`, `to_xml`) raise NotImplementedError: pandas is no dependency of the port.
 """
 
 from __future__ import annotations
@@ -15,10 +16,17 @@ from pathlib import Path
 
 import numpy as np
 
+from sar_yolo_tpu_torch.data import cv
+from sar_yolo_tpu_torch.data.imageio import imwrite
+
+# the JAX package's box colours (BGR), by track id or else by class
+PALETTE = [(56, 56, 255), (31, 112, 255), (29, 178, 255), (49, 210, 207), (10, 249, 72),
+           (23, 204, 146), (134, 219, 61), (52, 147, 26)]
+
 
 def _not_ported(what: str):
-    raise NotImplementedError(f"Results.{what} is not part of this port yet (it needs OpenCV's "
-                              "drawing and image writers, or pandas)")
+    raise NotImplementedError(f"Results.{what} is not part of this port (it needs pandas, "
+                              "which is no dependency of the port)")
 
 
 class Boxes:
@@ -95,13 +103,19 @@ class Masks(_Rows):
 
     @property
     def xy(self):
-        raise NotImplementedError("Masks.xy is not part of this port yet (it needs "
-                                  "cv2.findContours)")
+        """Each mask's largest outer contour (by area, the first on ties) in the mask's
+        pixels, (k, 2) float32; (0, 2) for an empty mask."""
+        out = []
+        for m in self.data:
+            cs = cv.find_contours_external(m.astype(np.uint8))
+            out.append(max(cs, key=cv.contour_area).reshape(-1, 2).astype(np.float32)
+                       if cs else np.zeros((0, 2), np.float32))
+        return out
 
     @property
     def xyn(self):
-        raise NotImplementedError("Masks.xyn is not part of this port yet (it needs "
-                                  "cv2.findContours)")
+        h, w = self.orig_shape
+        return [c / np.array([w, h], np.float32) for c in self.xy]
 
 
 class Keypoints(_Rows):
@@ -289,14 +303,69 @@ class Results:
     def numpy(self):
         return self
 
-    def plot(self, *args, **kwargs):
-        _not_ported("plot")
+    def plot(self, line_width=None, font_scale=0.5):
+        """A BGR copy of the image with the masks blended in (0.6 image, 0.4 colour), the
+        rotated boxes, the boxes with their labels ("id:{k} " + "{name} {conf:.2f}" +
+        " s{state}"), the keypoints and the top-1 class drawn, as the JAX package draws
+        them. `lw` is line_width or max(2, round(min(h, w) / 320)); the text is 1 thinner."""
+        img = self.orig_img.copy()
+        lw = line_width or max(2, round(min(self.orig_shape) / 320))
+        if self.masks is not None and len(self.masks):
+            overlay = img.copy()
+            for i, m in enumerate(self.masks.data):
+                mm = m.astype(bool)
+                if mm.shape != img.shape[:2]:
+                    mm = cv.resize(m.astype(np.uint8), img.shape[:2][::-1]) > 0
+                overlay[mm] = PALETTE[i % len(PALETTE)]
+            img = cv.add_weighted(img, 0.6, overlay, 0.4, 0)
+        if self.obb is not None and len(self.obb):
+            for i, corners in enumerate(self.obb.xyxyxyxy):
+                cv.polylines(img, [corners.astype(np.int32)], True, PALETTE[i % len(PALETTE)], lw)
+        if self.boxes is not None:
+            ids = self.boxes.id
+            for i, row in enumerate(self.boxes.data):
+                x1, y1, x2, y2, conf, cls = row[:6]
+                c = int(cls)
+                color = PALETTE[(int(ids[i]) if ids is not None else c) % len(PALETTE)]
+                cv.rectangle(img, (int(x1), int(y1)), (int(x2), int(y2)), color, lw)
+                label = f"{self.names.get(c, c)} {conf:.2f}"
+                if ids is not None:
+                    label = f"id:{int(ids[i])} " + label
+                if self.person_states is not None:
+                    label += f" s{int(self.person_states[i])}"
+                cv.put_text(img, label, (int(x1), max(int(y1) - 3, 10)), font_scale, color,
+                            max(lw - 1, 1))
+        if self.keypoints is not None:
+            for kp in self.keypoints.data:
+                for k in kp:
+                    if len(k) < 3 or k[2] > 0.5:
+                        cv.circle(img, (int(k[0]), int(k[1])), max(lw, 2), (0, 255, 255), -1)
+        if self.probs is not None:
+            label = f"{self.names.get(self.probs.top1, self.probs.top1)} " \
+                    f"{self.probs.top1conf:.2f}"
+            cv.put_text(img, label, (8, 24), 0.8, (255, 255, 255), 2)
+        return img
 
-    def save(self, *args, **kwargs):
-        _not_ported("save")
+    def save(self, filename):
+        """Write `plot()` to filename (.jpg / .jpeg at quality 95, or .png)."""
+        Path(filename).parent.mkdir(parents=True, exist_ok=True)
+        imwrite(filename, self.plot())
+        return filename
 
-    def save_crop(self, *args, **kwargs):
-        _not_ported("save_crop")
+    def save_crop(self, save_dir, file_name: str | None = None):
+        """Each box's pixels of the image (clipped to it) as save_dir/<class name>/
+        {stem}_{i}.jpg; boxes of no area are skipped."""
+        if self.boxes is None:
+            return
+        stem = file_name or Path(str(self.path)).stem
+        h, w = self.orig_shape
+        for i, row in enumerate(self.boxes.data):
+            x1, y1, x2, y2 = (int(np.clip(v, 0, lim)) for v, lim in zip(row[:4], (w, h, w, h)))
+            if x2 <= x1 or y2 <= y1:
+                continue
+            d = Path(save_dir) / str(self.names.get(int(row[5]), str(int(row[5]))))
+            d.mkdir(parents=True, exist_ok=True)
+            imwrite(d / f"{stem}_{i}.jpg", self.orig_img[y1:y2, x1:x2])
 
     def to_df(self, *args, **kwargs):
         _not_ported("to_df")

@@ -21,6 +21,7 @@ import torch
 
 from sar_yolo_tpu.engine.model import YOLO as JaxYOLO
 from sar_yolo_tpu_torch import YOLO
+from sar_yolo_tpu_torch.data.imageio import encode_jpeg
 from torch_port_common import (convert_jax_checkpoint, jax_and_port_yolo,  # noqa: F401
                                one_torch_thread, write_jax_checkpoint)
 
@@ -182,9 +183,14 @@ def test_yolov13n_predict_matches_jax(frames_dir):
 
 
 def test_unported_options_and_sources_raise(tiny, frames_dir, tmp_path):
+    """Sources and the pandas tables that are not ported raise; save=True writes each
+    frame's plot() (`test_torch_port_annotate.py` holds the files to JAX's)."""
     _, pyolo = tiny
-    with pytest.raises(NotImplementedError, match="save=True"):
-        pyolo.predict(str(frames_dir), imgsz=64, save=True)
+    res = pyolo.predict(str(frames_dir), imgsz=64, save=True, project=str(tmp_path / "runs"))
+    out = tmp_path / "runs" / "jde" / "jde"
+    assert sorted(p.name for p in out.iterdir()) == [f"f{i}.jpg" for i in range(len(SHAPES))]
+    for r in res:
+        assert (out / Path(str(r.path)).name).read_bytes() == encode_jpeg(r.plot())
     with pytest.raises(TypeError, match="unsupported predict arguments"):
         pyolo.predict(str(frames_dir), imgsz=64, visualize=True)
     (tmp_path / "clip.mp4").write_bytes(b"\0" * 16)
@@ -192,9 +198,14 @@ def test_unported_options_and_sources_raise(tiny, frames_dir, tmp_path):
         with pytest.raises(NotImplementedError, match="not part of this port"):
             pyolo.predict(source, imgsz=64)
     res = pyolo.predict(str(frames_dir / "f0.jpg"), imgsz=64)[0]
-    for method in ("plot", "save", "save_crop", "to_df", "to_csv", "to_xml"):
+    for method in ("to_df", "to_csv", "to_xml"):
         with pytest.raises(NotImplementedError, match=f"Results.{method}"):
             getattr(res, method)()
+    assert res.save(tmp_path / "plot.png") == tmp_path / "plot.png"
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "plot.png")), res.plot())
+    res.save_crop(tmp_path / "crops")
+    assert len(list((tmp_path / "crops").rglob("f0_*.jpg"))) == \
+        sum(int(b[2]) > int(b[0]) and int(b[3]) > int(b[1]) for b in res.boxes.data)
 
 
 def test_checkpoint_serves_with_its_train_args(frames_dir, tmp_path):

@@ -20,7 +20,8 @@ masks included; `test_augmentations_carry_polygons`; the label cache each packag
 `test_yolo_val_matches_jax`: `YOLO.val(data="synthetic")` of tinyseg: rows (scores within
 1e-4, boxes 1e-3 px, raw coefficients 1e-4 + 1e-5 of their size) and metrics within 1e-6.
 (g) `test_predict_batched_matches_jax`: rows within 1e-4 (1e-3 px), masks equal where the
-mask probability is not within 1e-4 of 0.5; `YOLO.predict`'s Results.masks.
+mask probability is not within 1e-4 of 0.5; `YOLO.predict`'s Results.masks, and their
+`Masks.xy` / `xyn` contours equal to JAX's.
 (h) The JAX behaviours: `test_rect_val_masks_are_square` (gt masks are imgsz / 4 square in
 rect batches, stretched to the prototypes' grid in the validator) and
 `test_masks_stay_in_letterbox_space`; `test_multi_scale_resizes_masks_as_jax`; the segment
@@ -43,6 +44,7 @@ from sar_yolo_tpu.data import augment as jax_augment
 from sar_yolo_tpu.data import dataset as jax_dataset
 from sar_yolo_tpu.engine import trainer as jax_trainer_module
 from sar_yolo_tpu.engine import validator as jax_validator
+from sar_yolo_tpu.engine.results import Masks as JaxMasks
 from sar_yolo_tpu.ops import masks as jax_masks
 from sar_yolo_tpu.utils import loss as jax_loss
 from sar_yolo_tpu_torch import YOLO
@@ -437,12 +439,25 @@ def test_predict_batched_matches_jax(seg_pair):
         np.testing.assert_array_equal(gms[~near], wms[~near])
         assert gms.any()
     res = pyolo.predict(list(frames), **kw)
-    for b, r in enumerate(res):
+    want = jyolo.predict(list(frames), **kw)
+    contours = 0
+    for b, (r, w) in enumerate(zip(res, want)):
         assert r.masks is not None and r.masks.data.shape == (len(r), 16, 16)
         np.testing.assert_allclose(np.sort(r.boxes.data[:, 4]), np.sort(gd[b][gd[b][:, 4] > 0, 4]),
                                    rtol=0, atol=1e-5)  # one frame against a batch of two
-        with pytest.raises(NotImplementedError, match="findContours"):
-            r.masks.xy
+        # the contours: JAX's Masks.xy / xyn (cv2.findContours) of the same masks, and of
+        # JAX's own masks where they are equal
+        jm = JaxMasks(r.masks.data, r.orig_shape)
+        for got_xy, want_xy in zip(r.masks.xy, jm.xy):
+            assert got_xy.dtype == np.float32
+            np.testing.assert_array_equal(got_xy, want_xy)
+            contours += len(got_xy) > 0
+        for got_xyn, want_xyn in zip(r.masks.xyn, jm.xyn):
+            np.testing.assert_array_equal(got_xyn, want_xyn)
+        for k in range(min(len(r), len(w))):
+            if np.array_equal(r.masks.data[k], np.asarray(w.masks.data[k])):
+                np.testing.assert_array_equal(r.masks.xy[k], w.masks.xy[k])
+    assert contours > 0
 
 
 # ---- (h) the JAX behaviours and the rest -----------------------------------------------------

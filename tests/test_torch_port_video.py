@@ -24,6 +24,7 @@ import hashlib
 import json
 import socket
 import struct
+import time
 from pathlib import Path
 
 import cv2
@@ -256,13 +257,13 @@ def test_load_streams_buffered_matches_jax(tmp_path):
         assert gp == wp and gm["source_i"] == wm["source_i"] and gm["stream"]
         assert gm["frame"] == wm["frame"] + 1
         np.testing.assert_array_equal(gi, wi)
-    # latest-frame mode: frames in order, each a frame of its source
+    # latest-frame mode: frames in order, each a frame of its source, ending on its last
+    # (the first is whatever the slot holds when the consumer comes: see the stress test)
     frames_a = _capture(a)[0]
     seen = [img for _, img, m in LoadStreams(str(a)) if m["source_i"] == 0]
     assert 1 <= len(seen) <= len(frames_a)
-    np.testing.assert_array_equal(seen[0], frames_a[0])
     idx = [next(i for i, f in enumerate(frames_a) if np.array_equal(f, s)) for s in seen]
-    assert idx == sorted(set(idx))
+    assert idx == sorted(set(idx)) and idx[-1] == len(frames_a) - 1
 
 
 def test_load_streams_buffered_under_thread_stress(tmp_path):
@@ -291,6 +292,48 @@ def test_load_streams_buffered_under_thread_stress(tmp_path):
     for t in loader.threads:
         t.join(timeout=10)
         assert not t.is_alive()
+
+
+def test_load_streams_latest_frame_under_thread_stress(tmp_path):
+    """Latest-frame mode keeps only the newest frame a source's reader has decoded, as the
+    JAX package's reader does, so the consumer's first frame is not always the source's
+    first: a consumer that comes after the readers have ended gets each source's last frame
+    alone. Under many readers switching every few microseconds and a slow consumer, each
+    source's frames still arrive in order, each once, ending on its last."""
+    import os
+    import sys
+    clip = _write(tmp_path / "c.avi", _noise_frames(6, 16, 24, 8))
+    want = _capture(clip)[0]
+    n = 2 * (os.cpu_count() or 4) + 1
+    streams = tmp_path / "many.streams"
+    streams.write_text(f"{clip}\n" * n)
+
+    late = LoadStreams(str(streams))
+    for t in late.threads:
+        t.join(timeout=10)
+    got = list(late)
+    assert [m["source_i"] for _, _, m in got] == list(range(n))
+    for _, img, _ in got:
+        np.testing.assert_array_equal(img, want[-1])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for rep in range(3):
+            loader = LoadStreams(str(streams))
+            got = []
+            for item in loader:
+                got.append(item)
+                time.sleep(1e-4 * (len(got) % 3))
+            for i in range(n):
+                mine = [img for _, img, m in got if m["source_i"] == i]
+                idx = [next(k for k, f in enumerate(want) if np.array_equal(f, s)) for s in mine]
+                assert idx and idx == sorted(set(idx)) and idx[-1] == len(want) - 1, (rep, i, idx)
+            for t in loader.threads:
+                t.join(timeout=10)
+                assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
 
 
 def test_cameras_and_urls_raise_without_the_network(tmp_path, monkeypatch):
