@@ -372,7 +372,22 @@ Phases, in order; any failure exits non-zero:
      hypernetworks scaled as phase 22 scales them): a polygon file a frame, coordinates in
      [0, 1] with 6 decimals. Prints frames/s with save on and off, the plot and encode ms of
      a 720x1280 frame, the AVI's bytes and auto_annotate's s a frame.
- 27. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
+ 27. the validator's and trainer's figures (`plots`, on by default: from here on every earlier
+     phase's `YOLO.val` and `YOLO.train` draws them too). `YOLO.val` of yolov13n-JDE @640
+     (seeded weights, BN set to the first val batch's statistics) on phase 8's 24 PNG
+     frames, square and rect, at a threshold in a gap of both paths' row scores that leaves
+     under PLOT_ROWS rows an image (the class logits damped to MAX_LOGIT, so that no float32
+     score rounds to 1, then shifted so that it is 0.3; NMS at IoU 1.0, so that no near-tie
+     of its suppression decides): 8 launches a forward (read off the counter), and both
+     again with `use_flash=False`: the confusion matrices equal, the mosaics' drawn rows
+     (int corners, class, label) equal within PLOT_BOX_TOL and val_batch0_pred.jpg then byte
+     for byte, the labels mosaic byte for byte. A one-epoch `YOLO.train` on the same set:
+     its seven figures. `YOLO.val` of yolov8n-seg and yolov8n-pose on phase 17's sets
+     and yolov8n-obb on the synthetic set at 1024 (class biases lifted where the median
+     image's 10th row scores under 0.25): their figures. Every figure read back by the
+     port's decoders at the pixel size of the JAX package's figure size and dpi (mosaics: the
+     batch's h x w tiles); prints each figure's host ms and the launches.
+ 28. a JSON line of the kernels (the area attention: launches by dtype, the bf16 numbers of
      the amp train step's forward, phases 16-19's, 22's and 23's paths at 0, its launches and device
      ms in phase 21's .pt2 program, its times at the TTA shapes; the int8 convolution and the
      int8 quantization: one int8 forward of yolov13n-JDE at 640, batch 8), the card line, and
@@ -3331,9 +3346,10 @@ def phase_pose_seg_train(task: str, data: dict, card: str, seed: int = 0) -> dic
     return {"steps": steps, "val": val}
 
 
-def phase_pose_seg(card: str, seed: int = 5) -> dict:
+def phase_pose_seg(card: str, seed: int = 5) -> tuple:
     """Phase 17: the pose and segment tasks served, fused, trained and validated on their own
-    datasets; no graph of theirs has an A2C2f block. Returns the launches by path."""
+    datasets; no graph of theirs has an A2C2f block. Returns the launches by path and the two
+    datasets (phase 27 validates on them, then deletes them)."""
     import torch
 
     from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
@@ -3351,8 +3367,6 @@ def phase_pose_seg(card: str, seed: int = 5) -> dict:
     for task in ("pose", "segment"):
         phase_pose_seg_train(task, data[task], card)
         torch.cuda.empty_cache()
-    for root in roots.values():
-        shutil.rmtree(root, ignore_errors=True)
     by = dict(flash_area_attention.launches_by_dtype)
     check(by == {"float32": 0, "bfloat16": 0}, f"phase 17: attention kernel launches {by}")
     print(json.dumps({"phase_pose_seg_s": {"datasets": t_data - t0, "serve": t_serve - t_data,
@@ -3363,7 +3377,7 @@ def phase_pose_seg(card: str, seed: int = 5) -> dict:
             f"yolov8n-pose train step @{TRAIN_IMGSZ} b{TRAIN_BATCH}, host and device route, f32 "
             "and amp": 0,
             f"yolov8n-seg train step @{TRAIN_IMGSZ} b{TRAIN_BATCH}, f32 and amp": 0,
-            "YOLO.train / val / predict yolov8n-pose and yolov8n-seg": 0}
+            "YOLO.train / val / predict yolov8n-pose and yolov8n-seg": 0}, data
 
 
 # phase 18: the OBB and classify tasks (no A2C2f block in any of their graphs)
@@ -6671,6 +6685,323 @@ def phase_annotate(card: str, seed: int = 2) -> tuple:
     return paths, paths_bf16
 
 
+# phase 27: the validator's and trainer's figures
+PLOT_ROWS = 40            # rows an image the threshold leaves at most (drawn and in the matrix)
+PLOT_MARGIN = 1e-3        # the threshold's least distance to a row's class logit
+PLOT_CONF = 0.3           # the val threshold there: over the confusion matrix's 0.25
+PLOT_BOX_TOL = 32e-3      # px: a drawn row against its plain-path pair (phase 10's bound)
+OBB_PLOT_BATCH = 8        # the OBB val batch at 1024 (a 3 x 3 mosaic)
+
+
+@contextlib.contextmanager
+def _figure_calls():
+    """While active, the host ms of each figure the validators and the trainer draw (by
+    function), and each confusion matrix they plot."""
+    from sar_yolo_tpu_torch.engine import trainer, validator
+    from sar_yolo_tpu_torch.utils import plotting
+    times, matrices, saved = {}, [], []
+
+    def wrap(owner, name, label):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            if label == "confusion_matrix":
+                matrices.append(args[0].matrix.copy())
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                times.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+    for mod, names in ((validator, ("plot_images", "plot_predictions")),
+                       (trainer, ("plot_images", "plot_labels", "plot_results"))):
+        for name in names:
+            wrap(mod, name, f"{mod.__name__.rsplit('.', 1)[-1]}.{name}")
+    wrap(plotting.ConfusionMatrix, "plot", "confusion_matrix")
+    try:
+        yield times, matrices
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def _rows_threshold(seen: list, conf_col: int, n: int) -> tuple:
+    """(logit threshold, its margin): the middle of the lowest gap, wider than 2
+    PLOT_MARGIN, between the rows' class logits of all paths, over which each image has
+    under n rows in every path and the same number in each. `seen`: per path, batches of
+    (B, 300, C) rows."""
+    paths = []
+    for path in seen:
+        s = np.concatenate([b[..., conf_col] for b in path]).astype(np.float64)
+        lg = np.full(s.shape, -np.inf)
+        lg[s > 0] = np.log(s[s > 0] / (1 - s[s > 0]))
+        paths.append(lg)
+    level = max(np.sort(lg, 1)[:, -n].max() for lg in paths)
+    above = np.unique(np.concatenate([lg[lg > level] for lg in paths]))
+    for a, b in zip(above[:-1], above[1:]):
+        t = (a + b) / 2
+        counts = [(lg > t).sum(1) for lg in paths]
+        if b - a > 2 * PLOT_MARGIN and all(np.array_equal(c, counts[0]) for c in counts):
+            return float(t), float((b - a) / 2)
+    check(False, f"no gap of the rows' logits over {level} splits every path alike")
+
+
+def _probe_shift(models: list, v_cls, conf_col: int, runs: list) -> tuple:
+    """Shift the class logits of `models` (the paths of one model, their class logits
+    damped to MAX_LOGIT, so that no float32 score rounds to 1 and NMS never orders rows tied
+    at 1.0) so that PLOT_CONF lies in a gap of every path's row scores that leaves under
+    PLOT_ROWS rows an image (`_rows_threshold`), over the val calls `runs` (kwargs of
+    `val` at conf 0.001, plots off). Returns (the shift, the margin in logits)."""
+    seen = []
+    for model in models:
+        seen.append([])
+        for kw in runs:
+            with _recorded_dets(v_cls) as s:
+                model.val(plots=False, **kw)
+            seen[-1] += s
+    level, margin = _rows_threshold(seen, conf_col, PLOT_ROWS)
+    shift = float(np.log(PLOT_CONF / (1 - PLOT_CONF))) - level
+    for model in models:
+        _shift_class_logits(model, shift)
+    return shift, margin
+
+
+def _lift_rows(model, v_cls, conf_col: int, kw: dict, k: int = 10) -> float:
+    """Where the median image's k-th best row scores under 0.25 (nothing to draw), shift
+    `model`'s class logits so that it scores 0.5. Returns the shift."""
+    with _recorded_dets(v_cls) as seen:
+        model.val(plots=False, **kw)
+    s = np.sort(np.concatenate([b[..., conf_col] for b in seen]).astype(np.float64), 1)
+    kth = float(np.median(s[:, -k]))
+    if not 0 < kth < 0.25:
+        return 0.0
+    shift = -float(np.log(kth / (1 - kth)))
+    _shift_class_logits(model, shift)
+    return shift
+
+
+def _shift_class_logits(yolo, shift: float) -> int:
+    """Add `shift` to the head's class-logit biases (each `cv3_*_pred.bias`); drops the
+    serving caches. Returns the tensors shifted."""
+    import torch
+    head = yolo.model.blocks[yolo.meta["head_index"]]
+    n = 0
+    with torch.no_grad():
+        for name, p in head.named_parameters():
+            if name.startswith("cv3_") and name.endswith("_pred.bias"):
+                p.add_(shift)
+                n += 1
+    check(n > 0, f"{yolo.cfg}: no class-logit bias in the head")
+    yolo._fused = yolo._half = yolo._predictor_cache = None
+    return n
+
+
+def _decoded_size(path: Path) -> tuple:
+    from sar_yolo_tpu_torch.data.imageio import imread
+    img = imread(path)
+    check(img is not None and img.dtype == np.uint8 and img.ndim == 3,
+          f"{path}: does not decode")
+    return img.shape[:2]
+
+
+def _mosaic_size(n: int, hw: tuple) -> tuple:
+    cols = int(np.ceil(np.sqrt(min(n, 16))))
+    return int(np.ceil(min(n, 16) / cols)) * hw[0], cols * hw[1]
+
+
+def _check_figures(d: Path, want: dict, label: str):
+    """Each figure of `want` (name: (h, w)) in d, decoding at that size, and no other."""
+    from sar_yolo_tpu_torch.utils.plotting import FIGURES
+    got = {p.name for p in d.iterdir() if p.name in FIGURES}
+    check(got == set(want), f"{label}: figures {sorted(got)}, expected {sorted(want)}")
+    for name, hw in want.items():
+        size = _decoded_size(d / name)
+        check(size == hw, f"{label}: {name} decodes at {size}, expected {hw}")
+
+
+def _drawn_rows(rows: np.ndarray, conf_col: int, thr: float) -> list:
+    """What the prediction mosaic reads of one image's rows: (int corners or xywhr, class,
+    label confidence) of the rows at or over thr."""
+    return [(tuple(int(v) for v in r[:conf_col]), int(r[conf_col + 1]), f"{r[conf_col]:.2f}")
+            for r in rows if r[conf_col] >= thr]
+
+
+def _compare_plots(kdir: Path, pdir: Path, kseen: list, pseen: list, kcm, pcm, thr: float,
+                   margin: float, label: str) -> dict:
+    """Kernel path's figures against the plain path's: the confusion matrices equal, the
+    labels mosaic byte for byte; the first batch's drawn rows equal (then the prediction
+    mosaic byte for byte), or each row read differently within PLOT_BOX_TOL of its pair,
+    with a coordinate truncating to another integer, a label rounding apart or a score
+    within the threshold's margin. Returns the counts and the largest box difference."""
+    check(len(kcm) == len(pcm) == 1 and np.array_equal(kcm[0], pcm[0]),
+          f"{label}: confusion matrices {[m.tolist() for m in kcm]} vs "
+          f"{[m.tolist() for m in pcm]}")
+    check((kdir / "val_batch0_labels.jpg").read_bytes() ==
+          (pdir / "val_batch0_labels.jpg").read_bytes(), f"{label}: the labels mosaics differ")
+    apart, drawn, box_err = 0, 0, 0.0
+    for g, w in zip(kseen[0], pseen[0]):
+        gd, wd = _drawn_rows(g, 4, thr), _drawn_rows(w, 4, thr)
+        drawn += len(gd)
+        gk, wk = g[g[:, 4] >= thr - margin], w[w[:, 4] >= thr - margin]
+        check(len(gk) == len(wk), f"{label}: {len(gk)} rows over the threshold, {len(wk)} on "
+              "the plain path")
+        errs = [np.abs(wk[:, :4] - r[:4]).max(1) for r in gk]
+        for r, e in zip(gk, errs):
+            j = int(e.argmin())
+            box_err = max(box_err, float(e[j]))
+            check(e[j] <= PLOT_BOX_TOL and wk[j, 5] == r[5], f"{label}: row {r[:6].tolist()} "
+                  f"has no pair in the plain path within {PLOT_BOX_TOL} px (nearest "
+                  f"{wk[j, :6].tolist()}); kernel rows {gk[:, :6].tolist()}, plain rows "
+                  f"{wk[:, :6].tolist()}")
+            if sorted(gd) != sorted(wd) and \
+                    _drawn_rows(r[None], 4, -1) != _drawn_rows(wk[j][None], 4, -1):
+                near = np.abs(r[4] - thr) <= margin or any(
+                    int(a) != int(b) for a, b in zip(r[:4], wk[j, :4])) or \
+                    f"{r[4]:.2f}" != f"{wk[j, 4]:.2f}"
+                check(near, f"{label}: row {r[:6].tolist()} read differently from "
+                      f"{wk[j, :6].tolist()}")
+                apart += 1
+    if apart == 0:
+        check((kdir / "val_batch0_pred.jpg").read_bytes() ==
+              (pdir / "val_batch0_pred.jpg").read_bytes(),
+              f"{label}: the prediction mosaics differ where the drawn rows are equal")
+    check(drawn > 0, f"{label}: no row drawn at {thr}")
+    return {"rows_drawn": drawn, "rows_read_differently": apart, "box_err_px": box_err,
+            "confusion_matrix": kcm[0].tolist()}
+
+
+def phase_plots(card: str, data: dict, pose_seg: dict, seed: int = 2) -> dict:
+    """Phase 27: the figures of `plots` (see the module docstring). Deletes phase 8's and
+    phase 17's datasets after. Returns the kernel launches by path."""
+    from sar_yolo_tpu_torch import YOLO
+    from sar_yolo_tpu_torch.engine.validator import JDEValidator, OBBValidator, \
+        PoseValidator, SegmentValidator
+    from sar_yolo_tpu_torch.ops.cuda.flash_attention import flash_area_attention, reset_launches
+    t_phase = time.perf_counter()
+    root = Path("runs") / "chip_smoke_plots"
+    shutil.rmtree(root, ignore_errors=True)
+    cm = (600, 720)  # (6, 5) inches at 120 dpi
+    paths, out = {}, {}
+    # seeded weights, BN set to the statistics of the first val batch: activations keep their
+    # scale through the depth on these frames (the noise calibration of `_perturbed_yolo`
+    # leaves this model's rows here 1e-2 apart in score and pixels apart between the paths)
+    from sar_yolo_tpu_torch.cfg.default import get_cfg
+    from sar_yolo_tpu_torch.data import build
+    from sar_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    yolo = YOLO("yolov13n-JDE.yaml")
+    yolo._ensure_variables(seed)
+    ds = YOLODataset(check_det_dataset(data)["val"], imgsz=TRAIN_IMGSZ, hyp=get_cfg(),
+                     use_tags=True, task="jde")
+    first = next(iter(build.DataLoader(ds, TRAIN_BATCH, shuffle=False, drop_last=False)))
+    calibrate_bn(yolo.model, JDEValidator.preprocess(first["img"], yolo.device))
+    yolo._fused = None
+    # NMS at IoU 1.0 suppresses nothing: rounding cannot decide which overlapping row stays
+    kw = dict(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, project=str(root), exist_ok=True,
+              iou=1.0)
+    n_val = len(DATA_VAL)
+    # class logits damped to MAX_LOGIT on the val frames (perturbed weights spread them over
+    # hundreds), then the threshold: from the rows of both batchings at conf 0.001, moved to
+    # PLOT_CONF
+    from sar_yolo_tpu_torch.data.imageio import imread
+    files = sorted((Path(data["path"]) / "images" / "val").glob("*.png"))
+    frames = [imread(f) for f in files]
+    out["class_logit_gain"] = [_damp_class_logits(yolo, [f for f in frames if f.shape == hw],
+                                                  TRAIN_IMGSZ)
+                               for hw in sorted({f.shape for f in frames})]
+    del frames
+    plain = copy.copy(yolo)
+    plain.model, plain._fused = copy.deepcopy(yolo.model), None
+    _set_flash(plain, False)
+    shift, margin = _probe_shift([yolo, plain], JDEValidator, 4,
+                                 [dict(rect=r, name="probe", **kw) for r in (False, True)])
+    out["class_logit_shift"] = shift
+    conf = PLOT_CONF
+    with _figure_calls() as (times, matrices):
+        for rect, hw in ((False, (TRAIN_IMGSZ, TRAIN_IMGSZ)), (True, RECT_SHAPES[0])):
+            tag = "rect" if rect else "square"
+            runs = {}
+            for path, model in (("kernel", yolo), ("plain", plain)):
+                n_cm = len(matrices)
+                reset_launches()
+                with _recorded_dets(JDEValidator) as seen:
+                    model.val(rect=rect, conf=conf, name=f"val_{tag}_{path}", **kw)
+                launches = flash_area_attention.launches
+                runs[path] = (root / "jde" / f"val_{tag}_{path}", seen, matrices[n_cm:])
+                if path == "kernel":
+                    n_batches = -(-n_val // TRAIN_BATCH)
+                    check(launches == n_batches * LAUNCHES_PER_FORWARD,
+                          f"YOLO.val {tag} plots: {launches} kernel launches")
+                    paths[f"YOLO.val plots {tag} yolov13n-JDE@{TRAIN_IMGSZ} b{TRAIN_BATCH}, "
+                          f"{n_val} PNG frames"] = launches
+                else:
+                    check(launches == 0, f"YOLO.val {tag}: use_flash=False launched the kernel")
+                _check_figures(runs[path][0], {"val_batch0_labels.jpg": _mosaic_size(
+                    TRAIN_BATCH, hw), "val_batch0_pred.jpg": _mosaic_size(TRAIN_BATCH, hw),
+                    "confusion_matrix.png": cm}, f"YOLO.val {tag} {path}")
+            (kdir, kseen, kcm), (pdir, pseen, pcm) = runs["kernel"], runs["plain"]
+            out[f"val_{tag}"] = _compare_plots(kdir, pdir, kseen, pseen, kcm, pcm, conf,
+                                               margin * conf * (1 - conf),
+                                               f"YOLO.val {tag} plots")
+
+        # one epoch of training: the seven figures
+        reset_launches()
+        trained = YOLO("yolov13n-JDE.yaml")
+        trained.train(data=data, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=1, workers=8,
+                      seed=seed, amp=False, project=str(root), name="train", exist_ok=True)
+        launches = flash_area_attention.launches
+        steps, n_batches = DATA_TRAIN // TRAIN_BATCH, -(-n_val // TRAIN_BATCH)
+        check(launches == (steps + n_batches) * LAUNCHES_PER_FORWARD,
+              f"YOLO.train plots: {launches} kernel launches")
+        paths[f"YOLO.train plots 1 epoch @{TRAIN_IMGSZ} b{TRAIN_BATCH} ({steps} steps + "
+              "the validation)"] = launches
+        tdir = root / "jde" / "train"
+        keys = (tdir / "results.csv").read_text().splitlines()[0].split(",")[1:]
+        cols = min(4, len(keys))
+        rows = -(-len(keys) // cols)
+        mosaic = _mosaic_size(TRAIN_BATCH, (TRAIN_IMGSZ, TRAIN_IMGSZ))
+        _check_figures(tdir, {"train_batch0.png": mosaic, "labels.jpg": (960, 1200),
+                              "labels_correlogram.jpg": (1080, 1080),
+                              "results.png": (360 * rows, 480 * cols), "confusion_matrix.png": cm,
+                              "val_batch0_labels.jpg": mosaic, "val_batch0_pred.jpg": mosaic},
+                       "YOLO.train plots")
+        del trained
+
+        # yolov8n-seg, -pose and -obb: their overlays
+        for name, task, vdata, imgsz, batch, v_cls, conf_col, n_img in (
+                ("yolov8n-seg.yaml", "segment", pose_seg["segment"], TRAIN_IMGSZ, TRAIN_BATCH,
+                 SegmentValidator, 4, POSE_SEG_VAL),
+                ("yolov8n-pose.yaml", "pose", pose_seg["pose"], TRAIN_IMGSZ, TRAIN_BATCH,
+                 PoseValidator, 4, POSE_SEG_VAL),
+                ("yolov8n-obb.yaml", "obb", "synthetic", OBB_IMGSZ, OBB_PLOT_BATCH, OBBValidator,
+                 5, VAL_IMAGES)):
+            model = _perturbed_yolo(name, seed, imgsz)
+            vkw = dict(data=vdata, imgsz=imgsz, batch=batch, project=str(root), exist_ok=True)
+            out[f"{task}_class_logit_shift"] = _lift_rows(model, v_cls, conf_col,
+                                                          dict(name=f"probe_{task}", **vkw))
+            with _recorded_dets(v_cls) as seen:
+                model.val(name=f"val_{task}", **vkw)
+            drawn = sum(len(_drawn_rows(r, conf_col, 0.25)) for r in seen[0])
+            check(drawn > 0, f"YOLO.val {task} plots: no row drawn")
+            want = {"val_batch0_labels.jpg": _mosaic_size(min(batch, n_img), (imgsz, imgsz)),
+                    "val_batch0_pred.jpg": _mosaic_size(min(batch, n_img), (imgsz, imgsz))}
+            if task != "obb":
+                want["confusion_matrix.png"] = cm
+            _check_figures(root / task / f"val_{task}", want, f"YOLO.val {task} plots")
+            out[f"{task}_rows_drawn"] = drawn
+            paths[f"YOLO.val plots {name.removesuffix('.yaml')}@{imgsz} (no A2C2f)"] = 0
+            del model
+    for d in (data["path"], *(v["path"] for v in pose_seg.values()), root):
+        shutil.rmtree(d, ignore_errors=True)
+    print(json.dumps({"plots": f"yolov13n-JDE @{TRAIN_IMGSZ} on {n_val} PNG frames 720x1280 "
+                      "and 1280x720, square and rect; yolov8n-seg, -pose, -obb", **out,
+                      "figure_ms": {k: statistics.median(v) for k, v in times.items()},
+                      "figure_ms_all": times, "threshold_margin_logit": margin,
+                      "launches": paths, "phase_s": time.perf_counter() - t_phase,
+                      "card": card}))
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6709,7 +7040,6 @@ def main() -> int:
     lap("data")
     ckpt_launches = phase_checkpoint(card, data, host_loader)
     lap("checkpoint")
-    shutil.rmtree(data["path"], ignore_errors=True)
     jpeg_launches = phase_jpeg(card)
     lap("jpeg")
     half_launches = {
@@ -6727,7 +7057,7 @@ def main() -> int:
     lap("cbam")
     family_launches = phase_detect_family(card)
     lap("detect_family")
-    pose_seg_launches = phase_pose_seg(card)
+    pose_seg_launches, pose_seg_data = phase_pose_seg(card)
     lap("pose_seg")
     obb_cls_launches = phase_obb_cls(card)
     lap("obb_cls")
@@ -6747,6 +7077,8 @@ def main() -> int:
     lap("modes")
     annotate_launches, annotate_bf16_launches = phase_annotate(card)
     lap("annotate")
+    plots_launches = phase_plots(card, data, pose_seg_data)
+    lap("plots")
 
     # the kernel work of one forward at 640: 4 calls at the P4 shape and 4 at P5
     def per_forward(dname, batch):
@@ -6844,7 +7176,7 @@ def main() -> int:
                              **rtdetr_world_launches, **int8_ddp_launches,
                              **export["paths"], **sam_launches, **sam2_launches,
                              **video_launches, **modes_launches,
-                             **annotate_launches}}, {
+                             **annotate_launches, **plots_launches}}, {
         "name": "int8_conv", "route": "cuda", "source": "sar_yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "sar_yolo_tpu/nn/modules/conv.py:122",
         "replaces_note": "not a TPU kernel: XLA's int8 conv_general_dilated in Int8Conv2D",

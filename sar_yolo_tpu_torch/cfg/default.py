@@ -48,6 +48,7 @@ DEFAULT_CFG = {
     "save_txt": False,        # per-image label files of the detections
     "save_conf": False,       # with their confidences
     "augment": False,         # test-time augmentation (3 scales and a flip; Detect heads only)
+    "plots": True,            # val/train figures: mosaics, confusion matrix, labels, results
     "lr0": 0.01,
     "lrf": 0.01,
     "momentum": 0.937,        # SGD momentum / Adam beta1
@@ -108,7 +109,6 @@ DEFAULT_CFG = {
 # keys of the JAX package whose feature this port does not have yet; those with a default
 # raise only when set to another value
 NOT_PORTED = {
-    "plots": "plots",
     "keras": "TF keras export (jax2tf)",
     "optimize": "TFLite's mobile optimize (jax2tf)",
     "simplify": "export graph simplification",

@@ -47,6 +47,12 @@ multiple in [0.5, 1.5] x imgsz on the host before the step (either route);
 `profile='trace'` writes a torch.profiler trace of steps 1-3 of epoch 0 to
 `save_dir/trace`.
 
+With `plots` (the default), epoch 0's first batch is drawn into train_batch0.png as the
+loader gives it (before `multi_scale` and the device augmentation; only 4-column boxes:
+not OBB or classify), the dataset's labels into labels.jpg and labels_correlogram.jpg, and
+after the last epoch results.csv into results.png (`utils/plotting.py`); a plotting error is
+logged, never raised.
+
 `mesh_shape=[W]` trains on W devices, one process each (`parallel/`): under torchrun (its
 RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT), in a process group made already, or
 through `YOLO.train`, which spawns the W ranks (`train_rank`). `batch` stays the global
@@ -56,7 +62,8 @@ global batch's statistics; the head outputs and the labels are gathered with aut
 every rank computes the loss of the global batch, so the step is the single process's
 step (the triplet miner, the assigner's normalization and the class-balanced counts
 included); the device augmentation's and dropout's draws are the global batch's, sliced.
-Rank 0 alone validates, writes checkpoints, results.csv and runs the callbacks; the stop
+Rank 0 alone validates, plots (its rows of the first batch), writes checkpoints,
+results.csv and runs the callbacks; the stop
 decision (patience, `time`) is all-reduced. A `tp` axis (`[dp, tp]`, tp > 1) raises.
 """
 
@@ -92,6 +99,7 @@ from sar_yolo_tpu_torch.utils.checks import check_bf16
 from sar_yolo_tpu_torch.utils.detr_loss import detr_loss
 from sar_yolo_tpu_torch.utils.loss import (classification_loss, detection_loss, jde_loss, obb_loss,
                                            pose_loss, segmentation_loss)
+from sar_yolo_tpu_torch.utils.plotting import plot_images, plot_labels, plot_results
 
 CLIP_NORM = 10.0
 ADAM_ALIASES = ("Adam", "AdamW", "NAdam", "RAdam")  # all optax.adamw in the JAX package
@@ -619,6 +627,8 @@ class BaseTrainer(HasCallbacks):
             te, total, n = time.time(), None, 0
             for i, batch in enumerate(self.train_loader):
                 self.run_callbacks("on_train_batch_start")
+                if epoch == 0 and i == 0 and args.plots and self.rank == 0:
+                    self._plot_first_batch(batch)
                 if args.multi_scale:
                     batch = self._multi_scale(batch)
                 # profile='trace': steps 1-3 of epoch 0 (step 0 when the epoch has one batch)
@@ -665,9 +675,31 @@ class BaseTrainer(HasCallbacks):
                 LOGGER.info(f"EarlyStopping: no improvement in {patience} epochs" if early else
                             f"Stopping: over the time limit of {args.time} hours")
                 break
+        if args.plots and self.rank == 0:
+            try:
+                plot_results(self.csv)
+            except Exception as e:  # noqa: BLE001 — plots never fail a run
+                LOGGER.warning(f"plot_results failed: {e}")
         self.run_callbacks("on_train_end")
         LOGGER.info(f"Training complete in {(time.time() - t_start) / 3600:.3f} hours")
         return self.metrics
+
+    def _plot_first_batch(self, batch: dict):
+        """train_batch0.png of a batch with 4-column boxes, and the train set's label
+        statistics (labels.jpg, labels_correlogram.jpg) where it has labels."""
+        try:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            if "bboxes" in batch and batch["bboxes"].ndim == 3 and batch["bboxes"].shape[-1] == 4:
+                plot_images(batch, self.save_dir / "train_batch0.png")
+            labels = [lb for lb in getattr(self.train_set, "labels", None) or ()
+                      if len(lb.get("bboxes", ()))]
+            if labels:
+                plot_labels(np.concatenate([np.asarray(lb["bboxes"], np.float32).reshape(-1, 4)
+                                            for lb in labels]),
+                            np.concatenate([np.asarray(lb["cls"]).reshape(-1) for lb in labels]),
+                            names=self.data.get("names"), save_dir=self.save_dir)
+        except Exception as e:  # noqa: BLE001 — plots never fail a run
+            LOGGER.warning(f"plot_images failed: {e}")
 
     @torch.no_grad()
     def validate(self) -> dict:

@@ -29,7 +29,12 @@ With `augment` a Detect head is validated with test-time augmentation (`ops/tta.
 three passes' decoded predictions go straight to single-label NMS at conf (0.001), as the
 JAX validator does; any other head warns and validates one scale.
 
-Not ported yet, refused where asked for: plots (`cfg/default.py` NOT_PORTED).
+With `plots` (the default) the first batch's ground truth and predictions (rows at
+max(conf, 0.25); pose keypoints, segment masks, rotated boxes) are drawn into
+val_batch0_labels.jpg and val_batch0_pred.jpg, and the detection confusion matrix (conf 0.25,
+IoU 0.45, with the background row and column) into confusion_matrix.png
+(`utils/plotting.py`); the OBB and RT-DETR validators draw no confusion matrix, classify
+draws nothing, as in the JAX package. A plotting error is logged and never fails a run.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from sar_yolo_tpu_torch.utils.loss import OKS_SIGMA
 from sar_yolo_tpu_torch.utils.metrics import (IOU_THRESHOLDS, DetMetrics, box_iou_np,
                                               davies_bouldin, match_predictions,
                                               silhouette_cosine)
+from sar_yolo_tpu_torch.utils.plotting import ConfusionMatrix, plot_images, plot_predictions
 
 # COCO's 91-index category id of each of the 80 contiguous classes
 COCO80_TO_91 = [i for i in range(1, 91) if i not in {12, 26, 29, 30, 45, 66, 68, 69, 71, 83}]
@@ -101,7 +107,9 @@ class BaseValidator:
         ...                          args=get_cfg({"batch": 16}), data={"names": names})
     """
 
-    rect_ok = True  # whether `rect` batches by aspect ratio
+    rect_ok = True    # whether `rect` batches by aspect ratio
+    confusion = True  # whether `plots` draws the detection confusion matrix
+    ROTATED = False   # the rows are rotated boxes [cx cy w h r conf cls]
 
     def __call__(self, model, meta: dict, dataset, args, data: dict | None = None) -> dict:
         """Validate `model` (in eval mode, on its device) on `dataset`; args holds batch,
@@ -137,6 +145,8 @@ class BaseValidator:
             self._save_txt_batch(batch, dets, n_eff, n_img)
             if args.save_json:
                 self._json_rows(batch, dets, n_eff, n_img)
+            if args.plots and n_img == 0:
+                self._plot_first_batch(batch, dets, n_eff)
             self.update_metrics(dets[:n_eff], _trim_batch(batch, n_eff), batch["img"].shape[1:3])
             n_img += n_eff
         results = self.finalize_metrics()
@@ -151,6 +161,13 @@ class BaseValidator:
                 results.update(eval_json(self.jdict, {"annotations": self.gt_anns}))
             except Exception as e:  # noqa: BLE001 — the audit pass never fails a val run
                 LOGGER.warning(f"COCO eval failed: {e}")
+        if self.confusion_matrix is not None and n_img:
+            try:
+                save_dir = self._save_dir()
+                self.confusion_matrix.plot(save_dir / "confusion_matrix.png",
+                                           names=self.data.get("names"))
+            except Exception as e:  # noqa: BLE001 — plots never fail a val run
+                LOGGER.warning(f"confusion matrix plot failed: {e}")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         if n_img:
@@ -209,6 +226,8 @@ class BaseValidator:
     # ---- hooks -----------------------------------------------------------
     def init_metrics(self):
         self.det_metrics = DetMetrics(self.data.get("names"))
+        self.confusion_matrix = ConfusionMatrix(self.meta["nc"]) \
+            if self.args.plots and self.confusion else None
 
     SCALE_DTYPE = np.float32  # of the gt boxes' pixel scale
 
@@ -226,10 +245,37 @@ class BaseValidator:
                 if len(gb) else np.zeros((0, 4), np.float32)
             tp = match_predictions(d[:, :4], d[:, 5], gt_boxes, gt_cls)
             self.det_metrics.update(tp, d[:, 4], d[:, 5], gt_cls)
+            if self.confusion_matrix is not None:
+                self.confusion_matrix.process_batch(d, gt_boxes, gt_cls)
             self._extra_update(d, gt_boxes, gt_cls, batch, bi)
 
     def _extra_update(self, d, gt_boxes, gt_cls, batch, bi):
         pass
+
+    def _save_dir(self) -> Path:
+        save_dir = Path(getattr(self.args, "save_dir", None) or ".")
+        save_dir.mkdir(parents=True, exist_ok=True)
+        return save_dir
+
+    def _plot_first_batch(self, batch, dets, n_eff):
+        """val_batch0_labels.jpg (the whole batch's ground truth, padded rows too) and
+        val_batch0_pred.jpg (the first n_eff images' rows at max(conf, 0.25) and the task's
+        overlays)."""
+        try:
+            save_dir = self._save_dir()
+            names = self.data.get("names")
+            plot_images({k: v for k, v in batch.items()
+                         if k in ("img", "bboxes", "mask", "cls", "masks", "keypoints")},
+                        save_dir / "val_batch0_labels.jpg", names=names)
+            plot_predictions(batch["img"], list(dets[:n_eff]), save_dir / "val_batch0_pred.jpg",
+                             names=names, conf=max(self.conf, 0.25), rotated=self.ROTATED,
+                             **self._plot_pred_extras(batch, dets, n_eff))
+        except Exception as e:  # noqa: BLE001 — plots never fail a val run
+            LOGGER.warning(f"val batch plotting failed: {e}")
+
+    def _plot_pred_extras(self, batch, dets, n_eff) -> dict:
+        """The task's plot_predictions overlays (keypoints, masks)."""
+        return {}
 
     def _native_params(self, batch, bi, h, w, n_img):
         """(stem, ratio, padx, pady, ori_h, ori_w) for un-letterboxing one image, shared
@@ -333,6 +379,7 @@ class RTDETRValidator(BaseValidator):
     JAX validator loads square batches."""
 
     rect_ok = False
+    confusion = False       # the JAX RT-DETR validator updates and draws none
     SCALE_DTYPE = np.int64  # the JAX validator scales boxes by an integer array (float64)
 
     @torch.no_grad()
@@ -559,6 +606,11 @@ class PoseValidator(BaseValidator):
                                         self.sigmas))
         self.pose_metrics.update(tp, d[:, 4], d[:, 5], gt_cls)
 
+    def _plot_pred_extras(self, batch, dets, n_eff) -> dict:
+        K, kd = self.meta["kpt_shape"]
+        return {"kpts": [np.asarray(dets[bi])[:, 6:6 + K * kd].reshape(-1, K, kd)
+                         if len(dets[bi]) else None for bi in range(min(n_eff, len(dets)))]}
+
     def finalize_metrics(self) -> dict:
         results = super().finalize_metrics()
         for k, v in self.pose_metrics.process().items():
@@ -599,6 +651,29 @@ class SegmentValidator(BaseValidator):
             tp = _greedy_tp(inter / union * (gt_cls[:, None] == d[None, :, 5]))
         self.mask_metrics.update(tp, d[:, 4], d[:, 5], gt_cls)
 
+    def _plot_pred_extras(self, batch, dets, n_eff) -> dict:
+        """Each image's masks (`process_mask` at the prototypes' resolution), row-aligned;
+        only the rows the mosaic draws (conf >= max(conf, 0.25)) are computed, the others
+        None."""
+        if self._protos is None:
+            return {}
+        nm, thr = self.meta["nm"], max(self.conf, 0.25)
+        h, w = batch["img"].shape[1:3]
+        masks = []
+        for bi in range(min(n_eff, len(dets))):
+            d = dets[bi]
+            drawn = np.flatnonzero(d[:, 4] >= thr)
+            rows = [None] * len(d)
+            if len(drawn):
+                m = process_mask(torch.from_numpy(self._protos[bi]),
+                                 torch.from_numpy(np.ascontiguousarray(d[drawn, 6:6 + nm])),
+                                 torch.from_numpy(np.ascontiguousarray(d[drawn, :4])),
+                                 (h, w)).numpy()
+                for k, ri in enumerate(drawn):
+                    rows[ri] = m[k]
+            masks.append(rows)
+        return {"masks": masks}
+
     def finalize_metrics(self) -> dict:
         results = super().finalize_metrics()
         for k, v in self.mask_metrics.process().items():
@@ -611,7 +686,11 @@ class OBBValidator(BaseValidator):
     """Rotated-box mAP under the `(B)` keys: rows [cx, cy, w, h, r, conf, cls] from the
     rotated decode and NMS, matched to the ground truth per class by probiou (float32 on the
     host) over the IoU thresholds 0.5:0.95, each threshold's pairs best first. `save_txt`
-    writes xywhr rows; no COCO json, as in the JAX package."""
+    writes xywhr rows; no COCO json, as in the JAX package. `plots` draws the rotated
+    mosaics and no confusion matrix."""
+
+    confusion = False
+    ROTATED = True
 
     def postprocess(self, feats) -> torch.Tensor:
         meta, args = self.meta, self.args

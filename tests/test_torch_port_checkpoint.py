@@ -126,8 +126,8 @@ def test_converted_jax_checkpoint_serves_and_resumes(tmp_path):
     kw = dict(imgsz=96, conf=0.001, iou=0.7, max_det=50)
     want = np.asarray(JaxYOLO(str(tmp_path / "jax_ckpt")).predict_batched(frames, **kw))
     served = YOLO(str(tmp_path / "port_ckpt"), device="cpu")
-    # the JAX-only key `plots` is dropped; the task is recorded, as JAX's YOLO records it
-    assert served.overrides == {"imgsz": 64, "task": "jde"}
+    # the train args are kept (`plots` too); the task is recorded, as JAX's YOLO records it
+    assert served.overrides == {"imgsz": 64, "plots": False, "task": "jde"}
     got = served.predict_batched(frames, **kw)
     assert got.shape == want.shape
     for b in range(len(frames)):

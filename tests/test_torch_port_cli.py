@@ -193,8 +193,9 @@ def test_cli_needs_cuda_or_device_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_cfg.entrypoint(["detect", "predict", "model=tinydet.yaml", f"source={tmp_path}"])
     # a key the port has not ported raises where the mode meets it, as get_cfg does
-    with pytest.raises(NotImplementedError, match="plots"):
-        port_cfg.entrypoint(["detect", "val", "model=tinydet.yaml", "plots=True", "device=cpu"])
+    with pytest.raises(NotImplementedError, match="simplify"):
+        port_cfg.entrypoint(["detect", "val", "model=tinydet.yaml", "simplify=False",
+                             "device=cpu"])
     with pytest.raises(NotImplementedError, match="keras"):
         port_cfg.entrypoint(["detect", "export", "model=tinydet.yaml", "keras=True",
                              "device=cpu"])

@@ -135,9 +135,10 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "sar_yolo_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "torch_port_profile.py",
         REPO / "tools" / "torch_port_phase8_reruns.py"]
-    # nor the image and table libraries the card's machine lacks (the port reads YAML itself)
+    # nor the image, chart and table libraries the card's machine lacks (the port reads YAML
+    # itself and draws its charts with utils/chart.py)
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "sar_yolo_tpu", "cv2", "PIL",
-              "pandas", "yaml"}
+              "pandas", "yaml", "matplotlib", "seaborn"}
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

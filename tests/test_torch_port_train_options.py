@@ -44,8 +44,9 @@ def test_precision_and_option_keys():
     get_cfg({"amp": False, "half": True, "remat": True, "multi_scale": True, "profile": "trace",
              "dropout": 0.1})
     assert get_cfg({"int8": "auto", "mesh_shape": [2]}).int8 == "auto"  # ported since
-    with pytest.raises(NotImplementedError, match="plots"):
-        get_cfg({"plots": True})
+    assert get_cfg({"plots": False}).plots is False and get_cfg({}).plots is True  # ported since
+    with pytest.raises(NotImplementedError, match="keras"):
+        get_cfg({"keras": True})
 
 
 def _dtypes(model):

@@ -18,7 +18,8 @@ stops the tool.
 
 The fixture `labels_cv2_<major>_<minor>.npz` holds `cv2.putText` renderings of detection
 labels, the digits, letters and punctuation at scales 0.5 and 0.8, thicknesses 1 to 3 and
-origins near and over the canvas' edges.
+origins near and over the canvas' edges, and at the validation mosaics' scale 0.35,
+thickness 1, in the mosaics' colours.
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ LABELS = ["person 0.87", "id:12 person 0.55 s3", "id:7 c0 0.91 s0", "0123456789"
 CANVAS = (48, 400, 3)
 ORIGINS = [(2, 20), (-5, 11), (330, 6), (40, 47)]
 COLORS = [(56, 56, 255), (31, 112, 255), (29, 178, 255), (255, 255, 255)]
+MOSAIC_SCALE = 0.35       # the validation mosaics' labels: thickness 1, the plots' PALETTE
+SCALES = (MOSAIC_SCALE, 0.5, 0.8)
+PALETTE = [(56, 56, 255), (31, 112, 255), (29, 178, 255), (49, 210, 207), (10, 249, 72),
+           (23, 204, 146), (134, 219, 61), (52, 147, 26), (187, 212, 0), (168, 153, 44)]
 
 
 def library_files() -> list[Path]:
@@ -153,12 +158,13 @@ def write_fixture(out: Path, tag: str):
     out.mkdir(parents=True, exist_ok=True)
     images, texts, scales, thicks, origins, colors = [], [], [], [], [], []
     for i, text in enumerate(LABELS):
-        for scale in (0.5, 0.8):
-            for thick in (1, 2, 3):
+        for scale in SCALES:
+            for thick in (1,) if scale == MOSAIC_SCALE else (1, 2, 3):
                 for j, org in enumerate(ORIGINS):
                     if (i + j + thick) % 2 and text not in LABELS[:2]:
                         continue  # every case of the two labels, half of the others
-                    color = COLORS[(i + j + thick) % len(COLORS)]
+                    color = PALETTE[(i + j) % len(PALETTE)] if scale == MOSAIC_SCALE else \
+                        COLORS[(i + j + thick) % len(COLORS)]
                     img = np.zeros(CANVAS, np.uint8)
                     img[::7] = 17  # a background the strokes overwrite
                     images.append(cv2.putText(img, text, org, FONT, scale, color, thick))
